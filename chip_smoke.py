@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (qwen3_asr_rs_tpu_torch).
+
+    python3 chip_smoke.py        # from the repository root, one CUDA GPU
+
+Phases, each printing one JSON line; any failure raises and exits non-zero:
+
+1. device  — requires CUDA; prints nvidia-smi's name and power limit.
+2. build   — compiles every kernel of csrc/ with nvcc (sm_90a).
+3. kernels — each kernel against its plain PyTorch version on the same
+             inputs at the 0.6B main-path shapes, max abs error against a
+             stated tolerance, median CUDA-event time of both.
+4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
+             encoder layers, bf16, seeded synthetic weights) transcribes
+             synthetic 4 s, 30 s and 300 s WAV files; the kernels' launch
+             counters must show the path went through them.
+5. parity  — the 4 s clip teacher-forced in float32 at full width: the
+             decode-kernel path against the plain per-layer path, per-step
+             logits within a stated tolerance.
+
+Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SEED = 0
+
+# Tolerances, kernel vs plain version on the same inputs: a case passes
+# when max|kernel - plain| <= atol + rtol * max|plain|. float32: both sides
+# compute in float32 and differ only in summation order. bf16: both round
+# to bf16 at the same stages, but an order difference can flip a rounding
+# (one bf16 ulp is 2^-8..2^-7 of the value): attention outputs may differ by
+# two ulps of the largest value. The decode step carries such flips through
+# 28 layers: over 8 input seeds x SLAB_CASES on an H100 its max|err| /
+# max|plain| ran from 0.008 to 0.040, median 0.024
+# (scripts/profile_torch_cuda.py, PERF.md); its bound is 2^-4.
+TOL = {
+    ("decode_attention", "float32"): (2e-5, 0.0),
+    ("decode_attention", "bfloat16"): (2e-2, 2 ** -7),
+    ("decode_layers_fused", "float32"): (1e-4, 1e-5),
+    ("decode_layers_fused", "bfloat16"): (1e-2, 2 ** -4),
+    ("flash_attention", "float32"): (1e-4, 0.0),
+    ("flash_attention", "bfloat16"): (2e-2, 2 ** -7),
+}
+# float32 teacher-forced logits, decode kernel vs plain per-layer path
+PARITY_LOGITS_ATOL = 1e-3
+
+REPLACES = {
+    "decode_layers_fused": "qwen3_asr_rs_tpu/ops/pallas/decode_layer.py:678",
+    "decode_attention": "qwen3_asr_rs_tpu/ops/pallas/decode_attention.py:413",
+    "flash_attention": "qwen3_asr_rs_tpu/ops/pallas/flash_attention.py:152",
+}
+SOURCES = {
+    "decode_layers_fused": "qwen3_asr_rs_tpu_torch/csrc/decode_layer.cu",
+    "decode_attention": "qwen3_asr_rs_tpu_torch/csrc/decode_attention.cuh",
+    "flash_attention": "qwen3_asr_rs_tpu_torch/csrc/flash_attention.cu",
+}
+
+
+# (S, start, end) of the decode kernels' checks: the 4 s bucket's slab and
+# the 300 s bucket's (4736 prompt + 256), start 0 and > 0, ends at no block
+# boundary
+SLAB_CASES = ((360, 0, 217), (360, 37, 301), (4992, 0, 4737),
+              (4992, 129, 4990))
+# Qwen3-ASR-0.6B decoder dims
+L, HQ, HKV, D, H = 28, 16, 8, 128, 1024
+
+
+def k1_inputs(torch, gen, dtype, s_max: int, end: int):
+    """Inputs of one decode step at slot ``end`` of an (L, 1, Hkv, s_max, D)
+    slab: (x, cos, sin, k_slabs, v_slabs), slab values at the scale of
+    normalized, rotated keys and of the values."""
+    dev = torch.device("cuda")
+    ks = torch.randn((L, 1, HKV, s_max, D), generator=gen,
+                     device=dev).to(dtype)
+    vs = (0.05 * torch.randn((L, 1, HKV, s_max, D), generator=gen,
+                             device=dev)).to(dtype)
+    x = (0.02 * torch.randn((1, H), generator=gen, device=dev)).to(dtype)
+    ang = end * torch.logspace(0, -6, D // 2, base=10.0, device=dev)
+    cos = torch.cat([ang.cos(), ang.cos()])[None].contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()])[None].contiguous()
+    return x, cos, sin, ks, vs
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of fn() between CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_err(torch, a, b) -> float:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if not torch.isfinite(a).all():
+        raise AssertionError("kernel output has non-finite values")
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
+               rows=slice(None)):
+    """Compare kernel_fn() with plain_fn() (a tensor or a tuple of them,
+    each against its own tolerance), then time both."""
+    out, ref = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    dt = str(dtype).replace("torch.", "")
+    atol, rtol = TOL[(name, dt)]
+    err = bound = scale = 0.0
+    for o, r in zip(out, ref):
+        e = max_err(torch, o[rows], r[rows])
+        sc = float(r[rows].float().abs().max())
+        if not e <= atol + rtol * sc:
+            emit({"phase": "kernel", "kernel": name, "dtype": dt,
+                  "case": case, "max_abs_err": e, "ref_max": sc,
+                  "bound": atol + rtol * sc, "ok": False})
+            raise AssertionError(f"{name} {case} {dt}: error {e} > "
+                                 f"{atol} + {rtol} * {sc}")
+        err, bound, scale = max(err, e), max(bound, atol + rtol * sc), max(scale, sc)
+    ms = cuda_ms(torch, kernel_fn)
+    plain_ms = cuda_ms(torch, plain_fn, reps=3, warmup=1)
+    row = {"phase": "kernel", "kernel": name, "dtype": dt, "case": case,
+           "max_abs_err": err, "ref_max": scale, "bound": bound,
+           "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms}
+    emit(row)
+    results.append(row)
+
+
+def kernel_checks(torch, dec_params_f32):
+    """Phase 3: K2, K1, K3 against their plain versions."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused, decode_layers_fused_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    results = []
+
+    def idx(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_max, start, end in SLAB_CASES:
+            ks = torch.randn((L, 1, HKV, s_max, D), generator=gen,
+                             device=dev).to(dtype)
+            vs = torch.randn_like(ks)
+            q = torch.randn((1, HQ, D), generator=gen, device=dev).to(dtype)
+            k_self = torch.randn((1, HKV, D), generator=gen,
+                                 device=dev).to(dtype)
+            v_self = torch.randn_like(k_self)
+            case = f"S={s_max} start={start} end={end} layer=27"
+            check_case(
+                torch, results, "decode_attention", dtype, case,
+                lambda: decode_attention(q, ks, vs, k_self, v_self, 27,
+                                         start, end),
+                lambda: decode_attention_plain(q, ks, vs, k_self, v_self, 27,
+                                               idx(start), idx(end)),
+            )
+            del ks, vs
+
+    layers = {
+        torch.float32: dec_params_f32["layers"],
+        torch.bfloat16: {k: v.to(torch.bfloat16)
+                         for k, v in dec_params_f32["layers"].items()},
+    }
+    for dtype in (torch.float32, torch.bfloat16):
+        lay = layers[dtype]
+        for s_max, start, end in SLAB_CASES:
+            x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, s_max, end)
+            case = f"L=28 S={s_max} start={start} end={end}"
+            check_case(
+                torch, results, "decode_layers_fused", dtype, case,
+                lambda: decode_layers_fused(x, cos, sin, lay, ks, vs, start,
+                                            end, eps=1e-6),
+                lambda: decode_layers_fused_plain(x, cos, sin, lay, ks, vs,
+                                                  idx(start), idx(end),
+                                                  eps=1e-6),
+            )
+            del ks, vs
+    del layers
+
+    # K3 at the 360-chunk prefill bucket: 4736 tokens, causal
+    S = 4736
+    flash_cases = [
+        (torch.float32, "causal", dict(causal=True), 0),
+        (torch.bfloat16, "causal", dict(causal=True), 0),
+        (torch.bfloat16, "causal kv_valid=4000",
+         dict(causal=True, kv_valid=idx(4000)), 0),
+        (torch.bfloat16, "causal kv_start=100",
+         dict(causal=True, kv_start=idx(100)), 100),
+        (torch.bfloat16, "kv_valid=3001 (not causal)",
+         dict(kv_valid=idx(3001)), 0),
+    ]
+    for dtype, case, kw, first_row in flash_cases:
+        q = torch.randn((1, S, HQ, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((1, S, HKV, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((1, S, HKV, D), generator=gen, device=dev).to(dtype)
+        kv_valid, kv_start = kw.get("kv_valid"), kw.get("kv_start")
+        causal = kw.get("causal", False)
+        # rows with no attendable key are discarded by callers
+        check_case(
+            torch, results, "flash_attention", dtype, f"Sq=Sk={S} {case}",
+            lambda: flash_attention(q, k, v, kv_valid, kv_start,
+                                    causal=causal),
+            lambda: flash_attention_plain(q, k, v, kv_valid, kv_start,
+                                          causal=causal),
+            rows=(slice(None), slice(first_row, None)),
+        )
+        del q, k, v
+    torch.cuda.empty_cache()
+    return results
+
+
+def write_wav(path: Path, seconds: float, seed: int) -> float:
+    """16 kHz PCM16 WAV: a chirp-like tone plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000.0
+    x = 0.3 * np.sin(2 * np.pi * (220 + 40 * np.sin(0.5 * t)) * t)
+    x = x + 0.05 * rng.standard_normal(n)
+    pcm = (np.clip(x, -1, 1) * 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return seconds
+
+
+class StubTokenizer:
+    """Token ids as text (no tokenizer.json needed)."""
+
+    def encode(self, text):
+        return [101] * 4
+
+    def decode(self, ids):
+        return " ".join(map(str, ids))
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (REPO / "qwen3_asr_rs_tpu_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(qwen3_asr_rs_tpu_torch/ not found)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+
+    # 2. build
+    from qwen3_asr_rs_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    per_kernel = _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "compiled": per_kernel,
+          "ptxas": {n: [ln.strip() for ln in
+                        (_build.BUILD_DIR / f"{n}.log").read_text().splitlines()
+                        if "registers" in ln or "spill" in ln][:12]
+                    for n in _build.KERNEL_SOURCES
+                    if (_build.BUILD_DIR / f"{n}.log").exists()}})
+
+    # weights: full 0.6B width, the JAX package's seeds and RNG order
+    from qwen3_asr_rs_tpu.config import AsrConfig
+    from qwen3_asr_rs_tpu_torch.weights.convert import (
+        init_decoder_params_np, init_encoder_params_np, to_torch)
+
+    config = AsrConfig()  # Qwen3-ASR-0.6B dims
+    t0 = time.perf_counter()
+    enc_np = init_encoder_params_np(config.audio)
+    dec_np = init_decoder_params_np(config.text)
+    enc32 = to_torch(enc_np, torch.float32, "cuda")
+    dec32 = to_torch(dec_np, torch.float32, "cuda")
+    del enc_np, dec_np
+    emit({"phase": "weights", "seconds": time.perf_counter() - t0})
+
+    # 3. kernels
+    kernel_rows = kernel_checks(torch, dec32)
+
+    # 4. main path
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention)
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+
+    counters = {"decode_layers_fused": decode_layers_fused,
+                "decode_attention": decode_attention,
+                "flash_attention": flash_attention}
+    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                       config=config, params=(enc32, dec32),
+                       tokenizer=StubTokenizer(), device="cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    clips = {}
+    for seconds, seed in ((4, 1), (30, 2), (300, 3)):
+        path = tmp / f"clip_{seconds}s.wav"
+        write_wav(path, seconds, seed)
+        clips[seconds] = path
+    engine.transcribe(clips[4])  # warm-up: CUDA context, cuBLAS, kernels
+    for fn in counters.values():
+        fn.launches = 0
+    steps_total = 0
+    for seconds, path in clips.items():
+        flash_before = flash_attention.launches
+        k1_before = decode_layers_fused.launches
+        k2_before = decode_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = engine.transcribe(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = engine.last_stats
+        steps = st["decode_steps"]
+        steps_total += steps
+        k1 = decode_layers_fused.launches - k1_before
+        k2 = decode_attention.launches - k2_before
+        row = {"phase": "main", "clip_seconds": seconds,
+               "language": r.language, "text_chars": len(r.text),
+               "tokens": len(r.raw_output.split()), "decode_steps": steps,
+               "k1_launches": k1, "k2_launches": k2,
+               "k3_launches": flash_attention.launches - flash_before,
+               "wall_s": wall, "xRT": seconds / wall,
+               "prefill_s": st["prefill_seconds"],
+               "decode_ms_per_token": (1e3 * st["decode_seconds"] / steps
+                                       if steps else None),
+               "card": card}
+        emit(row)
+        if not isinstance(r.language, str) or not isinstance(r.text, str):
+            raise AssertionError("transcription gave no language/text")
+        if k1 != steps:
+            raise AssertionError(f"K1 launches {k1} != decode steps {steps}")
+        # K1's C entry counts its launches of K2's kernels, one per layer
+        if k2 != config.text.num_hidden_layers * steps:
+            raise AssertionError(f"K2 launches {k2} != layers x {steps} steps")
+        if seconds == 300 and row["k3_launches"] <= 0:
+            raise AssertionError("the 300 s prefill did not run K3")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if launches["decode_layers_fused"] != steps_total:
+        raise AssertionError(f"K1 launches {launches} != steps {steps_total}")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched on the main path")
+    del engine
+    torch.cuda.empty_cache()
+
+    # 5. parity: float32 teacher forcing, kernel path vs plain path
+    import numpy as np
+
+    from qwen3_asr_rs_tpu.audio.load import load_audio
+
+    engine32 = AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
+                         config=config, params=(enc32, dec32),
+                         tokenizer=StubTokenizer(), device="cuda")
+    samples = load_audio(clips[4], 16000)
+    teacher = engine32.generate(samples)  # kernel path's greedy tokens
+    logits0, cache_k, true_len = engine32.prefill(samples)
+    cache_p = type(cache_k)(k=cache_k.k.clone(), v=cache_k.v.clone())
+    dec = engine32.decoder
+    worst, agree = 0.0, 0
+    with torch.inference_mode():
+        for i, tok in enumerate(teacher[:-1]):
+            ids = torch.tensor([tok], device="cuda")
+            os.environ["ASR_DECODE_IMPL"] = "fused"
+            lk, _ = dec.decode_step(engine32.dec_params, ids, true_len + i,
+                                    cache_k)
+            os.environ["ASR_DECODE_IMPL"] = "scan"
+            os.environ["ASR_DECODE_ATTN"] = "dense"
+            lp, _ = dec.decode_step(engine32.dec_params, ids, true_len + i,
+                                    cache_p)
+            del os.environ["ASR_DECODE_IMPL"], os.environ["ASR_DECODE_ATTN"]
+            worst = max(worst, max_err(torch, lk, lp))
+            agree += int(torch.argmax(lk) == torch.argmax(lp))
+    n_steps = max(len(teacher) - 1, 1)
+    emit({"phase": "parity", "dtype": "float32", "steps": len(teacher) - 1,
+          "max_abs_logit_err": worst, "tol": PARITY_LOGITS_ATOL,
+          "greedy_agreement": agree / n_steps,
+          "logit_scale": float(np.abs(logits0.cpu().numpy()).max())})
+    if not worst <= PARITY_LOGITS_ATOL:
+        raise AssertionError(f"parity logits error {worst}")
+
+    summary = []
+    for name in ("decode_layers_fused", "decode_attention", "flash_attention"):
+        rows = [r for r in kernel_rows if r["kernel"] == name
+                and r["dtype"] == "bfloat16"]
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        })
+    emit({"kernels": summary})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""Command-line interface of the PyTorch port.
+
+Contract-compatible with ``qwen3_asr_rs_tpu/cli.py`` for the main path:
+
+    python -m qwen3_asr_rs_tpu_torch <model_path> <audio_file> [language]
+    python -m qwen3_asr_rs_tpu_torch <model_path> <audio_file>... [--language LANG]
+
+prints ``Language: <lang>`` and ``Text: <text>`` (preceded by ``File:``
+per file when several are given), or a one-line ``Error: ...`` on
+stderr with exit code 1. Several files are transcribed one after the
+other (batched decode is not ported yet); the JAX CLI's sampling,
+timestamp and speculative options are rejected.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+from pathlib import Path
+
+USAGE = """\
+Qwen3 ASR (PyTorch/CUDA port) - Automatic Speech Recognition
+
+Usage: python -m qwen3_asr_rs_tpu_torch <model_path> <audio_file> [language]
+       python -m qwen3_asr_rs_tpu_torch <model_path> <audio_file>... [--language LANG]
+
+Arguments:
+  model_path   Path to the Qwen3-ASR model directory
+  audio_file   Path to the input audio file (WAV and, via the native
+               libav decoder or an ffmpeg binary, any other format)
+  language     Optional: force language (e.g., chinese, english, japanese)
+
+Environment variables:
+  ASR_LOG / RUST_LOG   Set logging level (e.g., info, debug)
+  ASR_MAX_NEW_TOKENS   Cap on generated tokens (default 4096)
+  ASR_DTYPE            Compute dtype: bfloat16 (default) or float32
+  ASR_DEVICE           Torch device (default cuda)
+"""
+
+
+def setup_logging():
+    level_name = (
+        os.environ.get("ASR_LOG") or os.environ.get("RUST_LOG") or "info"
+    )
+    level = getattr(logging, level_name.split(",")[0].upper(), logging.INFO)
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        stream=sys.stderr,
+    )
+
+
+def main(argv=None) -> int:
+    setup_logging()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if len(argv) < 2:
+        print(USAGE, file=sys.stderr)
+        return 1
+
+    model_path = argv[0]
+    language = None
+    rest = []
+    it = iter(argv[1:])
+    for arg in it:
+        if arg in ("--language", "-l"):
+            language = next(it, None)
+            if language is None:
+                print("Error: --language needs a value", file=sys.stderr)
+                return 1
+        elif arg.startswith("--language="):
+            language = arg.split("=", 1)[1]
+        elif arg.startswith("--"):
+            print(
+                f"Error: option {arg.split('=', 1)[0]} is not supported by "
+                "the PyTorch port yet",
+                file=sys.stderr,
+            )
+            return 1
+        else:
+            rest.append(arg)
+    if language is None and len(rest) == 2 and not Path(rest[1]).exists():
+        language = rest.pop()
+    audio_files = rest
+    for f in audio_files:
+        if not Path(f).exists():
+            print(f"Error: Audio file not found: {f}", file=sys.stderr)
+            return 1
+    if not Path(model_path).exists():
+        print(f"Error: Model directory not found: {model_path}",
+              file=sys.stderr)
+        return 1
+    if not audio_files:
+        print("Error: no audio file given", file=sys.stderr)
+        return 1
+
+    import torch
+
+    from qwen3_asr_rs_tpu.errors import AsrError
+
+    from .runtime.engine import AsrEngine
+
+    device = os.environ.get("ASR_DEVICE", "cuda")
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        print("Error: no CUDA device (set ASR_DEVICE=cpu to run on the CPU)",
+              file=sys.stderr)
+        return 1
+    dtype = (
+        torch.float32
+        if os.environ.get("ASR_DTYPE", "").lower() in ("float32", "f32")
+        else torch.bfloat16
+    )
+    max_new = int(os.environ.get("ASR_MAX_NEW_TOKENS", "4096"))
+    logger = logging.getLogger("asr")
+    try:
+        engine = AsrEngine(model_path, dtype=dtype, max_new_tokens=max_new,
+                           device=device)
+        for f in audio_files:
+            logger.info("Transcribing: %s", f)
+            result = engine.transcribe(f, language)
+            if len(audio_files) > 1:
+                print(f"File: {f}")
+            print(f"Language: {result.language}")
+            print(f"Text: {result.text}")
+        return 0
+    except (AsrError, ValueError, NotImplementedError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+// Shared helpers for the port's CUDA kernels (sm_90a).
+//
+// Every kernel is templated on the element type T (__nv_bfloat16 on the
+// main path, float for parity checks). Arithmetic runs in float32; a
+// value "rounded through T" is converted to T and back, which is where
+// the JAX package rounds to its compute dtype.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// 8 consecutive elements as float; p must be 16-byte aligned.
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over a block of nthreads (a multiple of 32) threads; every thread
+// gets the same total (the per-warp partials are added in warp order, so
+// the result is deterministic). sbuf: >= 32 floats of shared memory.
+__device__ __forceinline__ float block_sum(float v, float* sbuf, int tid,
+                                          int nthreads) {
+  v = warp_sum(v);
+  __syncthreads();  // sbuf may still be read by a previous call
+  if ((tid & 31) == 0) sbuf[tid >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < nthreads / 32; ++w) t += sbuf[w];
+  return t;
+}
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,138 @@
+"""Whisper-style chunked audio encoder in PyTorch.
+
+Port of ``qwen3_asr_rs_tpu/models/audio_encoder.py``: 100-frame chunks,
+3x Conv2d stride-2 pad-1 stem with exact GELU, (c, f, t) -> (t, c*f) +
+conv_out, per-chunk sinusoid positions, windows of ``chunks_per_window``
+chunks run as a batch through the layers with a per-window key-prefix
+validity count, then ln_post -> proj1 -> GELU -> proj2. The flat output
+is chunk-major with all valid tokens a prefix, so callers take
+``out[:n_valid]``. Linear weights are (in, out) as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from qwen3_asr_rs_tpu.config import AudioEncoderConfig
+
+from ..ops.attention import attention
+from ..ops.norms import layer_norm
+
+Tree = Any
+
+
+def sinusoid_position_embedding(max_len: int, dim: int) -> np.ndarray:
+    """Whisper sinusoid table: sin in the first half, cos in the second
+    (src/audio_encoder.rs:283-301). Built in float64 on host."""
+    half = dim // 2
+    log_timescale_increment = np.log(10000.0) / (half - 1)
+    inv_timescales = np.exp(-np.arange(half, dtype=np.float64) *
+                            log_timescale_increment)
+    angles = np.arange(max_len, dtype=np.float64)[:, None] * inv_timescales[None, :]
+    table = np.zeros((max_len, dim), dtype=np.float32)
+    table[:, :half] = np.sin(angles)
+    table[:, half:] = np.cos(angles)
+    return table
+
+
+class AudioEncoder:
+    """Stateless encoder; parameters are passed to every call."""
+
+    def __init__(self, cfg: AudioEncoderConfig,
+                 device: str | torch.device = "cpu"):
+        self.cfg = cfg
+        self.pos_table = torch.from_numpy(
+            sinusoid_position_embedding(cfg.max_source_positions, cfg.d_model)
+        ).to(device)
+
+    def valid_tokens(self, n_true_frames: int) -> int:
+        """Total valid output tokens for a true mel frame count
+        (src/audio_encoder.rs:269-279): full chunks emit tokens_per_chunk
+        each, a partial tail ((tf-1)//2+1)^3."""
+        cf = self.cfg.chunk_frames
+        tail = n_true_frames % cf
+        for _ in range(3):
+            tail = (tail - 1) // 2 + 1 if tail > 0 else 0
+        return (n_true_frames // cf) * self.cfg.tokens_per_chunk + tail
+
+    def __call__(self, params: Tree, mel, n_true_frames: int):
+        """Encode a bucketed mel spectrogram.
+
+        mel: (num_mel_bins, F) with F a multiple of chunk_frames; padded
+        frames are 0.0. Returns (flat_tokens (num_chunks * tpc,
+        output_dim), n_valid).
+        """
+        cfg = self.cfg
+        cf = cfg.chunk_frames
+        tpc = cfg.tokens_per_chunk
+        n_mels, frames = mel.shape
+        if frames % cf:
+            raise ValueError(f"mel frames {frames} not a chunk multiple")
+        num_chunks = frames // cf
+
+        # (C, 1, mel_bins, chunk_frames)
+        x = mel.reshape(n_mels, num_chunks, cf).permute(1, 0, 2)[:, None]
+        x = x.to(params["conv1_w"].dtype)
+        for i in (1, 2, 3):
+            x = F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
+                         stride=2, padding=1)
+            x = F.gelu(x, approximate="none")
+
+        c_chunks, ch, fr, t = x.shape
+        x = x.permute(0, 3, 1, 2).reshape(c_chunks, t, ch * fr)
+        x = x @ params["conv_out_w"] + params["conv_out_b"]
+        if t != tpc:
+            raise ValueError(f"conv stem gave {t} tokens, expected {tpc}")
+        x = x + self.pos_table[:t][None].to(x.dtype)
+
+        # windows of chunks as a batch; one window when the audio fits
+        cpw = min(cfg.chunks_per_window, num_chunks)
+        num_windows = -(-num_chunks // cpw)
+        pad_chunks = num_windows * cpw - num_chunks
+        if pad_chunks:
+            x = F.pad(x, (0, 0, 0, 0, 0, pad_chunks))
+        win_tokens = cpw * tpc
+        xw = x.reshape(num_windows, win_tokens, cfg.d_model)
+
+        # valid tokens form a prefix of every window
+        n_valid = self.valid_tokens(n_true_frames)
+        win_counts = torch.clamp(
+            n_valid - torch.arange(num_windows, device=mel.device) * win_tokens,
+            0, win_tokens,
+        ).to(torch.int32)
+
+        layers = params["layers"]
+        for i in range(layers["q_w"].shape[0]):
+            xw = self._encoder_layer({k: v[i] for k, v in layers.items()},
+                                     xw, win_counts)
+
+        h = layer_norm(xw, params["ln_post_w"], params["ln_post_b"], eps=1e-5)
+        h = F.gelu(h @ params["proj1_w"] + params["proj1_b"],
+                   approximate="none")
+        h = h @ params["proj2_w"] + params["proj2_b"]
+        flat = h.reshape(num_windows * win_tokens, cfg.output_dim)
+        return flat[: num_chunks * tpc], n_valid
+
+    def _encoder_layer(self, layer: Tree, x, win_counts):
+        """Pre-norm bidirectional MHA + GELU FFN (src/layers.rs:202-243)."""
+        cfg = self.cfg
+        nh, hd = cfg.encoder_attention_heads, cfg.head_dim
+        b, s, _ = x.shape
+
+        residual = x
+        h = layer_norm(x, layer["attn_ln_w"], layer["attn_ln_b"], eps=1e-5)
+        q = (h @ layer["q_w"] + layer["q_b"]).reshape(b, s, nh, hd)
+        k = (h @ layer["k_w"] + layer["k_b"]).reshape(b, s, nh, hd)
+        v = (h @ layer["v_w"] + layer["v_b"]).reshape(b, s, nh, hd)
+        attn = attention(q, k, v, kv_valid=win_counts).reshape(b, s, nh * hd)
+        x = residual + (attn @ layer["out_w"] + layer["out_b"])
+
+        residual = x
+        h = layer_norm(x, layer["ffn_ln_w"], layer["ffn_ln_b"], eps=1e-5)
+        h = F.gelu(h @ layer["fc1_w"] + layer["fc1_b"], approximate="none")
+        h = h @ layer["fc2_w"] + layer["fc2_b"]
+        return residual + h

@@ -1,0 +1,164 @@
+"""K2: decode attention over the stacked KV slab.
+
+Replaces the Pallas kernel
+``qwen3_asr_rs_tpu/ops/pallas/decode_attention.py::decode_attention_dma``
+(its bf16/f32 mode; int8-KV is still to be ported). One query token per
+example attends, per layer ``layer`` of the ``(L, B, Hkv, S, D)`` slab, to
+the live slots ``[start_b, end_b)`` plus its own fresh key/value as an
+explicit extra key, with GQA (query head h reads kv head h // G).
+
+Kernel: ``csrc/decode_attention.cuh`` (split-K flash decoding, see the
+note there). What bounds it on the H100 is the live K/V bytes: 2 * live *
+Hkv * D * 2 bytes per layer in bf16 (20 MB at 4992 live slots, 6 us at
+3.35 TB/s); the kernel reads only chunks that intersect the live range
+and spreads them over (chunks x kv heads) blocks so the slab streams
+from many SMs at once. The same device code is the attention stage of
+the decode step (K1, ``decode_layer.py``): K1's C entry counts each of
+its launches of these kernels, and K1's wrapper adds that count to
+``decode_attention.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SUPPORTED_D = (64, 128)
+_MAX_GROUPS = 8
+
+
+def decode_attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int,
+                           start, end, *, scale: float | None = None):
+    """Plain PyTorch version: float32 scores and softmax over the live
+    slots plus the self key, unnormalized accumulation, one division.
+
+    q (B, Hq, D); k/v_slabs (L, B, Hkv, S, D); k/v_self (B, Hkv, D);
+    start (B,) int or None; end (B,) int. Returns (B, Hq, D) in q.dtype.
+    """
+    b, hq, d = q.shape
+    _, _, hkv, s_max, _ = k_slabs.shape
+    g = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qf = q.float().reshape(b, hkv, g, d)
+    k = k_slabs[layer].float()  # (B, Hkv, S, D)
+    v = v_slabs[layer].float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k) * scale
+    slot = torch.arange(s_max, device=q.device)[None, :]
+    live = slot < end[:, None]
+    if start is not None:
+        live = live & (slot >= start[:, None])
+    s = torch.where(live[:, None, None, :], s, -torch.inf)
+    s_self = (qf * k_self.float()[:, :, None, :]).sum(-1) * scale  # (B,Hkv,G)
+    m = torch.maximum(s.amax(-1), s_self)
+    p = torch.exp(s - m[..., None])
+    p_self = torch.exp(s_self - m)
+    denom = p.sum(-1) + p_self
+    acc = torch.einsum("bhgs,bhsd->bhgd", p, v)
+    acc = acc + p_self[..., None] * v_self.float()[:, :, None, :]
+    out = acc / torch.clamp(denom, min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _as_index(x, b: int, device) -> torch.Tensor:
+    """(B,) int32 device tensor from an int, a 0-d or a (B,) tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).expand(b).contiguous()
+    return torch.full((b,), int(x), dtype=torch.int32, device=device)
+
+
+def check_slabs(k_slabs, v_slabs, b: int, hq: int, d: int, dtype,
+                device) -> None:
+    """Raise ValueError unless the slabs are contiguous (L, b, Hkv, S, d)
+    tensors of ``dtype`` on ``device`` that the CUDA kernel takes for
+    ``hq`` query heads."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"decode_attention: dtype {dtype} not supported")
+    if k_slabs.ndim != 5 or k_slabs.shape != v_slabs.shape:
+        raise ValueError("decode_attention: slabs must be (L, B, Hkv, S, D)")
+    _, sb, hkv, _, sd = k_slabs.shape
+    if (sb, sd) != (b, d):
+        raise ValueError("decode_attention: inconsistent shapes")
+    if d not in _SUPPORTED_D or hq % hkv or hq // hkv > _MAX_GROUPS:
+        raise ValueError(
+            f"decode_attention: kernel takes head_dim in {_SUPPORTED_D} and "
+            f"at most {_MAX_GROUPS} query heads per kv head, got D={d}, "
+            f"Hq={hq}, Hkv={hkv}"
+        )
+    for t in (k_slabs, v_slabs):
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(
+                "decode_attention: operands must share dtype and device "
+                "and be contiguous"
+            )
+
+
+def check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self):
+    """Raise ValueError on anything the CUDA kernel does not take."""
+    b, hq, d = q.shape
+    check_slabs(k_slabs, v_slabs, b, hq, d, q.dtype, q.device)
+    hkv = k_slabs.shape[2]
+    if k_self.shape != (b, hkv, d) or v_self.shape != (b, hkv, d):
+        raise ValueError("decode_attention: inconsistent shapes")
+    for t in (q, k_self, v_self):
+        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(
+                "decode_attention: operands must share dtype and device "
+                "and be contiguous"
+            )
+
+
+def _lib():
+    lib = _build.load("decode_attention")
+    if not getattr(lib, "_bound", False):
+        for fn in ("decode_attention_bf16", "decode_attention_f32"):
+            _build.bind(lib, fn, 9, (ctypes.c_int,) * 6 + (ctypes.c_float,))
+        lib.decode_attention_workspace.argtypes = [ctypes.c_int] * 4
+        lib.decode_attention_workspace.restype = ctypes.c_longlong
+        lib._bound = True
+    return lib
+
+
+def decode_attention(q, k_slabs, v_slabs, k_self, v_self, layer: int,
+                     start, end, *, scale: float | None = None):
+    """Decode attention (see module docstring). ``start`` (None, int or
+    (B,) tensor) and ``end`` (int or (B,) tensor) bound the live slots.
+
+    CPU tensors run ``decode_attention_plain``; CUDA tensors launch the
+    kernel (``decode_attention.launches`` counts those launches).
+    """
+    if q.device.type == "cpu":
+        b = q.shape[0]
+        return decode_attention_plain(
+            q, k_slabs, v_slabs, k_self, v_self, layer,
+            None if start is None else _as_index(start, b, q.device),
+            _as_index(end, b, q.device), scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: device {q.device} not supported")
+    check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self)
+    b, hq, d = q.shape
+    nl, _, hkv, s_max, _ = k_slabs.shape
+    if not 0 <= layer < nl:
+        raise ValueError(f"decode_attention: layer {layer} out of range")
+    start_t = _as_index(0 if start is None else start, b, q.device)
+    end_t = _as_index(end, b, q.device)
+    lib = _lib()
+    ws = torch.empty(lib.decode_attention_workspace(b, hq, s_max, d),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = (lib.decode_attention_bf16 if q.dtype == torch.bfloat16
+          else lib.decode_attention_f32)
+    p = _build.ptr
+    rc = fn(p(q), p(k_slabs), p(v_slabs), p(k_self), p(v_self), p(start_t),
+            p(end_t), p(out), p(ws), layer, b, hq, hkv, s_max, d,
+            d ** -0.5 if scale is None else scale, _build.stream_of(q))
+    _build.check(lib, rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,108 @@
+"""K3: online-softmax ("flash") attention for long prefills.
+
+Replaces the Pallas kernel
+``qwen3_asr_rs_tpu/ops/pallas/flash_attention.py::flash_attention``:
+causal, ``kv_valid`` and ``kv_start`` masks, GQA h -> h // G, and the
+(Sq, Sk) score matrix is never written to device memory.
+
+Kernel: ``csrc/flash_attention.cu`` (64 x 64 tiles in shared memory,
+float32 products on the CUDA cores, see the note there). What bounds it
+on the H100 is arithmetic: a causal 4736-token prefill at 16 heads and
+D = 128 is ~92 GFLOP per layer, and this first version does not use the
+tensor cores. ``ops/attention.py::attention`` dispatches here by the JAX
+package's score-bytes rule.
+
+Rows with no attendable key come out finite (as in the Pallas kernel);
+their values differ between the kernel and the plain version and
+callers discard them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SUPPORTED_D = (64, 128)
+
+
+def flash_attention_plain(q, k, v, kv_valid=None, kv_start=None, *,
+                          causal: bool = False, scale: float | None = None):
+    """Plain PyTorch version: the masked dense attention of
+    ``ops/attention.py`` (float32 scores, -1e9 masks)."""
+    from ..attention import attention
+
+    return attention(q, k, v, causal=causal, kv_valid=kv_valid,
+                     kv_start=kv_start, scale=scale, impl="dense")
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_bound", False):
+        for fn in ("flash_attention_bf16", "flash_attention_f32"):
+            _build.bind(lib, fn, 6,
+                        (ctypes.c_int,) * 6 + (ctypes.c_float, ctypes.c_int))
+        lib._bound = True
+    return lib
+
+
+def _index_or_none(x, b: int, device):
+    if x is None:
+        return None
+    t = x.to(device=device, dtype=torch.int32).contiguous()
+    if t.shape != (b,):
+        raise ValueError(f"flash_attention: mask lengths must be ({b},)")
+    return t
+
+
+def flash_attention(q, k, v, kv_valid=None, kv_start=None, *,
+                    causal: bool = False, scale: float | None = None):
+    """q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); kv_valid/kv_start (B,)
+    int tensors or None. Returns (B, Sq, Hq, D) in q.dtype.
+
+    CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
+    kernel (``flash_attention.launches`` counts those launches).
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_valid, kv_start,
+                                     causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: device {q.device} not supported")
+    b, sq, hq, d = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError("flash_attention: k, v must be (B, Sk, Hkv, D)")
+    _, sk, hkv, _ = k.shape
+    if q.dtype not in (torch.bfloat16, torch.float32) or d not in _SUPPORTED_D:
+        raise ValueError(
+            f"flash_attention: kernel takes bf16/f32 and head_dim in "
+            f"{_SUPPORTED_D}, got {q.dtype}, D={d}"
+        )
+    if hq % hkv:
+        raise ValueError("flash_attention: Hq must be a multiple of Hkv")
+    for t in (q, k, v):
+        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(
+                "flash_attention: q, k, v must share dtype and device and "
+                "be contiguous"
+            )
+    valid_t = _index_or_none(kv_valid, b, q.device)
+    start_t = _index_or_none(kv_start, b, q.device)
+    out = torch.empty_like(q)
+    lib = _lib()
+    fn = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
+          else lib.flash_attention_f32)
+    p = _build.ptr
+    rc = fn(p(q), p(k), p(v),
+            None if valid_t is None else p(valid_t),
+            None if start_t is None else p(start_t),
+            p(out), b, sq, sk, hq, hkv, d,
+            d ** -0.5 if scale is None else scale, int(causal),
+            _build.stream_of(q))
+    _build.check(lib, rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

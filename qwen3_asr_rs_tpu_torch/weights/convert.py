@@ -1,0 +1,169 @@
+"""Parameter trees as torch tensors, in the JAX package's layouts.
+
+The port keeps the JAX parameter pytrees exactly: nested dicts with the
+same keys, per-layer tensors stacked along a leading ``(L, ...)`` axis,
+linear weights stored ``(in, out)`` so forwards are ``x @ w``, and
+``embed``/``lm_head`` stored ``(V, H)``. A tied ``lm_head`` is the same
+tensor object as ``embed``, as in JAX.
+
+``init_encoder_params``/``init_decoder_params`` repeat the JAX package's
+synthetic initialisers (``models/audio_encoder.py:214-270``,
+``models/text_decoder.py:1333-1371``) in numpy with the same seeds and
+the same ``np.random.default_rng`` call order, so a machine without jax
+builds bit-identical weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from qwen3_asr_rs_tpu.config import AudioEncoderConfig, TextDecoderConfig
+
+Tree = Any
+
+
+def tree_map(fn: Callable, tree: Tree) -> Tree:
+    """Apply ``fn`` to every leaf, mapping a shared leaf (tied
+    embeddings) once so the result shares it too."""
+    done: dict[int, Any] = {}
+
+    def go(node):
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(go(v) for v in node)
+        if id(node) not in done:
+            done[id(node)] = fn(node)
+        return done[id(node)]
+
+    return go(tree)
+
+
+def to_torch(tree: Tree, dtype: torch.dtype | None = None,
+             device: str | torch.device = "cpu") -> Tree:
+    """numpy arrays (or anything ``np.asarray`` takes, e.g. jax arrays)
+    or tensors -> torch tensors on ``device``, cast to ``dtype``."""
+
+    def conv(x):
+        if not isinstance(x, torch.Tensor):
+            a = np.ascontiguousarray(np.asarray(x))
+            x = torch.from_numpy(a if a.flags.writeable else a.copy())
+        return x.to(device=device, dtype=dtype or x.dtype)
+
+    return tree_map(conv, tree)
+
+
+def _conv_stem_freq(num_mel_bins: int) -> int:
+    n = num_mel_bins
+    for _ in range(3):
+        n = (n + 2 * 1 - 3) // 2 + 1  # kernel 3, stride 2, pad 1
+    return n
+
+
+def init_encoder_params_np(cfg: AudioEncoderConfig, seed: int = 1,
+                           scale: float = 0.02) -> Tree:
+    """float32 numpy twin of the JAX ``init_encoder_params``."""
+    rng = np.random.default_rng(seed)
+    d, ff = cfg.d_model, cfg.encoder_ffn_dim
+    dh = cfg.downsample_hidden_size
+    nl = cfg.encoder_layers
+    freq_after = _conv_stem_freq(cfg.num_mel_bins)
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    # dict literal order == the JAX function's RNG call order
+    return {
+        "conv1_w": w(dh, 1, 3, 3),
+        "conv1_b": zeros(dh),
+        "conv2_w": w(dh, dh, 3, 3),
+        "conv2_b": zeros(dh),
+        "conv3_w": w(dh, dh, 3, 3),
+        "conv3_b": zeros(dh),
+        "conv_out_w": w(dh * freq_after, d),
+        "conv_out_b": zeros(d),
+        "layers": {
+            "attn_ln_w": ones(nl, d),
+            "attn_ln_b": zeros(nl, d),
+            "q_w": w(nl, d, d),
+            "q_b": zeros(nl, d),
+            "k_w": w(nl, d, d),
+            "k_b": zeros(nl, d),
+            "v_w": w(nl, d, d),
+            "v_b": zeros(nl, d),
+            "out_w": w(nl, d, d),
+            "out_b": zeros(nl, d),
+            "ffn_ln_w": ones(nl, d),
+            "ffn_ln_b": zeros(nl, d),
+            "fc1_w": w(nl, d, ff),
+            "fc1_b": zeros(nl, ff),
+            "fc2_w": w(nl, ff, d),
+            "fc2_b": zeros(nl, d),
+        },
+        "ln_post_w": ones(d),
+        "ln_post_b": zeros(d),
+        "proj1_w": w(d, d),
+        "proj1_b": zeros(d),
+        "proj2_w": w(d, cfg.output_dim),
+        "proj2_b": zeros(cfg.output_dim),
+    }
+
+
+def init_decoder_params_np(cfg: TextDecoderConfig, seed: int = 0,
+                           scale: float = 0.02) -> Tree:
+    """float32 numpy twin of the JAX ``init_decoder_params``."""
+    rng = np.random.default_rng(seed)
+    h, d = cfg.hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    inter, v, nl = cfg.intermediate_size, cfg.vocab_size, cfg.num_hidden_layers
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    embed = w(v, h)
+    return {
+        "embed": embed,
+        "layers": {
+            "input_ln_w": ones(nl, h),
+            "q_w": w(nl, h, nq * d),
+            "k_w": w(nl, h, nkv * d),
+            "v_w": w(nl, h, nkv * d),
+            "o_w": w(nl, nq * d, h),
+            "q_norm_w": ones(nl, d),
+            "k_norm_w": ones(nl, d),
+            "post_ln_w": ones(nl, h),
+            "gate_w": w(nl, h, inter),
+            "up_w": w(nl, h, inter),
+            "down_w": w(nl, inter, h),
+        },
+        "final_ln_w": ones(h),
+        "lm_head": embed if cfg.tie_word_embeddings else w(v, h),
+    }
+
+
+def init_encoder_params(cfg: AudioEncoderConfig, seed: int = 1,
+                        dtype: torch.dtype = torch.bfloat16,
+                        scale: float = 0.02,
+                        device: str | torch.device = "cpu") -> Tree:
+    """Synthetic encoder weights as torch tensors (== JAX's, cast)."""
+    return to_torch(init_encoder_params_np(cfg, seed, scale), dtype, device)
+
+
+def init_decoder_params(cfg: TextDecoderConfig, seed: int = 0,
+                        dtype: torch.dtype = torch.bfloat16,
+                        scale: float = 0.02,
+                        device: str | torch.device = "cpu") -> Tree:
+    """Synthetic decoder weights as torch tensors (== JAX's, cast)."""
+    return to_torch(init_decoder_params_np(cfg, seed, scale), dtype, device)

@@ -1,0 +1,286 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port, on one CUDA GPU.
+
+    python3 scripts/profile_torch_cuda.py [--seeds 8] [--steps 64]
+                                          [--port-root DIR]
+
+Full Qwen3-ASR-0.6B width, bf16, synthetic weights from the JAX
+package's seeds. Prints one JSON line per section, each with nvidia-smi's
+name and power limit of the card:
+
+1. k1_error_spread — K1 (decode_layers_fused) bf16 against its plain
+   version at chip_smoke's slab cases, over ``--seeds`` input seeds:
+   max|kernel - plain| / max|plain| for every run.
+2. k1_parts — K1 alone at S=360 and S=4992: wall per call (20 calls
+   between synchronisations), host time to enqueue one call, and per
+   kernel class its launches, device microseconds and weight or K/V
+   bytes per call, from torch.profiler's device events.
+3. decode_step — ``decode_step_token`` as the engine's loop runs it (one
+   host read of the token per step) on the 4 s clip: wall per step with
+   and without the profiler, device time by kernel class per step, and
+   the device's busy share under the profiler.
+4. prefill — the 300 s clip's ``AsrEngine.prefill``: wall, device time
+   by kernel (the largest 12) and the busy share.
+
+``--port-root DIR`` imports the port from DIR instead (an unpacked
+older commit, say), so that two versions can be compared in turns on one
+card. Imports nothing of JAX. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def device_times(prof) -> dict:
+    """{device event name: [count, total microseconds]} of a profile."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            c = out.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    if not out:
+        raise RuntimeError("torch.profiler recorded no device events")
+    return out
+
+
+def kernel_class(name: str) -> str:
+    """The decode step's kernels by role; anything else by its name."""
+    if "gemv_kernel" in name:
+        epi = name.split("gemv_kernel<", 1)[1].split(">", 1)[0][-1]
+        return {"0": "gemv q/k/v", "1": "gemv o/down +residual",
+                "2": "gemv gate/up SwiGLU"}.get(epi, name[:90])
+    for key, label in (("attn_split", "attention split (K2)"),
+                       ("attn_merge", "attention merge (K2)"),
+                       ("qk_norm_rope", "qk-norm + rope"),
+                       ("flash", "flash attention (K3)")):
+        if key in name:
+            return label
+    return name[:90]
+
+
+def by_class(times: dict, per: int) -> dict:
+    out: dict = {}
+    for name, (count, us) in times.items():
+        c = out.setdefault(kernel_class(name), [0, 0.0])
+        c[0] += count
+        c[1] += us
+    return {k: {"launches": c / per, "device_us": us / per}
+            for k, (c, us) in sorted(out.items(), key=lambda kv: -kv[1][1])}
+
+
+def profile(torch, fn):
+    """(result of fn(), host seconds, device events) under torch.profiler."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, device_times(prof)
+
+
+def k1_error_spread(torch, smoke, layers, seeds: int) -> dict:
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused, decode_layers_fused_plain)
+
+    ratios = []
+    for seed in range(seeds):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+        for s_max, start, end in smoke.SLAB_CASES:
+            x, cos, sin, ks, vs = smoke.k1_inputs(torch, gen, torch.bfloat16,
+                                                  s_max, end)
+            idx = [torch.tensor([v], dtype=torch.int32, device="cuda")
+                   for v in (start, end)]
+            out = decode_layers_fused(x, cos, sin, layers, ks, vs, start, end,
+                                      eps=1e-6)
+            ref = decode_layers_fused_plain(x, cos, sin, layers, ks, vs, *idx,
+                                            eps=1e-6)
+            err = max(smoke.max_err(torch, o, r) for o, r in zip(out, ref))
+            scale = max(float(r.float().abs().max()) for r in ref)
+            ratios.append(err / scale)
+            del ks, vs
+    atol, rtol = smoke.TOL[("decode_layers_fused", "bfloat16")]
+    return {"section": "k1_error_spread", "runs": len(ratios),
+            "err_over_ref_max": sorted(ratios), "max": max(ratios),
+            "median": statistics.median(ratios), "smoke_rtol": rtol,
+            "smoke_atol": atol}
+
+
+def k1_parts(torch, smoke, layers, cfg) -> list:
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused)
+
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    qd = cfg.num_attention_heads * cfg.head_dim
+    kvd = cfg.num_key_value_heads * cfg.head_dim
+    nl = cfg.num_hidden_layers
+    weight_bytes = {  # bf16 weight bytes per call, by GEMV class
+        "gemv q/k/v": 2 * nl * h * (qd + 2 * kvd),
+        "gemv o/down +residual": 2 * nl * (qd * h + inter * h),
+        "gemv gate/up SwiGLU": 2 * nl * 2 * h * inter,
+    }
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for s_max, end in ((360, 217), (4992, 4737)):
+        x, cos, sin, ks, vs = smoke.k1_inputs(torch, gen, torch.bfloat16,
+                                              s_max, end)
+
+        def call():
+            return decode_layers_fused(x, cos, sin, layers, ks, vs, 0, end,
+                                       eps=1e-6)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        n = 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        enqueue = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        _, _, times = profile(torch, lambda: [call() for _ in range(n)])
+        parts = by_class(times, n)
+        weight_bytes["attention split (K2)"] = 2 * 2 * nl * kvd * end
+        for k, b in weight_bytes.items():
+            if k in parts:
+                parts[k]["bytes"] = b
+                parts[k]["TB_per_s"] = b / parts[k]["device_us"] / 1e6
+        rows.append({"section": "k1_parts", "S": s_max, "end": end,
+                     "wall_ms_per_call": wall_ms,
+                     "enqueue_ms_per_call": statistics.median(enqueue),
+                     "device_ms_per_call": sum(
+                         p["device_us"] for p in parts.values()) / 1e3,
+                     "launches_per_call": sum(
+                         p["launches"] for p in parts.values()),
+                     "parts": parts})
+        del ks, vs
+    return rows
+
+
+def decode_step(torch, engine, samples, steps: int) -> dict:
+    dec = engine.decoder
+    _, cache, true_len = engine.prefill(samples)
+
+    def loop(first_pos: int):
+        tok = torch.zeros((1,), dtype=torch.long, device="cuda")
+        for i in range(steps):
+            tok, _ = dec.decode_step_token(engine.dec_params, tok,
+                                           first_pos + i, cache)
+            int(tok[0])
+
+    with torch.inference_mode():
+        loop(true_len)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(true_len)
+        wall_plain = time.perf_counter() - t0
+        _, wall, times = profile(torch, lambda: loop(true_len))
+    busy_us = sum(us for _, us in times.values())
+    return {"section": "decode_step", "clip_seconds": 4, "steps": steps,
+            "slab": int(cache.k.shape[3]),
+            "wall_ms_per_step": 1e3 * wall_plain / steps,
+            "wall_ms_per_step_profiled": 1e3 * wall / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "busy_share_profiled": busy_us / 1e6 / wall,
+            "parts_per_step": by_class(times, steps)}
+
+
+def prefill(torch, engine, samples) -> dict:
+    with torch.inference_mode():
+        engine.prefill(samples)  # warm-up: this bucket's shapes
+        _, wall, times = profile(torch, lambda: engine.prefill(samples))
+    busy_us = sum(us for _, us in times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"section": "prefill", "clip_seconds": 300, "wall_ms": 1e3 * wall,
+            "device_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall,
+            "top": [{"name": n[:90], "launches": c, "device_ms": us / 1e3}
+                    for n, (c, us) in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--port-root", type=Path, default=REPO,
+                    help="directory holding the qwen3_asr_rs_tpu_torch "
+                         "package to profile")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_cuda: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
+
+    sys.path.insert(0, str(args.port_root.resolve()))
+    from qwen3_asr_rs_tpu.audio.load import load_audio
+    from qwen3_asr_rs_tpu.config import AsrConfig
+    from qwen3_asr_rs_tpu_torch.ops.kernels import _build
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.weights.convert import (
+        init_decoder_params_np, init_encoder_params_np, to_torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+    def emit(row):
+        row["card"] = card
+        row["port_root"] = str(args.port_root)
+        print(json.dumps(row), flush=True)
+
+    _build.build()
+    config = AsrConfig()
+    enc = to_torch(init_encoder_params_np(config.audio), torch.bfloat16,
+                   "cuda")
+    dec = to_torch(init_decoder_params_np(config.text), torch.bfloat16,
+                   "cuda")
+    emit(k1_error_spread(torch, smoke, dec["layers"], args.seeds))
+    for row in k1_parts(torch, smoke, dec["layers"], config.text):
+        emit(row)
+    torch.cuda.empty_cache()
+
+    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                       config=config, params=(enc, dec),
+                       tokenizer=smoke.StubTokenizer(), device="cuda")
+    with tempfile.TemporaryDirectory(prefix="profile_torch_") as tmp:
+        clips = {}
+        for seconds, seed in ((4, 1), (300, 3)):
+            path = Path(tmp) / f"clip_{seconds}s.wav"
+            smoke.write_wav(path, seconds, seed)
+            clips[seconds] = load_audio(path, 16000)
+    emit(decode_step(torch, engine, clips[4], args.steps))
+    emit(prefill(torch, engine, clips[300]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

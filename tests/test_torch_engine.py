@@ -1,0 +1,212 @@
+"""The whole slice: port AsrEngine and CLI vs the JAX engine and CLI.
+
+float32 greedy tokens must be equal exactly, on tiny_test_config() and on
+two layers at the real 0.6B widths. bf16 first-step logits agree within
+a stated tolerance.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_rs_tpu.config import AsrConfig, tiny_test_config
+from qwen3_asr_rs_tpu.features.mel import log_mel_from_padded
+from qwen3_asr_rs_tpu.models.audio_encoder import init_encoder_params
+from qwen3_asr_rs_tpu.models.text_decoder import KVCache as JCache
+from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
+from qwen3_asr_rs_tpu.runtime.engine import AsrEngine as JaxEngine
+from qwen3_asr_rs_tpu.runtime.prompt import AUDIO_OFFSET
+from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+
+
+class _Tok:
+    def encode(self, s):
+        return [101] * 4
+
+    def decode(self, ids):
+        return " ".join(map(str, ids))
+
+
+def _with_layers(cfg, text_layers=None, audio_layers=None, vocab=None):
+    text, audio = cfg.text, cfg.audio
+    if text_layers:
+        text = dataclasses.replace(text, num_hidden_layers=text_layers)
+    if vocab:
+        text = dataclasses.replace(text, vocab_size=vocab)
+    if audio_layers:
+        audio = dataclasses.replace(audio, encoder_layers=audio_layers)
+    return dataclasses.replace(cfg, thinker_config=dataclasses.replace(
+        cfg.thinker_config, text_config=text, audio_config=audio))
+
+
+def _tiny():
+    # prompt special-token ids (151643+) must be in-vocab
+    return _with_layers(tiny_test_config(), vocab=151936)
+
+
+def _engines(cfg, jdtype, tdtype, max_new, buckets):
+    enc = init_encoder_params(cfg.audio, dtype=jnp.float32)
+    dec = init_decoder_params(cfg.text, dtype=jnp.float32)
+    jeng = JaxEngine(model_dir=None, dtype=jdtype, max_new_tokens=max_new,
+                     chunk_buckets=buckets, config=cfg,
+                     params=(enc, dec) if jdtype == jnp.float32 else
+                     tuple(__import__("jax").tree_util.tree_map(
+                         lambda a: a.astype(jdtype), p) for p in (enc, dec)),
+                     tokenizer=_Tok())
+    teng = AsrEngine(None, dtype=tdtype, max_new_tokens=max_new,
+                     chunk_buckets=buckets, config=cfg, params=(enc, dec),
+                     tokenizer=_Tok(), device="cpu")
+    return jeng, teng
+
+
+def _jax_prefill_logits(jeng, samples):
+    """The JAX engine's pre-decode graph, step by step (engine.py:656-830)."""
+    cfg = jeng.config
+    cf, tpc = cfg.audio.chunk_frames, cfg.audio.tokens_per_chunk
+    from qwen3_asr_rs_tpu.features.mel import num_mel_frames, pad_waveform
+    from qwen3_asr_rs_tpu.runtime.prompt import build_prompt
+
+    chunks = jeng._pick_bucket(num_mel_frames(len(samples)))
+    p = jeng._prompt_bucket(chunks)
+    wave, n_true = pad_waveform(samples, bucket_frames=chunks * cf)
+    n_audio = int(jeng.encoder.valid_tokens(jnp.int32(n_true)))
+    prompt = build_prompt(n_audio, None, None)
+    ids = np.zeros(p, np.int32)
+    ids[: len(prompt)] = prompt
+    mel = log_mel_from_padded(jnp.asarray(wave), n_true,
+                              jeng.frontend.mel_filters)
+    audio, _ = jeng.encoder(jeng.enc_params, mel, jnp.int32(n_true))
+    hidden = jeng.decoder.embed(jeng.dec_params, jnp.asarray(ids)[None])
+    hidden = hidden.at[0, AUDIO_OFFSET:AUDIO_OFFSET + n_audio].set(
+        audio[:n_audio].astype(hidden.dtype))
+    logits, _ = jeng.decoder.prefill(
+        jeng.dec_params, hidden, jnp.arange(p),
+        JCache.zeros(cfg.text, 1, p, dtype=hidden.dtype), jnp.int32(len(prompt)))
+    return np.asarray(logits)
+
+
+@pytest.fixture
+def samples():
+    return (np.random.default_rng(1).standard_normal(20000) * 0.1).astype(
+        np.float32)
+
+
+def test_tiny_slice_f32_tokens_and_logits_match_jax(samples):
+    jeng, teng = _engines(_tiny(), jnp.float32, torch.float32, 8, (2,))
+    ref = jeng.transcribe_samples(samples)
+    got = teng.transcribe_samples(samples)
+    assert got.raw_output == ref.raw_output
+    assert (got.language, got.text) == (ref.language, ref.text)
+    logits, _, _ = teng.prefill(samples)
+    np.testing.assert_allclose(logits.numpy(),
+                               _jax_prefill_logits(jeng, samples),
+                               atol=1e-5, rtol=1e-5)
+    # one decode step per emitted token, except the last
+    assert teng.last_stats["decode_steps"] == len(got.raw_output.split()) - 1
+
+
+def test_real_dims_two_layers_f32_tokens_match_jax():
+    """Real 0.6B widths (head_dim 128, hidden 1024, ffn 3072, 16Q/8KV,
+    vocab 151936), two layers each, as __graft_entry__.py's parity gate."""
+    cfg = _with_layers(AsrConfig(), text_layers=2, audio_layers=2)
+    samples = (np.random.default_rng(7).standard_normal(12000) * 0.1).astype(
+        np.float32)
+    jeng, teng = _engines(cfg, jnp.float32, torch.float32, 3, (1,))
+    assert teng.transcribe_samples(samples).raw_output == (
+        jeng.transcribe_samples(samples).raw_output)
+
+
+def test_tiny_slice_bf16_first_step_logits(samples):
+    """bf16 rounds at different places in the two frameworks (and the
+    port's bf16 lm_head GEMV rounds logits to bf16, half an ulp = 2^-9
+    relative); through two layers the first-step logits stay within
+    0.02 absolute at |logits| < 2."""
+    jeng, teng = _engines(_tiny(), jnp.bfloat16, torch.bfloat16, 2, (2,))
+    ref = _jax_prefill_logits(jeng, samples).astype(np.float32)
+    logits, _, _ = teng.prefill(samples)
+    assert np.abs(ref).max() < 2
+    np.testing.assert_allclose(logits.numpy(), ref, atol=2e-2, rtol=0)
+
+
+def test_engine_limits_and_unported_paths(samples):
+    _, teng = _engines(_tiny(), jnp.float32, torch.float32, 4, (1, 2))
+    with pytest.raises(ValueError, match="largest bucket"):
+        teng.transcribe_samples(np.zeros(16000 * 3, np.float32))
+    with pytest.raises(NotImplementedError, match="batched"):
+        teng.transcribe_batch([samples, samples])
+    assert teng.transcribe_batch([]) == []
+    assert teng.transcribe_batch([samples])[0].raw_output == (
+        teng.transcribe_samples(samples).raw_output)
+
+
+# --------------------------------------------------------------------- #
+# CLI on a synthetic checkpoint
+
+
+@pytest.fixture
+def model_and_wav(tmp_path):
+    from test_audio_io import write_wav_pcm16
+    from test_weights_roundtrip import write_word_tokenizer
+
+    from qwen3_asr_rs_tpu.weights.export import save_checkpoint
+
+    cfg = _tiny()
+    model = tmp_path / "model"
+    save_checkpoint(model, init_encoder_params(cfg.audio, dtype=jnp.float32),
+                    init_decoder_params(cfg.text, dtype=jnp.float32), cfg)
+    write_word_tokenizer(model)
+    wav = tmp_path / "a.wav"
+    write_wav_pcm16(wav, np.random.default_rng(3).standard_normal(16800) * 0.1,
+                    24000)
+    return model, wav
+
+
+def _run_cli(main, argv, capsys):
+    rc = main([str(a) for a in argv])
+    out, err = capsys.readouterr()
+    return rc, out, err
+
+
+def test_cli_matches_jax_cli(model_and_wav, capsys, monkeypatch):
+    from qwen3_asr_rs_tpu.cli import main as jax_main
+    from qwen3_asr_rs_tpu_torch.cli import main
+
+    model, wav = model_and_wav
+    monkeypatch.setenv("ASR_MAX_NEW_TOKENS", "4")
+    monkeypatch.setenv("ASR_DTYPE", "float32")
+    monkeypatch.setenv("ASR_DEVICE", "cpu")
+    rc, out, _ = _run_cli(main, [model, wav], capsys)
+    assert rc == 0
+    lines = out.splitlines()
+    assert lines[0].startswith("Language: ") and lines[1].startswith("Text:")
+    jrc, jout, _ = _run_cli(jax_main, [model, wav], capsys)
+    assert (rc, out) == (jrc, jout)
+
+    rc, out, _ = _run_cli(main, [model, wav, "english"], capsys)
+    assert rc == 0 and out.startswith("Language: forced\n")
+    rc, out, _ = _run_cli(main, [model, wav, wav], capsys)
+    assert rc == 0 and out.count("File: ") == 2
+
+
+def test_cli_errors(model_and_wav, capsys, monkeypatch, tmp_path):
+    from qwen3_asr_rs_tpu_torch.cli import main
+
+    model, wav = model_and_wav
+    monkeypatch.setenv("ASR_DEVICE", "cpu")
+    cases = [
+        ([model], "Usage"),
+        ([model, tmp_path / "missing.wav"], "Error: Audio file not found"),
+        ([tmp_path / "nomodel", wav], "Error: Model directory not found"),
+        ([model, wav, "--temperature", "0.5"], "Error: option --temperature"),
+        ([model, wav, "--language"], "Error: --language needs a value"),
+    ]
+    for argv, msg in cases:
+        rc, out, err = _run_cli(main, argv, capsys)
+        assert rc == 1 and msg in err and out == "", argv
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"RIFF....WAVEjunk")
+    rc, out, err = _run_cli(main, [model, bad], capsys)
+    assert rc == 1 and err.startswith("Error: ") and err.count("\n") == 1

@@ -1,0 +1,57 @@
+"""Port log-mel frontend vs the JAX one (atol 1e-4 on normalized log-mel)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_rs_tpu.features import mel as jmel
+from qwen3_asr_rs_tpu_torch.features import mel as tmel
+
+
+def test_host_constants_are_the_jax_ones():
+    np.testing.assert_array_equal(tmel.create_mel_filterbank(),
+                                  jmel.create_mel_filterbank())
+    np.testing.assert_array_equal(tmel.hann_window(400), jmel.hann_window(400))
+    for a, b in zip(tmel.dft_matrices(400), jmel.dft_matrices(400)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_samples,bucket_frames",
+                         [(16000, 100), (23456, 200), (999, 100)])
+def test_log_mel_matches_jax(rng, n_samples, bucket_frames):
+    samples = (rng.standard_normal(n_samples) * 0.1).astype(np.float32)
+    wave, n_true = tmel.pad_waveform(samples, bucket_frames=bucket_frames)
+    jwave, jn = jmel.pad_waveform(samples, bucket_frames=bucket_frames)
+    np.testing.assert_array_equal(wave, jwave)
+    assert n_true == jn
+
+    filters = jmel.create_mel_filterbank()
+    ref = np.asarray(jmel.log_mel_from_padded(jnp.asarray(wave), n_true,
+                                              jnp.asarray(filters)))
+    got = tmel.log_mel_from_padded(torch.from_numpy(wave), n_true,
+                                   torch.from_numpy(filters)).numpy()
+    assert got.shape == ref.shape == (128, bucket_frames)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    # padded frames are exactly zero
+    assert np.all(got[:, n_true:] == 0.0)
+
+    ref_max = float(jmel.raw_log_mel_max(jnp.asarray(wave), n_true,
+                                         jnp.asarray(filters)))
+    got_max = float(tmel.raw_log_mel_max(torch.from_numpy(wave), n_true,
+                                         torch.from_numpy(filters)))
+    assert abs(got_max - ref_max) < 1e-4
+
+
+def test_floor_uses_true_frames_only(rng):
+    """A loud tail beyond the true frames must not move the max-8 floor."""
+    samples = (rng.standard_normal(8000) * 0.01).astype(np.float32)
+    wave, n_true = tmel.pad_waveform(samples, bucket_frames=100)
+    filters = torch.from_numpy(tmel.create_mel_filterbank())
+    base = tmel.log_mel_from_padded(torch.from_numpy(wave), n_true, filters)
+    loud = wave.copy()
+    loud[-4000:] = 10.0
+    got = tmel.log_mel_from_padded(torch.from_numpy(loud), n_true, filters)
+    # frames whose window never reaches the loud tail are unchanged
+    np.testing.assert_array_equal(got[:, : n_true - 3].numpy(),
+                                  base[:, : n_true - 3].numpy())

@@ -1,0 +1,158 @@
+"""Port audio encoder and text decoder blocks vs the JAX models (float32)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_asr_rs_tpu.config import (
+    AudioEncoderConfig,
+    feat_extract_output_length,
+    tiny_test_config,
+)
+from qwen3_asr_rs_tpu.models.audio_encoder import AudioEncoder as JEncoder
+from qwen3_asr_rs_tpu.models.audio_encoder import init_encoder_params
+from qwen3_asr_rs_tpu.models.text_decoder import KVCache as JCache
+from qwen3_asr_rs_tpu.models.text_decoder import TextDecoder as JDecoder
+from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
+from qwen3_asr_rs_tpu_torch.models.audio_encoder import AudioEncoder
+from qwen3_asr_rs_tpu_torch.models.text_decoder import KVCache, TextDecoder
+from qwen3_asr_rs_tpu_torch.weights import convert
+
+T = torch.from_numpy
+
+
+def _encoders():
+    cfg = tiny_test_config().audio
+    return (cfg, init_encoder_params(cfg, dtype=jnp.float32),
+            convert.init_encoder_params(cfg, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("num_frames,bucket_chunks", [(260, 3), (260, 16),
+                                                      (100, 1)])
+def test_encoder_matches_jax(rng, num_frames, bucket_chunks):
+    cfg, jp, tp = _encoders()
+    mel = np.zeros((cfg.num_mel_bins, bucket_chunks * cfg.chunk_frames),
+                   np.float32)
+    mel[:, :num_frames] = rng.standard_normal((cfg.num_mel_bins, num_frames))
+    jflat, jn = JEncoder(cfg)(jp, jnp.asarray(mel), jnp.int32(num_frames))
+    flat, n = AudioEncoder(cfg)(tp, T(mel), num_frames)
+    assert n == int(jn)
+    assert flat.shape == tuple(jflat.shape)
+    np.testing.assert_allclose(flat[:n].numpy(), np.asarray(jflat)[:n],
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_encoder_bucket_padding_invariance(rng):
+    cfg, _, tp = _encoders()
+    enc = AudioEncoder(cfg)
+    num_frames = 260
+    mel = rng.standard_normal((cfg.num_mel_bins, num_frames)).astype(np.float32)
+
+    def run(bucket_chunks):
+        mp = np.zeros((cfg.num_mel_bins, bucket_chunks * cfg.chunk_frames),
+                      np.float32)
+        mp[:, :num_frames] = mel
+        flat, n = enc(tp, T(mp), num_frames)
+        return flat[:n].numpy()
+
+    np.testing.assert_allclose(run(3), run(16), atol=3e-5, rtol=1e-4)
+
+
+def test_valid_tokens_formula():
+    enc = AudioEncoder(AudioEncoderConfig())
+    for frames in [100, 260, 1000, 1040, 37, 99, 0]:
+        tail = frames % 100
+        expected = (frames // 100) * 13 + (
+            feat_extract_output_length(tail) if tail else 0)
+        assert enc.valid_tokens(frames) == expected
+
+
+def _decoders(tied=True):
+    cfg = tiny_test_config().text
+    if not tied:
+        cfg = dataclasses.replace(cfg, tie_word_embeddings=False)
+    return (cfg, init_decoder_params(cfg, dtype=jnp.float32),
+            convert.init_decoder_params(cfg, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("impl", ["auto", "fused", "scan"])
+def test_prefill_and_decode_match_jax(rng, monkeypatch, tied, impl):
+    """Prefill logits, slab contents, then three decode steps (logits and
+    the slab writes) against the JAX decoder's scan path."""
+    cfg, jp, tp = _decoders(tied)
+    p_len, true_len, s_max = 12, 9, 24
+    hidden = (rng.standard_normal((1, p_len, cfg.hidden_size)) * 0.5).astype(
+        np.float32)
+    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(cfg, 64)
+    jlog, jcache = jdec.prefill(jp, jnp.asarray(hidden), jnp.arange(p_len),
+                                JCache.zeros(cfg, 1, s_max, jnp.float32),
+                                jnp.int32(true_len))
+    cache = KVCache.zeros(cfg, 1, s_max, dtype=torch.float32)
+    tlog, cache = tdec.prefill(tp, T(hidden), torch.arange(p_len), cache,
+                               true_len)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(cache.k.numpy(), np.asarray(jcache.k),
+                               atol=1e-5, rtol=1e-5)
+
+    monkeypatch.setenv("ASR_DECODE_IMPL", impl)
+    monkeypatch.setenv("ASR_DECODE_ATTN", "kernel")  # K2's plain version
+    jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
+    ttok = torch.argmax(tlog, -1)
+    for step in range(3):
+        pos = true_len + step
+        monkeypatch.setenv("ASR_DECODE_IMPL", "scan")
+        jlog, jcache = jdec.decode_step(jp, jtok, jnp.int32(pos), jcache)
+        monkeypatch.setenv("ASR_DECODE_IMPL", impl)
+        tlog, cache = tdec.decode_step(tp, ttok, pos, cache)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(cache.v.numpy(), np.asarray(jcache.v),
+                                   atol=1e-5, rtol=1e-5)
+        jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
+        ttok = torch.argmax(tlog, -1)
+        assert int(ttok[0]) == int(jtok[0])
+
+
+def test_decode_dense_attention_path_matches_kernel_path(rng, monkeypatch):
+    cfg, _, tp = _decoders()
+    tdec = TextDecoder(cfg, 64)
+    cache = KVCache.zeros(cfg, 1, 32, dtype=torch.float32)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=torch.Generator()
+                              .manual_seed(0)))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=torch.Generator()
+                              .manual_seed(1)))
+    tok = torch.tensor([7])
+    outs = []
+    for attn in ("dense", "kernel"):
+        monkeypatch.setenv("ASR_DECODE_IMPL", "scan")
+        monkeypatch.setenv("ASR_DECODE_ATTN", attn)
+        c = KVCache(k=cache.k.clone(), v=cache.v.clone())
+        outs.append(tdec.decode_step(tp, tok, 20, c)[0])
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)
+
+
+def test_argmax_ties_break_on_first_index(monkeypatch):
+    cfg, _, tp = _decoders()
+    tdec = TextDecoder(cfg, 64)
+    logits = torch.zeros(1, cfg.vocab_size)
+    logits[0, [5, 9]] = 1.0
+    monkeypatch.setattr(tdec, "decode_step",
+                        lambda *a: (logits, None))
+    tok, _ = tdec.decode_step_token(tp, torch.tensor([1]), 3, None)
+    assert int(tok[0]) == int(np.argmax(logits.numpy()[0])) == 5
+
+
+def test_unported_branches_raise():
+    cfg, _, tp = _decoders()
+    tdec = TextDecoder(cfg, 64)
+    cache = KVCache.zeros(cfg, 1, 16, dtype=torch.float32)
+    quant = dict(tp, layers=dict(tp["layers"], q_w_q=tp["layers"]["q_w"]))
+    with pytest.raises(NotImplementedError, match="quantized"):
+        tdec.decode_step(quant, torch.tensor([1]), 3, cache)
+    with pytest.raises(NotImplementedError, match="aligned"):
+        tdec.decode_step(tp, torch.tensor([1, 2]), torch.tensor([3, 4]), cache)
