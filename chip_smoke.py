@@ -6,17 +6,25 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — requires CUDA; prints nvidia-smi's name and power limit.
-2. build   — compiles every kernel of csrc/ with nvcc (sm_90a).
+2. build   — compiles every kernel of csrc/ with nvcc (sm_90a), in parallel.
 3. kernels — each kernel against its plain PyTorch version on the same
              inputs at the 0.6B main-path shapes, max abs error against a
-             stated tolerance, median CUDA-event time of both.
+             stated tolerance, median CUDA-event time of both: K2, K1
+             (bf16/f32 weights, and int8 merged, int4 merged, int8
+             unmerged weights quantized by the port's own quantizer), K3,
+             K4 (int4 lm_head) and K5 (int8 prefill linears and lm_head).
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
-             synthetic 4 s, 30 s and 300 s WAV files; the kernels' launch
-             counters must show the path went through them.
-5. parity  — the 4 s clip teacher-forced in float32 at full width: the
-             decode-kernel path against the plain per-layer path, per-step
-             logits within a stated tolerance.
+             synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
+             quantize='int8' (4 s, 30 s, 300 s), quantize='int4' (4 s,
+             30 s), and on the 4 s clip quantize='lm8' and the crossed
+             lm_head widths (ASR_LM_BITS=4 under int8, 8 under int4). Each
+             path runs with the launch counters set to 0, and they must
+             show that it went through its kernels.
+5. parity  — the 4 s clip teacher-forced in float32 at full width, with
+             float, int8 and int4 weights: the decode-kernel path against
+             the plain per-layer path, per-step logits within a stated
+             tolerance.
 
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -53,6 +61,13 @@ TOL = {
     ("decode_layers_fused", "bfloat16"): (1e-2, 2 ** -4),
     ("flash_attention", "float32"): (1e-4, 0.0),
     ("flash_attention", "bfloat16"): (2e-2, 2 ** -7),
+    # K5 and K4: float32 sums of the same exact products in another order;
+    # a bf16 output may flip one rounding (2^-8 of the value, at most)
+    ("quant_matmul", "float32"): (1e-4, 1e-5),
+    ("quant_matmul", "bfloat16"): (1e-4, 2 ** -7),
+    ("quant_matmul", "bfloat16->float32"): (1e-4, 1e-5),
+    ("quant_matvec_int4", "float32"): (1e-4, 1e-5),
+    ("quant_matvec_int4", "bfloat16->float32"): (1e-4, 1e-5),
 }
 # float32 teacher-forced logits, decode kernel vs plain per-layer path
 PARITY_LOGITS_ATOL = 1e-3
@@ -61,12 +76,25 @@ REPLACES = {
     "decode_layers_fused": "qwen3_asr_rs_tpu/ops/pallas/decode_layer.py:678",
     "decode_attention": "qwen3_asr_rs_tpu/ops/pallas/decode_attention.py:413",
     "flash_attention": "qwen3_asr_rs_tpu/ops/pallas/flash_attention.py:152",
+    "quant_matmul": "qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py:66",
+    "quant_matvec_int4": "qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py:351",
 }
 SOURCES = {
     "decode_layers_fused": "qwen3_asr_rs_tpu_torch/csrc/decode_layer.cu",
     "decode_attention": "qwen3_asr_rs_tpu_torch/csrc/decode_attention.cuh",
     "flash_attention": "qwen3_asr_rs_tpu_torch/csrc/flash_attention.cu",
+    "quant_matmul": "qwen3_asr_rs_tpu_torch/csrc/quant_matmul.cu",
+    "quant_matvec_int4": "qwen3_asr_rs_tpu_torch/csrc/quant_matvec_int4.cu",
 }
+K1_COVERS = ("B=1; bf16/f32 activations; bf16/f32, int8 and int4 weights, "
+             "merged qkv|gate-up and per projection")
+# K1 quantized layouts checked in phase 3: (label, bits, merge)
+K1_QUANT = (("int8 merged", 8, True), ("int4 merged", 4, True),
+            ("int8 unmerged", 8, False))
+# K5's prefill rows (30 s and 300 s prompts) and its four linears (K, N)
+K5_ROWS = (432, 4736)
+K5_LINEARS = (("qkv_w", 1024, 4096), ("o_w", 2048, 1024),
+              ("gateup_w", 1024, 6144), ("down_w", 3072, 1024))
 
 
 # (S, start, end) of the decode kernels' checks: the 4 s bucket's slab and
@@ -118,8 +146,9 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
 def max_err(torch, a, b) -> float:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    if not torch.isfinite(a).all():
-        raise AssertionError("kernel output has non-finite values")
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("non-finite values in the kernel output or "
+                             "its plain version")
     return float((a.float() - b.float()).abs().max())
 
 
@@ -132,6 +161,8 @@ def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
     if isinstance(out, torch.Tensor):
         out, ref = (out,), (ref,)
     dt = str(dtype).replace("torch.", "")
+    if isinstance(out[0], torch.Tensor) and out[0].dtype != dtype:
+        dt = f"{dt}->{str(out[0].dtype).replace('torch.', '')}"
     atol, rtol = TOL[(name, dt)]
     err = bound = scale = 0.0
     for o, r in zip(out, ref):
@@ -238,7 +269,87 @@ def kernel_checks(torch, dec_params_f32):
         )
         del q, k, v
     torch.cuda.empty_cache()
+    quant_kernel_checks(torch, dec_params_f32, gen, results)
     return results
+
+
+def quant_kernel_checks(torch, dec_params_f32, gen, results):
+    """Phase 3, quantized: K1 with int8/int4 weights, K5, K4."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused, decode_layers_fused_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
+        quant_matvec_int4, quant_matvec_int4_plain)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight_int4_tiled
+    from qwen3_asr_rs_tpu_torch.weights.quantize import quantize_decoder_params
+
+    dev = torch.device("cuda")
+
+    def idx(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    def quantized(dtype, bits, merge):
+        tree = {"layers": {k: v.to(dtype)
+                           for k, v in dec_params_f32["layers"].items()},
+                "lm_head": dec_params_f32["lm_head"].to(dtype)}
+        return quantize_decoder_params(tree, bits=bits, merge=merge, lm_bits=8)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, bits, merge in K1_QUANT:
+            qtree = quantized(dtype, bits, merge)
+            lay = qtree["layers"]
+            for s_max, start, end in (SLAB_CASES[0], SLAB_CASES[2]):
+                x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, s_max, end)
+                case = f"{label} L=28 S={s_max} start={start} end={end}"
+                check_case(
+                    torch, results, "decode_layers_fused", dtype, case,
+                    lambda: decode_layers_fused(x, cos, sin, lay, ks, vs,
+                                                start, end, eps=1e-6),
+                    lambda: decode_layers_fused_plain(
+                        x, cos, sin, lay, ks, vs, idx(start), idx(end),
+                        eps=1e-6),
+                )
+                del ks, vs
+            if label == "int8 merged":
+                # K5 at the int8 path's shapes: layer 0's merged linears
+                # over the prefill rows, and the lm_head at one row
+                for rows in K5_ROWS:
+                    for name, k, n in K5_LINEARS:
+                        w_q, sc = lay[f"{name}_q"][0], lay[f"{name}_s"][0]
+                        x = torch.randn((rows, k), generator=gen,
+                                        device=dev).to(dtype)
+                        check_case(
+                            torch, results, "quant_matmul", dtype,
+                            f"{name} ({rows}, {k}) @ ({k}, {n})",
+                            lambda: quant_matmul(x, w_q, sc),
+                            lambda: quant_matmul_plain(x, w_q, sc),
+                        )
+                w_q, sc = qtree["lm_head_q"], qtree["lm_head_s"]
+                x = torch.randn((1, H), generator=gen, device=dev).to(dtype)
+                check_case(
+                    torch, results, "quant_matmul", dtype,
+                    f"lm_head (1, {H}) @ {tuple(w_q.shape)} -> float32",
+                    lambda: quant_matmul(x, w_q, sc, out_dtype=torch.float32),
+                    lambda: quant_matmul_plain(x, w_q, sc,
+                                               out_dtype=torch.float32),
+                )
+            del qtree, lay
+            torch.cuda.empty_cache()
+
+    # K4 at the int4 lm_head's shape
+    w_q4, sc = quantize_weight_int4_tiled(dec_params_f32["lm_head"].T)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1, H), generator=gen, device=dev).to(dtype)
+        check_case(
+            torch, results, "quant_matvec_int4", dtype,
+            f"lm_head (1, {H}) @ unpack{tuple(w_q4.shape)} -> "
+            f"(1, {sc.shape[0]})",
+            lambda: quant_matvec_int4(x, w_q4, sc),
+            lambda: quant_matvec_int4_plain(x, w_q4, sc),
+        )
+    del w_q4, sc
+    torch.cuda.empty_cache()
 
 
 def write_wav(path: Path, seconds: float, seed: int) -> float:
@@ -267,6 +378,138 @@ class StubTokenizer:
 
     def decode(self, ids):
         return " ".join(map(str, ids))
+
+
+def kernel_wrappers():
+    """{kernel name: wrapper}; each wrapper's ``launches`` is its count."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
+        quant_matvec_int4)
+
+    return {"decode_layers_fused": decode_layers_fused,
+            "decode_attention": decode_attention,
+            "flash_attention": flash_attention,
+            "quant_matmul": quant_matmul,
+            "quant_matvec_int4": quant_matvec_int4}
+
+
+# (quantize, ASR_LM_BITS, clips) of the main paths
+MAIN_PATHS = ((None, None, (4, 30, 300)), ("int8", None, (4, 30, 300)),
+              ("int4", None, (4, 30)), ("lm8", None, (4,)), ("int8", 4, (4,)),
+              ("int4", 8, (4,)))
+
+
+def expected_launches(quantize, lm_bits, layers: int, steps: int,
+                      seconds: int):
+    """Launches each kernel must show for one clip: K1 once per decode
+    step, K2 once per layer and step (counted by K1's C entry), K3 in the
+    300 s prefill; int8 layers: K5 for the 4 merged prefill linears of
+    each layer; an int8 lm_head: K5 at the last prompt token and each
+    step; an int4 lm_head: K4 likewise. None: must be above 0."""
+    layer_bits = {"int8": 8, "int4": 4}.get(quantize, 0)
+    lm = lm_bits or {"int8": 8, "int4": 4, "lm8": 8}.get(quantize, 0)
+    return {
+        "decode_layers_fused": steps,
+        "decode_attention": layers * steps,
+        "flash_attention": None if seconds == 300 else 0,
+        "quant_matmul": (4 * layers if layer_bits == 8 else 0)
+        + (steps + 1 if lm == 8 else 0),
+        "quant_matvec_int4": steps + 1 if lm == 4 else 0,
+    }
+
+
+def run_path(torch, engine, clips, quantize, lm_bits, card):
+    """Phase 4 for one engine: a warm-up, then the counters set to 0 and
+    the clips transcribed, each checked against expected_launches.
+    Returns {kernel: launches in this path's run}."""
+    fns = kernel_wrappers()
+    layers = engine.config.text.num_hidden_layers
+    engine.transcribe(clips[4])  # warm-up: CUDA context, cuBLAS, kernels
+    for fn in fns.values():
+        fn.launches = 0
+    for seconds, path in clips.items():
+        before = {n: fn.launches for n, fn in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = engine.transcribe(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = engine.last_stats
+        steps = st["decode_steps"]
+        got = {n: fn.launches - before[n] for n, fn in fns.items()}
+        row = {"phase": "main", "quantize": quantize, "lm_bits": lm_bits,
+               "clip_seconds": seconds,
+               "language": r.language, "text_chars": len(r.text),
+               "tokens": len(r.raw_output.split()), "decode_steps": steps,
+               "k1_launches": got["decode_layers_fused"],
+               "k2_launches": got["decode_attention"],
+               "k3_launches": got["flash_attention"],
+               "k4_launches": got["quant_matvec_int4"],
+               "k5_launches": got["quant_matmul"],
+               "wall_s": wall, "xRT": seconds / wall,
+               "prefill_s": st["prefill_seconds"],
+               "decode_ms_per_token": (1e3 * st["decode_seconds"] / steps
+                                       if steps else None),
+               "card": card}
+        emit(row)
+        if not isinstance(r.language, str) or not isinstance(r.text, str):
+            raise AssertionError("transcription gave no language/text")
+        for n, want in expected_launches(quantize, lm_bits, layers, steps,
+                                         seconds).items():
+            if (got[n] <= 0) if want is None else (got[n] != want):
+                raise AssertionError(
+                    f"{quantize or 'bf16'} lm_bits={lm_bits} {seconds} s: "
+                    f"{n} launched "
+                    f"{got[n]} times, expected {'> 0' if want is None else want}")
+    return {n: fn.launches for n, fn in fns.items()}
+
+
+def parity(torch, engine32, clip, quantize):
+    """Phase 5 for one float32 engine: its decode-kernel path's greedy
+    tokens teacher-force both paths; per-step logits compared."""
+    import numpy as np
+
+    from qwen3_asr_rs_tpu_torch.runtime.engine import load_audio
+
+    samples = load_audio(clip, 16000)
+    teacher = engine32.generate(samples)  # kernel path's greedy tokens
+    logits0, cache_k, true_len = engine32.prefill(samples)
+    cache_p = type(cache_k)(k=cache_k.k.clone(), v=cache_k.v.clone())
+    dec = engine32.decoder
+    k1 = kernel_wrappers()["decode_layers_fused"]
+    k1_before = k1.launches
+    worst, agree = 0.0, 0
+    with torch.inference_mode():
+        for i, tok in enumerate(teacher[:-1]):
+            ids = torch.tensor([tok], device="cuda")
+            os.environ["ASR_DECODE_IMPL"] = "fused"
+            lk, _ = dec.decode_step(engine32.dec_params, ids, true_len + i,
+                                    cache_k)
+            os.environ["ASR_DECODE_IMPL"] = "scan"
+            os.environ["ASR_DECODE_ATTN"] = "dense"
+            lp, _ = dec.decode_step(engine32.dec_params, ids, true_len + i,
+                                    cache_p)
+            del os.environ["ASR_DECODE_IMPL"], os.environ["ASR_DECODE_ATTN"]
+            worst = max(worst, max_err(torch, lk, lp))
+            agree += int(torch.argmax(lk) == torch.argmax(lp))
+    n_steps = max(len(teacher) - 1, 1)
+    k1_launches = k1.launches - k1_before
+    emit({"phase": "parity", "dtype": "float32", "quantize": quantize,
+          "steps": len(teacher) - 1, "k1_launches": k1_launches,
+          "max_abs_logit_err": worst,
+          "tol": PARITY_LOGITS_ATOL, "greedy_agreement": agree / n_steps,
+          "logit_scale": float(np.abs(logits0.cpu().numpy()).max())})
+    if not worst <= PARITY_LOGITS_ATOL:
+        raise AssertionError(f"parity ({quantize}) logits error {worst}")
+    if k1_launches != len(teacher) - 1:
+        raise AssertionError(f"parity ({quantize}): the kernel path launched "
+                             f"K1 {k1_launches} times")
 
 
 def main() -> int:
@@ -311,7 +554,7 @@ def main() -> int:
                     if (_build.BUILD_DIR / f"{n}.log").exists()}})
 
     # weights: full 0.6B width, the JAX package's seeds and RNG order
-    from qwen3_asr_rs_tpu.config import AsrConfig
+    from qwen3_asr_rs_tpu_torch import AsrConfig
     from qwen3_asr_rs_tpu_torch.weights.convert import (
         init_decoder_params_np, init_encoder_params_np, to_torch)
 
@@ -327,119 +570,55 @@ def main() -> int:
     # 3. kernels
     kernel_rows = kernel_checks(torch, dec32)
 
-    # 4. main path
-    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention)
-    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
-        decode_layers_fused)
-    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention)
+    # 4. main path: bf16 weights, then int8 and int4 weights
     from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
 
-    counters = {"decode_layers_fused": decode_layers_fused,
-                "decode_attention": decode_attention,
-                "flash_attention": flash_attention}
-    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
-                       config=config, params=(enc32, dec32),
-                       tokenizer=StubTokenizer(), device="cuda")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     clips = {}
     for seconds, seed in ((4, 1), (30, 2), (300, 3)):
         path = tmp / f"clip_{seconds}s.wav"
         write_wav(path, seconds, seed)
         clips[seconds] = path
-    engine.transcribe(clips[4])  # warm-up: CUDA context, cuBLAS, kernels
-    for fn in counters.values():
-        fn.launches = 0
-    steps_total = 0
-    for seconds, path in clips.items():
-        flash_before = flash_attention.launches
-        k1_before = decode_layers_fused.launches
-        k2_before = decode_attention.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = engine.transcribe(path)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        st = engine.last_stats
-        steps = st["decode_steps"]
-        steps_total += steps
-        k1 = decode_layers_fused.launches - k1_before
-        k2 = decode_attention.launches - k2_before
-        row = {"phase": "main", "clip_seconds": seconds,
-               "language": r.language, "text_chars": len(r.text),
-               "tokens": len(r.raw_output.split()), "decode_steps": steps,
-               "k1_launches": k1, "k2_launches": k2,
-               "k3_launches": flash_attention.launches - flash_before,
-               "wall_s": wall, "xRT": seconds / wall,
-               "prefill_s": st["prefill_seconds"],
-               "decode_ms_per_token": (1e3 * st["decode_seconds"] / steps
-                                       if steps else None),
-               "card": card}
-        emit(row)
-        if not isinstance(r.language, str) or not isinstance(r.text, str):
-            raise AssertionError("transcription gave no language/text")
-        if k1 != steps:
-            raise AssertionError(f"K1 launches {k1} != decode steps {steps}")
-        # K1's C entry counts its launches of K2's kernels, one per layer
-        if k2 != config.text.num_hidden_layers * steps:
-            raise AssertionError(f"K2 launches {k2} != layers x {steps} steps")
-        if seconds == 300 and row["k3_launches"] <= 0:
-            raise AssertionError("the 300 s prefill did not run K3")
-    launches = {n: fn.launches for n, fn in counters.items()}
-    if launches["decode_layers_fused"] != steps_total:
-        raise AssertionError(f"K1 launches {launches} != steps {steps_total}")
-    for n, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {n} never launched on the main path")
-    del engine
-    torch.cuda.empty_cache()
+    launches = {}  # {path: {kernel: launches in that path's run}}
+    for quantize, lm_bits, seconds in MAIN_PATHS:
+        os.environ.pop("ASR_LM_BITS", None)
+        if lm_bits:  # read by the quantizer when the engine is built
+            os.environ["ASR_LM_BITS"] = str(lm_bits)
+        engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                           config=config, params=(enc32, dec32),
+                           tokenizer=StubTokenizer(), device="cuda",
+                           quantize=quantize)
+        os.environ.pop("ASR_LM_BITS", None)
+        label = (quantize or "bf16") + (f" lm{lm_bits}" if lm_bits else "")
+        launches[label] = run_path(
+            torch, engine, {c: clips[c] for c in seconds}, quantize, lm_bits,
+            card)
+        del engine
+        torch.cuda.empty_cache()
 
     # 5. parity: float32 teacher forcing, kernel path vs plain path
-    import numpy as np
-
-    from qwen3_asr_rs_tpu.audio.load import load_audio
-
-    engine32 = AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
-                         config=config, params=(enc32, dec32),
-                         tokenizer=StubTokenizer(), device="cuda")
-    samples = load_audio(clips[4], 16000)
-    teacher = engine32.generate(samples)  # kernel path's greedy tokens
-    logits0, cache_k, true_len = engine32.prefill(samples)
-    cache_p = type(cache_k)(k=cache_k.k.clone(), v=cache_k.v.clone())
-    dec = engine32.decoder
-    worst, agree = 0.0, 0
-    with torch.inference_mode():
-        for i, tok in enumerate(teacher[:-1]):
-            ids = torch.tensor([tok], device="cuda")
-            os.environ["ASR_DECODE_IMPL"] = "fused"
-            lk, _ = dec.decode_step(engine32.dec_params, ids, true_len + i,
-                                    cache_k)
-            os.environ["ASR_DECODE_IMPL"] = "scan"
-            os.environ["ASR_DECODE_ATTN"] = "dense"
-            lp, _ = dec.decode_step(engine32.dec_params, ids, true_len + i,
-                                    cache_p)
-            del os.environ["ASR_DECODE_IMPL"], os.environ["ASR_DECODE_ATTN"]
-            worst = max(worst, max_err(torch, lk, lp))
-            agree += int(torch.argmax(lk) == torch.argmax(lp))
-    n_steps = max(len(teacher) - 1, 1)
-    emit({"phase": "parity", "dtype": "float32", "steps": len(teacher) - 1,
-          "max_abs_logit_err": worst, "tol": PARITY_LOGITS_ATOL,
-          "greedy_agreement": agree / n_steps,
-          "logit_scale": float(np.abs(logits0.cpu().numpy()).max())})
-    if not worst <= PARITY_LOGITS_ATOL:
-        raise AssertionError(f"parity logits error {worst}")
+    for quantize in (None, "int8", "int4"):
+        parity(torch, AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
+                                config=config, params=(enc32, dec32),
+                                tokenizer=StubTokenizer(), device="cuda",
+                                quantize=quantize), clips[4], quantize)
+        torch.cuda.empty_cache()
 
     summary = []
-    for name in ("decode_layers_fused", "decode_attention", "flash_attention"):
+    for name in kernel_wrappers():
         rows = [r for r in kernel_rows if r["kernel"] == name
-                and r["dtype"] == "bfloat16"]
+                and r["dtype"].startswith("bfloat16")]
+        by_path = {p: c[name] for p, c in launches.items() if c[name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            **({"covers": K1_COVERS} if name == "decode_layers_fused" else {}),
         })
+        if not summary[-1]["launches"] > 0:
+            raise AssertionError(f"kernel {name} never launched on a main path")
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

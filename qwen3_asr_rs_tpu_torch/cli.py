@@ -36,6 +36,9 @@ Environment variables:
   ASR_MAX_NEW_TOKENS   Cap on generated tokens (default 4096)
   ASR_DTYPE            Compute dtype: bfloat16 (default) or float32
   ASR_DEVICE           Torch device (default cuda)
+  ASR_QUANT            Weight quantization: int8 | int4 | lm8 (default none)
+  ASR_LM_BITS          lm_head width under int8/int4: 8 | 4 (default: same)
+  ASR_MERGE_QKV        0 keeps q/k/v and gate/up unmerged when quantizing
 """
 
 
@@ -111,10 +114,11 @@ def main(argv=None) -> int:
         else torch.bfloat16
     )
     max_new = int(os.environ.get("ASR_MAX_NEW_TOKENS", "4096"))
+    quantize = os.environ.get("ASR_QUANT") or None
     logger = logging.getLogger("asr")
     try:
         engine = AsrEngine(model_path, dtype=dtype, max_new_tokens=max_new,
-                           device=device)
+                           device=device, quantize=quantize)
         for f in audio_files:
             logger.info("Transcribing: %s", f)
             result = engine.transcribe(f, language)

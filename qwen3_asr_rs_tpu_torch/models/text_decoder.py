@@ -13,8 +13,18 @@ an explicit self term, then write every layer's fresh K/V at slot
 (``ops/kernels/decode_layer.py``); ``ASR_DECODE_IMPL=scan`` selects the
 plain per-layer loop, whose attention is the K2 kernel
 (``ASR_DECODE_ATTN=kernel``, the CUDA default) or the masked dense path
-(``dense``, the CPU default). Quantized, merged, aligned-batch and
-speculative parameters and calls are not ported yet and raise
+(``dense``, the CPU default).
+
+Weight-quantized trees (``weights/quantize.py``: int8 ``*_q`` or int4
+``*_q4`` weights with float32 per-column ``*_s`` scales, merged
+``qkv_w``/``gateup_w`` or per projection) run every path: the int8
+linears and the int8 lm_head through the K5 kernel
+(``ops/kernels/quant_matmul.py``), the int4 lm_head through K4
+(``ops/kernels/quant_matvec_int4.py``), the int4 linears in plain torch
+as two half-width products, as in JAX. Every quantized product stays
+float32 until its scale is applied and only then rounds to the compute
+dtype. Grouped int4 scales, blocked int4, the folded lm_head,
+aligned-batch and speculative calls are not ported yet and raise
 NotImplementedError.
 """
 
@@ -31,15 +41,13 @@ from qwen3_asr_rs_tpu.config import TextDecoderConfig
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.decode_layer import decode_layers_fused
+from ..ops.kernels.quant_matmul import quant_matmul
+from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
 from ..ops.norms import rms_norm
+from ..ops.quant import int4_matmul_plain, matmul_f32
 from ..ops.rotary import RotaryTable, apply_rotary
 
 Tree = Any
-
-# parameter names of JAX-package branches this port does not run yet:
-# int8/int4 weights and scales, merged projections, the folded lm_head
-_UNPORTED_SUFFIXES = ("_q", "_q4", "_s")
-_UNPORTED_PREFIXES = ("qkv_w", "gateup_w", "lm_fold_")
 
 
 @dataclasses.dataclass
@@ -60,31 +68,77 @@ class KVCache:
 
 
 def check_params(params: Tree) -> None:
-    """Raise NotImplementedError for parameter trees of unported branches
-    (int8/int4 weights, merged projections, folded lm_head)."""
-    names = list(params) + list(params.get("layers", {}))
-    bad = [n for n in names if n.endswith(_UNPORTED_SUFFIXES)
-           or n.startswith(_UNPORTED_PREFIXES)]
+    """Raise NotImplementedError for parameter trees of unported branches:
+    grouped int4 scales (a 3-D ``*_s``), blocked int4 (a 4-D ``*_q4``),
+    the folded lm_head (``lm_fold_*``) and float merged projections."""
+    layers = params.get("layers", {})
+    bad = [n for n in params if n.startswith("lm_fold_")]
+    bad += [n for n in ("qkv_w", "gateup_w") if n in layers]
+    bad += [n for n, t in layers.items()
+            if (n.endswith("_s") and t.ndim != 2)
+            or (n.endswith("_q4") and t.ndim != 3)]
     if bad:
         raise NotImplementedError(
-            f"quantized/merged decoder parameters {bad} are not ported to "
+            f"decoder parameters {bad} (int4g grouped scales, blocked int4, "
+            "folded lm_head or float merged projections) are not ported to "
             "the PyTorch package yet"
         )
+
+
+def _linear(tree: Tree, name: str, x):
+    """x @ W for a float weight, an int8 (``{name}_q``, ``{name}_s``) pair
+    or a nibble-packed int4 (``{name}_q4``, ``{name}_s``) pair.
+
+    int8 runs K5 (``quant_matmul``; its plain version on the CPU). int4 is
+    the JAX package's two half-width products on the sign-extended
+    nibbles (``ops/quant.py::int4_matmul_plain``). Both apply the per-column scale to the float32 product, then round to
+    x.dtype once.
+    """
+    if f"{name}_q" in tree:
+        x2 = x.reshape(-1, x.shape[-1])
+        y = quant_matmul(x2.contiguous(), tree[f"{name}_q"], tree[f"{name}_s"])
+        return y.reshape(*x.shape[:-1], -1)
+    if f"{name}_q4" in tree:
+        return int4_matmul_plain(x, tree[f"{name}_q4"], tree[f"{name}_s"])
+    return x @ tree[name]
 
 
 def _qkv(layer: Tree, name: str, x, num_heads: int, head_dim: int):
     """Project and split into heads: (B, S, H*D) -> (B, S, H, D)."""
     b, s, _ = x.shape
-    out = x @ layer[f"{name}_w"]
+    out = _linear(layer, f"{name}_w", x)
     bias = layer.get(f"{name}_b")
     if bias is not None:
         out = out + bias
     return out.reshape(b, s, num_heads, head_dim)
 
 
+def _qkv3(layer: Tree, x, nq: int, nkv: int, head_dim: int):
+    """q, k, v (B, S, heads, D): one product through the merged
+    ``qkv_w`` when the quantizer merged the projections (the slices are
+    copied out: the attention kernels take contiguous operands)."""
+    if "qkv_w_q" in layer or "qkv_w_q4" in layer:
+        b, s, _ = x.shape
+        q, k, v = torch.split(_linear(layer, "qkv_w", x),
+                              [nq * head_dim, nkv * head_dim, nkv * head_dim],
+                              -1)
+        return tuple(t.reshape(b, s, n, head_dim).contiguous()
+                     for t, n in ((q, nq), (k, nkv), (v, nkv)))
+    return (_qkv(layer, "q", x, nq, head_dim), _qkv(layer, "k", x, nkv, head_dim),
+            _qkv(layer, "v", x, nkv, head_dim))
+
+
+def _gate_up(layer: Tree, x):
+    """silu(gate(x)) * up(x), through the merged ``gateup_w`` if present."""
+    silu = torch.nn.functional.silu
+    if "gateup_w_q" in layer or "gateup_w_q4" in layer:
+        gate, up = _linear(layer, "gateup_w", x).chunk(2, -1)
+        return silu(gate) * up
+    return silu(_linear(layer, "gate_w", x)) * _linear(layer, "up_w", x)
+
+
 def _mlp(layer: Tree, x):
-    gate = x @ layer["gate_w"]
-    return (torch.nn.functional.silu(gate) * (x @ layer["up_w"])) @ layer["down_w"]
+    return _linear(layer, "down_w", _gate_up(layer, x))
 
 
 class TextDecoder:
@@ -112,9 +166,8 @@ class TextDecoder:
         cfg = self.cfg
         residual = x
         h = rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps)
-        q = _qkv(layer, "q", h, cfg.num_attention_heads, cfg.head_dim)
-        k = _qkv(layer, "k", h, cfg.num_key_value_heads, cfg.head_dim)
-        v = _qkv(layer, "v", h, cfg.num_key_value_heads, cfg.head_dim)
+        q, k, v = _qkv3(layer, h, cfg.num_attention_heads,
+                        cfg.num_key_value_heads, cfg.head_dim)
         q = rms_norm(q, layer["q_norm_w"], cfg.rms_norm_eps)
         k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
         q = apply_rotary(q, cos, sin)
@@ -126,19 +179,26 @@ class TextDecoder:
 
         attn = attention(q, k, v, causal=True)
         b = attn.shape[0]
-        x = residual + attn.reshape(b, s, -1) @ layer["o_w"]
+        x = residual + _linear(layer, "o_w", attn.reshape(b, s, -1))
         residual = x
         h = rms_norm(x, layer["post_ln_w"], cfg.rms_norm_eps)
         return residual + _mlp(layer, h)
 
     def logits(self, params: Tree, hidden):
-        """Final norm + lm head; float32 logits (B, S, V)."""
+        """Final norm + lm head; float32 logits (B, S, V), never rounded
+        to the compute dtype (JAX: ``preferred_element_type=float32``).
+        int4 lm_head: K4; int8 lm_head: K5 with a float32 output."""
         h = rms_norm(hidden, params["final_ln_w"], self.cfg.rms_norm_eps)
-        if h.dtype == torch.float32:
-            return h @ params["lm_head"].T
-        # a (V, H) bf16 GEMV accumulates in f32 and rounds to bf16 here,
-        # where the JAX einsum keeps f32 logits
-        return (h @ params["lm_head"].T).float()
+        b, s, hd = h.shape
+        h2 = h.reshape(b * s, hd).contiguous()
+        if "lm_head_q4" in params:
+            y = quant_matvec_int4(h2, params["lm_head_q4"], params["lm_head_s"])
+        elif "lm_head_q" in params:
+            y = quant_matmul(h2, params["lm_head_q"], params["lm_head_s"],
+                             out_dtype=torch.float32)
+        else:
+            y = matmul_f32(h2, params["lm_head"].T)
+        return y.reshape(b, s, -1)
 
     @torch.inference_mode()
     def prefill(self, params: Tree, hidden, position_ids, cache: KVCache,
@@ -150,7 +210,7 @@ class TextDecoder:
         check_params(params)
         cos, sin = self.rotary.lookup(position_ids)
         layers = params["layers"]
-        for l in range(layers["q_w"].shape[0]):
+        for l in range(cache.k.shape[0]):
             hidden = self._layer({k: v[l] for k, v in layers.items()},
                                  hidden, cos, sin, l, cache)
         last = hidden[:, true_len - 1: true_len]
@@ -158,8 +218,9 @@ class TextDecoder:
 
     def _use_fused_step(self, params: Tree, b: int, device) -> bool:
         """The decode kernel runs for a shared scalar slot, B = 1, no
-        attention biases, and head_dim 128 on CUDA (ASR_DECODE_IMPL=
-        scan|fused overrides 'auto')."""
+        attention biases, and head_dim 128 on CUDA, for float, int8 and
+        int4 weights, merged or not (ASR_DECODE_IMPL=scan|fused overrides
+        'auto')."""
         impl = os.environ.get("ASR_DECODE_IMPL", "auto")
         if impl == "scan":
             return False
@@ -218,7 +279,7 @@ class TextDecoder:
         layers = params["layers"]
         ks, vs = [], []
         h = hidden[:, None]  # (B, 1, H)
-        for l in range(layers["q_w"].shape[0]):
+        for l in range(cache.k.shape[0]):
             layer = {k: v[l] for k, v in layers.items()}
             h, k_f, v_f = self._decode_layer(layer, l, h, cos, sin, cache,
                                              pos, impl)
@@ -236,9 +297,7 @@ class TextDecoder:
                        cfg.head_dim)
         residual = h
         x = rms_norm(h, layer["input_ln_w"], cfg.rms_norm_eps)
-        q = _qkv(layer, "q", x, nq, hd)
-        k = _qkv(layer, "k", x, nkv, hd)
-        v = _qkv(layer, "v", x, nkv, hd)
+        q, k, v = _qkv3(layer, x, nq, nkv, hd)
         q = rms_norm(q, layer["q_norm_w"], cfg.rms_norm_eps)
         k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
         q = apply_rotary(q, cos, sin)
@@ -253,7 +312,7 @@ class TextDecoder:
             out = self._dense_self_attention(q, k, v, cache.k[l], cache.v[l],
                                              pos)
         out = out.reshape(b, 1, nq * hd).to(h.dtype)
-        h = residual + out @ layer["o_w"]
+        h = residual + _linear(layer, "o_w", out)
         residual = h
         x = rms_norm(h, layer["post_ln_w"], cfg.rms_norm_eps)
         return residual + _mlp(layer, x), k[:, 0], v[:, 0]

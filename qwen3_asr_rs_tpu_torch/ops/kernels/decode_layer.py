@@ -2,25 +2,32 @@
 
 Replaces the Pallas decode megakernel
 ``qwen3_asr_rs_tpu/ops/pallas/decode_layer.py::decode_layers_fused`` in
-its bf16/f32, unmerged, ``ffn_tiles=1``, no-fold, no-int8-KV branch, at
-B = 1. One token goes through every layer (RMSNorm -> q/k/v -> QK-RMSNorm
--> rotary -> GQA attention over the slab's live range plus the fresh
-self K/V -> o-proj + residual -> RMSNorm -> SwiGLU -> down + residual);
-the step returns ``(h (B, H), ks, vs (L, B, Hkv, D))`` and the caller
-writes ks/vs into the slab, as in JAX.
+its ``ffn_tiles=1``, no-fold, no-int8-KV branches at B = 1, for bf16/f32
+activations and float, int8 (``*_q`` + per-column ``*_s``) or int4
+(``*_q4`` + ``*_s``, nibble-packed: packed column j holds columns j and
+j + N/2) weights, in the merged layout (``qkv_w``, ``o_w``, ``gateup_w``,
+``down_w``) or per projection. One token goes through every layer
+(RMSNorm -> q/k/v -> QK-RMSNorm -> rotary -> GQA attention over the
+slab's live range plus the fresh self K/V -> o-proj + residual ->
+RMSNorm -> SwiGLU -> down + residual); the step returns ``(h (B, H), ks,
+vs (L, B, Hkv, D))`` and the caller writes ks/vs into the slab, as in
+JAX. Every product accumulates in float32; a quantized product's scale
+multiplies the whole sum, which then rounds to the compute dtype, as
+the Pallas kernel's ``_mm`` does.
 
 Kernel: ``csrc/decode_layer.cu``, one C entry that loops over the layers
-and launches hand-written GEMVs (RMSNorm prologue; store, residual or
-SwiGLU epilogue), a QK-norm + rotary kernel and K2's attention kernels
-per layer. What bounds it on the H100 is the weight stream: at 0.6B bf16
-28 x 15.7 M parameters, 0.88 GB per token, 0.26 ms at the data-sheet
-3.35 TB/s. This first version is far from that bound: its 9 launches
-per layer are each latency-bound (small GEMV grids, a chain of
-dependent phases per launch), and enqueueing them takes the host more
-than half as long as the device takes to run them (see PERF.md). The Pallas
-kernel's VMEM budgets,
-``ffn_tiles``, resident/DMA slab modes and 8/128 alignments are TPU
-artifacts and are not carried over.
+and launches hand-written GEMVs templated on the weight kind (RMSNorm
+prologue; store, residual or SwiGLU epilogue), a QK-norm + rotary kernel
+and K2's attention kernels per layer. What bounds it on the H100 is the
+weight stream: at 0.6B 28 x 15.7 M parameters, 0.88 GB per token in
+bf16, 0.44 GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the
+data-sheet 3.35 TB/s). This first version is far from that bound: its 9
+(unmerged) or 7 (merged) launches per layer are each latency-bound
+(small GEMV grids, a chain of dependent phases per launch), and
+enqueueing them takes the host a large share of the time the device
+takes to run them (see PERF.md). The Pallas kernel's VMEM budgets,
+``ffn_tiles``, resident/DMA slab modes, scale-row packing and 8/128
+alignments are TPU artifacts and are not carried over.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import ctypes
 
 import torch
 
+from ..quant import int4_matmul_plain
 from . import _build
 from .decode_attention import (
     _as_index,
@@ -36,9 +44,22 @@ from .decode_attention import (
     decode_attention,
     decode_attention_plain,
 )
+from .quant_matmul import quant_matmul_plain
 
 _WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+_MERGED_WEIGHTS = ("qkv_w", "o_w", "gateup_w", "down_w")
 _NORMS = ("input_ln_w", "post_ln_w", "q_norm_w", "k_norm_w")
+# weight kind codes of the C entry, by the stored name's suffix
+_KINDS = {"": 0, "_q": 1, "_q4": 2}
+
+
+def _layout(layers):
+    """(weight-name suffix '' | '_q' | '_q4', merged) of a layer tree."""
+    merged = "qkv_w_q" in layers or "qkv_w_q4" in layers
+    for suffix in ("_q4", "_q"):
+        if f"{'qkv_w' if merged else 'q_w'}{suffix}" in layers:
+            return suffix, merged
+    return "", merged
 
 
 def _rms(x, w, eps):
@@ -47,23 +68,32 @@ def _rms(x, w, eps):
     return xf * torch.rsqrt(var + eps) * w.float()
 
 
-def _mm(x, w):
-    """(R, K) @ (K, N) with float32 accumulation of T products."""
-    return x.float() @ w.float()
+def _mm(x, layers, name: str, l: int, cdt):
+    """x (R, K) @ layer ``l`` of weight ``name`` -> cdt: float32
+    accumulation of x's values times the float, int8 or int4 weights,
+    the per-column scale applied to the whole sum, one rounding."""
+    if f"{name}_q4" in layers:
+        return int4_matmul_plain(x, layers[f"{name}_q4"][l],
+                                 layers[f"{name}_s"][l], out_dtype=cdt)
+    if f"{name}_q" in layers:
+        return quant_matmul_plain(x, layers[f"{name}_q"][l],
+                                  layers[f"{name}_s"][l], out_dtype=cdt)
+    return (x.float() @ layers[name][l].float()).to(cdt)
 
 
 def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
                               end, *, eps: float):
     """Plain PyTorch version, rounding to x.dtype at the kernel's stages.
 
-    x (B, H); cos/sin (B, D) float32; layers: stacked (L, ...) tree;
+    x (B, H); cos/sin (B, D) float32; layers: stacked (L, ...) tree of
+    float, int8 or int4 weights, merged or per projection;
     k/v_slabs (L, B, Hkv, S, D); start (B,) int tensor or None; end (B,).
     Returns (h (B, H), ks (L, B, Hkv, D), vs (L, B, Hkv, D)).
     """
     cdt = x.dtype
     b = x.shape[0]
     nl, _, hkv, _, d = k_slabs.shape
-    hq = layers["q_w"].shape[-1] // d
+    merged = _layout(layers)[1]
     half = d // 2
     cos_f, sin_f = cos.float()[:, None, :], sin.float()[:, None, :]
 
@@ -76,22 +106,31 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
     ks, vs = [], []
     for l in range(nl):
         xn = _rms(h, layers["input_ln_w"][l], eps).to(cdt)
-        q = _mm(xn, layers["q_w"][l]).to(cdt)
-        k = _mm(xn, layers["k_w"][l]).to(cdt)
-        v = _mm(xn, layers["v_w"][l]).to(cdt)
+        if merged:
+            qkv = _mm(xn, layers, "qkv_w", l, cdt)
+            q, k, v = qkv.split([qkv.shape[-1] - 2 * hkv * d, hkv * d,
+                                 hkv * d], -1)
+        else:
+            q, k, v = (_mm(xn, layers, n, l, cdt) for n in ("q_w", "k_w", "v_w"))
+        hq = q.shape[-1] // d
         q = _rms(q.reshape(b, hq, d), layers["q_norm_w"][l], eps).to(cdt)
         k = _rms(k.reshape(b, hkv, d), layers["k_norm_w"][l], eps).to(cdt)
         q, k = rope(q, hq), rope(k, hkv)
         v = v.reshape(b, hkv, d)
         attn = decode_attention_plain(q, k_slabs, v_slabs, k, v, l, start, end)
-        o = _mm(attn.reshape(b, hq * d), layers["o_w"][l]).to(cdt)
+        o = _mm(attn.reshape(b, hq * d), layers, "o_w", l, cdt)
         h = (h.float() + o.float()).to(cdt)
         xn2 = _rms(h, layers["post_ln_w"][l], eps).to(cdt)
-        gate = _mm(xn2, layers["gate_w"][l]).to(cdt).float()
-        up = _mm(xn2, layers["up_w"][l]).to(cdt)
+        if merged:
+            gate, up = _mm(xn2, layers, "gateup_w", l, cdt).chunk(2, -1)
+        else:
+            gate = _mm(xn2, layers, "gate_w", l, cdt)
+            up = _mm(xn2, layers, "up_w", l, cdt)
+        gate = gate.float()
         act = (gate * torch.sigmoid(gate)).to(cdt)
-        down = _mm((act.float() * up.float()).to(cdt), layers["down_w"][l])
-        h = (h.float() + down.to(cdt).float()).to(cdt)
+        down = _mm((act.float() * up.float()).to(cdt), layers, "down_w", l,
+                   cdt)
+        h = (h.float() + down.float()).to(cdt)
         ks.append(k)
         vs.append(v)
     return h, torch.stack(ks), torch.stack(vs)
@@ -108,7 +147,11 @@ def _lib():
     lib = _build.load("decode_layer")
     if not getattr(lib, "_bound", False):
         for fn in ("decode_layers_fused_bf16", "decode_layers_fused_f32"):
-            _build.bind(lib, fn, 25, (ctypes.c_int,) * 7 + (ctypes.c_float,))
+            f = getattr(lib, fn)
+            f.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p] + [ctypes.c_int] * 7
+                          + [ctypes.c_float, ctypes.c_void_p])
+            f.restype = ctypes.c_int
         lib.decode_layers_fused_scratch.argtypes = (
             [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
         )
@@ -118,41 +161,60 @@ def _lib():
 
 
 def _check(x, cos, sin, layers, k_slabs, v_slabs):
+    """Validate the operands of the CUDA step; returns (suffix, merged,
+    nl, h, hq, hkv, d, inter)."""
     if x.ndim != 2 or x.shape[0] != 1:
         raise ValueError(
             "decode_layers_fused: the CUDA step takes B = 1 "
             f"(got x {tuple(x.shape)}); batched decode is not ported yet"
         )
-    missing = [n for n in _WEIGHTS + _NORMS if n not in layers]
-    extra = [n for n in layers if n not in _WEIGHTS + _NORMS]
+    suffix, merged = _layout(layers)
+    names = _MERGED_WEIGHTS if merged else _WEIGHTS
+    expected = {n + suffix for n in names} | set(_NORMS)
+    if suffix:
+        expected |= {f"{n}_s" for n in names}
+    missing = sorted(expected - set(layers))
+    extra = sorted(set(layers) - expected)
     if missing or extra:
         raise ValueError(
-            "decode_layers_fused: takes unmerged float weights only "
-            f"(missing {missing}, unsupported {extra})"
+            "decode_layers_fused: takes float, int8 or int4 weights, merged "
+            f"or per projection (missing {missing}, unsupported {extra})"
         )
     nl, b, hkv, _, d = k_slabs.shape
     h = x.shape[1]
-    hq = layers["q_w"].shape[-1] // d
-    inter = layers["gate_w"].shape[-1]
-    want = {
-        "q_w": (nl, h, hq * d), "k_w": (nl, h, hkv * d),
-        "v_w": (nl, h, hkv * d), "o_w": (nl, hq * d, h),
-        "gate_w": (nl, h, inter), "up_w": (nl, h, inter),
-        "down_w": (nl, inter, h), "input_ln_w": (nl, h),
-        "post_ln_w": (nl, h), "q_norm_w": (nl, d), "k_norm_w": (nl, d),
-    }
-    for n, shape in want.items():
+    pack = 2 if suffix == "_q4" else 1  # logical columns per stored one
+    if merged:
+        hq = (layers["qkv_w" + suffix].shape[-1] * pack - 2 * hkv * d) // d
+        inter = layers["gateup_w" + suffix].shape[-1] * pack // 2
+        widths = {"qkv_w": (h, (hq + 2 * hkv) * d), "gateup_w": (h, 2 * inter)}
+    else:
+        hq = layers["q_w" + suffix].shape[-1] * pack // d
+        inter = layers["gate_w" + suffix].shape[-1] * pack
+        widths = {"q_w": (h, hq * d), "k_w": (h, hkv * d), "v_w": (h, hkv * d),
+                  "gate_w": (h, inter), "up_w": (h, inter)}
+    widths.update({"o_w": (hq * d, h), "down_w": (inter, h)})
+    want = {n + suffix: ((nl, k, n_out // pack),
+                         torch.int8 if suffix else x.dtype)
+            for n, (k, n_out) in widths.items()}
+    if suffix:
+        want.update({f"{n}_s": ((nl, n_out), torch.float32)
+                     for n, (_, n_out) in widths.items()})
+    want.update({"input_ln_w": ((nl, h), x.dtype), "post_ln_w": ((nl, h), x.dtype),
+                 "q_norm_w": ((nl, d), x.dtype), "k_norm_w": ((nl, d), x.dtype)})
+    for n, (shape, dtype) in want.items():
         t = layers[n]
-        if tuple(t.shape) != shape or t.dtype != x.dtype or (
+        if tuple(t.shape) != shape or t.dtype != dtype or (
             t.device != x.device or not t.is_contiguous()
         ):
             raise ValueError(
                 f"decode_layers_fused: {n} must be a contiguous {shape} "
-                f"{x.dtype} tensor on {x.device}, got {tuple(t.shape)} "
+                f"{dtype} tensor on {x.device}, got {tuple(t.shape)} "
                 f"{t.dtype} on {t.device}"
             )
-    if h % 8 or inter % 8:
-        raise ValueError("decode_layers_fused: H and I must be multiples of 8")
+    align = 16 if suffix == "_q4" else 8
+    if h % align or inter % align:
+        raise ValueError(
+            f"decode_layers_fused: H and I must be multiples of {align}")
     for t in (cos, sin):
         if t.shape != (b, d) or t.dtype != torch.float32 or (
             t.device != x.device or not t.is_contiguous()
@@ -161,7 +223,7 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs):
     check_slabs(k_slabs, v_slabs, b, hq, d, x.dtype, x.device)
     if not x.is_contiguous():
         raise ValueError("decode_layers_fused: x must be contiguous")
-    return nl, h, hq, hkv, d, inter
+    return suffix, merged, nl, h, hq, hkv, d, inter
 
 
 def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
@@ -182,7 +244,8 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
         )
     if x.device.type != "cuda":
         raise ValueError(f"decode_layers_fused: device {x.device} not supported")
-    nl, h, hq, hkv, d, inter = _check(x, cos, sin, layers, k_slabs, v_slabs)
+    suffix, merged, nl, h, hq, hkv, d, inter = _check(
+        x, cos, sin, layers, k_slabs, v_slabs)
     s_max = k_slabs.shape[3]
     start_t = _as_index(0 if start is None else start, b, x.device)
     end_t = _as_index(end, b, x.device)
@@ -201,16 +264,24 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
     h_out = torch.empty_like(x)
     ks = torch.empty((nl, b, hkv, d), dtype=x.dtype, device=x.device)
     vs = torch.empty_like(ks)
+    # the C entry's pointer table (csrc/decode_layer.cu, enum StepPtr)
+    names = _MERGED_WEIGHTS if merged else _WEIGHTS
+    slot = {"qkv_w": "q_w", "gateup_w": "gate_w"}
+    weights = dict.fromkeys(_WEIGHTS)
+    scales = dict.fromkeys(_WEIGHTS)
+    for n in names:
+        weights[slot.get(n, n)] = layers[n + suffix]
+        scales[slot.get(n, n)] = layers.get(f"{n}_s") if suffix else None
+    tensors = ([x, cos, sin] + [layers[n] for n in _NORMS]
+               + [k_slabs, v_slabs, start_t, end_t, h_out, ks, vs, ws,
+                  counters, tmp]
+               + [weights[n] for n in _WEIGHTS] + [scales[n] for n in _WEIGHTS])
+    table = (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
     attn_launches = ctypes.c_int(0)
     fn = (lib.decode_layers_fused_bf16 if x.dtype == torch.bfloat16
           else lib.decode_layers_fused_f32)
-    p = _build.ptr
-    rc = fn(p(x), p(cos), p(sin),
-            *(p(layers[n]) for n in _NORMS),
-            *(p(layers[n]) for n in _WEIGHTS),
-            p(k_slabs), p(v_slabs), p(start_t), p(end_t),
-            p(h_out), p(ks), p(vs), p(ws), p(counters), p(tmp),
-            ctypes.addressof(attn_launches),
+    rc = fn(table, _KINDS[suffix], int(merged), ctypes.addressof(attn_launches),
             nl, h, hq, hkv, d, inter, s_max, eps, stream)
     decode_attention.launches += attn_launches.value
     if rc != 0:

@@ -1,0 +1,134 @@
+"""Weight-only int8 / int4 quantizers, bit-exact with the JAX package.
+
+Ports the non-kernel functions of
+``qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py``: per-output-channel
+symmetric int8 (``quantize_weight``), nibble-packed int4 whose packed
+column j holds columns (j, j + N/2) (``quantize_weight_int4``), and the
+lm_head's tile-local int4 packing (``quantize_weight_int4_tiled``), with
+their inverses, and the plain int4 product. Outputs are contiguous whatever the input's strides
+(the lm_head is quantized through a transposed view). The kernels that
+read these layouts are ``ops/kernels/quant_matmul.py`` (int8) and
+``ops/kernels/quant_matvec_int4.py`` (tile-local int4); the decode step
+(``ops/kernels/decode_layer.py``) reads both per-layer layouts.
+
+Bit-exactness: ``absmax / 127`` (or ``/ 7``) and the division of the
+weights by the scales run in float32, as in JAX, and ``torch.round``
+rounds half to even, as ``jnp.round`` does. Packing is done on int32
+values and mapped back to the int8 range explicitly, so it does not rely
+on how an int8 shift wraps; nibbles are sign-extended through int32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MATVEC_TILE = 8192
+
+
+def quantize_weight(w, axis: int = 0):
+    """Per-output-channel symmetric int8 quantization of (K, N) weights
+    (or (L, K, N) stacks with ``axis=-2``).
+
+    Returns (w_q int8, scales float32 with ``axis`` removed). ``axis`` is
+    the contraction axis.
+    """
+    wf = w.float()
+    scales = torch.clamp(wf.abs().amax(dim=axis), min=1e-8) / 127.0
+    w_q = torch.clamp(torch.round(wf / scales.unsqueeze(axis)), -127, 127)
+    return w_q.to(torch.int8).contiguous(), scales
+
+
+def _pack_nibbles(lo, hi):
+    """int8 byte whose low nibble is ``lo`` and high nibble ``hi``
+    (values in [-7, 7])."""
+    p = (lo.int() & 0xF) | ((hi.int() & 0xF) << 4)  # 0..255
+    return torch.where(p >= 128, p - 256, p).to(torch.int8).contiguous()
+
+
+def quantize_weight_int4(w, axis: int = 0, blocks: int = 1):
+    """Per-output-channel symmetric int4 quantization of (..., K, N)
+    weights. Returns (packed int8 (..., K, N // 2), scales float32
+    (..., N)); packed column j holds columns j (low nibble) and j + N/2
+    (high nibble). Values are clipped to [-7, 7]. N must be even.
+
+    ``blocks > 1`` (the tensor-parallel block-local packing) is not
+    ported (ROADMAP §1 item 11)."""
+    if blocks != 1:
+        raise NotImplementedError(
+            "blocked int4 packing (tensor parallelism) is not ported to the "
+            "PyTorch package yet (ROADMAP §1 item 11)"
+        )
+    if axis not in (0, -2) or (axis == 0 and w.ndim != 2):
+        raise ValueError("quantize_weight_int4: the contraction axis is -2")
+    wf = w.float()
+    scales = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / 7.0
+    q = torch.clamp(torch.round(wf / scales.unsqueeze(-2)), -7, 7)
+    n = q.shape[-1]
+    if n % 2:
+        raise ValueError(f"int4 packing needs an even output dim, got {n}")
+    return _pack_nibbles(q[..., : n // 2], q[..., n // 2:]), scales
+
+
+def unpack_nibbles(packed):
+    """(low, high) sign-extended nibbles of int8 bytes, as int32."""
+    p = packed.int()
+    return ((p & 0xF) ^ 8) - 8, p >> 4
+
+
+def unpack_int4(packed, dtype=torch.float32):
+    """Inverse of ``quantize_weight_int4``'s packing (original column
+    order): (..., K, N // 2) int8 -> (..., K, N) ``dtype``."""
+    lo, hi = unpack_nibbles(packed)
+    return torch.cat([lo, hi], dim=-1).to(dtype)
+
+
+def matmul_f32(a, b):
+    """a (..., K) @ b (K, N) of one dtype as float32: float32 accumulation
+    of the products and no rounding to that dtype (JAX's
+    ``preferred_element_type=jnp.float32``). On CUDA a bf16 product keeps
+    its float32 result through ``aten::mm.dtype``; elsewhere the operands
+    are upcast (bf16 x bf16 products are exact in float32)."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.is_cuda and a.dtype != torch.float32:
+        y = torch.mm(a2, b, out_dtype=torch.float32)
+    else:
+        y = a2.float() @ b.float()
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def int4_matmul_plain(x, w_q4, scales, out_dtype=None):
+    """x (..., K) @ int4 ``w_q4`` (K, N // 2) (``quantize_weight_int4``'s
+    packing) times the per-column ``scales`` -> (..., N) ``out_dtype``
+    (default x.dtype). The JAX package's two half-width products on the
+    sign-extended nibbles, each float32 (the nibbles are exact in x's
+    dtype), concatenated, scaled, then rounded once."""
+    lo, hi = unpack_nibbles(w_q4)
+    y = torch.cat([matmul_f32(x, lo.to(x.dtype)),
+                   matmul_f32(x, hi.to(x.dtype))], -1)
+    return (y * scales.float()).to(out_dtype or x.dtype)
+
+
+def quantize_weight_int4_tiled(w, tile: int = MATVEC_TILE):
+    """Tile-local int4 packing of (K, N) weights for ``quant_matvec_int4``.
+
+    N is zero-padded to a multiple of ``tile``; each tile packs its own
+    columns (j, j + tile/2) into one int8. Returns (packed int8
+    (K, N_pad // 2), scales float32 (N,) — unpadded).
+    """
+    wf = w.float()
+    k, n = wf.shape
+    n_pad = -(-n // tile) * tile
+    scales = torch.clamp(wf.abs().amax(dim=0), min=1e-8) / 7.0
+    q = torch.clamp(torch.round(wf / scales[None, :]), -7, 7)
+    q = torch.nn.functional.pad(q, (0, n_pad - n))
+    qt = q.reshape(k, n_pad // tile, 2, tile // 2)
+    packed = _pack_nibbles(qt[:, :, 0], qt[:, :, 1])
+    return packed.reshape(k, n_pad // 2), scales
+
+
+def unpack_int4_tiled(packed, tile: int = MATVEC_TILE, dtype=torch.float32):
+    """Inverse of ``quantize_weight_int4_tiled``'s packing:
+    (K, N_pad // 2) int8 -> (K, N_pad) ``dtype`` (padded columns zero)."""
+    k, half = packed.shape
+    lo, hi = unpack_nibbles(packed.reshape(k, half // (tile // 2), tile // 2))
+    return torch.cat([lo, hi], dim=-1).reshape(k, 2 * half).to(dtype)

@@ -10,8 +10,10 @@ Differences from the JAX engine, none of which changes the tokens: the
 decode loop is a Python loop with one host read of the token per step
 (CUDA graphs are later work), and the KV slab is allocated once at its
 final length instead of in growing segments (masks make the output
-independent of the slab length). Batches of more than one utterance,
-sampling, quantization, int8 KV, speculative decoding and long-form audio
+independent of the slab length). Weight quantization follows the JAX
+engine's ``quantize=`` modes 'int8', 'int4' and 'lm8' (with
+``ASR_MERGE_QKV`` and ``ASR_LM_BITS``); 'int4g', batches of more than one
+utterance, sampling, int8 KV, speculative decoding and long-form audio
 (beyond the largest bucket) are not ported yet and raise.
 """
 
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -44,6 +47,7 @@ from ..models.audio_encoder import AudioEncoder
 from ..models.text_decoder import KVCache, TextDecoder
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
+from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
 
 logger = logging.getLogger(__name__)
@@ -81,10 +85,14 @@ class AsrEngine:
         params: Optional[tuple] = None,
         tokenizer=None,
         device: str | torch.device = "cuda",
+        quantize: Optional[str] = None,
     ):
         """``params``: optional (encoder, decoder) trees (torch tensors or
         numpy arrays in the JAX layouts), cast to ``dtype`` on ``device``.
-        ``device`` is explicit: there is no CPU fallback for "cuda"."""
+        ``device`` is explicit: there is no CPU fallback for "cuda".
+        ``quantize``: None, 'int8', 'int4' or 'lm8' (int8 lm_head only),
+        applied to the decoder weights after the cast to ``dtype``, as the
+        JAX engine does."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AsrEngine(device='cuda'): no CUDA device")
@@ -101,6 +109,9 @@ class AsrEngine:
         else:
             params = to_torch(params, dtype, self.device)
         self.enc_params, self.dec_params = params
+        del params  # so the float linears are freed once quantized
+        self.quantize = quantize
+        self.dec_params = self._quantize_params(self.dec_params, quantize)
         if tokenizer is None:
             tokenizer = AsrTokenizer.from_dir(model_dir)
         self.tokenizer = tokenizer
@@ -116,6 +127,27 @@ class AsrEngine:
                                    device=self.device)
         # step count and stage times of the last generate() call
         self.last_stats: dict = {}
+
+    @staticmethod
+    def _quantize_params(dec, quantize: Optional[str]):
+        """The decoder tree under a weight-quantization mode (the JAX
+        engine's ``_quantize_params`` for one device)."""
+        if quantize is None:
+            return dec
+        if quantize in ("int8", "int4"):
+            logger.info("Quantizing decoder weights to %s", quantize)
+            merge = os.environ.get("ASR_MERGE_QKV", "1") != "0"
+            return quantize_decoder_params(
+                dec, bits=4 if quantize == "int4" else 8, merge=merge)
+        if quantize == "lm8":
+            logger.info("Quantizing lm_head to int8 (layers keep their dtype)")
+            return quantize_lm_head_only(dec)
+        if quantize == "int4g":
+            raise NotImplementedError(
+                "quantize='int4g' (group-wise int4 scales) is not ported to "
+                "the PyTorch package yet (ROADMAP §1 item 11)"
+            )
+        raise ValueError(f"unknown quantize mode {quantize!r}")
 
     def _prompt_bucket(self, num_chunks: int) -> int:
         tpc = self.config.audio.tokens_per_chunk

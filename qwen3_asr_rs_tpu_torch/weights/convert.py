@@ -26,31 +26,43 @@ Tree = Any
 
 
 def tree_map(fn: Callable, tree: Tree) -> Tree:
-    """Apply ``fn`` to every leaf, mapping a shared leaf (tied
-    embeddings) once so the result shares it too."""
+    """``fn(name, leaf)`` for every leaf, ``name`` its dict key (None at
+    the top), mapping a shared leaf (tied embeddings) once so the result
+    shares it too."""
     done: dict[int, Any] = {}
 
-    def go(node):
+    def go(node, name):
         if isinstance(node, dict):
-            return {k: go(v) for k, v in node.items()}
+            return {k: go(v, k) for k, v in node.items()}
         if isinstance(node, tuple):
-            return tuple(go(v) for v in node)
+            return tuple(go(v, name) for v in node)
         if id(node) not in done:
-            done[id(node)] = fn(node)
+            done[id(node)] = fn(name, node)
         return done[id(node)]
 
-    return go(tree)
+    return go(tree, None)
 
 
 def to_torch(tree: Tree, dtype: torch.dtype | None = None,
              device: str | torch.device = "cpu") -> Tree:
     """numpy arrays (or anything ``np.asarray`` takes, e.g. jax arrays)
-    or tensors -> torch tensors on ``device``, cast to ``dtype``."""
+    or tensors -> torch tensors on ``device``, float leaves cast to
+    ``dtype``. Quantized trees (``weights/quantize.py``) carry across
+    unchanged: integer leaves keep their dtype and the ``*_s`` scale
+    leaves stay float32."""
 
-    def conv(x):
+    def conv(name, x):
         if not isinstance(x, torch.Tensor):
             a = np.ascontiguousarray(np.asarray(x))
-            x = torch.from_numpy(a if a.flags.writeable else a.copy())
+            a = a if a.flags.writeable else a.copy()
+            if a.dtype.name == "bfloat16":  # ml_dtypes' bf16 (jax arrays)
+                x = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+            else:
+                x = torch.from_numpy(a)
+        if not x.is_floating_point():
+            return x.to(device=device)
+        if name is not None and name.endswith("_s"):
+            return x.to(device=device, dtype=torch.float32)
         return x.to(device=device, dtype=dtype or x.dtype)
 
     return tree_map(conv, tree)

@@ -132,8 +132,8 @@ def load_model_params(
     dec = map_decoder_params(tensors, config, dtype)
     del tensors
     return (
-        tree_map(lambda t: t.to(device), enc),
-        tree_map(lambda t: t.to(device), dec),
+        tree_map(lambda _, t: t.to(device), enc),
+        tree_map(lambda _, t: t.to(device), dec),
     )
 
 

@@ -1,0 +1,115 @@
+"""Weight-only int8 / int4 quantization of the decoder parameter tree.
+
+Port of ``qwen3_asr_rs_tpu/weights/quantize.py`` with the same key names
+and merge rules, bit for bit: every decoder linear ``{name}_w`` becomes
+``{name}_w_q`` (int8) or ``{name}_w_q4`` (nibble-packed int4) plus
+``{name}_w_s`` (float32 per-output-column scales), and the lm_head
+becomes ``lm_head_q`` / ``lm_head_q4`` (stored (H, V)) plus
+``lm_head_s``. Embeddings and norms keep their dtype.
+
+With ``merge`` (the default), q|k|v and gate|up are column-concatenated
+before quantizing into ``qkv_w_*`` / ``gateup_w_*``; merging is skipped
+when projection biases exist. Per-column scales make the merged
+quantization equal to the separate one, column by column.
+
+Not ported yet (ROADMAP §1 item 11): group-wise int4 scales
+(``group_size``, quantize='int4g') and the tensor-parallel blocked int4
+packing (``tp_blocks > 1``); both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import torch
+
+from ..ops.quant import (
+    quantize_weight,
+    quantize_weight_int4,
+    quantize_weight_int4_tiled,
+)
+
+Tree = Any
+
+QUANT_LAYER_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+MERGED_GROUPS = {
+    "qkv_w": ("q_w", "k_w", "v_w"),
+    "gateup_w": ("gate_w", "up_w"),
+}
+
+
+def _quantize_lm_head(lm, bits: int, out: dict) -> None:
+    """(V, H) lm_head -> (H, V) int8 or tile-packed int4 + (V,) scales."""
+    if bits == 4:
+        out["lm_head_q4"], out["lm_head_s"] = quantize_weight_int4_tiled(lm.T)
+    else:
+        out["lm_head_q"], out["lm_head_s"] = quantize_weight(lm.T)
+    del out["lm_head"]
+
+
+def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
+                            lm_bits: int | None = None, tp_blocks: int = 1,
+                            group_size: int | None = None) -> Tree:
+    """A new decoder tree with int8 (``bits=8``) or int4 (``bits=4``)
+    linears; ``params`` is left as it was.
+
+    The lm_head width follows ``lm_bits``, by default ``$ASR_LM_BITS`` or
+    else ``bits``: 8 stores int8 (``lm_head_q``), 4 the tile-local int4
+    packing of the int4 matvec (``lm_head_q4``), under either layer
+    width.
+    """
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if group_size is not None:
+        raise NotImplementedError(
+            "group-wise int4 scales (quantize='int4g') are not ported to the "
+            "PyTorch package yet (ROADMAP §1 item 11)"
+        )
+    if tp_blocks > 1:
+        raise NotImplementedError(
+            "blocked int4 packing for tensor parallelism (tp_blocks > 1) is "
+            "not ported to the PyTorch package yet (ROADMAP §1 item 11)"
+        )
+    layers = dict(params["layers"])
+    merge = merge and not any(
+        f"{n[:-2]}_b" in layers for n in QUANT_LAYER_WEIGHTS
+    )
+    plan: dict[str, torch.Tensor] = {}
+    if merge:
+        for merged_name, parts in MERGED_GROUPS.items():
+            plan[merged_name] = torch.cat([layers.pop(p) for p in parts], -1)
+        plan["o_w"] = layers.pop("o_w")
+        plan["down_w"] = layers.pop("down_w")
+    else:
+        for name in QUANT_LAYER_WEIGHTS:
+            plan[name] = layers.pop(name)
+
+    for name, w in plan.items():  # w: (L, in, out)
+        if bits == 4:
+            layers[f"{name}_q4"], s = quantize_weight_int4(w, axis=-2)
+        else:
+            layers[f"{name}_q"], s = quantize_weight(w, axis=-2)
+        layers[f"{name}_s"] = s
+    del plan
+
+    out = dict(params)
+    out["layers"] = layers
+    if lm_bits is None:
+        lm_bits = int(os.environ.get("ASR_LM_BITS", bits))
+    if lm_bits not in (4, 8):
+        raise ValueError(f"lm_bits must be 4 or 8, got {lm_bits}")
+    _quantize_lm_head(params["lm_head"], lm_bits, out)
+    out.pop("lm_fold_w", None)
+    out.pop("lm_fold_s", None)
+    return out
+
+
+def quantize_lm_head_only(params: Tree) -> Tree:
+    """Float decoder layers + int8 lm_head (``quantize='lm8'``)."""
+    out = dict(params)
+    _quantize_lm_head(params["lm_head"], 8, out)
+    out.pop("lm_fold_w", None)
+    out.pop("lm_fold_s", None)
+    return out

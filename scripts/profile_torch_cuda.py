@@ -2,11 +2,14 @@
 """Where the time goes in the PyTorch/CUDA port, on one CUDA GPU.
 
     python3 scripts/profile_torch_cuda.py [--seeds 8] [--steps 64]
+                                          [--quantize none,int8,int4]
                                           [--port-root DIR]
 
-Full Qwen3-ASR-0.6B width, bf16, synthetic weights from the JAX
-package's seeds. Prints one JSON line per section, each with nvidia-smi's
-name and power limit of the card:
+Full Qwen3-ASR-0.6B width, bf16 activations, synthetic weights from the
+JAX package's seeds, for each weight mode of ``--quantize`` (none: bf16
+weights; int8 / int4: the engine's merged quantized layout, int4 with
+its int4 lm_head). Prints one JSON line per section and mode, each with
+nvidia-smi's name and power limit of the card:
 
 1. k1_error_spread — K1 (decode_layers_fused) bf16 against its plain
    version at chip_smoke's slab cases, over ``--seeds`` input seeds:
@@ -24,7 +27,8 @@ name and power limit of the card:
 
 ``--port-root DIR`` imports the port from DIR instead (an unpacked
 older commit, say), so that two versions can be compared in turns on one
-card. Imports nothing of JAX. Exits non-zero without a CUDA device.
+card; a port without weight quantization takes ``--quantize none``.
+Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -59,13 +63,17 @@ def device_times(prof) -> dict:
 def kernel_class(name: str) -> str:
     """The decode step's kernels by role; anything else by its name."""
     if "gemv_kernel" in name:
-        epi = name.split("gemv_kernel<", 1)[1].split(">", 1)[0][-1]
+        # gemv_kernel<T, EPI, weight kind, sources>
+        epi = name.split("gemv_kernel<", 1)[1].split(">", 1)[0].split(",")[1]
         return {"0": "gemv q/k/v", "1": "gemv o/down +residual",
-                "2": "gemv gate/up SwiGLU"}.get(epi, name[:90])
+                "2": "gemv gate/up SwiGLU"}.get(epi.strip(), name[:90])
     for key, label in (("attn_split", "attention split (K2)"),
                        ("attn_merge", "attention merge (K2)"),
                        ("qk_norm_rope", "qk-norm + rope"),
-                       ("flash", "flash attention (K3)")):
+                       ("flash", "flash attention (K3)"),
+                       ("qmv4_kernel", "lm_head int4 (K4)"),
+                       ("qmv_kernel", "int8 GEMV (K5)"),
+                       ("qmm_kernel", "int8 tiled matmul (K5)")):
         if key in name:
             return label
     return name[:90]
@@ -95,7 +103,7 @@ def profile(torch, fn):
     return out, wall, device_times(prof)
 
 
-def k1_error_spread(torch, smoke, layers, seeds: int) -> dict:
+def k1_error_spread(torch, smoke, layers, seeds: int, mode: str) -> dict:
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused, decode_layers_fused_plain)
 
@@ -116,13 +124,14 @@ def k1_error_spread(torch, smoke, layers, seeds: int) -> dict:
             ratios.append(err / scale)
             del ks, vs
     atol, rtol = smoke.TOL[("decode_layers_fused", "bfloat16")]
-    return {"section": "k1_error_spread", "runs": len(ratios),
+    return {"section": "k1_error_spread", "weights": mode,
+            "runs": len(ratios),
             "err_over_ref_max": sorted(ratios), "max": max(ratios),
             "median": statistics.median(ratios), "smoke_rtol": rtol,
             "smoke_atol": atol}
 
 
-def k1_parts(torch, smoke, layers, cfg) -> list:
+def k1_parts(torch, smoke, layers, cfg, mode: str) -> list:
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused)
 
@@ -130,10 +139,11 @@ def k1_parts(torch, smoke, layers, cfg) -> list:
     qd = cfg.num_attention_heads * cfg.head_dim
     kvd = cfg.num_key_value_heads * cfg.head_dim
     nl = cfg.num_hidden_layers
-    weight_bytes = {  # bf16 weight bytes per call, by GEMV class
-        "gemv q/k/v": 2 * nl * h * (qd + 2 * kvd),
-        "gemv o/down +residual": 2 * nl * (qd * h + inter * h),
-        "gemv gate/up SwiGLU": 2 * nl * 2 * h * inter,
+    wb = {"none": 2, "int8": 1, "int4": 0.5}[mode]  # bytes per weight
+    weight_bytes = {  # weight bytes per call, by GEMV class
+        "gemv q/k/v": wb * nl * h * (qd + 2 * kvd),
+        "gemv o/down +residual": wb * nl * (qd * h + inter * h),
+        "gemv gate/up SwiGLU": wb * nl * 2 * h * inter,
     }
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -168,7 +178,8 @@ def k1_parts(torch, smoke, layers, cfg) -> list:
             if k in parts:
                 parts[k]["bytes"] = b
                 parts[k]["TB_per_s"] = b / parts[k]["device_us"] / 1e6
-        rows.append({"section": "k1_parts", "S": s_max, "end": end,
+        rows.append({"section": "k1_parts", "weights": mode, "S": s_max,
+                     "end": end,
                      "wall_ms_per_call": wall_ms,
                      "enqueue_ms_per_call": statistics.median(enqueue),
                      "device_ms_per_call": sum(
@@ -180,7 +191,7 @@ def k1_parts(torch, smoke, layers, cfg) -> list:
     return rows
 
 
-def decode_step(torch, engine, samples, steps: int) -> dict:
+def decode_step(torch, engine, samples, steps: int, mode: str) -> dict:
     dec = engine.decoder
     _, cache, true_len = engine.prefill(samples)
 
@@ -199,7 +210,8 @@ def decode_step(torch, engine, samples, steps: int) -> dict:
         wall_plain = time.perf_counter() - t0
         _, wall, times = profile(torch, lambda: loop(true_len))
     busy_us = sum(us for _, us in times.values())
-    return {"section": "decode_step", "clip_seconds": 4, "steps": steps,
+    return {"section": "decode_step", "weights": mode, "clip_seconds": 4,
+            "steps": steps,
             "slab": int(cache.k.shape[3]),
             "wall_ms_per_step": 1e3 * wall_plain / steps,
             "wall_ms_per_step_profiled": 1e3 * wall / steps,
@@ -208,13 +220,14 @@ def decode_step(torch, engine, samples, steps: int) -> dict:
             "parts_per_step": by_class(times, steps)}
 
 
-def prefill(torch, engine, samples) -> dict:
+def prefill(torch, engine, samples, mode: str) -> dict:
     with torch.inference_mode():
         engine.prefill(samples)  # warm-up: this bucket's shapes
         _, wall, times = profile(torch, lambda: engine.prefill(samples))
     busy_us = sum(us for _, us in times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"section": "prefill", "clip_seconds": 300, "wall_ms": 1e3 * wall,
+    return {"section": "prefill", "weights": mode, "clip_seconds": 300,
+            "wall_ms": 1e3 * wall,
             "device_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall,
             "top": [{"name": n[:90], "launches": c, "device_ms": us / 1e3}
                     for n, (c, us) in top]}
@@ -224,6 +237,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--quantize", default="none,int8,int4",
+                    help="comma-separated weight modes: none, int8, int4")
     ap.add_argument("--port-root", type=Path, default=REPO,
                     help="directory holding the qwen3_asr_rs_tpu_torch "
                          "package to profile")
@@ -263,22 +278,26 @@ def main() -> int:
                    "cuda")
     dec = to_torch(init_decoder_params_np(config.text), torch.bfloat16,
                    "cuda")
-    emit(k1_error_spread(torch, smoke, dec["layers"], args.seeds))
-    for row in k1_parts(torch, smoke, dec["layers"], config.text):
-        emit(row)
-    torch.cuda.empty_cache()
-
-    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
-                       config=config, params=(enc, dec),
-                       tokenizer=smoke.StubTokenizer(), device="cuda")
     with tempfile.TemporaryDirectory(prefix="profile_torch_") as tmp:
         clips = {}
         for seconds, seed in ((4, 1), (300, 3)):
             path = Path(tmp) / f"clip_{seconds}s.wav"
             smoke.write_wav(path, seconds, seed)
             clips[seconds] = load_audio(path, 16000)
-    emit(decode_step(torch, engine, clips[4], args.steps))
-    emit(prefill(torch, engine, clips[300]))
+    for mode in args.quantize.split(","):
+        engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                           config=config, params=(enc, dec),
+                           tokenizer=smoke.StubTokenizer(), device="cuda",
+                           quantize=None if mode == "none" else mode)
+        layers = engine.dec_params["layers"]
+        emit(k1_error_spread(torch, smoke, layers, args.seeds, mode))
+        for row in k1_parts(torch, smoke, layers, config.text, mode):
+            emit(row)
+        torch.cuda.empty_cache()
+        emit(decode_step(torch, engine, clips[4], args.steps, mode))
+        emit(prefill(torch, engine, clips[300], mode))
+        del engine, layers
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -99,3 +99,101 @@ def test_cuda_flash_attention_matches_plain(cuda, kw):
     assert flash_attention.launches == n + 1
     ref = flash_attention_plain(q, k, v, kv_valid, causal=kw["causal"])
     assert (got - ref).abs().max() <= 1e-4
+
+
+def _quant_layers(cuda, dtype, bits, merge):
+    from qwen3_asr_rs_tpu_torch.weights.quantize import quantize_decoder_params
+
+    cfg = dataclasses.replace(TextDecoderConfig(), num_hidden_layers=2,
+                              vocab_size=64)
+    params = to_torch(init_decoder_params_np(cfg), dtype, cuda)
+    return cfg, quantize_decoder_params(params, bits=bits, merge=merge,
+                                        lm_bits=8)["layers"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,merge", [(8, True), (4, True), (8, False),
+                                        (4, False)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -4)])
+def test_cuda_decode_layers_quantized_matches_plain(cuda, bits, merge, dtype,
+                                                    atol, rtol):
+    """K1 with int8/int4 weights, merged and per projection, real 0.6B
+    widths, two layers (bf16: rounding-order flips, as in chip_smoke)."""
+    cfg, layers = _quant_layers(cuda, dtype, bits, merge)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 1, cfg.num_key_value_heads, 96, cfg.head_dim)
+    kc = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    vc = (0.05 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    x = (0.02 * torch.randn((1, cfg.hidden_size), generator=g,
+                            device=cuda)).to(dtype)
+    ang = 40 * torch.logspace(0, -6, cfg.head_dim // 2, device=cuda)
+    cos = torch.cat([ang.cos(), ang.cos()])[None].contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()])[None].contiguous()
+    n = decode_layers_fused.launches
+    got = decode_layers_fused(x, cos, sin, layers, kc, vc, 3, 77, eps=1e-6)
+    assert decode_layers_fused.launches == n + 1
+    idx = lambda v: torch.tensor([v], dtype=torch.int32, device=cuda)
+    ref = decode_layers_fused_plain(x, cos, sin, layers, kc, vc, idx(3),
+                                    idx(77), eps=1e-6)
+    for a, b in zip(got, ref):
+        assert (a.float() - b.float()).abs().max() <= (
+            atol + rtol * b.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 300])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+def test_cuda_quant_matmul_matches_plain(cuda, rows, dtype, out_dtype):
+    """K5, GEMV (R <= 8) and tiled (R > 8), K = 1000 not a multiple of
+    the 16-row slice, N = 1032 not a multiple of the 128/256 tiles."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w_q, s = quantize_weight(0.02 * torch.randn((1000, 1032), generator=g,
+                                                device=cuda))
+    x = torch.randn((rows, 1000), generator=g, device=cuda).to(dtype)
+    n = quant_matmul.launches
+    got = quant_matmul(x, w_q, s, out_dtype=out_dtype)
+    assert quant_matmul.launches == n + 1 and got.dtype == out_dtype
+    ref = quant_matmul_plain(x, w_q, s, out_dtype=out_dtype).float()
+    bound = 1e-4 + (2 ** -7 if out_dtype == torch.bfloat16 else 1e-5) * (
+        ref.abs().max())
+    assert (got.float() - ref).abs().max() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 64, 65, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quant_matvec_int4_matches_plain(cuda, rows, dtype):
+    """K4 at N = 9000 (two 8192 tiles, padded); every row count launches
+    the kernel."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
+        quant_matvec_int4, quant_matvec_int4_plain)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight_int4_tiled
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w_q4, s = quantize_weight_int4_tiled(
+        0.02 * torch.randn((256, 9000), generator=g, device=cuda))
+    x = torch.randn((rows, 256), generator=g, device=cuda).to(dtype)
+    n = quant_matvec_int4.launches
+    got = quant_matvec_int4(x, w_q4, s)
+    assert quant_matvec_int4.launches == n + 1 and got.shape == (rows, 9000)
+    ref = quant_matvec_int4_plain(x, w_q4, s)
+    assert (got - ref).abs().max() <= 1e-4 + 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_mm_keeps_float32(cuda):
+    """The bf16 lm_head product returns float32 sums (aten::mm.dtype)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((2, 1024), generator=g, device=cuda).bfloat16()
+    b = torch.randn((1024, 4096), generator=g, device=cuda).bfloat16()
+    y = torch.mm(a, b, out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    assert (y.bfloat16().float() != y).float().mean() > 0.9
+    assert (y - a.float() @ b.float()).abs().max() <= 1e-3

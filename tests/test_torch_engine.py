@@ -47,7 +47,7 @@ def _tiny():
     return _with_layers(tiny_test_config(), vocab=151936)
 
 
-def _engines(cfg, jdtype, tdtype, max_new, buckets):
+def _engines(cfg, jdtype, tdtype, max_new, buckets, quantize=None):
     enc = init_encoder_params(cfg.audio, dtype=jnp.float32)
     dec = init_decoder_params(cfg.text, dtype=jnp.float32)
     jeng = JaxEngine(model_dir=None, dtype=jdtype, max_new_tokens=max_new,
@@ -55,10 +55,10 @@ def _engines(cfg, jdtype, tdtype, max_new, buckets):
                      params=(enc, dec) if jdtype == jnp.float32 else
                      tuple(__import__("jax").tree_util.tree_map(
                          lambda a: a.astype(jdtype), p) for p in (enc, dec)),
-                     tokenizer=_Tok())
+                     tokenizer=_Tok(), quantize=quantize)
     teng = AsrEngine(None, dtype=tdtype, max_new_tokens=max_new,
                      chunk_buckets=buckets, config=cfg, params=(enc, dec),
-                     tokenizer=_Tok(), device="cpu")
+                     tokenizer=_Tok(), device="cpu", quantize=quantize)
     return jeng, teng
 
 
@@ -120,15 +120,53 @@ def test_real_dims_two_layers_f32_tokens_match_jax():
 
 
 def test_tiny_slice_bf16_first_step_logits(samples):
-    """bf16 rounds at different places in the two frameworks (and the
-    port's bf16 lm_head GEMV rounds logits to bf16, half an ulp = 2^-9
-    relative); through two layers the first-step logits stay within
-    0.02 absolute at |logits| < 2."""
+    """bf16 rounds at different places in the two frameworks (both keep
+    the lm_head's logits in float32); through two layers the first-step
+    logits stay within 0.02 absolute at |logits| < 2."""
     jeng, teng = _engines(_tiny(), jnp.bfloat16, torch.bfloat16, 2, (2,))
     ref = _jax_prefill_logits(jeng, samples).astype(np.float32)
     logits, _, _ = teng.prefill(samples)
     assert np.abs(ref).max() < 2
     np.testing.assert_allclose(logits.numpy(), ref, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int4", "lm8"])
+def test_tiny_slice_quantized_f32_tokens_match_jax(samples, quantize):
+    """AsrEngine(quantize=...) against the JAX engine: float32 greedy
+    tokens equal, prefill logits within 1e-5 (the int4 lm_head through
+    K4's plain version and the Pallas matvec in interpret mode)."""
+    jeng, teng = _engines(_tiny(), jnp.float32, torch.float32, 8, (2,),
+                          quantize)
+    assert "lm_head" not in teng.dec_params
+    assert teng.transcribe_samples(samples).raw_output == (
+        jeng.transcribe_samples(samples).raw_output)
+    logits, _, _ = teng.prefill(samples)
+    np.testing.assert_allclose(logits.numpy(),
+                               _jax_prefill_logits(jeng, samples),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int4", "lm8"])
+def test_real_dims_two_layers_quantized_f32_tokens_match_jax(quantize):
+    cfg = _with_layers(AsrConfig(), text_layers=2, audio_layers=2)
+    samples = (np.random.default_rng(7).standard_normal(12000) * 0.1).astype(
+        np.float32)
+    jeng, teng = _engines(cfg, jnp.float32, torch.float32, 3, (1,), quantize)
+    assert teng.transcribe_samples(samples).raw_output == (
+        jeng.transcribe_samples(samples).raw_output)
+
+
+def test_unmerged_and_unported_quant_modes(samples, monkeypatch):
+    monkeypatch.setenv("ASR_MERGE_QKV", "0")
+    jeng, teng = _engines(_tiny(), jnp.float32, torch.float32, 4, (2,),
+                          "int8")
+    assert "q_w_q" in teng.dec_params["layers"]
+    assert teng.transcribe_samples(samples).raw_output == (
+        jeng.transcribe_samples(samples).raw_output)
+    with pytest.raises(NotImplementedError, match="int4g"):
+        _engines(_tiny(), jnp.float32, torch.float32, 4, (2,), "int4g")
+    with pytest.raises(ValueError, match="unknown quantize"):
+        teng._quantize_params(teng.dec_params, "int3")
 
 
 def test_engine_limits_and_unported_paths(samples):
@@ -184,6 +222,14 @@ def test_cli_matches_jax_cli(model_and_wav, capsys, monkeypatch):
     assert lines[0].startswith("Language: ") and lines[1].startswith("Text:")
     jrc, jout, _ = _run_cli(jax_main, [model, wav], capsys)
     assert (rc, out) == (jrc, jout)
+    for quant, lm_bits in (("int8", "4"), ("int4", "8")):
+        monkeypatch.setenv("ASR_QUANT", quant)
+        monkeypatch.setenv("ASR_LM_BITS", lm_bits)
+        rc, qout, _ = _run_cli(main, [model, wav], capsys)
+        jrc, jout, _ = _run_cli(jax_main, [model, wav], capsys)
+        assert rc == 0 and (rc, qout) == (jrc, jout)
+    monkeypatch.delenv("ASR_QUANT")
+    monkeypatch.delenv("ASR_LM_BITS")
 
     rc, out, _ = _run_cli(main, [model, wav, "english"], capsys)
     assert rc == 0 and out.startswith("Language: forced\n")

@@ -151,8 +151,17 @@ def test_unported_branches_raise():
     cfg, _, tp = _decoders()
     tdec = TextDecoder(cfg, 64)
     cache = KVCache.zeros(cfg, 1, 16, dtype=torch.float32)
-    quant = dict(tp, layers=dict(tp["layers"], q_w_q=tp["layers"]["q_w"]))
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tdec.decode_step(quant, torch.tensor([1]), 3, cache)
+    # quantized trees run; grouped int4 scales (int4g, a 3-D *_s),
+    # blocked int4 (a 4-D *_q4) and the folded lm_head do not yet
+    grouped = dict(tp, layers=dict(tp["layers"],
+                                   q_w_q4=torch.zeros(2, 64, 32, dtype=torch.int8),
+                                   q_w_s=torch.ones(2, 1, 64)))
+    blocked = dict(tp, layers=dict(tp["layers"],
+                                   q_w_q4=torch.zeros(2, 64, 2, 16, dtype=torch.int8),
+                                   q_w_s=torch.ones(2, 64)))
+    folded = dict(tp, lm_fold_w=tp["lm_head"])
+    for tree in (grouped, blocked, folded):
+        with pytest.raises(NotImplementedError, match="int4g"):
+            tdec.decode_step(tree, torch.tensor([1]), 3, cache)
     with pytest.raises(NotImplementedError, match="aligned"):
         tdec.decode_step(tp, torch.tensor([1, 2]), torch.tensor([3, 4]), cache)
