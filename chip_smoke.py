@@ -12,7 +12,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              stated tolerance, median CUDA-event time of both: K2, K1
              (bf16/f32 weights, and int8 merged, int4 merged, int8
              unmerged weights quantized by the port's own quantizer), K3,
-             K4 (int4 lm_head) and K5 (int8 prefill linears and lm_head).
+             K4 (int4 lm_head) and K5 (int8 prefill linears and lm_head);
+             then K1 at B = 2, 8, 32 with per-row starts (float weights,
+             int8 merged at B = 8, int4 merged at B = 8 and 32), K1 and
+             K2 on int8 slabs at B = 1 and 8, S = 360 and 4992, and K3 at
+             B = 2 with per-row kv_start.
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
              synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
@@ -21,10 +25,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              lm_head widths (ASR_LM_BITS=4 under int8, 8 under int4). Each
              path runs with the launch counters set to 0, and they must
              show that it went through its kernels.
-5. parity  — the 4 s clip teacher-forced in float32 at full width, with
+5. batch   — AsrEngine.transcribe_batch at full width, bf16 weights:
+             clips of 4, 8, 15, 22 and 30 s (B = 8, 3 born-done rows) with
+             bf16 and with int8 KV, 32 clips of 4 s, 8 clips of 300 s with
+             int8 KV, and the 4 s clip alone with int8 KV; then the five
+             clips with int8 weights and int8 KV, and with int4 weights;
+             per run B, live rows, bucket, wall, aggregate xRT, tokens/s,
+             prefill s, decode ms per step and the launch counts, which
+             must show K1 once per step whatever B is, K2 once per layer
+             and step, and K4/K5 as the weights need them.
+6. parity  — the 4 s clip teacher-forced in float32 at full width, with
              float, int8 and int4 weights: the decode-kernel path against
              the plain per-layer path, per-step logits within a stated
-             tolerance.
+             tolerance; then a batch of 3 clips (4, 8, 15 s) with bf16 and
+             with int8 KV, every live row's logits from the same slab
+             state on both paths.
 
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -86,8 +101,9 @@ SOURCES = {
     "quant_matmul": "qwen3_asr_rs_tpu_torch/csrc/quant_matmul.cu",
     "quant_matvec_int4": "qwen3_asr_rs_tpu_torch/csrc/quant_matvec_int4.cu",
 }
-K1_COVERS = ("B=1; bf16/f32 activations; bf16/f32, int8 and int4 weights, "
-             "merged qkv|gate-up and per projection")
+K1_COVERS = ("B=1..32 with per-row starts; bf16/f32 activations; bf16/f32, "
+             "int8 and int4 weights, merged qkv|gate-up and per projection; "
+             "bf16/f32 and int8 slabs")
 # K1 quantized layouts checked in phase 3: (label, bits, merge)
 K1_QUANT = (("int8 merged", 8, True), ("int4 merged", 4, True),
             ("int8 unmerged", 8, False))
@@ -102,24 +118,47 @@ K5_LINEARS = (("qkv_w", 1024, 4096), ("o_w", 2048, 1024),
 # boundary
 SLAB_CASES = ((360, 0, 217), (360, 37, 301), (4992, 0, 4737),
               (4992, 129, 4990))
+# K1 at B > 1 (S=360, shared end 301) and K1/K2 on int8 slabs: (B, S, end)
+K1_BATCH = (2, 8, 32)
+# K1 at B > 1 with merged quantized weights: (bits, batch sizes)
+K1_BATCH_QUANT = ((8, (8,)), (4, (8, 32)))
+KV8_CASES = ((1, 360, 301), (8, 360, 301), (1, 4992, 4737), (8, 4992, 4737))
 # Qwen3-ASR-0.6B decoder dims
 L, HQ, HKV, D, H = 28, 16, 8, 128, 1024
 
 
-def k1_inputs(torch, gen, dtype, s_max: int, end: int):
-    """Inputs of one decode step at slot ``end`` of an (L, 1, Hkv, s_max, D)
+def row_starts(b: int) -> list:
+    """Per-row first live slots of a right-aligned batch of b rows."""
+    return [(0, 37, 129, 200, 5, 77, 150, 263)[i % 8] for i in range(b)]
+
+
+def k1_inputs(torch, gen, dtype, s_max: int, end: int, b: int = 1):
+    """Inputs of one decode step at slot ``end`` of an (L, b, Hkv, s_max, D)
     slab: (x, cos, sin, k_slabs, v_slabs), slab values at the scale of
-    normalized, rotated keys and of the values."""
+    normalized, rotated keys and of the values, row r at position
+    end - row_starts(b)[r]."""
     dev = torch.device("cuda")
-    ks = torch.randn((L, 1, HKV, s_max, D), generator=gen,
+    ks = torch.randn((L, b, HKV, s_max, D), generator=gen,
                      device=dev).to(dtype)
-    vs = (0.05 * torch.randn((L, 1, HKV, s_max, D), generator=gen,
+    vs = (0.05 * torch.randn((L, b, HKV, s_max, D), generator=gen,
                              device=dev)).to(dtype)
-    x = (0.02 * torch.randn((1, H), generator=gen, device=dev)).to(dtype)
-    ang = end * torch.logspace(0, -6, D // 2, base=10.0, device=dev)
-    cos = torch.cat([ang.cos(), ang.cos()])[None].contiguous()
-    sin = torch.cat([ang.sin(), ang.sin()])[None].contiguous()
+    x = (0.02 * torch.randn((b, H), generator=gen, device=dev)).to(dtype)
+    pos = end - torch.tensor(row_starts(b), device=dev)[:, None]
+    ang = pos * torch.logspace(0, -6, D // 2, base=10.0, device=dev)
+    cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
     return x, cos, sin, ks, vs
+
+
+def quantized_tree(torch, dec_params_f32, dtype, bits, merge):
+    """The decoder layers (and lm_head) cast to dtype, then quantized by
+    the port's own quantizer."""
+    from qwen3_asr_rs_tpu_torch.weights.quantize import quantize_decoder_params
+
+    tree = {"layers": {k: v.to(dtype)
+                       for k, v in dec_params_f32["layers"].items()},
+            "lm_head": dec_params_f32["lm_head"].to(dtype)}
+    return quantize_decoder_params(tree, bits=bits, merge=merge, lm_bits=8)
 
 
 def emit(obj) -> None:
@@ -270,6 +309,7 @@ def kernel_checks(torch, dec_params_f32):
         del q, k, v
     torch.cuda.empty_cache()
     quant_kernel_checks(torch, dec_params_f32, gen, results)
+    batch_kernel_checks(torch, dec_params_f32, gen, results)
     return results
 
 
@@ -282,22 +322,15 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
     from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
         quant_matvec_int4, quant_matvec_int4_plain)
     from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight_int4_tiled
-    from qwen3_asr_rs_tpu_torch.weights.quantize import quantize_decoder_params
 
     dev = torch.device("cuda")
 
     def idx(v):
         return torch.tensor([v], dtype=torch.int32, device=dev)
 
-    def quantized(dtype, bits, merge):
-        tree = {"layers": {k: v.to(dtype)
-                           for k, v in dec_params_f32["layers"].items()},
-                "lm_head": dec_params_f32["lm_head"].to(dtype)}
-        return quantize_decoder_params(tree, bits=bits, merge=merge, lm_bits=8)
-
     for dtype in (torch.float32, torch.bfloat16):
         for label, bits, merge in K1_QUANT:
-            qtree = quantized(dtype, bits, merge)
+            qtree = quantized_tree(torch, dec_params_f32, dtype, bits, merge)
             lay = qtree["layers"]
             for s_max, start, end in (SLAB_CASES[0], SLAB_CASES[2]):
                 x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, s_max, end)
@@ -349,6 +382,95 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
             lambda: quant_matvec_int4_plain(x, w_q4, sc),
         )
     del w_q4, sc
+    torch.cuda.empty_cache()
+
+
+def batch_kernel_checks(torch, dec_params_f32, gen, results):
+    """Phase 3, batched: K1 at B > 1 with per-row starts, K1 and K2 on
+    int8 slabs, K3 at B = 2 with per-row kv_start."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import quantize_kv
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused, decode_layers_fused_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    dev = torch.device("cuda")
+
+    def idx(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def k1_case(dtype, lay, b, s_max, end, label, int8_slabs=False):
+        x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, s_max, end, b)
+        scales = {}
+        if int8_slabs:
+            (ks, kscale), (vs, vscale) = quantize_kv(ks), quantize_kv(vs)
+            scales = dict(k_scales=kscale, v_scales=vscale)
+        start, ends = idx(row_starts(b)), idx([end] * b)
+        check_case(
+            torch, results, "decode_layers_fused", dtype,
+            f"{label} B={b} L=28 S={s_max} start={row_starts(b)[:8]} "
+            f"end={end}",
+            lambda: decode_layers_fused(x, cos, sin, lay, ks, vs, start, end,
+                                        eps=1e-6, **scales),
+            lambda: decode_layers_fused_plain(x, cos, sin, lay, ks, vs, start,
+                                              ends, eps=1e-6, **scales),
+        )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        lay = {k: v.to(dtype) for k, v in dec_params_f32["layers"].items()}
+        for b in K1_BATCH:
+            k1_case(dtype, lay, b, 360, 301, "float weights")
+        for b, s_max, end in KV8_CASES:
+            k1_case(dtype, lay, b, s_max, end, "int8 slab", int8_slabs=True)
+        del lay
+        for bits, batches in K1_BATCH_QUANT:
+            qlay = quantized_tree(torch, dec_params_f32, dtype, bits,
+                                  True)["layers"]
+            for b in batches:
+                k1_case(dtype, qlay, b, 360, 301, f"int{bits} merged weights")
+            del qlay
+        torch.cuda.empty_cache()
+
+        for b, s_max, end in KV8_CASES:
+            (kq, kscale), (vq, vscale) = (
+                quantize_kv(torch.randn((L, b, HKV, s_max, D), generator=gen,
+                                        device=dev)) for _ in range(2))
+            q = torch.randn((b, HQ, D), generator=gen, device=dev).to(dtype)
+            k_self = torch.randn((b, HKV, D), generator=gen,
+                                 device=dev).to(dtype)
+            v_self = torch.randn_like(k_self)
+            start, ends = idx(row_starts(b)), idx([end] * b)
+            check_case(
+                torch, results, "decode_attention", dtype,
+                f"int8 slab B={b} S={s_max} start={row_starts(b)} end={end} "
+                "layer=27",
+                lambda: decode_attention(q, kq, vq, k_self, v_self, 27, start,
+                                         ends, k_scales=kscale,
+                                         v_scales=vscale),
+                lambda: decode_attention_plain(q, kq, vq, k_self, v_self, 27,
+                                               start, ends, k_scales=kscale,
+                                               v_scales=vscale),
+            )
+            del kq, vq, kscale, vscale
+
+    # K3 at the 360-chunk prefill bucket, B = 2 right-aligned rows; query
+    # rows before a row's start have no key (compared from the later one)
+    S, kv_start = 4736, (0, 517)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((2, S, HQ, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((2, S, HKV, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((2, S, HKV, D), generator=gen, device=dev).to(dtype)
+        start = idx(list(kv_start))
+        check_case(
+            torch, results, "flash_attention", dtype,
+            f"B=2 Sq=Sk={S} causal kv_start={kv_start}",
+            lambda: flash_attention(q, k, v, None, start, causal=True),
+            lambda: flash_attention_plain(q, k, v, None, start, causal=True),
+            rows=(slice(None), slice(max(kv_start), None)),
+        )
+        del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -470,8 +592,120 @@ def run_path(torch, engine, clips, quantize, lm_bits, card):
     return {n: fn.launches for n, fn in fns.items()}
 
 
+# phase 5: (label, clip seconds, kv_dtype, quantize); a single clip takes
+# the B = 1 path. Clips of one length share one WAV.
+FIVE_CLIPS = (4, 8, 15, 22, 30)
+BATCH_RUNS = (("5 clips", FIVE_CLIPS, None, None),
+              ("32 x 4 s", (4,) * 32, None, None),
+              ("5 clips", FIVE_CLIPS, "int8", None),
+              ("8 x 300 s", (300,) * 8, "int8", None),
+              ("B=1 4 s", (4,), "int8", None),
+              ("5 clips", FIVE_CLIPS, "int8", "int8"),
+              ("5 clips", FIVE_CLIPS, None, "int4"))
+
+
+def run_batch(torch, engine, samples, label, seconds, kv_dtype, quantize,
+              card):
+    """Phase 5 for one batch: a warm-up of the same batch, then the
+    counters set to 0 and the batch transcribed once more; checks the
+    launch counts (K1 once per step, K2 once per layer and step, K3 in
+    the 300 s bucket's prefill, K4/K5 as ``expected_launches`` says for
+    the weights) and that pad rows emit nothing."""
+    from qwen3_asr_rs_tpu_torch.features.mel import num_mel_frames
+
+    fns = kernel_wrappers()
+    layers = engine.config.text.num_hidden_layers
+    engine.transcribe_batch(samples)
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.transcribe_batch(samples)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: fn.launches for n, fn in fns.items()}
+    st = engine.last_stats
+    steps, n_gen = st["decode_steps"], st["n_gen"]
+    b, live = len(n_gen), len(samples)
+    row = {"phase": "batch", "run": label, "kv": kv_dtype or "bf16",
+           "quantize": quantize, "B": b, "live_rows": live,
+           "bucket_chunks": engine._pick_bucket(
+               max(num_mel_frames(len(x)) for x in samples)),
+           "audio_s": sum(seconds), "wall_s": wall,
+           "xRT": sum(seconds) / wall, "tokens": sum(n_gen),
+           "tokens_per_s": sum(n_gen) / wall,
+           "decode_tokens_per_s": (sum(n_gen) / st["decode_seconds"]
+                                   if st["decode_seconds"] else None),
+           "prefill_s": st["prefill_seconds"], "decode_steps": steps,
+           "decode_ms_per_step": (1e3 * st["decode_seconds"] / steps
+                                  if steps else None),
+           "n_gen": n_gen,
+           "k1_launches": got["decode_layers_fused"],
+           "k2_launches": got["decode_attention"],
+           "k3_launches": got["flash_attention"],
+           "k4_launches": got["quant_matvec_int4"],
+           "k5_launches": got["quant_matmul"], "card": card}
+    emit(row)
+    if len(results) != live or not all(isinstance(r.text, str)
+                                       for r in results):
+        raise AssertionError(f"batch {label}: {len(results)} results")
+    if any(n_gen[live:]) or not all(n_gen[:live]):
+        raise AssertionError(f"batch {label}: tokens per row {n_gen}")
+    want = expected_launches(quantize, None, layers, steps, max(seconds))
+    want["flash_attention"] = layers if max(seconds) == 300 else 0
+    for n, w in want.items():
+        if got[n] != w:
+            raise AssertionError(f"batch {label}: {n} launched {got[n]} "
+                                 f"times, expected {w}")
+    return got
+
+
+def batch_parity(torch, engine32, samples, kv_dtype):
+    """Phase 6, batched: the kernel path's greedy tokens of a 3-row
+    right-aligned batch teacher-force both paths; each step runs the
+    kernel path and the plain per-layer path (dense attention) from the
+    same slab state, and every row's logits are compared."""
+    import numpy as np
+
+    teacher = engine32.generate_batch(samples, [None] * len(samples),
+                                      np.ones(len(samples), bool))
+    _, cache, kv_start, p = engine32.prefill_batch(samples,
+                                                   [None] * len(samples))
+    dec = engine32.decoder
+    k1 = kernel_wrappers()["decode_layers_fused"]
+    k1_before = k1.launches
+    n_steps = min(len(t) for t in teacher) - 1
+    worst, agree = 0.0, 0
+    with torch.inference_mode():
+        for i in range(n_steps):
+            ids = torch.tensor([t[i] for t in teacher], device=kv_start.device)
+            state = type(cache)(*(None if t is None else t.clone() for t in (
+                cache.k, cache.v, cache.k_scale, cache.v_scale)))
+            os.environ["ASR_DECODE_IMPL"] = "fused"
+            lk, _ = dec.decode_step_aligned(engine32.dec_params, ids, p + i,
+                                            kv_start, cache)
+            os.environ["ASR_DECODE_IMPL"] = "scan"
+            os.environ["ASR_DECODE_ATTN"] = "dense"
+            lp, _ = dec.decode_step_aligned(engine32.dec_params, ids, p + i,
+                                            kv_start, state)
+            del os.environ["ASR_DECODE_IMPL"], os.environ["ASR_DECODE_ATTN"]
+            worst = max(worst, max_err(torch, lk, lp))
+            agree += int((torch.argmax(lk, -1) == torch.argmax(lp, -1)).all())
+    k1_launches = k1.launches - k1_before
+    emit({"phase": "parity", "dtype": "float32", "batch": len(samples),
+          "kv": kv_dtype or "bf16", "kv_start": kv_start.tolist(),
+          "steps": n_steps, "k1_launches": k1_launches,
+          "max_abs_logit_err": worst, "tol": PARITY_LOGITS_ATOL,
+          "greedy_agreement": agree / max(n_steps, 1)})
+    if not worst <= PARITY_LOGITS_ATOL:
+        raise AssertionError(f"batch parity ({kv_dtype}) logits error {worst}")
+    if k1_launches != n_steps:
+        raise AssertionError(f"batch parity ({kv_dtype}): the kernel path "
+                             f"launched K1 {k1_launches} times")
+
+
 def parity(torch, engine32, clip, quantize):
-    """Phase 5 for one float32 engine: its decode-kernel path's greedy
+    """Phase 6 for one float32 engine: its decode-kernel path's greedy
     tokens teacher-force both paths; per-step logits compared."""
     import numpy as np
 
@@ -575,7 +809,8 @@ def main() -> int:
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     clips = {}
-    for seconds, seed in ((4, 1), (30, 2), (300, 3)):
+    for seconds, seed in ((4, 1), (30, 2), (300, 3), (8, 4), (15, 5),
+                          (22, 6)):
         path = tmp / f"clip_{seconds}s.wav"
         write_wav(path, seconds, seed)
         clips[seconds] = path
@@ -596,12 +831,41 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-    # 5. parity: float32 teacher forcing, kernel path vs plain path
+    # 5. batch: bf16 and int8 KV with bf16 weights, then int8 weights with
+    # int8 KV and int4 weights with bf16 KV
+    from qwen3_asr_rs_tpu_torch.runtime.engine import load_audio
+
+    audio = {c: load_audio(path, 16000) for c, path in clips.items()}
+    for kv_dtype, quantize in dict.fromkeys(r[2:] for r in BATCH_RUNS):
+        engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                           config=config, params=(enc32, dec32),
+                           tokenizer=StubTokenizer(), device="cuda",
+                           kv_dtype=kv_dtype, quantize=quantize)
+        for label, seconds, kv, quant in BATCH_RUNS:
+            if (kv, quant) == (kv_dtype, quantize):
+                name = (f"batch {label}"
+                        + (f" {quantize} weights" if quantize else "")
+                        + (" int8 KV" if kv else ""))
+                launches[name] = run_batch(
+                    torch, engine, [audio[c] for c in seconds], label,
+                    seconds, kv, quantize, card)
+        del engine
+        torch.cuda.empty_cache()
+
+    # 6. parity: float32 teacher forcing, kernel path vs plain path
     for quantize in (None, "int8", "int4"):
         parity(torch, AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
                                 config=config, params=(enc32, dec32),
                                 tokenizer=StubTokenizer(), device="cuda",
                                 quantize=quantize), clips[4], quantize)
+        torch.cuda.empty_cache()
+    for kv_dtype in (None, "int8"):
+        batch_parity(torch, AsrEngine(None, dtype=torch.float32,
+                                      max_new_tokens=128, config=config,
+                                      params=(enc32, dec32),
+                                      tokenizer=StubTokenizer(),
+                                      device="cuda", kv_dtype=kv_dtype),
+                     [audio[c] for c in (4, 8, 15)], kv_dtype)
         torch.cuda.empty_cache()
 
     summary = []

@@ -7,9 +7,10 @@ Contract-compatible with ``qwen3_asr_rs_tpu/cli.py`` for the main path:
 
 prints ``Language: <lang>`` and ``Text: <text>`` (preceded by ``File:``
 per file when several are given), or a one-line ``Error: ...`` on
-stderr with exit code 1. Several files are transcribed one after the
-other (batched decode is not ported yet); the JAX CLI's sampling,
-timestamp and speculative options are rejected.
+stderr with exit code 1. Several files are transcribed as one batch
+(``AsrEngine.transcribe_batch``: one prefill and one decode loop), as
+the JAX CLI does; its sampling, timestamp and speculative options are
+rejected until those paths are ported.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ Environment variables:
   ASR_QUANT            Weight quantization: int8 | int4 | lm8 (default none)
   ASR_LM_BITS          lm_head width under int8/int4: 8 | 4 (default: same)
   ASR_MERGE_QKV        0 keeps q/k/v and gate/up unmerged when quantizing
+  ASR_KV               KV slab: bf16 (default: the compute dtype) | int8
 """
 
 
@@ -101,7 +103,7 @@ def main(argv=None) -> int:
 
     from qwen3_asr_rs_tpu.errors import AsrError
 
-    from .runtime.engine import AsrEngine
+    from .runtime.engine import AsrEngine, load_audio
 
     device = os.environ.get("ASR_DEVICE", "cuda")
     if device.startswith("cuda") and not torch.cuda.is_available():
@@ -119,11 +121,17 @@ def main(argv=None) -> int:
     try:
         engine = AsrEngine(model_path, dtype=dtype, max_new_tokens=max_new,
                            device=device, quantize=quantize)
-        for f in audio_files:
-            logger.info("Transcribing: %s", f)
-            result = engine.transcribe(f, language)
-            if len(audio_files) > 1:
-                print(f"File: {f}")
+        if len(audio_files) == 1:
+            logger.info("Transcribing: %s", audio_files[0])
+            result = engine.transcribe(audio_files[0], language)
+            print(f"Language: {result.language}")
+            print(f"Text: {result.text}")
+            return 0
+        logger.info("Transcribing %d files as one batch", len(audio_files))
+        samples = [load_audio(f, 16000) for f in audio_files]
+        results = engine.transcribe_batch(samples, [language] * len(samples))
+        for f, result in zip(audio_files, results):
+            print(f"File: {f}")
             print(f"Language: {result.language}")
             print(f"Text: {result.text}")
         return 0

@@ -1,19 +1,24 @@
-"""Qwen3 text decoder in PyTorch: the main-path subset.
+"""Qwen3 text decoder in PyTorch: the transcription subset.
 
-Port of ``qwen3_asr_rs_tpu/models/text_decoder.py`` for single-utterance
-greedy transcription: GQA attention with per-head QK RMSNorm, rotate-half
-RoPE/MRoPE, SwiGLU, pre-norm residual layers, final RMSNorm and a tied or
-untied lm_head. Parameters are the JAX package's tree (layers stacked on
-a leading axis, linears (in, out)), and the KV cache is the same
-preallocated ``(L, B, Hkv, S, D)`` slab, updated in place.
+Port of ``qwen3_asr_rs_tpu/models/text_decoder.py`` for greedy
+transcription of one utterance or of a right-aligned batch: GQA attention
+with per-head QK RMSNorm, rotate-half RoPE/MRoPE, SwiGLU, pre-norm
+residual layers, final RMSNorm and a tied or untied lm_head. Parameters
+are the JAX package's tree (layers stacked on a leading axis, linears
+(in, out)), and the KV cache is the same preallocated ``(L, B, Hkv, S,
+D)`` slab, updated in place: in the compute dtype, or int8 with float32
+per-slot scales (``KVCache.zeros(quantized=True)``, the engine's
+``ASR_KV=int8``), quantized on every write and dequantized (folded into
+the kernels) at the attention site.
 
-Decode steps read the stale slab ``[0, pos)`` plus the current token as
-an explicit self term, then write every layer's fresh K/V at slot
-``pos``. On CUDA the step runs the decode kernel
-(``ops/kernels/decode_layer.py``); ``ASR_DECODE_IMPL=scan`` selects the
-plain per-layer loop, whose attention is the K2 kernel
-(``ASR_DECODE_ATTN=kernel``, the CUDA default) or the masked dense path
-(``dense``, the CPU default).
+Decode steps read each row's stale slab range (``[0, pos)`` for one
+utterance, ``[kv_start_b, slot)`` for a right-aligned batch, where every
+row writes the same slot) plus the current token as an explicit self
+term, then write every layer's fresh K/V at that slot. On CUDA the step
+runs the decode kernel (``ops/kernels/decode_layer.py``) at any B;
+``ASR_DECODE_IMPL=scan`` selects the plain per-layer loop, whose
+attention is the K2 kernel (``ASR_DECODE_ATTN=kernel``, the CUDA
+default) or the masked dense path (``dense``, the CPU default).
 
 Weight-quantized trees (``weights/quantize.py``: int8 ``*_q`` or int4
 ``*_q4`` weights with float32 per-column ``*_s`` scales, merged
@@ -24,8 +29,8 @@ linears and the int8 lm_head through the K5 kernel
 as two half-width products, as in JAX. Every quantized product stays
 float32 until its scale is applied and only then rounds to the compute
 dtype. Grouped int4 scales, blocked int4, the folded lm_head,
-aligned-batch and speculative calls are not ported yet and raise
-NotImplementedError.
+per-example decode positions (serving's scatter write) and speculative
+calls are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,19 +57,84 @@ Tree = Any
 
 @dataclasses.dataclass
 class KVCache:
-    """Preallocated slab cache: k, v (num_layers, batch, Hkv, max_len, D)."""
+    """Preallocated slab cache: k, v (num_layers, batch, Hkv, max_len, D).
+
+    Quantized (int8) slabs carry symmetric float32 scales per (layer,
+    example, kv head, slot) in ``k_scale``/``v_scale`` (L, B, Hkv,
+    max_len): half the slab bytes of bf16 per decode step.
+    """
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def zeros(cls, cfg: TextDecoderConfig, batch: int, max_len: int,
               dtype: torch.dtype = torch.bfloat16,
-              device: str | torch.device = "cpu") -> "KVCache":
+              device: str | torch.device = "cpu",
+              quantized: bool = False) -> "KVCache":
         shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
                  max_len, cfg.head_dim)
+        if quantized:
+            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=device),
+                       v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=device))
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def store(self, l: int, k, v) -> None:
+        """Write fresh K/V (B, Hkv, S, D) of layer ``l`` at slots [0, S),
+        quantized for an int8 slab (JAX ``_store_kv``)."""
+        s = k.shape[2]
+        if self.quantized:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            self.k_scale[l, :, :, :s] = ks
+            self.v_scale[l, :, :, :s] = vs
+        self.k[l, :, :, :s] = k.to(self.k.dtype)
+        self.v[l, :, :, :s] = v.to(self.v.dtype)
+
+    def store_token(self, ks, vs, slot: int) -> None:
+        """Write one token's fresh K/V (L, B, Hkv, D) of every layer at the
+        shared slot, quantized per (layer, row, head) for an int8 slab
+        (JAX ``_write_token_kv``)."""
+        if self.quantized:
+            (ks, k_scale), (vs, v_scale) = quantize_kv(ks), quantize_kv(vs)
+            self.k_scale[:, :, :, slot] = k_scale
+            self.v_scale[:, :, :, slot] = v_scale
+        self.k[:, :, :, slot] = ks.to(self.k.dtype)
+        self.v[:, :, :, slot] = vs.to(self.v.dtype)
+
+    def layer(self, l: int, dtype):
+        """Layer ``l``'s slabs (B, Hkv, S, D): dequantized to ``dtype``
+        from an int8 slab, as stored otherwise (JAX ``_decode_scan``)."""
+        if self.quantized:
+            return (dequantize_kv(self.k[l], self.k_scale[l], dtype),
+                    dequantize_kv(self.v[l], self.v_scale[l], dtype))
+        return self.k[l], self.v[l]
+
+
+def quantize_kv(t):
+    """Symmetric int8 quantization over the last (D) axis, bit-equal to
+    JAX's: t (..., D) -> (int8 (..., D), float32 scale (...,)), scale =
+    max(absmax, 1e-8) / 127, values rounded half to even, clipped to
+    +-127."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    """int8 (..., D) * float32 scale (...,) -> dtype (..., D)."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def check_params(params: Tree) -> None:
@@ -160,9 +230,11 @@ class TextDecoder:
         """Token embedding lookup (reference src/text_decoder.rs:90-92)."""
         return params["embed"][input_ids]
 
-    def _layer(self, layer: Tree, x, cos, sin, l: int, cache: KVCache):
+    def _layer(self, layer: Tree, x, cos, sin, l: int, cache: KVCache,
+               kv_start=None):
         """One prefill layer: writes the fresh K/V at slots [0, S) of layer
-        ``l`` and attends causally over the fresh keys."""
+        ``l`` and attends causally over the fresh (unquantized) keys,
+        from slot ``kv_start[b]`` on when given (right-aligned rows)."""
         cfg = self.cfg
         residual = x
         h = rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps)
@@ -172,13 +244,10 @@ class TextDecoder:
         k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
+        cache.store(l, k.transpose(1, 2), v.transpose(1, 2))
 
-        s = x.shape[1]
-        cache.k[l, :, :, :s] = k.transpose(1, 2).to(cache.k.dtype)
-        cache.v[l, :, :, :s] = v.transpose(1, 2).to(cache.v.dtype)
-
-        attn = attention(q, k, v, causal=True)
-        b = attn.shape[0]
+        attn = attention(q, k, v, causal=True, kv_start=kv_start)
+        b, s = attn.shape[:2]
         x = residual + _linear(layer, "o_w", attn.reshape(b, s, -1))
         residual = x
         h = rms_norm(x, layer["post_ln_w"], cfg.rms_norm_eps)
@@ -209,49 +278,90 @@ class TextDecoder:
         decode steps overwrite."""
         check_params(params)
         cos, sin = self.rotary.lookup(position_ids)
-        layers = params["layers"]
-        for l in range(cache.k.shape[0]):
-            hidden = self._layer({k: v[l] for k, v in layers.items()},
-                                 hidden, cos, sin, l, cache)
+        hidden = self._run_layers(params, hidden, cos, sin, cache)
         last = hidden[:, true_len - 1: true_len]
         return self.logits(params, last)[:, 0], cache
 
-    def _use_fused_step(self, params: Tree, b: int, device) -> bool:
-        """The decode kernel runs for a shared scalar slot, B = 1, no
-        attention biases, and head_dim 128 on CUDA, for float, int8 and
-        int4 weights, merged or not (ASR_DECODE_IMPL=scan|fused overrides
-        'auto')."""
+    def _run_layers(self, params: Tree, hidden, cos, sin, cache: KVCache,
+                    kv_start=None):
+        layers = params["layers"]
+        for l in range(cache.k.shape[0]):
+            hidden = self._layer({k: v[l] for k, v in layers.items()},
+                                 hidden, cos, sin, l, cache, kv_start)
+        return hidden
+
+    @torch.inference_mode()
+    def prefill_aligned(self, params: Tree, hidden, kv_start, cache: KVCache):
+        """Right-aligned prefill: row b of the (B, P, H) embeddings holds
+        its prompt at slots [kv_start[b], P) and garbage before. Positions
+        are max(slot - kv_start, 0); attention is causal from kv_start on.
+        Writes cache[0:P] in place; returns (logits at slot P - 1 (B, V),
+        cache)."""
+        check_params(params)
+        p = hidden.shape[1]
+        slots = torch.arange(p, device=hidden.device)
+        positions = torch.clamp(slots[None, :] - kv_start[:, None], min=0)
+        cos, sin = self.rotary.lookup_batch(positions)
+        hidden = self._run_layers(params, hidden, cos, sin, cache, kv_start)
+        return self.logits(params, hidden[:, -1:])[:, 0], cache
+
+    def _use_fused_step(self, params: Tree, device) -> bool:
+        """The decode kernel runs for a shared write slot at any B, no
+        attention biases, head_dim 128 on CUDA, for float, int8 and int4
+        weights, merged or not, and bf16/f32 or int8 slabs
+        (ASR_DECODE_IMPL=scan|fused overrides 'auto')."""
         impl = os.environ.get("ASR_DECODE_IMPL", "auto")
         if impl == "scan":
             return False
-        eligible = b == 1 and "q_b" not in params["layers"]
+        eligible = "q_b" not in params["layers"]
         if impl == "fused":
             return eligible
         return eligible and device.type == "cuda" and self.cfg.head_dim == 128
 
     @torch.inference_mode()
     def decode_step(self, params: Tree, token_ids, pos: int, cache: KVCache):
-        """Single greedy decode step at host-known position ``pos``.
-        Returns (logits (B, V) float32, cache updated in place)."""
+        """Single greedy decode step at host-known position ``pos``, shared
+        by every row (slab slots [0, pos) are live). Returns (logits (B, V)
+        float32, cache updated in place)."""
         if not isinstance(pos, int):
             raise NotImplementedError(
-                "per-example decode positions (aligned batches) are not "
-                "ported yet: pos must be an int"
+                "per-example decode positions (serving's scatter write) are "
+                "not ported yet: pos must be an int; right-aligned batches "
+                "use decode_step_aligned"
             )
-        check_params(params)
         b = token_ids.shape[0]
-        hidden = self.embed(params, token_ids)  # (B, H)
         cos, sin = self.rotary.lookup_pos(pos)  # (1, D)
-        if self._use_fused_step(params, b, hidden.device):
+        return self._step(params, token_ids, cos.expand(b, -1),
+                          sin.expand(b, -1), cache, None, pos)
+
+    @torch.inference_mode()
+    def decode_step_aligned(self, params: Tree, token_ids, slot: int,
+                            kv_start, cache: KVCache):
+        """Right-aligned decode step: every row writes the shared slot
+        ``slot`` (== P + step); row b attends to slots [kv_start[b], slot)
+        at position slot - kv_start[b]. Returns (logits (B, V) float32,
+        cache updated in place)."""
+        positions = (slot - kv_start)[:, None]  # (B, 1)
+        cos, sin = self.rotary.lookup_batch(positions)
+        return self._step(params, token_ids, cos[:, 0], sin[:, 0], cache,
+                          kv_start, slot)
+
+    def _step(self, params: Tree, token_ids, cos, sin, cache: KVCache,
+              start, end: int):
+        """One decode step of every row: cos/sin (B, D), live slab slots
+        [start_b, end) (start None: 0), the fresh K/V written at ``end``."""
+        check_params(params)
+        hidden = self.embed(params, token_ids)  # (B, H)
+        if self._use_fused_step(params, hidden.device):
             hidden, ks, vs = decode_layers_fused(
-                hidden, cos.expand(b, -1).contiguous(),
-                sin.expand(b, -1).contiguous(), params["layers"],
-                cache.k, cache.v, None, pos, eps=self.cfg.rms_norm_eps,
+                hidden, cos.contiguous(), sin.contiguous(), params["layers"],
+                cache.k, cache.v, start, end, eps=self.cfg.rms_norm_eps,
+                k_scales=cache.k_scale, v_scales=cache.v_scale,
             )
         else:
             hidden, ks, vs = self._decode_scan(params, hidden, cos, sin,
-                                               cache, pos)
-        self._write_token_kv(cache, ks, vs, pos)
+                                               cache, start, end)
+        cache.store_token(ks, vs, end)
         return self.logits(params, hidden[:, None])[:, 0], cache
 
     def decode_step_token(self, params: Tree, token_ids, pos: int,
@@ -261,15 +371,16 @@ class TextDecoder:
         logits, cache = self.decode_step(params, token_ids, pos, cache)
         return torch.argmax(logits, dim=-1), cache
 
-    @staticmethod
-    def _write_token_kv(cache: KVCache, ks, vs, pos: int) -> None:
-        """Write one token's fresh K/V (L, B, Hkv, D) at slot ``pos``."""
-        cache.k[:, :, :, pos] = ks.to(cache.k.dtype)
-        cache.v[:, :, :, pos] = vs.to(cache.v.dtype)
+    def decode_step_aligned_token(self, params: Tree, token_ids, slot: int,
+                                  kv_start, cache: KVCache):
+        """Right-aligned ``decode_step_token`` (see decode_step_aligned)."""
+        logits, cache = self.decode_step_aligned(params, token_ids, slot,
+                                                 kv_start, cache)
+        return torch.argmax(logits, dim=-1), cache
 
     def _decode_scan(self, params: Tree, hidden, cos, sin, cache: KVCache,
-                     pos: int):
-        """Plain per-layer decode over the stale slab [0, pos).
+                     start, end: int):
+        """Plain per-layer decode over each row's stale slab [start_b, end).
         Returns (hidden (B, H), ks, vs (L, B, Hkv, D))."""
         impl = os.environ.get("ASR_DECODE_ATTN", "auto")
         if impl == "auto":
@@ -279,18 +390,20 @@ class TextDecoder:
         layers = params["layers"]
         ks, vs = [], []
         h = hidden[:, None]  # (B, 1, H)
+        cos, sin = cos[:, None], sin[:, None]  # (B, 1, D)
         for l in range(cache.k.shape[0]):
             layer = {k: v[l] for k, v in layers.items()}
             h, k_f, v_f = self._decode_layer(layer, l, h, cos, sin, cache,
-                                             pos, impl)
+                                             start, end, impl)
             ks.append(k_f)
             vs.append(v_f)
         return h[:, 0], torch.stack(ks), torch.stack(vs)
 
     def _decode_layer(self, layer: Tree, l: int, h, cos, sin, cache: KVCache,
-                      pos: int, impl: str):
+                      start, end: int, impl: str):
         """One decode layer; attention through K2 ('kernel') or the masked
-        dense einsums of the JAX scan path ('dense')."""
+        dense einsums of the JAX scan path ('dense'). The self K/V stay
+        unquantized: in the slab dtype, or in h's for an int8 slab."""
         cfg = self.cfg
         b = h.shape[0]
         nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -303,32 +416,38 @@ class TextDecoder:
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         if impl == "kernel":
+            self_dtype = h.dtype if cache.quantized else cache.k.dtype
             out = decode_attention(
                 q[:, 0].contiguous(), cache.k, cache.v,
-                k[:, 0].to(cache.k.dtype).contiguous(),
-                v[:, 0].to(cache.v.dtype).contiguous(), l, None, pos,
+                k[:, 0].to(self_dtype).contiguous(),
+                v[:, 0].to(self_dtype).contiguous(), l, start, end,
+                k_scales=cache.k_scale, v_scales=cache.v_scale,
             )
         else:
-            out = self._dense_self_attention(q, k, v, cache.k[l], cache.v[l],
-                                             pos)
+            k_lay, v_lay = cache.layer(l, h.dtype)
+            out = self._dense_self_attention(q, k, v, k_lay, v_lay, start, end)
         out = out.reshape(b, 1, nq * hd).to(h.dtype)
         h = residual + _linear(layer, "o_w", out)
         residual = h
         x = rms_norm(h, layer["post_ln_w"], cfg.rms_norm_eps)
         return residual + _mlp(layer, x), k[:, 0], v[:, 0]
 
-    def _dense_self_attention(self, q, k, v, k_lay, v_lay, pos: int):
+    def _dense_self_attention(self, q, k, v, k_lay, v_lay, start, end: int):
         """Masked dense decode attention (JAX ``_decode_layer_masked``):
-        slab slots [0, pos) plus the self term; probabilities normalized
-        first and rounded to the slab dtype before the V products."""
+        slab slots [start_b, end) (start None: 0) plus the self term;
+        probabilities normalized first and rounded to the slab dtype
+        before the V products."""
         b, _, nq, hd = q.shape
         nkv = k.shape[2]
         groups = nq // nkv
         scale = hd ** -0.5
         qg = q.reshape(b, 1, nkv, groups, hd).float()
         sc = torch.einsum("bqhgd,bhkd->bhgqk", qg, k_lay.float()) * scale
-        live = torch.arange(k_lay.shape[2], device=q.device) < pos
-        sc = torch.where(live, sc, -1e9)
+        slot = torch.arange(k_lay.shape[2], device=q.device)[None, :]
+        live = (slot < end).expand(b, -1)
+        if start is not None:
+            live = live & (slot >= start[:, None])
+        sc = torch.where(live[:, None, None, None, :], sc, -1e9)
         s_self = torch.einsum("bqhgd,bqhd->bhgq", qg,
                               k.to(q.dtype).float())[..., None] * scale
         all_sc = torch.cat([sc, s_self], -1)

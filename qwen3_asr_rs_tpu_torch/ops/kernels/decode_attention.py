@@ -2,20 +2,26 @@
 
 Replaces the Pallas kernel
 ``qwen3_asr_rs_tpu/ops/pallas/decode_attention.py::decode_attention_dma``
-(its bf16/f32 mode; int8-KV is still to be ported). One query token per
-example attends, per layer ``layer`` of the ``(L, B, Hkv, S, D)`` slab, to
-the live slots ``[start_b, end_b)`` plus its own fresh key/value as an
-explicit extra key, with GQA (query head h reads kv head h // G).
+in its bf16/f32 and int8-KV modes. One query token per example attends,
+per layer ``layer`` of the ``(L, B, Hkv, S, D)`` slab, to the live slots
+``[start_b, end_b)`` plus its own fresh key/value as an explicit extra
+key, with GQA (query head h reads kv head h // G). An int8 slab comes
+with float32 scales ``(L, B, Hkv, S)`` per slot, folded as in the Pallas
+kernel: K scales multiply the raw scores before the live-range mask
+(a dead slot's scale can be 0), V scales multiply the probabilities of
+the PV sum, and the softmax denominator takes the unscaled ones. The
+self K/V stay in q's dtype.
 
 Kernel: ``csrc/decode_attention.cuh`` (split-K flash decoding, see the
 note there). What bounds it on the H100 is the live K/V bytes: 2 * live *
-Hkv * D * 2 bytes per layer in bf16 (20 MB at 4992 live slots, 6 us at
-3.35 TB/s); the kernel reads only chunks that intersect the live range
-and spreads them over (chunks x kv heads) blocks so the slab streams
-from many SMs at once. The same device code is the attention stage of
-the decode step (K1, ``decode_layer.py``): K1's C entry counts each of
-its launches of these kernels, and K1's wrapper adds that count to
-``decode_attention.launches``.
+Hkv * D * 2 bytes per layer and example in bf16 (20 MB at 4992 live
+slots, 6 us at 3.35 TB/s), half that in int8 plus 4 bytes of scales per
+slot and head; the kernel reads only chunks that intersect the live
+range and spreads them over (chunks x kv heads x examples) blocks so the
+slab streams from many SMs at once. The same device code is the
+attention stage of the decode step (K1, ``decode_layer.py``): K1's C
+entry counts each of its launches of these kernels, and K1's wrapper
+adds that count to ``decode_attention.launches``.
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ _MAX_GROUPS = 8
 
 
 def decode_attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int,
-                           start, end, *, scale: float | None = None):
+                           start, end, *, k_scales=None, v_scales=None,
+                           scale: float | None = None):
     """Plain PyTorch version: float32 scores and softmax over the live
     slots plus the self key, unnormalized accumulation, one division.
 
-    q (B, Hq, D); k/v_slabs (L, B, Hkv, S, D); k/v_self (B, Hkv, D);
+    q (B, Hq, D); k/v_slabs (L, B, Hkv, S, D) (int8 with ``k_scales`` /
+    ``v_scales`` (L, B, Hkv, S) float32); k/v_self (B, Hkv, D);
     start (B,) int or None; end (B,) int. Returns (B, Hq, D) in q.dtype.
     """
     b, hq, d = q.shape
@@ -47,6 +55,8 @@ def decode_attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int,
     k = k_slabs[layer].float()  # (B, Hkv, S, D)
     v = v_slabs[layer].float()
     s = torch.einsum("bhgd,bhsd->bhgs", qf, k) * scale
+    if k_scales is not None:  # before the mask: a dead slot's scale may be 0
+        s = s * k_scales[layer][:, :, None, :]
     slot = torch.arange(s_max, device=q.device)[None, :]
     live = slot < end[:, None]
     if start is not None:
@@ -57,6 +67,8 @@ def decode_attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int,
     p = torch.exp(s - m[..., None])
     p_self = torch.exp(s_self - m)
     denom = p.sum(-1) + p_self
+    if v_scales is not None:
+        p = p * v_scales[layer][:, :, None, :]
     acc = torch.einsum("bhgs,bhsd->bhgd", p, v)
     acc = acc + p_self[..., None] * v_self.float()[:, :, None, :]
     out = acc / torch.clamp(denom, min=1e-30)[..., None]
@@ -70,11 +82,12 @@ def _as_index(x, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(x), dtype=torch.int32, device=device)
 
 
-def check_slabs(k_slabs, v_slabs, b: int, hq: int, d: int, dtype,
-                device) -> None:
+def check_slabs(k_slabs, v_slabs, b: int, hq: int, d: int, dtype, device,
+                k_scales=None, v_scales=None) -> None:
     """Raise ValueError unless the slabs are contiguous (L, b, Hkv, S, d)
-    tensors of ``dtype`` on ``device`` that the CUDA kernel takes for
-    ``hq`` query heads."""
+    tensors on ``device`` that the CUDA kernel takes for ``hq`` query
+    heads: of ``dtype``, or int8 with contiguous (L, b, Hkv, S) float32
+    ``k_scales`` and ``v_scales``."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"decode_attention: dtype {dtype} not supported")
     if k_slabs.ndim != 5 or k_slabs.shape != v_slabs.shape:
@@ -88,18 +101,30 @@ def check_slabs(k_slabs, v_slabs, b: int, hq: int, d: int, dtype,
             f"at most {_MAX_GROUPS} query heads per kv head, got D={d}, "
             f"Hq={hq}, Hkv={hkv}"
         )
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("decode_attention: pass both slab scales or neither")
+    slab_dtype = dtype if k_scales is None else torch.int8
     for t in (k_slabs, v_slabs):
-        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+        if t.dtype != slab_dtype or t.device != device or not t.is_contiguous():
             raise ValueError(
-                "decode_attention: operands must share dtype and device "
-                "and be contiguous"
+                f"decode_attention: slabs must be contiguous {slab_dtype} "
+                f"on {device}"
+            )
+    for t in () if k_scales is None else (k_scales, v_scales):
+        if (t.shape != k_slabs.shape[:4] or t.dtype != torch.float32
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                "decode_attention: slab scales must be contiguous "
+                f"{tuple(k_slabs.shape[:4])} float32 on {device}"
             )
 
 
-def check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self):
+def check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self,
+                                  k_scales=None, v_scales=None):
     """Raise ValueError on anything the CUDA kernel does not take."""
     b, hq, d = q.shape
-    check_slabs(k_slabs, v_slabs, b, hq, d, q.dtype, q.device)
+    check_slabs(k_slabs, v_slabs, b, hq, d, q.dtype, q.device, k_scales,
+                v_scales)
     hkv = k_slabs.shape[2]
     if k_self.shape != (b, hkv, d) or v_self.shape != (b, hkv, d):
         raise ValueError("decode_attention: inconsistent shapes")
@@ -115,7 +140,7 @@ def _lib():
     lib = _build.load("decode_attention")
     if not getattr(lib, "_bound", False):
         for fn in ("decode_attention_bf16", "decode_attention_f32"):
-            _build.bind(lib, fn, 9, (ctypes.c_int,) * 6 + (ctypes.c_float,))
+            _build.bind(lib, fn, 11, (ctypes.c_int,) * 6 + (ctypes.c_float,))
         lib.decode_attention_workspace.argtypes = [ctypes.c_int] * 4
         lib.decode_attention_workspace.restype = ctypes.c_longlong
         lib._bound = True
@@ -123,24 +148,28 @@ def _lib():
 
 
 def decode_attention(q, k_slabs, v_slabs, k_self, v_self, layer: int,
-                     start, end, *, scale: float | None = None):
+                     start, end, *, k_scales=None, v_scales=None,
+                     scale: float | None = None):
     """Decode attention (see module docstring). ``start`` (None, int or
-    (B,) tensor) and ``end`` (int or (B,) tensor) bound the live slots.
+    (B,) tensor) and ``end`` (int or (B,) tensor) bound the live slots;
+    ``k_scales``/``v_scales`` go with int8 slabs.
 
     CPU tensors run ``decode_attention_plain``; CUDA tensors launch the
     kernel (``decode_attention.launches`` counts those launches).
     """
+    b = q.shape[0]
     if q.device.type == "cpu":
-        b = q.shape[0]
         return decode_attention_plain(
             q, k_slabs, v_slabs, k_self, v_self, layer,
             None if start is None else _as_index(start, b, q.device),
-            _as_index(end, b, q.device), scale=scale,
+            _as_index(end, b, q.device), k_scales=k_scales,
+            v_scales=v_scales, scale=scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: device {q.device} not supported")
-    check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self)
-    b, hq, d = q.shape
+    check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self,
+                                  k_scales, v_scales)
+    _, hq, d = q.shape
     nl, _, hkv, s_max, _ = k_slabs.shape
     if not 0 <= layer < nl:
         raise ValueError(f"decode_attention: layer {layer} out of range")
@@ -153,8 +182,9 @@ def decode_attention(q, k_slabs, v_slabs, k_self, v_self, layer: int,
     fn = (lib.decode_attention_bf16 if q.dtype == torch.bfloat16
           else lib.decode_attention_f32)
     p = _build.ptr
-    rc = fn(p(q), p(k_slabs), p(v_slabs), p(k_self), p(v_self), p(start_t),
-            p(end_t), p(out), p(ws), layer, b, hq, hkv, s_max, d,
+    scales = (None, None) if k_scales is None else (p(k_scales), p(v_scales))
+    rc = fn(p(q), p(k_slabs), p(v_slabs), *scales, p(k_self), p(v_self),
+            p(start_t), p(end_t), p(out), p(ws), layer, b, hq, hkv, s_max, d,
             d ** -0.5 if scale is None else scale, _build.stream_of(q))
     _build.check(lib, rc, "decode_attention")
     decode_attention.launches += 1

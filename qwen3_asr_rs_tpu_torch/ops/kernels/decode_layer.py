@@ -1,33 +1,40 @@
-"""K1: one greedy decode step through all decoder layers.
+"""K1: one greedy decode step through all decoder layers, for B rows.
 
 Replaces the Pallas decode megakernel
 ``qwen3_asr_rs_tpu/ops/pallas/decode_layer.py::decode_layers_fused`` in
-its ``ffn_tiles=1``, no-fold, no-int8-KV branches at B = 1, for bf16/f32
-activations and float, int8 (``*_q`` + per-column ``*_s``) or int4
-(``*_q4`` + ``*_s``, nibble-packed: packed column j holds columns j and
-j + N/2) weights, in the merged layout (``qkv_w``, ``o_w``, ``gateup_w``,
-``down_w``) or per projection. One token goes through every layer
-(RMSNorm -> q/k/v -> QK-RMSNorm -> rotary -> GQA attention over the
-slab's live range plus the fresh self K/V -> o-proj + residual ->
-RMSNorm -> SwiGLU -> down + residual); the step returns ``(h (B, H), ks,
-vs (L, B, Hkv, D))`` and the caller writes ks/vs into the slab, as in
-JAX. Every product accumulates in float32; a quantized product's scale
-multiplies the whole sum, which then rounds to the compute dtype, as
-the Pallas kernel's ``_mm`` does.
+its ``ffn_tiles=1``, no-fold branches at any B >= 1 (per-row ``start``
+and cos/sin, a shared ``end``), for bf16/f32 activations; float, int8
+(``*_q`` + per-column ``*_s``) or int4 (``*_q4`` + ``*_s``,
+nibble-packed: packed column j holds columns j and j + N/2) weights, in
+the merged layout (``qkv_w``, ``o_w``, ``gateup_w``, ``down_w``) or per
+projection; and slabs in the compute dtype or int8 with per-slot float32
+``k_scales``/``v_scales`` (the int8-KV mode). Each row goes through every
+layer (RMSNorm -> q/k/v -> QK-RMSNorm -> rotary -> GQA attention over
+the row's live slab range plus the fresh self K/V -> o-proj + residual
+-> RMSNorm -> SwiGLU -> down + residual); the step returns ``(h (B, H),
+ks, vs (L, B, Hkv, D))`` in the compute dtype and the caller writes
+(and for an int8 slab quantizes) ks/vs into the slab, as in JAX. Every
+product accumulates in float32; a quantized product's scale multiplies
+the whole sum, which then rounds to the compute dtype, as the Pallas
+kernel's ``_mm`` does. Attention is K2's device code: int8 slab scales
+fold into the scores and probabilities (``decode_attention.py``), where
+the Pallas megakernel dequantizes K/V to the compute dtype first; the
+two agree exactly in float32 up to the order of two products.
 
 Kernel: ``csrc/decode_layer.cu``, one C entry that loops over the layers
-and launches hand-written GEMVs templated on the weight kind (RMSNorm
-prologue; store, residual or SwiGLU epilogue), a QK-norm + rotary kernel
-and K2's attention kernels per layer. What bounds it on the H100 is the
-weight stream: at 0.6B 28 x 15.7 M parameters, 0.88 GB per token in
-bf16, 0.44 GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the
-data-sheet 3.35 TB/s). This first version is far from that bound: its 9
-(unmerged) or 7 (merged) launches per layer are each latency-bound
-(small GEMV grids, a chain of dependent phases per launch), and
-enqueueing them takes the host a large share of the time the device
-takes to run them (see PERF.md). The Pallas kernel's VMEM budgets,
-``ffn_tiles``, resident/DMA slab modes, scale-row packing and 8/128
-alignments are TPU artifacts and are not carried over.
+and launches hand-written GEMVs templated on the weight kind and the
+rows per group (RMSNorm prologue; store, residual or SwiGLU epilogue), a
+QK-norm + rotary kernel and K2's attention kernels per layer. What
+bounds it on the H100 is the weight stream: at 0.6B 28 x 15.7 M
+parameters, 0.88 GB per step in bf16, 0.44 GB in int8, 0.22 GB in int4
+(0.26 / 0.13 / 0.07 ms at the data-sheet 3.35 TB/s), which the GEMVs
+read once per step for all B rows (up to 32 rows per launch). This first
+version is far from that bound: its 9 (unmerged) or 7 (merged) launches
+per layer are each latency-bound (small GEMV grids, a chain of dependent
+phases per launch), and enqueueing them takes the host a large share of
+the time the device takes to run them (see PERF.md). The Pallas kernel's
+VMEM budgets, ``ffn_tiles``, resident/DMA slab modes, scale-row packing
+and 8/128 alignments are TPU artifacts and are not carried over.
 """
 
 from __future__ import annotations
@@ -82,12 +89,14 @@ def _mm(x, layers, name: str, l: int, cdt):
 
 
 def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
-                              end, *, eps: float):
+                              end, *, eps: float, k_scales=None,
+                              v_scales=None):
     """Plain PyTorch version, rounding to x.dtype at the kernel's stages.
 
     x (B, H); cos/sin (B, D) float32; layers: stacked (L, ...) tree of
     float, int8 or int4 weights, merged or per projection;
-    k/v_slabs (L, B, Hkv, S, D); start (B,) int tensor or None; end (B,).
+    k/v_slabs (L, B, Hkv, S, D), int8 with ``k_scales``/``v_scales``
+    (L, B, Hkv, S) float32; start (B,) int tensor or None; end (B,).
     Returns (h (B, H), ks (L, B, Hkv, D), vs (L, B, Hkv, D)).
     """
     cdt = x.dtype
@@ -117,7 +126,8 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
         k = _rms(k.reshape(b, hkv, d), layers["k_norm_w"][l], eps).to(cdt)
         q, k = rope(q, hq), rope(k, hkv)
         v = v.reshape(b, hkv, d)
-        attn = decode_attention_plain(q, k_slabs, v_slabs, k, v, l, start, end)
+        attn = decode_attention_plain(q, k_slabs, v_slabs, k, v, l, start, end,
+                                      k_scales=k_scales, v_scales=v_scales)
         o = _mm(attn.reshape(b, hq * d), layers, "o_w", l, cdt)
         h = (h.float() + o.float()).to(cdt)
         xn2 = _rms(h, layers["post_ln_w"][l], eps).to(cdt)
@@ -136,7 +146,7 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
     return h, torch.stack(ks), torch.stack(vs)
 
 
-# Per (device, stream, dtype, dims, slab length): the step's float32
+# Per (device, stream, dtype, rows, dims, slab length): the step's float32
 # workspace, its split-K counters (zero on entry, and the kernels leave
 # them zero) and its T scratch, made once and reused by every step that is
 # ordered on the same stream.
@@ -149,25 +159,23 @@ def _lib():
         for fn in ("decode_layers_fused_bf16", "decode_layers_fused_f32"):
             f = getattr(lib, fn)
             f.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p] + [ctypes.c_int] * 7
+                           ctypes.c_void_p] + [ctypes.c_int] * 8
                           + [ctypes.c_float, ctypes.c_void_p])
             f.restype = ctypes.c_int
         lib.decode_layers_fused_scratch.argtypes = (
-            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
         )
         lib.decode_layers_fused_scratch.restype = None
         lib._bound = True
     return lib
 
 
-def _check(x, cos, sin, layers, k_slabs, v_slabs):
+def _check(x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales):
     """Validate the operands of the CUDA step; returns (suffix, merged,
     nl, h, hq, hkv, d, inter)."""
-    if x.ndim != 2 or x.shape[0] != 1:
+    if x.ndim != 2 or x.shape[0] < 1:
         raise ValueError(
-            "decode_layers_fused: the CUDA step takes B = 1 "
-            f"(got x {tuple(x.shape)}); batched decode is not ported yet"
-        )
+            f"decode_layers_fused: x must be (B, H), got {tuple(x.shape)}")
     suffix, merged = _layout(layers)
     names = _MERGED_WEIGHTS if merged else _WEIGHTS
     expected = {n + suffix for n in names} | set(_NORMS)
@@ -180,8 +188,8 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs):
             "decode_layers_fused: takes float, int8 or int4 weights, merged "
             f"or per projection (missing {missing}, unsupported {extra})"
         )
-    nl, b, hkv, _, d = k_slabs.shape
-    h = x.shape[1]
+    b, h = x.shape
+    nl, _, hkv, _, d = k_slabs.shape
     pack = 2 if suffix == "_q4" else 1  # logical columns per stored one
     if merged:
         hq = (layers["qkv_w" + suffix].shape[-1] * pack - 2 * hkv * d) // d
@@ -220,41 +228,44 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs):
             t.device != x.device or not t.is_contiguous()
         ):
             raise ValueError("decode_layers_fused: cos/sin must be (B, D) f32")
-    check_slabs(k_slabs, v_slabs, b, hq, d, x.dtype, x.device)
+    check_slabs(k_slabs, v_slabs, b, hq, d, x.dtype, x.device, k_scales,
+                v_scales)
     if not x.is_contiguous():
         raise ValueError("decode_layers_fused: x must be contiguous")
     return suffix, merged, nl, h, hq, hkv, d, inter
 
 
 def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
-                        *, eps: float):
+                        *, eps: float, k_scales=None, v_scales=None):
     """One decode step through all layers (see module docstring).
 
     ``start`` (None, int or (B,) tensor) and ``end`` (int or (B,) tensor)
-    bound the live slab slots. CPU tensors run
-    ``decode_layers_fused_plain``; CUDA tensors launch the kernel
-    (``decode_layers_fused.launches`` counts those launches).
+    bound each row's live slab slots; ``k_scales``/``v_scales`` go with
+    int8 slabs. CPU tensors run ``decode_layers_fused_plain``; CUDA
+    tensors launch the kernel (``decode_layers_fused.launches`` counts
+    those launches).
     """
     b = x.shape[0]
     if x.device.type == "cpu":
         return decode_layers_fused_plain(
             x, cos, sin, layers, k_slabs, v_slabs,
             None if start is None else _as_index(start, b, x.device),
-            _as_index(end, b, x.device), eps=eps,
+            _as_index(end, b, x.device), eps=eps, k_scales=k_scales,
+            v_scales=v_scales,
         )
     if x.device.type != "cuda":
         raise ValueError(f"decode_layers_fused: device {x.device} not supported")
     suffix, merged, nl, h, hq, hkv, d, inter = _check(
-        x, cos, sin, layers, k_slabs, v_slabs)
+        x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales)
     s_max = k_slabs.shape[3]
     start_t = _as_index(0 if start is None else start, b, x.device)
     end_t = _as_index(end, b, x.device)
     stream = _build.stream_of(x)
     lib = _lib()
-    key = (x.device, stream.value, x.dtype, h, hq, hkv, d, inter, s_max)
+    key = (x.device, stream.value, x.dtype, b, h, hq, hkv, d, inter, s_max)
     if key not in _scratch:
         sizes = (ctypes.c_longlong * 3)()
-        lib.decode_layers_fused_scratch(h, hq, hkv, d, inter, s_max, sizes)
+        lib.decode_layers_fused_scratch(b, h, hq, hkv, d, inter, s_max, sizes)
         _scratch[key] = (
             torch.empty(sizes[0], dtype=torch.float32, device=x.device),
             torch.zeros(sizes[1], dtype=torch.int32, device=x.device),
@@ -275,14 +286,15 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
     tensors = ([x, cos, sin] + [layers[n] for n in _NORMS]
                + [k_slabs, v_slabs, start_t, end_t, h_out, ks, vs, ws,
                   counters, tmp]
-               + [weights[n] for n in _WEIGHTS] + [scales[n] for n in _WEIGHTS])
+               + [weights[n] for n in _WEIGHTS] + [scales[n] for n in _WEIGHTS]
+               + [k_scales, v_scales])
     table = (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors))
     attn_launches = ctypes.c_int(0)
     fn = (lib.decode_layers_fused_bf16 if x.dtype == torch.bfloat16
           else lib.decode_layers_fused_f32)
     rc = fn(table, _KINDS[suffix], int(merged), ctypes.addressof(attn_launches),
-            nl, h, hq, hkv, d, inter, s_max, eps, stream)
+            nl, b, h, hq, hkv, d, inter, s_max, eps, stream)
     decode_attention.launches += attn_launches.value
     if rc != 0:
         # a failed launch may leave the split-K counters nonzero

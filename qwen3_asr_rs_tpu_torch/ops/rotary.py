@@ -79,14 +79,23 @@ class RotaryTable:
         ``(seq,)`` (identical MRoPE rows, the ASR case) or ``(3, seq)``."""
         position_ids = torch.as_tensor(position_ids, device=self.cos_table.device)
         if position_ids.ndim == 1:
-            cos_half = self.cos_table[position_ids]
-            sin_half = self.sin_table[position_ids]
-        else:
-            # per-frequency row select: pos[t, j] = position_ids[dim_map[j], t]
-            pos = position_ids[self.dim_map, :].T  # (seq, half_dim)
-            j = torch.arange(self.half_dim, device=pos.device)[None, :]
-            cos_half = self.cos_table[pos, j]
-            sin_half = self.sin_table[pos, j]
+            return self.lookup_batch(position_ids)
+        # per-frequency row select: pos[t, j] = position_ids[dim_map[j], t]
+        pos = position_ids[self.dim_map, :].T  # (seq, half_dim)
+        j = torch.arange(self.half_dim, device=pos.device)[None, :]
+        cos_half = self.cos_table[pos, j]
+        sin_half = self.sin_table[pos, j]
+        return (torch.cat([cos_half, cos_half], dim=-1),
+                torch.cat([sin_half, sin_half], dim=-1))
+
+    def lookup_batch(self, position_ids):
+        """cos/sin (..., head_dim) float32 for positions of any shape, such
+        as per-example positions (B, S) of a right-aligned batch (pos =
+        slot - kv_start). All MRoPE rows are identical for ASR, so a plain
+        row gather is exact."""
+        position_ids = torch.as_tensor(position_ids, device=self.cos_table.device)
+        cos_half = self.cos_table[position_ids]
+        sin_half = self.sin_table[position_ids]
         return (torch.cat([cos_half, cos_half], dim=-1),
                 torch.cat([sin_half, sin_half], dim=-1))
 

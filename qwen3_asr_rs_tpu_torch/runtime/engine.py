@@ -1,20 +1,26 @@
-"""AsrEngine — end-to-end single-utterance transcription in PyTorch.
+"""AsrEngine — end-to-end greedy transcription in PyTorch.
 
-Port of the B = 1 greedy path of ``qwen3_asr_rs_tpu/runtime/engine.py``:
+Port of the greedy paths of ``qwen3_asr_rs_tpu/runtime/engine.py``:
 log-mel -> audio encoder -> prompt embedding with the audio embeddings
 injected at ``AUDIO_OFFSET`` -> prefill -> greedy decode until an EOS
-token or ``max_new_tokens``. Audio lengths round up to the same chunk
-buckets and prompt buckets as the JAX engine.
+token or ``max_new_tokens``, for one utterance (left-aligned prompt) or
+a batch (``transcribe_batch``: padded to a power of two with born-done
+rows, one shared chunk bucket, right-aligned prompts, per-row EOS).
+Audio lengths round up to the same chunk buckets and prompt buckets as
+the JAX engine.
 
 Differences from the JAX engine, none of which changes the tokens: the
-decode loop is a Python loop with one host read of the token per step
-(CUDA graphs are later work), and the KV slab is allocated once at its
-final length instead of in growing segments (masks make the output
-independent of the slab length). Weight quantization follows the JAX
-engine's ``quantize=`` modes 'int8', 'int4' and 'lm8' (with
-``ASR_MERGE_QKV`` and ``ASR_LM_BITS``); 'int4g', batches of more than one
-utterance, sampling, int8 KV, speculative decoding and long-form audio
-(beyond the largest bucket) are not ported yet and raise.
+decode loop is a Python loop with one host read of the B tokens per
+step (CUDA graphs are later work); mel and the encoder loop over the
+batch's clips instead of ``vmap``; and the KV slab is allocated once at
+its final length instead of in growing segments, without the JAX
+engine's 8/128-slot rounding (masks make the output independent of the
+slab length). Weight quantization follows the JAX engine's ``quantize=``
+modes 'int8', 'int4' and 'lm8' (with ``ASR_MERGE_QKV`` and
+``ASR_LM_BITS``), the KV slab its ``kv_dtype=`` 'bf16' (the compute
+dtype) and 'int8' (``ASR_KV``); 'int4g', sampling, speculative decoding
+and long-form audio (beyond the largest bucket) are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -86,13 +92,16 @@ class AsrEngine:
         tokenizer=None,
         device: str | torch.device = "cuda",
         quantize: Optional[str] = None,
+        kv_dtype: Optional[str] = None,
     ):
         """``params``: optional (encoder, decoder) trees (torch tensors or
         numpy arrays in the JAX layouts), cast to ``dtype`` on ``device``.
         ``device`` is explicit: there is no CPU fallback for "cuda".
         ``quantize``: None, 'int8', 'int4' or 'lm8' (int8 lm_head only),
         applied to the decoder weights after the cast to ``dtype``, as the
-        JAX engine does."""
+        JAX engine does. ``kv_dtype``: None (``ASR_KV``, else 'bf16'),
+        'bf16' (slabs in ``dtype``) or 'int8' (int8 slabs with per-slot
+        scales: half the slab bytes per decode step)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AsrEngine(device='cuda'): no CUDA device")
@@ -112,6 +121,11 @@ class AsrEngine:
         del params  # so the float linears are freed once quantized
         self.quantize = quantize
         self.dec_params = self._quantize_params(self.dec_params, quantize)
+        if kv_dtype is None:
+            kv_dtype = os.environ.get("ASR_KV")
+        if kv_dtype not in (None, "bf16", "int8"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        self.kv_quant = kv_dtype == "int8"
         if tokenizer is None:
             tokenizer = AsrTokenizer.from_dir(model_dir)
         self.tokenizer = tokenizer
@@ -174,41 +188,58 @@ class AsrEngine:
     def _slab_len(self, p_bucket: int) -> int:
         return -(-(p_bucket + self.max_new_tokens + 1) // 8) * 8
 
+    def _new_cache(self, batch: int, p_bucket: int) -> KVCache:
+        return KVCache.zeros(self.config.text, batch, self._slab_len(p_bucket),
+                             dtype=self.dtype, device=self.device,
+                             quantized=self.kv_quant)
+
+    @torch.inference_mode()
+    def _embed_prompts(self, samples_list: Sequence[np.ndarray],
+                       languages: Sequence[Optional[str]], aligned: bool):
+        """Mel, encoder and prompt embedding with audio injection for
+        utterances that share one chunk bucket (the largest any needs).
+        Prompts sit at slots [0, len) or, ``aligned``, end at the prompt
+        bucket P; each row's audio goes to its prompt start +
+        ``AUDIO_OFFSET``. Returns (hidden (B, P, H), true prompt lengths)."""
+        cfg = self.config
+        cf = cfg.audio.chunk_frames
+        tpc = cfg.audio.tokens_per_chunk
+        bucket_chunks = max(self._pick_bucket(num_mel_frames(len(s)))
+                            for s in samples_list)
+        p_bucket = self._prompt_bucket(bucket_chunks)
+        ids = torch.zeros((len(samples_list), p_bucket), dtype=torch.long)
+        audio, true_lens = [], []
+        for i, (samples, language) in enumerate(zip(samples_list, languages)):
+            wave, n_true = pad_waveform(samples, bucket_frames=bucket_chunks * cf)
+            tail = n_true % cf
+            n_audio = (n_true // cf) * tpc + (
+                feat_extract_output_length(tail) if tail else 0
+            )
+            prompt = build_prompt(n_audio, language, self.tokenizer)
+            if len(prompt) > p_bucket:
+                raise ValueError("prompt exceeds bucket; language string too long")
+            start = p_bucket - len(prompt) if aligned else 0
+            ids[i, start: start + len(prompt)] = torch.tensor(prompt)
+            true_lens.append(len(prompt))
+            mel = log_mel_from_padded(torch.from_numpy(wave).to(self.device),
+                                      n_true, self.mel_filters)
+            embeds, _ = self.encoder(self.enc_params, mel, n_true)
+            audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
+        hidden = self.decoder.embed(self.dec_params, ids.to(self.device))
+        for i, (at, embeds) in enumerate(audio):
+            hidden[i, at: at + len(embeds)] = embeds.to(hidden.dtype)
+        return hidden, true_lens
+
     @torch.inference_mode()
     def prefill(self, samples: np.ndarray, language: Optional[str] = None):
         """Mel, encoder, prompt injection and prefill for one utterance.
         Returns (logits (1, V) at the last prompt token, KV cache,
         true prompt length)."""
-        cfg = self.config
-        cf = cfg.audio.chunk_frames
-        tpc = cfg.audio.tokens_per_chunk
-        bucket_chunks = self._pick_bucket(num_mel_frames(len(samples)))
-        p_bucket = self._prompt_bucket(bucket_chunks)
-        wave, n_true = pad_waveform(samples, bucket_frames=bucket_chunks * cf)
-        tail = n_true % cf
-        n_audio = (n_true // cf) * tpc + (
-            feat_extract_output_length(tail) if tail else 0
-        )
-        prompt = build_prompt(n_audio, language, self.tokenizer)
-        if len(prompt) > p_bucket:
-            raise ValueError("prompt exceeds bucket; language string too long")
-        ids = torch.zeros((1, p_bucket), dtype=torch.long)
-        ids[0, : len(prompt)] = torch.tensor(prompt)
-        ids = ids.to(self.device)
-        true_len = len(prompt)
-
-        wave_t = torch.from_numpy(wave).to(self.device)
-        mel = log_mel_from_padded(wave_t, n_true, self.mel_filters)
-        audio_embeds, _ = self.encoder(self.enc_params, mel, n_true)
-
-        dec = self.decoder
-        hidden = dec.embed(self.dec_params, ids)  # (1, P, H)
-        hidden[0, AUDIO_OFFSET: AUDIO_OFFSET + n_audio] = (
-            audio_embeds[:n_audio].to(hidden.dtype)
-        )
-        cache = KVCache.zeros(cfg.text, 1, self._slab_len(p_bucket),
-                              dtype=self.dtype, device=self.device)
-        logits, cache = dec.prefill(
+        hidden, (true_len,) = self._embed_prompts([samples], [language],
+                                                  aligned=False)
+        p_bucket = hidden.shape[1]
+        cache = self._new_cache(1, p_bucket)
+        logits, cache = self.decoder.prefill(
             self.dec_params, hidden, torch.arange(p_bucket, device=self.device),
             cache, true_len,
         )
@@ -226,21 +257,69 @@ class AsrEngine:
         t0 = time.perf_counter()
         logits, cache, true_len = self.prefill(samples, language)
         tok = torch.argmax(logits, dim=-1)
-        generated: list[int] = []
+        return self._decode_loop(
+            tok, np.ones(1, bool), t0,
+            lambda tok, step: self.decoder.decode_step_token(
+                self.dec_params, tok, true_len + step, cache)[0],
+        )[0]
+
+    @torch.inference_mode()
+    def prefill_batch(self, samples_list: Sequence[np.ndarray],
+                      languages: Sequence[Optional[str]]):
+        """Mel, encoder, prompt injection and right-aligned prefill for B
+        utterances: row b's prompt spans slots [kv_start_b, P). Returns
+        (logits (B, V) at slot P - 1, KV cache, kv_start (B,) int32, P)."""
+        hidden, true_lens = self._embed_prompts(samples_list, languages,
+                                                aligned=True)
+        b, p_bucket = hidden.shape[:2]
+        kv_start = torch.tensor([p_bucket - n for n in true_lens],
+                                dtype=torch.int32, device=self.device)
+        cache = self._new_cache(b, p_bucket)
+        logits, cache = self.decoder.prefill_aligned(self.dec_params, hidden,
+                                                     kv_start, cache)
+        return logits, cache, kv_start, p_bucket
+
+    @torch.inference_mode()
+    def generate_batch(self, samples_list: Sequence[np.ndarray],
+                       languages: Sequence[Optional[str]],
+                       live: np.ndarray) -> list[list[int]]:
+        """Greedy token ids (EOS excluded) for B > 1 utterances in one
+        right-aligned batch (``prefill_batch``); decode step i writes slot
+        P + i for every row. Rows with ``live`` False are born done and
+        emit no token. Fills ``last_stats`` as ``generate`` does."""
+        t0 = time.perf_counter()
+        logits, cache, kv_start, p_bucket = self.prefill_batch(samples_list,
+                                                               languages)
+        tok = torch.argmax(logits, dim=-1)
+        return self._decode_loop(
+            tok, np.asarray(live, bool), t0,
+            lambda tok, step: self.decoder.decode_step_aligned_token(
+                self.dec_params, tok, p_bucket + step, kv_start, cache)[0],
+        )
+
+    def _decode_loop(self, tok, live: np.ndarray, t0: float, step_fn):
+        """Greedy decode of B rows from the prefill's tokens ``tok`` (B,):
+        each iteration reads the B tokens with one host read, appends each
+        live row's token until its EOS, and stops when every row is done
+        or a row holds ``max_new_tokens``; ``step_fn(tok, i)`` runs decode
+        step i. Returns the tokens of every row (none for rows not live)."""
+        done = ~live
+        generated: list[list[int]] = [[] for _ in range(len(live))]
         steps = 0
         t_first = None
-        while len(generated) < self.max_new_tokens:
-            t = int(tok[0])  # the one host sync per step
+        while steps < self.max_new_tokens:
+            toks = tok.tolist()  # the one host sync per step
             if t_first is None:
                 t_first = time.perf_counter()
-            if t in EOS_TOKEN_IDS:
+            for i, t in enumerate(toks):
+                if not done[i]:
+                    if t in EOS_TOKEN_IDS:
+                        done[i] = True
+                    else:
+                        generated[i].append(t)
+            if done.all() or steps + 1 == self.max_new_tokens:
                 break
-            generated.append(t)
-            if len(generated) == self.max_new_tokens:
-                break
-            tok, cache = self.decoder.decode_step_token(
-                self.dec_params, tok, true_len + steps, cache
-            )
+            tok = step_fn(tok, steps)
             steps += 1
         t_end = time.perf_counter()
         t_first = t_end if t_first is None else t_first
@@ -248,30 +327,54 @@ class AsrEngine:
             "decode_steps": steps,
             "prefill_seconds": t_first - t0,
             "decode_seconds": t_end - t_first,
+            "n_gen": [len(g) for g in generated],
         }
         return generated
+
+    def _result(self, generated: list[int],
+                language: Optional[str]) -> TranscribeResult:
+        raw = self.tokenizer.decode(generated)
+        lang, text = parse_asr_output(raw, language is not None)
+        return TranscribeResult(text=text, language=lang, raw_output=raw)
 
     def transcribe_samples(self, samples: np.ndarray,
                            language: Optional[str] = None) -> TranscribeResult:
         """Transcribe mono 16 kHz f32 samples."""
         generated = self.generate(samples, language)
-        raw = self.tokenizer.decode(generated)
-        lang, text = parse_asr_output(raw, language is not None)
         logger.info("Generated %d tokens", len(generated))
-        return TranscribeResult(text=text, language=lang, raw_output=raw)
+        return self._result(generated, language)
 
     def transcribe_batch(self, samples_list: list,
                          languages: Optional[list] = None) -> list:
-        """B = 1 only: batched decode (right-aligned prompts) is not ported."""
-        if len(samples_list) == 0:
+        """Transcribe a batch of utterances in one prefill and one decode
+        loop with per-example EOS (the JAX engine's ``transcribe_batch``,
+        greedy): the decode step streams the weights once for all rows.
+
+        The batch pads to the next power of two by repeating the last
+        utterance; pad rows are born done and emit nothing. A single
+        utterance takes the left-aligned B = 1 path. ``last_stats["n_gen"]``
+        holds the token count of every row, pad rows included.
+        """
+        n_real = len(samples_list)
+        if n_real == 0:
             return []
-        if len(samples_list) > 1:
-            raise NotImplementedError(
-                "batched transcription is not ported to the PyTorch package "
-                "yet; call transcribe_samples per utterance"
+        if languages is None:
+            languages = [None] * n_real
+        if len(languages) != n_real:
+            raise ValueError(
+                f"languages has {len(languages)} entries for {n_real} "
+                "utterances"
             )
-        language = languages[0] if languages else None
-        return [self.transcribe_samples(samples_list[0], language)]
+        if n_real == 1:
+            return [self.transcribe_samples(samples_list[0], languages[0])]
+        b = 1 << (n_real - 1).bit_length()
+        samples_list = list(samples_list) + [samples_list[-1]] * (b - n_real)
+        languages = list(languages) + [languages[-1]] * (b - n_real)
+        live = np.arange(b) < n_real
+        generated = self.generate_batch(samples_list, languages, live)
+        logger.info("Generated %s tokens", self.last_stats["n_gen"][:n_real])
+        return [self._result(g, lang)
+                for g, lang in zip(generated[:n_real], languages)]
 
     def transcribe(self, audio_path: str | Path,
                    language: Optional[str] = None) -> TranscribeResult:

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_cuda.py [--seeds 8] [--steps 64]
                                           [--quantize none,int8,int4]
+                                          [--batch 1,8,32] [--kv bf16,int8]
                                           [--port-root DIR]
 
 Full Qwen3-ASR-0.6B width, bf16 activations, synthetic weights from the
@@ -14,10 +15,13 @@ nvidia-smi's name and power limit of the card:
 1. k1_error_spread — K1 (decode_layers_fused) bf16 against its plain
    version at chip_smoke's slab cases, over ``--seeds`` input seeds:
    max|kernel - plain| / max|plain| for every run.
-2. k1_parts — K1 alone at S=360 and S=4992: wall per call (20 calls
-   between synchronisations), host time to enqueue one call, and per
-   kernel class its launches, device microseconds and weight or K/V
-   bytes per call, from torch.profiler's device events.
+2. k1_parts — K1 alone at S=360 (and S=4992 for B <= 8), for each
+   batch size of ``--batch`` (rows start at chip_smoke's per-row starts,
+   capped at half the end) and slab type of ``--kv`` (bf16, or int8 with
+   per-slot scales): wall per call (20 calls between synchronisations),
+   host time to enqueue one call, and per kernel class its launches,
+   device microseconds and weight or K/V bytes per call, from
+   torch.profiler's device events.
 3. decode_step — ``decode_step_token`` as the engine's loop runs it (one
    host read of the token per step) on the 4 s clip: wall per step with
    and without the profiler, device time by kernel class per step, and
@@ -27,7 +31,8 @@ nvidia-smi's name and power limit of the card:
 
 ``--port-root DIR`` imports the port from DIR instead (an unpacked
 older commit, say), so that two versions can be compared in turns on one
-card; a port without weight quantization takes ``--quantize none``.
+card; a port without weight quantization takes ``--quantize none``, one
+without batched K1 or int8 slabs ``--batch 1 --kv bf16``.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 
@@ -131,7 +136,7 @@ def k1_error_spread(torch, smoke, layers, seeds: int, mode: str) -> dict:
             "smoke_atol": atol}
 
 
-def k1_parts(torch, smoke, layers, cfg, mode: str) -> list:
+def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str) -> list:
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused)
 
@@ -147,13 +152,21 @@ def k1_parts(torch, smoke, layers, cfg, mode: str) -> list:
     }
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for s_max, end in ((360, 217), (4992, 4737)):
+    for s_max, end in ((360, 217), (4992, 4737))[:1 if b > 8 else 2]:
         x, cos, sin, ks, vs = smoke.k1_inputs(torch, gen, torch.bfloat16,
-                                              s_max, end)
+                                              s_max, end, b)
+        starts = [min(st, end // 2) for st in smoke.row_starts(b)]
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        scales = {}
+        if kv == "int8":
+            from qwen3_asr_rs_tpu_torch.models.text_decoder import quantize_kv
+
+            (ks, k_s), (vs, v_s) = quantize_kv(ks), quantize_kv(vs)
+            scales = dict(k_scales=k_s, v_scales=v_s)
 
         def call():
-            return decode_layers_fused(x, cos, sin, layers, ks, vs, 0, end,
-                                       eps=1e-6)
+            return decode_layers_fused(x, cos, sin, layers, ks, vs, start,
+                                       end, eps=1e-6, **scales)
 
         for _ in range(3):
             call()
@@ -173,13 +186,17 @@ def k1_parts(torch, smoke, layers, cfg, mode: str) -> list:
         torch.cuda.synchronize()
         _, _, times = profile(torch, lambda: [call() for _ in range(n)])
         parts = by_class(times, n)
-        weight_bytes["attention split (K2)"] = 2 * 2 * nl * kvd * end
-        for k, b in weight_bytes.items():
+        live = sum(end - st for st in starts)
+        weight_bytes["attention split (K2)"] = (
+            2 * nl * kvd * live * (1 if kv == "int8" else 2)
+            + (2 * 4 * nl * cfg.num_key_value_heads * live
+               if kv == "int8" else 0))
+        for k, n_bytes in weight_bytes.items():
             if k in parts:
-                parts[k]["bytes"] = b
-                parts[k]["TB_per_s"] = b / parts[k]["device_us"] / 1e6
-        rows.append({"section": "k1_parts", "weights": mode, "S": s_max,
-                     "end": end,
+                parts[k]["bytes"] = n_bytes
+                parts[k]["TB_per_s"] = n_bytes / parts[k]["device_us"] / 1e6
+        rows.append({"section": "k1_parts", "weights": mode, "B": b,
+                     "kv": kv, "starts": starts, "S": s_max, "end": end,
                      "wall_ms_per_call": wall_ms,
                      "enqueue_ms_per_call": statistics.median(enqueue),
                      "device_ms_per_call": sum(
@@ -239,6 +256,10 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--quantize", default="none,int8,int4",
                     help="comma-separated weight modes: none, int8, int4")
+    ap.add_argument("--batch", default="1",
+                    help="comma-separated K1 batch sizes for k1_parts")
+    ap.add_argument("--kv", default="bf16",
+                    help="comma-separated slab types for k1_parts: bf16, int8")
     ap.add_argument("--port-root", type=Path, default=REPO,
                     help="directory holding the qwen3_asr_rs_tpu_torch "
                          "package to profile")
@@ -291,9 +312,12 @@ def main() -> int:
                            quantize=None if mode == "none" else mode)
         layers = engine.dec_params["layers"]
         emit(k1_error_spread(torch, smoke, layers, args.seeds, mode))
-        for row in k1_parts(torch, smoke, layers, config.text, mode):
-            emit(row)
-        torch.cuda.empty_cache()
+        for b in map(int, args.batch.split(",")):
+            for kv in args.kv.split(","):
+                for row in k1_parts(torch, smoke, layers, config.text, mode,
+                                    b, kv):
+                    emit(row)
+                torch.cuda.empty_cache()
         emit(decode_step(torch, engine, clips[4], args.steps, mode))
         emit(prefill(torch, engine, clips[300], mode))
         del engine, layers

@@ -141,6 +141,158 @@ def test_cuda_decode_layers_quantized_matches_plain(cuda, bits, merge, dtype,
             atol + rtol * b.float().abs().max())
 
 
+def _k1_case(cuda, dtype, b, s_max, end, seed, layers=2):
+    """Real 0.6B widths, ``layers`` layers: float weights in ``dtype``,
+    slabs of values at the scale of normed keys / values, x, cos/sin (B, D)
+    at distinct positions per row."""
+    cfg = dataclasses.replace(TextDecoderConfig(), num_hidden_layers=layers,
+                              vocab_size=64)
+    lay = to_torch(init_decoder_params_np(cfg), dtype, cuda)["layers"]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (layers, b, cfg.num_key_value_heads, s_max, cfg.head_dim)
+    kc = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    vc = (0.05 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    x = (0.02 * torch.randn((b, cfg.hidden_size), generator=g,
+                            device=cuda)).to(dtype)
+    pos = end - 3 * torch.arange(b, device=cuda)[:, None]
+    ang = pos * torch.logspace(0, -6, cfg.head_dim // 2, device=cuda)
+    cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+    return lay, kc, vc, x, cos, sin
+
+
+def _int8(slab):
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import quantize_kv
+
+    q, s = quantize_kv(slab)
+    return q.contiguous(), s.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 3, 8, 32])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -4)])
+def test_cuda_decode_layers_batched_matches_plain(cuda, b, dtype, atol, rtol):
+    """K1 at B rows with per-row starts 0, 37, 74, ... and a shared end:
+    one launch for all rows, K2 once per layer."""
+    lay, kc, vc, x, cos, sin = _k1_case(cuda, dtype, b, 200, 190, 7)
+    start = (37 * torch.arange(b, device=cuda) % 150).to(torch.int32)
+    n, n_attn = decode_layers_fused.launches, decode_attention.launches
+    got = decode_layers_fused(x, cos, sin, lay, kc, vc, start, 190, eps=1e-6)
+    assert decode_layers_fused.launches == n + 1
+    assert decode_attention.launches == n_attn + 2
+    end = torch.full((b,), 190, dtype=torch.int32, device=cuda)
+    ref = decode_layers_fused_plain(x, cos, sin, lay, kc, vc, start, end,
+                                    eps=1e-6)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max() <= (
+            atol + rtol * r.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 32])
+@pytest.mark.parametrize("bits,merge", [(8, True), (4, True), (4, False)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -4)])
+def test_cuda_decode_layers_batched_quantized_matches_plain(cuda, b, bits,
+                                                            merge, dtype,
+                                                            atol, rtol):
+    """K1 at B rows with int8/int4 weights (row groups of 2 to 8 rows by
+    the accumulators of the weight kind and layout) and per-row starts."""
+    _, kc, vc, x, cos, sin = _k1_case(cuda, dtype, b, 200, 190, 11)
+    lay = _quant_layers(cuda, dtype, bits, merge)[1]
+    start = (41 * torch.arange(b, device=cuda) % 150).to(torch.int32)
+    end = torch.full((b,), 190, dtype=torch.int32, device=cuda)
+    n = decode_layers_fused.launches
+    got = decode_layers_fused(x, cos, sin, lay, kc, vc, start, end, eps=1e-6)
+    assert decode_layers_fused.launches == n + 1
+    ref = decode_layers_fused_plain(x, cos, sin, lay, kc, vc, start, end,
+                                    eps=1e-6)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max() <= (
+            atol + rtol * r.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -4)])
+def test_cuda_decode_layers_int8_kv_matches_plain(cuda, b, dtype, atol, rtol):
+    """K1 on an int8 slab with per-slot scales (and int8 merged weights
+    at B = 8)."""
+    lay, kc, vc, x, cos, sin = _k1_case(cuda, dtype, b, 360, 301, 8)
+    if b == 8:
+        lay = _quant_layers(cuda, dtype, 8, True)[1]
+    (kq, ks), (vq, vs) = _int8(kc), _int8(vc)
+    start = (29 * torch.arange(b, device=cuda)).to(torch.int32)
+    end = torch.full((b,), 301, dtype=torch.int32, device=cuda)
+    n = decode_layers_fused.launches
+    got = decode_layers_fused(x, cos, sin, lay, kq, vq, start, end, eps=1e-6,
+                              k_scales=ks, v_scales=vs)
+    assert decode_layers_fused.launches == n + 1
+    ref = decode_layers_fused_plain(x, cos, sin, lay, kq, vq, start, end,
+                                    eps=1e-6, k_scales=ks, v_scales=vs)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max() <= (
+            atol + rtol * r.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_cuda_decode_attention_long_slab_matches_plain(cuda, dtype, atol, D,
+                                                       int8):
+    """K2 on a 4992-slot slab of int8 with per-slot scales or of the
+    compute dtype, at D = 64 and 128 (one load of 2 to 16 bytes per lane
+    and slot). Dead slots (past each row's end) have value and scale 0,
+    as in a fresh slab."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    L, B, Hq, Hkv, S = 3, 3, 16, 8, 4992
+    kc, vc = (torch.randn((L, B, Hkv, S, D), generator=g, device=cuda)
+              for _ in range(2))
+    if int8:
+        (kc, ks), (vc, vs) = _int8(kc), _int8(vc)
+        scales = dict(k_scales=ks, v_scales=vs)
+    else:
+        kc, vc, scales = kc.to(dtype), vc.to(dtype), {}
+    end = torch.tensor([4737, 1, 3000], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 0, 129], dtype=torch.int32, device=cuda)
+    for b, e in enumerate(end.tolist()):
+        for t in (kc, vc, *scales.values()):
+            t[:, b, :, e:] = 0
+    q = torch.randn((B, Hq, D), generator=g, device=cuda).to(dtype)
+    k_self = torch.randn((B, Hkv, D), generator=g, device=cuda).to(dtype)
+    v_self = torch.randn_like(k_self)
+    n = decode_attention.launches
+    got = decode_attention(q, kc, vc, k_self, v_self, 2, start, end, **scales)
+    assert decode_attention.launches == n + 1
+    ref = decode_attention_plain(q, kc, vc, k_self, v_self, 2, start, end,
+                                 **scales)
+    assert torch.isfinite(got).all()
+    assert (got.float() - ref.float()).abs().max() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_flash_attention_per_row_kv_start(cuda, dtype, atol):
+    """K3 at B = 2 with a per-row kv_start (right-aligned prefill); rows
+    before a row's start have no key and are not compared."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn((2, 300, 16, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, 300, 8, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, 300, 8, 128), generator=g, device=cuda).to(dtype)
+    kv_start = torch.tensor([0, 117], dtype=torch.int32, device=cuda)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, None, kv_start, causal=True)
+    assert flash_attention.launches == n + 1
+    ref = flash_attention_plain(q, k, v, None, kv_start, causal=True)
+    for b, s0 in enumerate(kv_start.tolist()):
+        assert (got[b, s0:].float() - ref[b, s0:].float()).abs().max() <= atol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 5, 300])
 @pytest.mark.parametrize("dtype,out_dtype", [
