@@ -9,37 +9,51 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. build   — compiles every kernel of csrc/ with nvcc (sm_90a), in parallel.
 3. kernels — each kernel against its plain PyTorch version on the same
              inputs at the 0.6B main-path shapes, max abs error against a
-             stated tolerance, median CUDA-event time of both: K2, K1
+             stated tolerance, median CUDA-event time of both, its bound
+             (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s, from the
+             shapes) and, where one exists (all but K1), one PyTorch
+             call's time on the same inputs (LIBRARY): K2, K1
              (bf16/f32 weights, and int8 merged, int4 merged, int8
              unmerged weights quantized by the port's own quantizer), K3,
              K4 (int4 lm_head) and K5 (int8 prefill linears and lm_head);
              then K1 at B = 2, 8, 32 with per-row starts (float weights,
              int8 merged at B = 8, int4 merged at B = 8 and 32), K1 and
              K2 on int8 slabs at B = 1 and 8, S = 360 and 4992, and K3 at
-             B = 2 with per-row kv_start.
+             B = 2 with per-row kv_start; then K1 with int4g weights at
+             group sizes 128 and 64 (B = 1 at S = 360 and 4992, B = 8 and
+             32, B = 1 and 8 on int8 slabs), K1 with the folded lm_head
+             (bf16/f32 and int8 lm_head, B = 1 and 8, and a constructed
+             tie), and K6 (decode_attention_slab and the single-layer
+             decode_attention) on the JAX package's test cases and at
+             S = 4992.
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
              synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
-             quantize='int8' (4 s, 30 s, 300 s), quantize='int4' (4 s,
-             30 s), and on the 4 s clip quantize='lm8' and the crossed
-             lm_head widths (ASR_LM_BITS=4 under int8, 8 under int4). Each
-             path runs with the launch counters set to 0, and they must
-             show that it went through its kernels.
+             quantize='int8' and 'int4g' (4 s, 30 s, 300 s), 'int4' (4 s,
+             30 s), and on the 4 s clip quantize='lm8', the crossed
+             lm_head widths (ASR_LM_BITS=4 under int8 and int4g, 8 under
+             int4), int4g at ASR_INT4_GROUP=64, and ASR_FOLD_LM=1 with
+             bf16 and with int8 weights. Each path runs with the launch
+             counters set to 0, and they must show that it went through
+             its kernels (and, folded, that no lm_head product ran outside
+             K1 after the prefill).
 5. batch   — AsrEngine.transcribe_batch at full width, bf16 weights:
              clips of 4, 8, 15, 22 and 30 s (B = 8, 3 born-done rows) with
              bf16 and with int8 KV, 32 clips of 4 s, 8 clips of 300 s with
              int8 KV, and the 4 s clip alone with int8 KV; then the five
-             clips with int8 weights and int8 KV, and with int4 weights;
+             clips with int8 weights and int8 KV, with int4 weights, with
+             int4g weights and with int4g weights and ASR_FOLD_LM=1;
              per run B, live rows, bucket, wall, aggregate xRT, tokens/s,
              prefill s, decode ms per step and the launch counts, which
              must show K1 once per step whatever B is, K2 once per layer
              and step, and K4/K5 as the weights need them.
 6. parity  — the 4 s clip teacher-forced in float32 at full width, with
-             float, int8 and int4 weights: the decode-kernel path against
-             the plain per-layer path, per-step logits within a stated
-             tolerance; then a batch of 3 clips (4, 8, 15 s) with bf16 and
-             with int8 KV, every live row's logits from the same slab
-             state on both paths.
+             float, int8, int4 and int4g weights: the decode-kernel path
+             against the plain per-layer path, per-step logits within a
+             stated tolerance (int4g: and the folded step's token equal
+             to the argmax of the plain logits); then a batch of 3 clips
+             (4, 8, 15 s) with bf16 and with int8 KV, every live row's
+             logits from the same slab state on both paths.
 
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -70,6 +84,11 @@ SEED = 0
 # max|plain| ran from 0.008 to 0.040, median 0.024
 # (scripts/profile_torch_cuda.py, PERF.md); its bound is 2^-4.
 TOL = {
+    ("decode_attention_dma", "float32"): (2e-5, 0.0),
+    ("decode_attention_dma", "bfloat16"): (2e-2, 2 ** -7),
+    # K6 runs K2's device code: K2's tolerances
+    ("decode_attention_slab", "float32"): (2e-5, 0.0),
+    ("decode_attention_slab", "bfloat16"): (2e-2, 2 ** -7),
     ("decode_attention", "float32"): (2e-5, 0.0),
     ("decode_attention", "bfloat16"): (2e-2, 2 ** -7),
     ("decode_layers_fused", "float32"): (1e-4, 1e-5),
@@ -86,24 +105,82 @@ TOL = {
 }
 # float32 teacher-forced logits, decode kernel vs plain per-layer path
 PARITY_LOGITS_ATOL = 1e-3
+# The folded lm_head: the kernel's token, scored by the plain fold
+# arithmetic on the kernel's own final hidden state, lies within atol +
+# rtol * max|logit| of the best plain logit. float32: summation order.
+# bf16: the normed row rounds to bf16 after a factor summed in another
+# order, which can flip a rounding (2^-8 of an element): 2^-7 of the
+# largest logit allows it and bf16 near-ties.
+FOLD_LOGIT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
+# The H100 SXM data sheet's rates: HBM bytes per second and dense bf16
+# tensor-core operations per second (the bound of every kernel here:
+# bf16 activations, whatever the weights' width)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 989e12
 
 REPLACES = {
     "decode_layers_fused": "qwen3_asr_rs_tpu/ops/pallas/decode_layer.py:678",
-    "decode_attention": "qwen3_asr_rs_tpu/ops/pallas/decode_attention.py:413",
+    "decode_attention_dma": "qwen3_asr_rs_tpu/ops/pallas/decode_attention.py:413",
+    "decode_attention_slab": "qwen3_asr_rs_tpu/ops/pallas/decode_attention.py:157",
     "flash_attention": "qwen3_asr_rs_tpu/ops/pallas/flash_attention.py:152",
     "quant_matmul": "qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py:66",
     "quant_matvec_int4": "qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py:351",
 }
 SOURCES = {
     "decode_layers_fused": "qwen3_asr_rs_tpu_torch/csrc/decode_layer.cu",
-    "decode_attention": "qwen3_asr_rs_tpu_torch/csrc/decode_attention.cuh",
+    "decode_attention_dma": "qwen3_asr_rs_tpu_torch/csrc/decode_attention.cuh",
+    "decode_attention_slab": "qwen3_asr_rs_tpu_torch/csrc/decode_attention.cuh",
     "flash_attention": "qwen3_asr_rs_tpu_torch/csrc/flash_attention.cu",
     "quant_matmul": "qwen3_asr_rs_tpu_torch/csrc/quant_matmul.cu",
     "quant_matvec_int4": "qwen3_asr_rs_tpu_torch/csrc/quant_matvec_int4.cu",
 }
 K1_COVERS = ("B=1..32 with per-row starts; bf16/f32 activations; bf16/f32, "
              "int8 and int4 weights, merged qkv|gate-up and per projection; "
-             "bf16/f32 and int8 slabs")
+             "int4g weights (merged; group sizes 32, 64 and multiples of "
+             "128); bf16/f32 and int8 slabs; the folded lm_head (final "
+             "RMSNorm, (V, H) bf16/f32 or int8 (H, V) lm_head, argmax with "
+             "ties to the lowest index) returning token ids")
+K6_CALLERS = ("no runtime caller in the JAX package: decode_attention_slab "
+              "and decode_attention are called from "
+              "tests/test_decode_attention.py and scripts/tpu_kernel_check.py "
+              "only, so K6 has no main-path launches; its launches are the "
+              "kernel phase's")
+# the one PyTorch call each kernel's library_ms times on its headline case
+# (never called on the port's path), or why there is none
+_SDPA = "torch.nn.functional.scaled_dot_product_attention"
+LIBRARY = {
+    "decode_layers_fused": "none: no single PyTorch call computes a whole "
+                           "28-layer decode step",
+    "decode_attention_dma": f"{_SDPA}(enable_gqa=True) over the live slots "
+                            "with the self K/V appended (the concatenation "
+                            "untimed)",
+    "decode_attention_slab": f"{_SDPA}(enable_gqa=True) over the live slots "
+                             "with the self K/V appended (the concatenation "
+                             "untimed)",
+    "flash_attention": f"{_SDPA}(is_causal=True, enable_gqa=True) on (B, "
+                       "heads, S, D) copies of the inputs (the transposes "
+                       "untimed)",
+    "quant_matmul": "torch._weight_int8pack_mm: x @ int8 W^T times "
+                    "per-column scales, bf16 out (the (N, K) copy of the "
+                    "weights and the bf16 scales made untimed)",
+    "quant_matvec_int4": "torch._weight_int4pack_mm (tinygemm): bf16 x @ "
+                         "int4 W with a bf16 scale and zero per 256-row "
+                         "group, K4's per-column scale repeated over the "
+                         "groups, zero 0, bf16 out (the repacking into "
+                         "tinygemm's layout untimed)",
+}
+# K1 int4g checks: group sizes, (B, S, end, int8 slab)
+K1_INT4G_GROUPS = (128, 64)
+K1_INT4G_CASES = ((1, 360, 217, False), (1, 4992, 4737, False),
+                  (8, 360, 301, False), (32, 360, 301, False),
+                  (1, 360, 301, True), (8, 360, 301, True))
+# K6 checks: tests/test_decode_attention.py's cases, then the 300 s
+# bucket's slab: (B, S, Hq, Hkv, D, starts, ends)
+K6_CASES = ((1, 584, 16, 8, 128, None, [450]),
+            (2, 304, 16, 8, 128, [0, 37], [296, 120]),
+            (1, 64, 4, 2, 64, None, [64]),
+            (3, 136, 8, 4, 128, [5, 0, 60], [100, 136, 61]),
+            (1, 4992, 16, 8, 128, None, [4737]))
 # K1 quantized layouts checked in phase 3: (label, bits, merge)
 K1_QUANT = (("int8 merged", 8, True), ("int4 merged", 4, True),
             ("int8 unmerged", 8, False))
@@ -150,15 +227,63 @@ def k1_inputs(torch, gen, dtype, s_max: int, end: int, b: int = 1):
     return x, cos, sin, ks, vs
 
 
-def quantized_tree(torch, dec_params_f32, dtype, bits, merge):
+def quantized_tree(torch, dec_params_f32, dtype, bits, merge,
+                   group_size=None):
     """The decoder layers (and lm_head) cast to dtype, then quantized by
-    the port's own quantizer."""
+    the port's own quantizer (``group_size``: int4g)."""
     from qwen3_asr_rs_tpu_torch.weights.quantize import quantize_decoder_params
 
     tree = {"layers": {k: v.to(dtype)
                        for k, v in dec_params_f32["layers"].items()},
             "lm_head": dec_params_f32["lm_head"].to(dtype)}
-    return quantize_decoder_params(tree, bits=bits, merge=merge, lm_bits=8)
+    return quantize_decoder_params(tree, bits=bits, merge=merge, lm_bits=8,
+                                   group_size=group_size)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_of(nbytes_moved: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes_moved, "ops": ops}
+
+
+def k1_work(lay, x, ks, vs, starts, end, k_scales=None, lm_head=None,
+            lm_scales=None) -> dict:
+    """K1's bound: every weight, norm and scale read once, each row's
+    live K/V slots (and their int8 scales) of every layer, x in, h (or the
+    token ids) and the fresh K/V out; two operations per logical weight
+    and row, and the attention's four per live slot, head and dim."""
+    nl, b, hkv, _, d = ks.shape
+    live = sum(end - s for s in starts)
+    slot_bytes = 2 * hkv * d * ks.element_size() + (
+        0 if k_scales is None else 2 * hkv * 4)
+    logical = sum(t.numel() * (2 if n.endswith("_q4") else 1)
+                  for n, t in lay.items()
+                  if n.endswith(("_w", "_q", "_q4")) and "ln" not in n
+                  and "norm" not in n)
+    moved = (nbytes(*lay.values(), lm_head, lm_scales)
+             + nl * live * slot_bytes + 3 * nbytes(x)
+             + 2 * nl * b * hkv * d * x.element_size())
+    ops = 2 * b * logical + 4 * nl * (live + b) * HQ * d
+    if lm_head is not None:
+        ops += 2 * b * lm_head.numel()
+    return bound_of(moved, ops)
+
+
+def attn_work(q, ks, starts, ends, int8=False) -> dict:
+    """K2/K6's bound: one layer's live K/V (and scales), q, the self K/V
+    and the output; four operations per live slot, query head and dim."""
+    _, _, hkv, _, d = ks.shape
+    live = sum(e - s for s, e in zip(starts, ends))
+    slot_bytes = 2 * hkv * d * ks.element_size() + (8 * hkv if int8 else 0)
+    return bound_of(live * slot_bytes + 2 * nbytes(q) + 2 * q.shape[0] * hkv * d
+                 * q.element_size(), 4 * (live + q.shape[0]) * q.shape[1] * d)
 
 
 def emit(obj) -> None:
@@ -192,9 +317,12 @@ def max_err(torch, a, b) -> float:
 
 
 def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
-               rows=slice(None)):
+               rows=slice(None), work=None, library=None, headline=False):
     """Compare kernel_fn() with plain_fn() (a tensor or a tuple of them,
-    each against its own tolerance), then time both."""
+    each against its own tolerance), then time both; ``work`` is the
+    case's ``bound_of()``, ``library`` one PyTorch call that computes the same
+    function (timed, never compared), ``headline`` marks the case the
+    kernels line reports."""
     out, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if isinstance(out, torch.Tensor):
@@ -218,15 +346,63 @@ def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
     plain_ms = cuda_ms(torch, plain_fn, reps=3, warmup=1)
     row = {"phase": "kernel", "kernel": name, "dtype": dt, "case": case,
            "max_abs_err": err, "ref_max": scale, "bound": bound,
-           "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms}
+           "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
+           **(work or {}), "headline": headline}
+    if library is not None:
+        row["library_ms"] = cuda_ms(torch, library)
     emit(row)
     results.append(row)
+
+
+def sdpa_decode(torch, q, ks, vs, k_self, v_self, layer, start, end):
+    """One PyTorch call computing K2's (and K6's) function at B = 1:
+    scaled_dot_product_attention with GQA over the live slots with the
+    self K/V appended (the concatenation is made here, untimed)."""
+    k = torch.cat([ks[layer, :, :, start:end], k_self[:, :, None]], 2)
+    v = torch.cat([vs[layer, :, :, start:end], v_self[:, :, None]], 2)
+    qq = q[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qq, k, v, enable_gqa=True)
+
+
+def sdpa_causal(torch, q, k, v):
+    """One PyTorch call computing K3's causal function: SDPA with GQA on
+    (B, heads, S, D) copies of the inputs (made here, untimed)."""
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
+def int8pack_mm(torch, x, w_q, scales):
+    """One PyTorch call computing K5's function: torch._weight_int8pack_mm
+    on an (N, K) copy of the (K, N) int8 weights, with the per-column
+    scales in x's dtype (made here, untimed)."""
+    w_nk, s = w_q.T.contiguous(), scales.to(x.dtype)
+    return lambda: torch._weight_int8pack_mm(x, w_nk, s)
+
+
+def int4pack_mm(torch, x, w_q4, scales, group: int = 256):
+    """One PyTorch call computing K4's function: torch._weight_int4pack_mm
+    (bf16 x times int4 weights stored as q + 8 in [1, 15], each weight
+    (q - 8) * scale + zero per ``group`` rows) with K4's per-column scale
+    repeated over the groups and zero 0. The nibbles are repacked into
+    that call's layout here, untimed."""
+    from qwen3_asr_rs_tpu_torch.ops.quant import unpack_int4_tiled
+
+    k, n = w_q4.shape[0], scales.shape[0]
+    q = unpack_int4_tiled(w_q4, dtype=torch.int32)[:, :n].T + 8  # (N, K)
+    packed = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()
+    w4 = torch._convert_weight_to_int4pack(packed, 8)
+    sz = torch.stack([scales.float().repeat(k // group, 1),
+                      torch.zeros((k // group, n), device=scales.device)],
+                     -1).to(torch.bfloat16).contiguous()
+    return lambda: torch._weight_int4pack_mm(x, w4, group, sz)
 
 
 def kernel_checks(torch, dec_params_f32):
     """Phase 3: K2, K1, K3 against their plain versions."""
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention_dma, decode_attention_dma_plain)
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused, decode_layers_fused_plain)
     from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
@@ -250,11 +426,16 @@ def kernel_checks(torch, dec_params_f32):
             v_self = torch.randn_like(k_self)
             case = f"S={s_max} start={start} end={end} layer=27"
             check_case(
-                torch, results, "decode_attention", dtype, case,
-                lambda: decode_attention(q, ks, vs, k_self, v_self, 27,
-                                         start, end),
-                lambda: decode_attention_plain(q, ks, vs, k_self, v_self, 27,
-                                               idx(start), idx(end)),
+                torch, results, "decode_attention_dma", dtype, case,
+                lambda: decode_attention_dma(q, ks, vs, k_self, v_self, 27,
+                                             start, end),
+                lambda: decode_attention_dma_plain(q, ks, vs, k_self, v_self,
+                                                   27, idx(start), idx(end)),
+                work=attn_work(q, ks, [start], [end]),
+                library=(sdpa_decode(torch, q, ks, vs, k_self, v_self, 27,
+                                     start, end)
+                         if dtype == torch.bfloat16 else None),
+                headline=dtype == torch.bfloat16 and s_max == 360,
             )
             del ks, vs
 
@@ -275,6 +456,9 @@ def kernel_checks(torch, dec_params_f32):
                 lambda: decode_layers_fused_plain(x, cos, sin, lay, ks, vs,
                                                   idx(start), idx(end),
                                                   eps=1e-6),
+                work=k1_work(lay, x, ks, vs, [start], end),
+                headline=(dtype == torch.bfloat16
+                          and (s_max, start) == SLAB_CASES[0][:2]),
             )
             del ks, vs
     del layers
@@ -298,6 +482,7 @@ def kernel_checks(torch, dec_params_f32):
         kv_valid, kv_start = kw.get("kv_valid"), kw.get("kv_start")
         causal = kw.get("causal", False)
         # rows with no attendable key are discarded by callers
+        headline = dtype == torch.bfloat16 and case == "causal"
         check_case(
             torch, results, "flash_attention", dtype, f"Sq=Sk={S} {case}",
             lambda: flash_attention(q, k, v, kv_valid, kv_start,
@@ -305,11 +490,20 @@ def kernel_checks(torch, dec_params_f32):
             lambda: flash_attention_plain(q, k, v, kv_valid, kv_start,
                                           causal=causal),
             rows=(slice(None), slice(first_row, None)),
+            # causal: half the score matrix (plus its diagonal) is computed
+            work=bound_of(nbytes(q, k, v, q),
+                          4 * HQ * D * (S * (S + 1) // 2 if causal
+                                        else S * S)),
+            library=sdpa_causal(torch, q, k, v) if headline else None,
+            headline=headline,
         )
         del q, k, v
     torch.cuda.empty_cache()
     quant_kernel_checks(torch, dec_params_f32, gen, results)
     batch_kernel_checks(torch, dec_params_f32, gen, results)
+    int4g_kernel_checks(torch, dec_params_f32, gen, results)
+    fold_kernel_checks(torch, dec_params_f32, gen, results)
+    slab_kernel_checks(torch, gen, results)
     return results
 
 
@@ -366,6 +560,11 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
                     lambda: quant_matmul(x, w_q, sc, out_dtype=torch.float32),
                     lambda: quant_matmul_plain(x, w_q, sc,
                                                out_dtype=torch.float32),
+                    work=bound_of(nbytes(x, w_q, sc) + 4 * w_q.shape[1],
+                                  2 * w_q.numel()),
+                    library=(int8pack_mm(torch, x, w_q, sc)
+                             if dtype == torch.bfloat16 else None),
+                    headline=dtype == torch.bfloat16,
                 )
             del qtree, lay
             torch.cuda.empty_cache()
@@ -380,8 +579,216 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
             f"(1, {sc.shape[0]})",
             lambda: quant_matvec_int4(x, w_q4, sc),
             lambda: quant_matvec_int4_plain(x, w_q4, sc),
+            work=bound_of(nbytes(x, w_q4, sc) + 4 * sc.shape[0],
+                          2 * H * sc.shape[0]),
+            library=(int4pack_mm(torch, x, w_q4, sc)
+                     if dtype == torch.bfloat16 else None),
+            headline=dtype == torch.bfloat16,
         )
     del w_q4, sc
+    torch.cuda.empty_cache()
+
+
+def k1_check(torch, gen, results, dtype, lay, b, s_max, end, label,
+             int8_slabs=False):
+    """K1 against its plain version at B = b rows with row_starts(b) and
+    a shared end, on a slab of the compute dtype or an int8 one."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import quantize_kv
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused, decode_layers_fused_plain)
+
+    x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, s_max, end, b)
+    scales = {}
+    if int8_slabs:
+        (ks, kscale), (vs, vscale) = quantize_kv(ks), quantize_kv(vs)
+        scales = dict(k_scales=kscale, v_scales=vscale)
+    starts = row_starts(b)
+    start, ends = (torch.tensor(v, dtype=torch.int32, device="cuda")
+                   for v in (starts, [end] * b))
+    check_case(
+        torch, results, "decode_layers_fused", dtype,
+        f"{label} B={b} L=28 S={s_max} start={starts[:8]} end={end}",
+        lambda: decode_layers_fused(x, cos, sin, lay, ks, vs, start, end,
+                                    eps=1e-6, **scales),
+        lambda: decode_layers_fused_plain(x, cos, sin, lay, ks, vs, start,
+                                          ends, eps=1e-6, **scales),
+        work=k1_work(lay, x, ks, vs, starts, end, scales.get("k_scales")),
+    )
+
+
+def int4g_kernel_checks(torch, dec_params_f32, gen, results):
+    """Phase 3, int4g: K1 with merged group-wise int4 weights (the
+    port's quantizer) at group sizes 128 and 64."""
+    for group in K1_INT4G_GROUPS:
+        for dtype in (torch.float32, torch.bfloat16):
+            lay = quantized_tree(torch, dec_params_f32, dtype, 4, True,
+                                 group)["layers"]
+            for b, s_max, end, int8_slab in K1_INT4G_CASES:
+                k1_check(torch, gen, results, dtype, lay, b, s_max, end,
+                         f"int4g g{group} merged", int8_slab)
+            del lay
+            torch.cuda.empty_cache()
+
+
+def fold_kernel_checks(torch, dec_params_f32, gen, results):
+    """Phase 3, the folded lm_head: K1 with fold_lm against the plain
+    fold, bf16/f32 (V, H) and int8 (H, V) lm_heads, B = 1 and 8; then a
+    constructed tie. float32: the kernel's tokens must equal the plain
+    version's (decode_layers_fused_plain with fold_lm) on the same inputs.
+    Both dtypes: the kernel's token is scored by the plain fold on the
+    final hidden state of the same kernel run unfolded (its split-K sums
+    have a fixed order, so its layers are deterministic: the folded run's
+    K/V must come out equal), so the check holds the fold alone; in bf16,
+    where 28 layers of rounding flips separate the two sides' hidden
+    states, the plain version's own tokens are reported."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        _rms, decode_layers_fused, decode_layers_fused_plain)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
+
+    dev = torch.device("cuda")
+
+    def logits_of(h, final_ln, lm_w, lm_s):
+        xn = _rms(h, final_ln, 1e-6).to(h.dtype).float()
+        if lm_s is None:
+            return xn @ lm_w.float().T
+        return (xn @ lm_w.float()) * lm_s
+
+    for dtype in (torch.float32, torch.bfloat16):
+        lay = {k: v.to(dtype) for k, v in dec_params_f32["layers"].items()}
+        lm_f = dec_params_f32["lm_head"].to(dtype)
+        final_ln = torch.ones(H, dtype=dtype, device=dev)
+        lm_int8 = quantize_weight(lm_f.T)
+        for lm_name, (lm_w, lm_s) in (("bf16" if dtype == torch.bfloat16
+                                       else "f32", (lm_f, None)),
+                                      ("int8", lm_int8)):
+            for b in (1, 8):
+                x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, 360, 301,
+                                                b)
+                starts = row_starts(b)
+                start = torch.tensor(starts, dtype=torch.int32, device=dev)
+                ends = torch.full((b,), 301, dtype=torch.int32, device=dev)
+                kw = dict(eps=1e-6, fold_lm=True, final_ln_w=final_ln,
+                          lm_head=lm_w, lm_scales=lm_s)
+
+                def kernel():
+                    return decode_layers_fused(x, cos, sin, lay, ks, vs,
+                                               start, 301, **kw)
+
+                def plain():
+                    return decode_layers_fused_plain(x, cos, sin, lay, ks, vs,
+                                                     start, ends, **kw)
+
+                tok, fks, fvs = kernel()
+                h, uks, uvs = decode_layers_fused(x, cos, sin, lay, ks, vs,
+                                                  start, 301, eps=1e-6)
+                if not (torch.equal(fks, uks) and torch.equal(fvs, uvs)):
+                    raise AssertionError("K1 fold: the folded run's K/V "
+                                         "differ from the unfolded run's")
+                logits = logits_of(h, final_ln, lm_w, lm_s)
+                best = logits.max(-1).values
+                gap = float((best - logits.gather(
+                    1, tok.long()[:, None])[:, 0]).max())
+                atol, rtol = FOLD_LOGIT_TOL[str(dtype)[6:]]
+                tol = atol + rtol * float(logits.abs().max())
+                plain_tok = plain()[0]
+                if dtype == torch.float32 and not torch.equal(
+                        plain_tok.long(), tok.long()):
+                    raise AssertionError(
+                        f"K1 fold {lm_name} B={b} float32: tokens "
+                        f"{tok.tolist()} != plain {plain_tok.tolist()}")
+                row = {"phase": "kernel", "kernel": "decode_layers_fused",
+                       "dtype": str(dtype)[6:],
+                       "case": f"fold {lm_name} lm_head B={b} L=28 S=360 "
+                               f"start={starts} end=301",
+                       "max_logit_gap": gap, "bound": tol,
+                       "atol": atol, "rtol": rtol,
+                       "plain_tokens_equal": (plain_tok.long() == tok.long())
+                       .float().mean().item(),
+                       "ms": cuda_ms(torch, kernel),
+                       "unfolded_ms": cuda_ms(
+                           torch, lambda: decode_layers_fused(
+                               x, cos, sin, lay, ks, vs, start, 301,
+                               eps=1e-6)),
+                       "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+                       **k1_work(lay, x, ks, vs, starts, 301, None, lm_w,
+                                 lm_s),
+                       "headline": False}
+                row["max_abs_err"] = gap
+                emit(row)
+                results.append(row)
+                if not gap <= tol:
+                    raise AssertionError(f"K1 fold {row['case']}: the "
+                                         f"token's logit is {gap} below the "
+                                         f"best, bound {tol}")
+        # a tie: two equal rows (int8: columns) that beat every other
+        # logit give the lower index
+        x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, 360, 301, 1)
+        h = decode_layers_fused(x, cos, sin, lay, ks, vs, 0, 301,
+                                eps=1e-6)[0]
+        lm_tie = lm_f.clone()
+        lm_tie[1000] = lm_tie[2000] = (50 * _rms(h, final_ln, 1e-6))[0].to(
+            dtype)
+        for lm_name, (lm_w, lm_s) in (("float", (lm_tie, None)),
+                                      ("int8", quantize_weight(lm_tie.T))):
+            tok = decode_layers_fused(
+                x, cos, sin, lay, ks, vs, 0, 301, eps=1e-6, fold_lm=True,
+                final_ln_w=final_ln, lm_head=lm_w, lm_scales=lm_s)[0]
+            emit({"phase": "kernel", "kernel": "decode_layers_fused",
+                  "dtype": str(dtype)[6:],
+                  "case": f"fold {lm_name} lm_head tie rows 1000 = 2000",
+                  "token": tok.tolist()})
+            if tok.tolist() != [1000]:
+                raise AssertionError(f"K1 fold tie ({lm_name}): token "
+                                     f"{tok.tolist()}, expected [1000]")
+        del lay, lm_f, lm_int8, lm_tie
+        torch.cuda.empty_cache()
+
+
+def slab_kernel_checks(torch, gen, results):
+    """Phase 3, K6: decode_attention_slab at layer 1 of a 3-layer slab,
+    and the single-layer decode_attention, against their plain
+    versions."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, decode_attention_slab,
+        decode_attention_slab_plain)
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, hq, hkv, d, starts, ends in K6_CASES:
+            k3, v3 = (torch.randn((3, b, hkv, s, d), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+            q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+            k_self, v_self = (torch.randn((b, hkv, d), generator=gen,
+                                          device=dev).to(dtype)
+                              for _ in range(2))
+            start = None if starts is None else torch.tensor(
+                starts, dtype=torch.int32, device=dev)
+            end = torch.tensor(ends, dtype=torch.int32, device=dev)
+            first = [0] * b if starts is None else starts
+            case = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} start={starts} end={ends}"
+            headline = dtype == torch.bfloat16 and s == 4992
+            check_case(
+                torch, results, "decode_attention_slab", dtype,
+                case + " layer=1",
+                lambda: decode_attention_slab(q, k3, v3, k_self, v_self, 1,
+                                              start, end),
+                lambda: decode_attention_slab_plain(q, k3, v3, k_self, v_self,
+                                                    1, start, end),
+                work=attn_work(q, k3, first, ends),
+                library=(sdpa_decode(torch, q, k3, v3, k_self, v_self, 1,
+                                     first[0], ends[0]) if headline else None),
+                headline=headline,
+            )
+            check_case(
+                torch, results, "decode_attention", dtype,
+                case + " (single-layer wrapper)",
+                lambda: decode_attention(q, k3[2], v3[2], k_self, v_self,
+                                         start, end),
+                lambda: decode_attention_plain(q, k3[2], v3[2], k_self,
+                                               v_self, start, end),
+                work=attn_work(q, k3, first, ends),
+            )
+            del k3, v3
     torch.cuda.empty_cache()
 
 
@@ -390,7 +797,7 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
     int8 slabs, K3 at B = 2 with per-row kv_start."""
     from qwen3_asr_rs_tpu_torch.models.text_decoder import quantize_kv
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention_dma, decode_attention_dma_plain)
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused, decode_layers_fused_plain)
     from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
@@ -402,21 +809,8 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
     def k1_case(dtype, lay, b, s_max, end, label, int8_slabs=False):
-        x, cos, sin, ks, vs = k1_inputs(torch, gen, dtype, s_max, end, b)
-        scales = {}
-        if int8_slabs:
-            (ks, kscale), (vs, vscale) = quantize_kv(ks), quantize_kv(vs)
-            scales = dict(k_scales=kscale, v_scales=vscale)
-        start, ends = idx(row_starts(b)), idx([end] * b)
-        check_case(
-            torch, results, "decode_layers_fused", dtype,
-            f"{label} B={b} L=28 S={s_max} start={row_starts(b)[:8]} "
-            f"end={end}",
-            lambda: decode_layers_fused(x, cos, sin, lay, ks, vs, start, end,
-                                        eps=1e-6, **scales),
-            lambda: decode_layers_fused_plain(x, cos, sin, lay, ks, vs, start,
-                                              ends, eps=1e-6, **scales),
-        )
+        k1_check(torch, gen, results, dtype, lay, b, s_max, end, label,
+                 int8_slabs)
 
     for dtype in (torch.float32, torch.bfloat16):
         lay = {k: v.to(dtype) for k, v in dec_params_f32["layers"].items()}
@@ -443,13 +837,13 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
             v_self = torch.randn_like(k_self)
             start, ends = idx(row_starts(b)), idx([end] * b)
             check_case(
-                torch, results, "decode_attention", dtype,
+                torch, results, "decode_attention_dma", dtype,
                 f"int8 slab B={b} S={s_max} start={row_starts(b)} end={end} "
                 "layer=27",
-                lambda: decode_attention(q, kq, vq, k_self, v_self, 27, start,
+                lambda: decode_attention_dma(q, kq, vq, k_self, v_self, 27, start,
                                          ends, k_scales=kscale,
                                          v_scales=vscale),
-                lambda: decode_attention_plain(q, kq, vq, k_self, v_self, 27,
+                lambda: decode_attention_dma_plain(q, kq, vq, k_self, v_self, 27,
                                                start, ends, k_scales=kscale,
                                                v_scales=vscale),
             )
@@ -503,9 +897,11 @@ class StubTokenizer:
 
 
 def kernel_wrappers():
-    """{kernel name: wrapper}; each wrapper's ``launches`` is its count."""
+    """{kernel name: wrapper}; each wrapper's ``launches`` is its count.
+    K6 has two entries: decode_attention_slab and its single-layer
+    wrapper decode_attention."""
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention)
+        decode_attention, decode_attention_dma, decode_attention_slab)
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused)
     from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
@@ -515,48 +911,111 @@ def kernel_wrappers():
         quant_matvec_int4)
 
     return {"decode_layers_fused": decode_layers_fused,
-            "decode_attention": decode_attention,
+            "decode_attention_dma": decode_attention_dma,
             "flash_attention": flash_attention,
             "quant_matmul": quant_matmul,
-            "quant_matvec_int4": quant_matvec_int4}
+            "quant_matvec_int4": quant_matvec_int4,
+            "decode_attention_slab": decode_attention_slab,
+            "decode_attention": decode_attention}
 
 
-# (quantize, ASR_LM_BITS, clips) of the main paths
-MAIN_PATHS = ((None, None, (4, 30, 300)), ("int8", None, (4, 30, 300)),
-              ("int4", None, (4, 30)), ("lm8", None, (4,)), ("int8", 4, (4,)),
-              ("int4", 8, (4,)))
+# (label, quantize, environment, clips) of the main paths; the
+# environment is set while the engine is built and while it runs
+MAIN_PATHS = (
+    ("bf16", None, {}, (4, 30, 300)),
+    ("int8", "int8", {}, (4, 30, 300)),
+    ("int4", "int4", {}, (4, 30)),
+    ("lm8", "lm8", {}, (4,)),
+    ("int8 lm4", "int8", {"ASR_LM_BITS": "4"}, (4,)),
+    ("int4 lm8", "int4", {"ASR_LM_BITS": "8"}, (4,)),
+    ("int4g", "int4g", {}, (4, 30, 300)),
+    ("int4g lm4", "int4g", {"ASR_LM_BITS": "4"}, (4,)),
+    ("int4g g64", "int4g", {"ASR_INT4_GROUP": "64"}, (4,)),
+    ("bf16 fold", None, {"ASR_FOLD_LM": "1"}, (4,)),
+    ("int8 fold", "int8", {"ASR_FOLD_LM": "1"}, (4,)),
+)
 
 
-def expected_launches(quantize, lm_bits, layers: int, steps: int,
-                      seconds: int):
-    """Launches each kernel must show for one clip: K1 once per decode
-    step, K2 once per layer and step (counted by K1's C entry), K3 in the
-    300 s prefill; int8 layers: K5 for the 4 merged prefill linears of
-    each layer; an int8 lm_head: K5 at the last prompt token and each
-    step; an int4 lm_head: K4 likewise. None: must be above 0."""
-    layer_bits = {"int8": 8, "int4": 4}.get(quantize, 0)
-    lm = lm_bits or {"int8": 8, "int4": 4, "lm8": 8}.get(quantize, 0)
+class Env:
+    """Set environment variables for a ``with`` block, then restore."""
+
+    def __init__(self, env):
+        self.env, self.old = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.old[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def expected_launches(quantize, env, layers: int, steps: int, seconds: int):
+    """Launches each kernel must show for one clip, and the lm_head
+    products outside K1: K1 once per decode step, K2 once per layer and
+    step (counted by K1's C entry), K3 in the 300 s prefill; int8 layers:
+    K5 for the 4 merged prefill linears of each layer; an int8 lm_head:
+    K5 at the last prompt token and each step; an int4 lm_head: K4
+    likewise. Folded (ASR_FOLD_LM=1, not with an int4 lm_head), the steps
+    take the lm_head inside K1: only the prefill's lm_head runs outside
+    it. K6 has no main-path caller. None: must be above 0."""
+    lm = int(env.get("ASR_LM_BITS", 0)) or {
+        "int8": 8, "int4": 4, "int4g": 8, "lm8": 8}.get(quantize, 0)
+    per_step = 0 if env.get("ASR_FOLD_LM") == "1" and lm != 4 else steps
     return {
         "decode_layers_fused": steps,
-        "decode_attention": layers * steps,
+        "decode_attention_dma": layers * steps,
         "flash_attention": None if seconds == 300 else 0,
-        "quant_matmul": (4 * layers if layer_bits == 8 else 0)
-        + (steps + 1 if lm == 8 else 0),
-        "quant_matvec_int4": steps + 1 if lm == 4 else 0,
+        "quant_matmul": (4 * layers if quantize == "int8" else 0)
+        + (per_step + 1 if lm == 8 else 0),
+        "quant_matvec_int4": per_step + 1 if lm == 4 else 0,
+        "decode_attention_slab": 0,
+        "decode_attention": 0,
+        "lm_head_products": per_step + 1,
     }
 
 
-def run_path(torch, engine, clips, quantize, lm_bits, card):
+def count_lm_head(engine) -> list:
+    """Count the decoder's lm_head products (``TextDecoder.logits``, the
+    cuBLAS, K5 or K4 product after the final norm) in a one-item list."""
+    calls = [0]
+    logits = engine.decoder.logits
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return logits(*args, **kwargs)
+
+    engine.decoder.logits = counted
+    return calls
+
+
+def check_launches(what, got, want):
+    for n, w in want.items():
+        if (got[n] <= 0) if w is None else (got[n] != w):
+            raise AssertionError(f"{what}: {n} launched {got[n]} times, "
+                                 f"expected {'> 0' if w is None else w}")
+
+
+def run_path(torch, engine, clips, label, quantize, env, card):
     """Phase 4 for one engine: a warm-up, then the counters set to 0 and
     the clips transcribed, each checked against expected_launches.
-    Returns {kernel: launches in this path's run}."""
+    Returns ({kernel: launches in this path's run}, {clip seconds:
+    {kernel: launches}})."""
     fns = kernel_wrappers()
     layers = engine.config.text.num_hidden_layers
+    lm_calls = count_lm_head(engine)
     engine.transcribe(clips[4])  # warm-up: CUDA context, cuBLAS, kernels
     for fn in fns.values():
         fn.launches = 0
+    per_clip = {}
     for seconds, path in clips.items():
         before = {n: fn.launches for n, fn in fns.items()}
+        lm_before = lm_calls[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = engine.transcribe(path)
@@ -565,15 +1024,18 @@ def run_path(torch, engine, clips, quantize, lm_bits, card):
         st = engine.last_stats
         steps = st["decode_steps"]
         got = {n: fn.launches - before[n] for n, fn in fns.items()}
-        row = {"phase": "main", "quantize": quantize, "lm_bits": lm_bits,
-               "clip_seconds": seconds,
+        got["lm_head_products"] = lm_calls[0] - lm_before
+        per_clip[seconds] = got
+        row = {"phase": "main", "path": label, "quantize": quantize,
+               "env": env, "clip_seconds": seconds,
                "language": r.language, "text_chars": len(r.text),
                "tokens": len(r.raw_output.split()), "decode_steps": steps,
                "k1_launches": got["decode_layers_fused"],
-               "k2_launches": got["decode_attention"],
+               "k2_launches": got["decode_attention_dma"],
                "k3_launches": got["flash_attention"],
                "k4_launches": got["quant_matvec_int4"],
                "k5_launches": got["quant_matmul"],
+               "lm_head_products": got["lm_head_products"],
                "wall_s": wall, "xRT": seconds / wall,
                "prefill_s": st["prefill_seconds"],
                "decode_ms_per_token": (1e3 * st["decode_seconds"] / steps
@@ -582,53 +1044,58 @@ def run_path(torch, engine, clips, quantize, lm_bits, card):
         emit(row)
         if not isinstance(r.language, str) or not isinstance(r.text, str):
             raise AssertionError("transcription gave no language/text")
-        for n, want in expected_launches(quantize, lm_bits, layers, steps,
-                                         seconds).items():
-            if (got[n] <= 0) if want is None else (got[n] != want):
-                raise AssertionError(
-                    f"{quantize or 'bf16'} lm_bits={lm_bits} {seconds} s: "
-                    f"{n} launched "
-                    f"{got[n]} times, expected {'> 0' if want is None else want}")
-    return {n: fn.launches for n, fn in fns.items()}
+        check_launches(f"{label} {seconds} s", got,
+                       expected_launches(quantize, env, layers, steps,
+                                         seconds))
+    return {n: fn.launches for n, fn in fns.items()}, per_clip
 
 
-# phase 5: (label, clip seconds, kv_dtype, quantize); a single clip takes
-# the B = 1 path. Clips of one length share one WAV.
+# phase 5: (label, clip seconds, kv_dtype, quantize, environment at run
+# time); a single clip takes the B = 1 path. Clips of one length share
+# one WAV.
 FIVE_CLIPS = (4, 8, 15, 22, 30)
-BATCH_RUNS = (("5 clips", FIVE_CLIPS, None, None),
-              ("32 x 4 s", (4,) * 32, None, None),
-              ("5 clips", FIVE_CLIPS, "int8", None),
-              ("8 x 300 s", (300,) * 8, "int8", None),
-              ("B=1 4 s", (4,), "int8", None),
-              ("5 clips", FIVE_CLIPS, "int8", "int8"),
-              ("5 clips", FIVE_CLIPS, None, "int4"))
+BATCH_RUNS = (("5 clips", FIVE_CLIPS, None, None, {}),
+              ("32 x 4 s", (4,) * 32, None, None, {}),
+              ("5 clips", FIVE_CLIPS, "int8", None, {}),
+              ("8 x 300 s", (300,) * 8, "int8", None, {}),
+              ("B=1 4 s", (4,), "int8", None, {}),
+              ("5 clips", FIVE_CLIPS, "int8", "int8", {}),
+              ("5 clips", FIVE_CLIPS, None, "int4", {}),
+              ("5 clips", FIVE_CLIPS, None, "int4g", {}),
+              ("5 clips", FIVE_CLIPS, None, "int4g", {"ASR_FOLD_LM": "1"}))
 
 
 def run_batch(torch, engine, samples, label, seconds, kv_dtype, quantize,
-              card):
+              env, card):
     """Phase 5 for one batch: a warm-up of the same batch, then the
     counters set to 0 and the batch transcribed once more; checks the
     launch counts (K1 once per step, K2 once per layer and step, K3 in
-    the 300 s bucket's prefill, K4/K5 as ``expected_launches`` says for
-    the weights) and that pad rows emit nothing."""
+    the 300 s bucket's prefill, K4/K5 and the lm_head products as
+    ``expected_launches`` says for the weights) and that pad rows emit
+    nothing."""
     from qwen3_asr_rs_tpu_torch.features.mel import num_mel_frames
 
     fns = kernel_wrappers()
     layers = engine.config.text.num_hidden_layers
-    engine.transcribe_batch(samples)
-    for fn in fns.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = engine.transcribe_batch(samples)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    lm_calls = count_lm_head(engine)
+    with Env(env):
+        engine.transcribe_batch(samples)
+        for fn in fns.values():
+            fn.launches = 0
+        lm_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.transcribe_batch(samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    engine.decoder.__dict__.pop("logits")
     got = {n: fn.launches for n, fn in fns.items()}
+    got["lm_head_products"] = lm_calls[0]
     st = engine.last_stats
     steps, n_gen = st["decode_steps"], st["n_gen"]
     b, live = len(n_gen), len(samples)
     row = {"phase": "batch", "run": label, "kv": kv_dtype or "bf16",
-           "quantize": quantize, "B": b, "live_rows": live,
+           "quantize": quantize, "env": env, "B": b, "live_rows": live,
            "bucket_chunks": engine._pick_bucket(
                max(num_mel_frames(len(x)) for x in samples)),
            "audio_s": sum(seconds), "wall_s": wall,
@@ -641,22 +1108,20 @@ def run_batch(torch, engine, samples, label, seconds, kv_dtype, quantize,
                                   if steps else None),
            "n_gen": n_gen,
            "k1_launches": got["decode_layers_fused"],
-           "k2_launches": got["decode_attention"],
+           "k2_launches": got["decode_attention_dma"],
            "k3_launches": got["flash_attention"],
            "k4_launches": got["quant_matvec_int4"],
-           "k5_launches": got["quant_matmul"], "card": card}
+           "k5_launches": got["quant_matmul"],
+           "lm_head_products": got["lm_head_products"], "card": card}
     emit(row)
     if len(results) != live or not all(isinstance(r.text, str)
                                        for r in results):
         raise AssertionError(f"batch {label}: {len(results)} results")
     if any(n_gen[live:]) or not all(n_gen[:live]):
         raise AssertionError(f"batch {label}: tokens per row {n_gen}")
-    want = expected_launches(quantize, None, layers, steps, max(seconds))
+    want = expected_launches(quantize, env, layers, steps, max(seconds))
     want["flash_attention"] = layers if max(seconds) == 300 else 0
-    for n, w in want.items():
-        if got[n] != w:
-            raise AssertionError(f"batch {label}: {n} launched {got[n]} "
-                                 f"times, expected {w}")
+    check_launches(f"batch {label}", got, want)
     return got
 
 
@@ -706,7 +1171,9 @@ def batch_parity(torch, engine32, samples, kv_dtype):
 
 def parity(torch, engine32, clip, quantize):
     """Phase 6 for one float32 engine: its decode-kernel path's greedy
-    tokens teacher-force both paths; per-step logits compared."""
+    tokens teacher-force both paths; per-step logits compared. int4g (its
+    int8 lm_head): a third slab copy also runs the folded token step
+    (ASR_FOLD_LM=1), whose token must be the plain logits' argmax."""
     import numpy as np
 
     from qwen3_asr_rs_tpu_torch.runtime.engine import load_audio
@@ -715,10 +1182,12 @@ def parity(torch, engine32, clip, quantize):
     teacher = engine32.generate(samples)  # kernel path's greedy tokens
     logits0, cache_k, true_len = engine32.prefill(samples)
     cache_p = type(cache_k)(k=cache_k.k.clone(), v=cache_k.v.clone())
+    fold = quantize == "int4g"
+    cache_f = type(cache_k)(k=cache_k.k.clone(), v=cache_k.v.clone())
     dec = engine32.decoder
     k1 = kernel_wrappers()["decode_layers_fused"]
     k1_before = k1.launches
-    worst, agree = 0.0, 0
+    worst, agree, fold_agree = 0.0, 0, 0
     with torch.inference_mode():
         for i, tok in enumerate(teacher[:-1]):
             ids = torch.tensor([tok], device="cuda")
@@ -732,18 +1201,28 @@ def parity(torch, engine32, clip, quantize):
             del os.environ["ASR_DECODE_IMPL"], os.environ["ASR_DECODE_ATTN"]
             worst = max(worst, max_err(torch, lk, lp))
             agree += int(torch.argmax(lk) == torch.argmax(lp))
+            if fold:
+                with Env({"ASR_DECODE_IMPL": "fused", "ASR_FOLD_LM": "1"}):
+                    tf, _ = dec.decode_step_token(
+                        engine32.dec_params, ids, true_len + i, cache_f)
+                fold_agree += int(int(tf[0]) == int(torch.argmax(lp)))
     n_steps = max(len(teacher) - 1, 1)
     k1_launches = k1.launches - k1_before
     emit({"phase": "parity", "dtype": "float32", "quantize": quantize,
           "steps": len(teacher) - 1, "k1_launches": k1_launches,
           "max_abs_logit_err": worst,
           "tol": PARITY_LOGITS_ATOL, "greedy_agreement": agree / n_steps,
+          **({"fold_token_agreement": fold_agree / n_steps} if fold else {}),
           "logit_scale": float(np.abs(logits0.cpu().numpy()).max())})
     if not worst <= PARITY_LOGITS_ATOL:
         raise AssertionError(f"parity ({quantize}) logits error {worst}")
-    if k1_launches != len(teacher) - 1:
+    if k1_launches != (2 if fold else 1) * (len(teacher) - 1):
         raise AssertionError(f"parity ({quantize}): the kernel path launched "
                              f"K1 {k1_launches} times")
+    if fold and fold_agree != len(teacher) - 1:
+        raise AssertionError(f"parity ({quantize}): the folded step's token "
+                             f"was the plain argmax at {fold_agree} of "
+                             f"{len(teacher) - 1} steps")
 
 
 def main() -> int:
@@ -803,6 +1282,9 @@ def main() -> int:
 
     # 3. kernels
     kernel_rows = kernel_checks(torch, dec32)
+    fns = kernel_wrappers()
+    k6_launches = {n: fns[n].launches
+                   for n in ("decode_attention_slab", "decode_attention")}
 
     # 4. main path: bf16 weights, then int8 and int4 weights
     from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
@@ -815,19 +1297,18 @@ def main() -> int:
         write_wav(path, seconds, seed)
         clips[seconds] = path
     launches = {}  # {path: {kernel: launches in that path's run}}
-    for quantize, lm_bits, seconds in MAIN_PATHS:
-        os.environ.pop("ASR_LM_BITS", None)
-        if lm_bits:  # read by the quantizer when the engine is built
-            os.environ["ASR_LM_BITS"] = str(lm_bits)
-        engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
-                           config=config, params=(enc32, dec32),
-                           tokenizer=StubTokenizer(), device="cuda",
-                           quantize=quantize)
-        os.environ.pop("ASR_LM_BITS", None)
-        label = (quantize or "bf16") + (f" lm{lm_bits}" if lm_bits else "")
-        launches[label] = run_path(
-            torch, engine, {c: clips[c] for c in seconds}, quantize, lm_bits,
-            card)
+    per_30s = {}   # {path: {kernel: launches for its 30 s clip}}
+    for label, quantize, env, seconds in MAIN_PATHS:
+        with Env(env):  # read when the engine is built and at each step
+            engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                               config=config, params=(enc32, dec32),
+                               tokenizer=StubTokenizer(), device="cuda",
+                               quantize=quantize)
+            launches[label], per_clip = run_path(
+                torch, engine, {c: clips[c] for c in seconds}, label,
+                quantize, env, card)
+        if 30 in per_clip:
+            per_30s[label] = per_clip[30]
         del engine
         torch.cuda.empty_cache()
 
@@ -836,24 +1317,25 @@ def main() -> int:
     from qwen3_asr_rs_tpu_torch.runtime.engine import load_audio
 
     audio = {c: load_audio(path, 16000) for c, path in clips.items()}
-    for kv_dtype, quantize in dict.fromkeys(r[2:] for r in BATCH_RUNS):
+    for kv_dtype, quantize in dict.fromkeys(r[2:4] for r in BATCH_RUNS):
         engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
                            config=config, params=(enc32, dec32),
                            tokenizer=StubTokenizer(), device="cuda",
                            kv_dtype=kv_dtype, quantize=quantize)
-        for label, seconds, kv, quant in BATCH_RUNS:
+        for label, seconds, kv, quant, env in BATCH_RUNS:
             if (kv, quant) == (kv_dtype, quantize):
                 name = (f"batch {label}"
                         + (f" {quantize} weights" if quantize else "")
-                        + (" int8 KV" if kv else ""))
+                        + (" int8 KV" if kv else "")
+                        + (" fold" if env.get("ASR_FOLD_LM") else ""))
                 launches[name] = run_batch(
                     torch, engine, [audio[c] for c in seconds], label,
-                    seconds, kv, quantize, card)
+                    seconds, kv, quantize, env, card)
         del engine
         torch.cuda.empty_cache()
 
     # 6. parity: float32 teacher forcing, kernel path vs plain path
-    for quantize in (None, "int8", "int4"):
+    for quantize in (None, "int8", "int4", "int4g"):
         parity(torch, AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
                                 config=config, params=(enc32, dec32),
                                 tokenizer=StubTokenizer(), device="cuda",
@@ -869,20 +1351,39 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     summary = []
-    for name in kernel_wrappers():
-        rows = [r for r in kernel_rows if r["kernel"] == name
+    for name in SOURCES:
+        # K6's row covers its two entries
+        names = ((name, "decode_attention") if name == "decode_attention_slab"
+                 else (name,))
+        rows = [r for r in kernel_rows if r["kernel"] in names
                 and r["dtype"].startswith("bfloat16")]
-        by_path = {p: c[name] for p, c in launches.items() if c[name]}
-        summary.append({
+        head = next((r for r in rows if r.get("headline")), rows[0])
+        by_path = {p: sum(c[n] for n in names) for p, c in launches.items()
+                   if any(c[n] for n in names)}
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "launches_per_30s_clip": {p: sum(c[n] for n in names)
+                                      for p, c in per_30s.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
-            **({"covers": K1_COVERS} if name == "decode_layers_fused" else {}),
-        })
-        if not summary[-1]["launches"] > 0:
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head.get("library_ms"),
+            "library": LIBRARY[name],
+            "case": head["case"],
+        }
+        if name == "decode_layers_fused":
+            row["covers"] = K1_COVERS
+        if name == "decode_attention_slab":
+            row["callers"] = K6_CALLERS
+            row["launches"] = sum(k6_launches.values())
+            row["launches_by_entry"] = k6_launches
+            if by_path:
+                raise AssertionError(f"K6 launched on a main path: {by_path}")
+        elif not row["launches"] > 0:
             raise AssertionError(f"kernel {name} never launched on a main path")
+        summary.append(row)
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

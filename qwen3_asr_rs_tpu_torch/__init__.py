@@ -7,14 +7,14 @@ Hopper (``sm_90a``, sources in ``csrc/``). The JAX package stays the
 reference: every module here mirrors the JAX module of the same name and
 is held against it by the ``tests/test_torch_*.py`` suite.
 
-This package imports ``torch`` and never ``jax``. From the JAX package it
-uses only the JAX-free modules ``config``, ``errors``, ``tokenizer`` and
-``audio``.
+This package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: it keeps its own copies of the JAX-free modules ``config``,
+``errors``, ``tokenizer`` and ``audio``.
 """
 
 __version__ = "0.1.0"
 
-from qwen3_asr_rs_tpu.config import (
+from .config import (
     AsrConfig,
     AudioEncoderConfig,
     TextDecoderConfig,

@@ -37,10 +37,15 @@ Environment variables:
   ASR_MAX_NEW_TOKENS   Cap on generated tokens (default 4096)
   ASR_DTYPE            Compute dtype: bfloat16 (default) or float32
   ASR_DEVICE           Torch device (default cuda)
-  ASR_QUANT            Weight quantization: int8 | int4 | lm8 (default none)
-  ASR_LM_BITS          lm_head width under int8/int4: 8 | 4 (default: same)
+  ASR_QUANT            Weight quantization: int8 | int4 | int4g | lm8
+                       (default none; int4g: group-wise int4 scales)
+  ASR_INT4_GROUP       Rows per int4g scale group (default 128)
+  ASR_LM_BITS          lm_head width under int8/int4/int4g: 8 | 4 (default:
+                       the layers' width; int4g: 8)
   ASR_MERGE_QKV        0 keeps q/k/v and gate/up unmerged when quantizing
   ASR_KV               KV slab: bf16 (default: the compute dtype) | int8
+  ASR_FOLD_LM          1 folds the final norm, lm_head and argmax into the
+                       decode kernel (not with a 4-bit lm_head)
 """
 
 
@@ -101,8 +106,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from qwen3_asr_rs_tpu.errors import AsrError
-
+    from .errors import AsrError
     from .runtime.engine import AsrEngine, load_audio
 
     device = os.environ.get("ASR_DEVICE", "cuda")

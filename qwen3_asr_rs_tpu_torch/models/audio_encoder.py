@@ -17,8 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qwen3_asr_rs_tpu.config import AudioEncoderConfig
-
+from ..config import AudioEncoderConfig
 from ..ops.attention import attention
 from ..ops.norms import layer_norm
 

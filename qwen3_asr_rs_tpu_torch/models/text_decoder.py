@@ -21,16 +21,24 @@ attention is the K2 kernel (``ASR_DECODE_ATTN=kernel``, the CUDA
 default) or the masked dense path (``dense``, the CPU default).
 
 Weight-quantized trees (``weights/quantize.py``: int8 ``*_q`` or int4
-``*_q4`` weights with float32 per-column ``*_s`` scales, merged
-``qkv_w``/``gateup_w`` or per projection) run every path: the int8
-linears and the int8 lm_head through the K5 kernel
-(``ops/kernels/quant_matmul.py``), the int4 lm_head through K4
-(``ops/kernels/quant_matvec_int4.py``), the int4 linears in plain torch
-as two half-width products, as in JAX. Every quantized product stays
+``*_q4`` weights with float32 per-column ``*_s`` scales, or int4 with
+``(L, G, N)`` group scales (int4g), merged ``qkv_w``/``gateup_w`` or per
+projection) run every path: the int8 linears and the int8 lm_head
+through the K5 kernel (``ops/kernels/quant_matmul.py``), the int4
+lm_head through K4 (``ops/kernels/quant_matvec_int4.py``), the int4
+linears in plain torch as two half-width products and the int4g linears
+as ``int4_grouped_matmul``, as in JAX. Every quantized product stays
 float32 until its scale is applied and only then rounds to the compute
-dtype. Grouped int4 scales, blocked int4, the folded lm_head,
-per-example decode positions (serving's scatter write) and speculative
-calls are not ported yet and raise NotImplementedError.
+dtype. Merged int4g runs the decode kernel; unmerged int4g
+(``ASR_MERGE_QKV=0``) runs the plain per-layer decode, as JAX's dispatch
+sends it to its scan path.
+
+With ``ASR_FOLD_LM=1`` the token steps (``decode_step_token``,
+``decode_step_aligned_token``) fold the final RMSNorm, the bf16/f32 or
+int8 lm_head and the argmax into the decode kernel, which then returns
+token ids; an int4 lm_head is not folded (K4 runs), as in JAX. Blocked
+int4, per-example decode positions (serving's scatter write) and
+speculative calls are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,15 +49,14 @@ from typing import Any
 
 import torch
 
-from qwen3_asr_rs_tpu.config import TextDecoderConfig
-
+from ..config import TextDecoderConfig
 from ..ops.attention import attention
-from ..ops.kernels.decode_attention import decode_attention
-from ..ops.kernels.decode_layer import decode_layers_fused
+from ..ops.kernels.decode_attention import decode_attention_dma
+from ..ops.kernels.decode_layer import decode_layers_fused, is_grouped
 from ..ops.kernels.quant_matmul import quant_matmul
 from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
 from ..ops.norms import rms_norm
-from ..ops.quant import int4_matmul_plain, matmul_f32
+from ..ops.quant import int4_grouped_matmul, int4_matmul_plain, matmul_f32
 from ..ops.rotary import RotaryTable, apply_rotary
 
 Tree = Any
@@ -139,36 +146,42 @@ def dequantize_kv(q, scale, dtype):
 
 def check_params(params: Tree) -> None:
     """Raise NotImplementedError for parameter trees of unported branches:
-    grouped int4 scales (a 3-D ``*_s``), blocked int4 (a 4-D ``*_q4``),
-    the folded lm_head (``lm_fold_*``) and float merged projections."""
+    blocked int4 (a 4-D ``*_q4``) and float merged projections; and for
+    the JAX engine's padded lm_head copies (``lm_fold_*``, a TPU layout
+    that ``weights/convert.py`` drops: the fold reads the lm_head)."""
     layers = params.get("layers", {})
     bad = [n for n in params if n.startswith("lm_fold_")]
     bad += [n for n in ("qkv_w", "gateup_w") if n in layers]
     bad += [n for n, t in layers.items()
-            if (n.endswith("_s") and t.ndim != 2)
+            if (n.endswith("_s") and t.ndim not in (2, 3))
             or (n.endswith("_q4") and t.ndim != 3)]
     if bad:
         raise NotImplementedError(
-            f"decoder parameters {bad} (int4g grouped scales, blocked int4, "
-            "folded lm_head or float merged projections) are not ported to "
-            "the PyTorch package yet"
+            f"decoder parameters {bad} (blocked int4, float merged "
+            "projections or the JAX engine's lm_fold_* copies) are not "
+            "ported to the PyTorch package"
         )
 
 
 def _linear(tree: Tree, name: str, x):
     """x @ W for a float weight, an int8 (``{name}_q``, ``{name}_s``) pair
-    or a nibble-packed int4 (``{name}_q4``, ``{name}_s``) pair.
+    or a nibble-packed int4 (``{name}_q4``, ``{name}_s``) pair, with
+    per-column scales or (int4g) 2-D (G, N) group scales.
 
     int8 runs K5 (``quant_matmul``; its plain version on the CPU). int4 is
     the JAX package's two half-width products on the sign-extended
-    nibbles (``ops/quant.py::int4_matmul_plain``). Both apply the per-column scale to the float32 product, then round to
-    x.dtype once.
+    nibbles (``ops/quant.py::int4_matmul_plain``), int4g its
+    ``int4_grouped_matmul`` in both of its row regimes. Each applies its
+    scales to the float32 products, then rounds to x.dtype once.
     """
     if f"{name}_q" in tree:
         x2 = x.reshape(-1, x.shape[-1])
         y = quant_matmul(x2.contiguous(), tree[f"{name}_q"], tree[f"{name}_s"])
         return y.reshape(*x.shape[:-1], -1)
     if f"{name}_q4" in tree:
+        if tree[f"{name}_s"].ndim == 2:
+            return int4_grouped_matmul(x, tree[f"{name}_q4"],
+                                       tree[f"{name}_s"]).to(x.dtype)
         return int4_matmul_plain(x, tree[f"{name}_q4"], tree[f"{name}_s"])
     return x @ tree[name]
 
@@ -305,24 +318,31 @@ class TextDecoder:
         hidden = self._run_layers(params, hidden, cos, sin, cache, kv_start)
         return self.logits(params, hidden[:, -1:])[:, 0], cache
 
-    def _use_fused_step(self, params: Tree, device) -> bool:
+    def _use_fused_step(self, params: Tree, device,
+                        fold_lm: bool = False) -> bool:
         """The decode kernel runs for a shared write slot at any B, no
-        attention biases, head_dim 128 on CUDA, for float, int8 and int4
-        weights, merged or not, and bf16/f32 or int8 slabs
-        (ASR_DECODE_IMPL=scan|fused overrides 'auto')."""
+        attention biases, head_dim 128 on CUDA, for float, int8, int4 and
+        merged int4g weights, and bf16/f32 or int8 slabs
+        (ASR_DECODE_IMPL=scan|fused overrides 'auto'). As in JAX's
+        dispatch, unmerged int4g weights run the per-layer path, and a
+        folded step (``fold_lm``) does not take an int4 lm_head."""
         impl = os.environ.get("ASR_DECODE_IMPL", "auto")
-        if impl == "scan":
+        if impl == "scan" or (fold_lm and "lm_head_q4" in params):
             return False
-        eligible = "q_b" not in params["layers"]
+        layers = params["layers"]
+        eligible = "q_b" not in layers and (
+            "qkv_w_q4" in layers or not is_grouped(layers))
         if impl == "fused":
             return eligible
         return eligible and device.type == "cuda" and self.cfg.head_dim == 128
 
     @torch.inference_mode()
-    def decode_step(self, params: Tree, token_ids, pos: int, cache: KVCache):
+    def decode_step(self, params: Tree, token_ids, pos: int, cache: KVCache,
+                    *, fold: bool = False):
         """Single greedy decode step at host-known position ``pos``, shared
         by every row (slab slots [0, pos) are live). Returns (logits (B, V)
-        float32, cache updated in place)."""
+        float32 — with ``fold``, token ids (B,) int32 — and the cache
+        updated in place)."""
         if not isinstance(pos, int):
             raise NotImplementedError(
                 "per-example decode positions (serving's scatter write) are "
@@ -332,51 +352,74 @@ class TextDecoder:
         b = token_ids.shape[0]
         cos, sin = self.rotary.lookup_pos(pos)  # (1, D)
         return self._step(params, token_ids, cos.expand(b, -1),
-                          sin.expand(b, -1), cache, None, pos)
+                          sin.expand(b, -1), cache, None, pos, fold)
 
     @torch.inference_mode()
     def decode_step_aligned(self, params: Tree, token_ids, slot: int,
-                            kv_start, cache: KVCache):
+                            kv_start, cache: KVCache, *, fold: bool = False):
         """Right-aligned decode step: every row writes the shared slot
         ``slot`` (== P + step); row b attends to slots [kv_start[b], slot)
-        at position slot - kv_start[b]. Returns (logits (B, V) float32,
-        cache updated in place)."""
+        at position slot - kv_start[b]. Returns what ``decode_step``
+        returns."""
         positions = (slot - kv_start)[:, None]  # (B, 1)
         cos, sin = self.rotary.lookup_batch(positions)
         return self._step(params, token_ids, cos[:, 0], sin[:, 0], cache,
-                          kv_start, slot)
+                          kv_start, slot, fold)
 
     def _step(self, params: Tree, token_ids, cos, sin, cache: KVCache,
-              start, end: int):
+              start, end: int, fold: bool):
         """One decode step of every row: cos/sin (B, D), live slab slots
-        [start_b, end) (start None: 0), the fresh K/V written at ``end``."""
+        [start_b, end) (start None: 0), the fresh K/V written at ``end``.
+        ``fold``: the final RMSNorm, lm_head and argmax run inside the
+        decode kernel, which returns token ids in place of the logits."""
         check_params(params)
         hidden = self.embed(params, token_ids)  # (B, H)
-        if self._use_fused_step(params, hidden.device):
-            hidden, ks, vs = decode_layers_fused(
+        fold_kw = {}
+        if fold:
+            lm_q = params.get("lm_head_q")
+            fold_kw = dict(
+                fold_lm=True, final_ln_w=params["final_ln_w"],
+                lm_head=params["lm_head"] if lm_q is None else lm_q,
+                lm_scales=None if lm_q is None else params["lm_head_s"])
+        if fold or self._use_fused_step(params, hidden.device):
+            out, ks, vs = decode_layers_fused(
                 hidden, cos.contiguous(), sin.contiguous(), params["layers"],
                 cache.k, cache.v, start, end, eps=self.cfg.rms_norm_eps,
-                k_scales=cache.k_scale, v_scales=cache.v_scale,
+                k_scales=cache.k_scale, v_scales=cache.v_scale, **fold_kw,
             )
         else:
-            hidden, ks, vs = self._decode_scan(params, hidden, cos, sin,
-                                               cache, start, end)
+            out, ks, vs = self._decode_scan(params, hidden, cos, sin,
+                                            cache, start, end)
         cache.store_token(ks, vs, end)
-        return self.logits(params, hidden[:, None])[:, 0], cache
+        if fold:
+            return out, cache
+        return self.logits(params, out[:, None])[:, 0], cache
 
+    def _fold(self, params: Tree, token_ids) -> bool:
+        """Whether a token step folds the lm_head into the decode kernel:
+        ``ASR_FOLD_LM=1`` and the kernel eligible with ``fold_lm``."""
+        return os.environ.get("ASR_FOLD_LM") == "1" and self._use_fused_step(
+            params, token_ids.device, fold_lm=True)
+
+    @torch.inference_mode()
     def decode_step_token(self, params: Tree, token_ids, pos: int,
                           cache: KVCache):
-        """Greedy decode step emitting the next token ids (B,) int64;
-        ties break on the first index, as jnp.argmax does."""
-        logits, cache = self.decode_step(params, token_ids, pos, cache)
-        return torch.argmax(logits, dim=-1), cache
+        """Greedy decode step emitting the next token ids (B,); ties break
+        on the first index, as jnp.argmax does. Folded (``ASR_FOLD_LM=1``)
+        the decode kernel returns them as int32; else ``torch.argmax`` of
+        ``decode_step``'s logits gives int64."""
+        fold = self._fold(params, token_ids)
+        out, cache = self.decode_step(params, token_ids, pos, cache, fold=fold)
+        return (out if fold else torch.argmax(out, dim=-1)), cache
 
+    @torch.inference_mode()
     def decode_step_aligned_token(self, params: Tree, token_ids, slot: int,
                                   kv_start, cache: KVCache):
         """Right-aligned ``decode_step_token`` (see decode_step_aligned)."""
-        logits, cache = self.decode_step_aligned(params, token_ids, slot,
-                                                 kv_start, cache)
-        return torch.argmax(logits, dim=-1), cache
+        fold = self._fold(params, token_ids)
+        out, cache = self.decode_step_aligned(params, token_ids, slot,
+                                              kv_start, cache, fold=fold)
+        return (out if fold else torch.argmax(out, dim=-1)), cache
 
     def _decode_scan(self, params: Tree, hidden, cos, sin, cache: KVCache,
                      start, end: int):
@@ -417,7 +460,7 @@ class TextDecoder:
         k = apply_rotary(k, cos, sin)
         if impl == "kernel":
             self_dtype = h.dtype if cache.quantized else cache.k.dtype
-            out = decode_attention(
+            out = decode_attention_dma(
                 q[:, 0].contiguous(), cache.k, cache.v,
                 k[:, 0].to(self_dtype).contiguous(),
                 v[:, 0].to(self_dtype).contiguous(), l, start, end,

@@ -1,6 +1,6 @@
-"""K2: decode attention over the stacked KV slab.
+"""K2 and K6: decode attention over the stacked KV slab.
 
-Replaces the Pallas kernel
+K2, ``decode_attention_dma``, replaces the Pallas kernel
 ``qwen3_asr_rs_tpu/ops/pallas/decode_attention.py::decode_attention_dma``
 in its bf16/f32 and int8-KV modes. One query token per example attends,
 per layer ``layer`` of the ``(L, B, Hkv, S, D)`` slab, to the live slots
@@ -12,6 +12,17 @@ kernel: K scales multiply the raw scores before the live-range mask
 the PV sum, and the softmax denominator takes the unscaled ones. The
 self K/V stay in q's dtype.
 
+K6, ``decode_attention_slab`` and its single-layer wrapper
+``decode_attention``, replaces the Pallas kernel of the same names
+(``decode_attention.py:157`` and ``:233``): the same function, bf16/f32
+slabs only, any slab length. The Pallas version walks a grid over every
+slot block and clamps the block index outside the live range so that
+dead blocks cost no copy; K2's Pallas version copies only live blocks by
+hand. On the H100 both schedules are one design, so K6 launches K2's
+device code: split-K over the chunks that intersect the live range only.
+The JAX package calls K6 from its tests and scripts only; the port's
+main path runs K2 (inside K1, and in the per-layer decode path).
+
 Kernel: ``csrc/decode_attention.cuh`` (split-K flash decoding, see the
 note there). What bounds it on the H100 is the live K/V bytes: 2 * live *
 Hkv * D * 2 bytes per layer and example in bf16 (20 MB at 4992 live
@@ -21,7 +32,8 @@ range and spreads them over (chunks x kv heads x examples) blocks so the
 slab streams from many SMs at once. The same device code is the
 attention stage of the decode step (K1, ``decode_layer.py``): K1's C
 entry counts each of its launches of these kernels, and K1's wrapper
-adds that count to ``decode_attention.launches``.
+adds that count to ``decode_attention_dma.launches``. Each of the three
+entries has its own plain version and its own launch counter.
 """
 
 from __future__ import annotations
@@ -36,16 +48,9 @@ _SUPPORTED_D = (64, 128)
 _MAX_GROUPS = 8
 
 
-def decode_attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int,
-                           start, end, *, k_scales=None, v_scales=None,
-                           scale: float | None = None):
-    """Plain PyTorch version: float32 scores and softmax over the live
-    slots plus the self key, unnormalized accumulation, one division.
-
-    q (B, Hq, D); k/v_slabs (L, B, Hkv, S, D) (int8 with ``k_scales`` /
-    ``v_scales`` (L, B, Hkv, S) float32); k/v_self (B, Hkv, D);
-    start (B,) int or None; end (B,) int. Returns (B, Hq, D) in q.dtype.
-    """
+def _attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int, start,
+                     end, k_scales=None, v_scales=None, scale=None):
+    """The plain arithmetic of K2 and K6 (``decode_attention_dma_plain``)."""
     b, hq, d = q.shape
     _, _, hkv, s_max, _ = k_slabs.shape
     g = hq // hkv
@@ -73,6 +78,37 @@ def decode_attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int,
     acc = acc + p_self[..., None] * v_self.float()[:, :, None, :]
     out = acc / torch.clamp(denom, min=1e-30)[..., None]
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_dma_plain(q, k_slabs, v_slabs, k_self, v_self,
+                               layer: int, start, end, *, k_scales=None,
+                               v_scales=None, scale: float | None = None):
+    """Plain PyTorch version of K2: float32 scores and softmax over the
+    live slots plus the self key, unnormalized accumulation, one division.
+
+    q (B, Hq, D); k/v_slabs (L, B, Hkv, S, D) (int8 with ``k_scales`` /
+    ``v_scales`` (L, B, Hkv, S) float32); k/v_self (B, Hkv, D);
+    start (B,) int or None; end (B,) int. Returns (B, Hq, D) in q.dtype.
+    """
+    return _attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer,
+                            start, end, k_scales, v_scales, scale)
+
+
+def decode_attention_slab_plain(q, k_slabs, v_slabs, k_self, v_self,
+                                layer: int, start, end, *,
+                                scale: float | None = None):
+    """Plain PyTorch version of K6 (bf16/f32 slabs): the same arithmetic
+    as ``decode_attention_dma_plain``."""
+    return _attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer,
+                            start, end, scale=scale)
+
+
+def decode_attention_plain(q, k_slab, v_slab, k_self, v_self, start, end, *,
+                           scale: float | None = None):
+    """Plain PyTorch version of K6's single-layer wrapper: k/v_slab
+    (B, Hkv, S, D)."""
+    return _attention_plain(q, k_slab[None], v_slab[None], k_self, v_self,
+                            0, start, end, scale=scale)
 
 
 def _as_index(x, b: int, device) -> torch.Tensor:
@@ -147,32 +183,18 @@ def _lib():
     return lib
 
 
-def decode_attention(q, k_slabs, v_slabs, k_self, v_self, layer: int,
-                     start, end, *, k_scales=None, v_scales=None,
-                     scale: float | None = None):
-    """Decode attention (see module docstring). ``start`` (None, int or
-    (B,) tensor) and ``end`` (int or (B,) tensor) bound the live slots;
-    ``k_scales``/``v_scales`` go with int8 slabs.
-
-    CPU tensors run ``decode_attention_plain``; CUDA tensors launch the
-    kernel (``decode_attention.launches`` counts those launches).
-    """
+def _launch(what, q, k_slabs, v_slabs, k_self, v_self, layer: int, start,
+            end, k_scales, v_scales, scale):
+    """Check the operands and launch K2's device code on CUDA tensors."""
     b = q.shape[0]
-    if q.device.type == "cpu":
-        return decode_attention_plain(
-            q, k_slabs, v_slabs, k_self, v_self, layer,
-            None if start is None else _as_index(start, b, q.device),
-            _as_index(end, b, q.device), k_scales=k_scales,
-            v_scales=v_scales, scale=scale,
-        )
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: device {q.device} not supported")
+        raise ValueError(f"{what}: device {q.device} not supported")
     check_decode_attention_shapes(q, k_slabs, v_slabs, k_self, v_self,
                                   k_scales, v_scales)
     _, hq, d = q.shape
     nl, _, hkv, s_max, _ = k_slabs.shape
     if not 0 <= layer < nl:
-        raise ValueError(f"decode_attention: layer {layer} out of range")
+        raise ValueError(f"{what}: layer {layer} out of range")
     start_t = _as_index(0 if start is None else start, b, q.device)
     end_t = _as_index(end, b, q.device)
     lib = _lib()
@@ -186,9 +208,82 @@ def decode_attention(q, k_slabs, v_slabs, k_self, v_self, layer: int,
     rc = fn(p(q), p(k_slabs), p(v_slabs), *scales, p(k_self), p(v_self),
             p(start_t), p(end_t), p(out), p(ws), layer, b, hq, hkv, s_max, d,
             d ** -0.5 if scale is None else scale, _build.stream_of(q))
-    _build.check(lib, rc, "decode_attention")
+    _build.check(lib, rc, what)
+    return out
+
+
+def _plain_index(start, end, b, device):
+    return (None if start is None else _as_index(start, b, device),
+            _as_index(end, b, device))
+
+
+def decode_attention_dma(q, k_slabs, v_slabs, k_self, v_self, layer: int,
+                         start, end, *, k_scales=None, v_scales=None,
+                         scale: float | None = None):
+    """K2 (see module docstring). ``start`` (None, int or (B,) tensor) and
+    ``end`` (int or (B,) tensor) bound the live slots of layer ``layer``;
+    ``k_scales``/``v_scales`` go with int8 slabs.
+
+    CPU tensors run ``decode_attention_dma_plain``; CUDA tensors launch
+    the kernel (``decode_attention_dma.launches`` counts those launches).
+    """
+    if q.device.type == "cpu":
+        return decode_attention_dma_plain(
+            q, k_slabs, v_slabs, k_self, v_self, layer,
+            *_plain_index(start, end, q.shape[0], q.device),
+            k_scales=k_scales, v_scales=v_scales, scale=scale)
+    out = _launch("decode_attention_dma", q, k_slabs, v_slabs, k_self,
+                  v_self, layer, start, end, k_scales, v_scales, scale)
+    decode_attention_dma.launches += 1
+    return out
+
+
+def _check_float_slabs(what, k_slabs):
+    if k_slabs.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: takes bf16/f32 slabs, got {k_slabs.dtype}")
+
+
+def decode_attention_slab(q, k_slabs, v_slabs, k_self, v_self, layer: int,
+                          start, end, *, scale: float | None = None,
+                          block_s: int = 512):
+    """K6: decode attention over layer ``layer`` of bf16/f32 slabs
+    (L, B, Hkv, S, D), any S. ``block_s`` is the Pallas kernel's slot
+    block and is accepted only for its signature: the CUDA kernel's
+    chunking does not depend on it.
+
+    CPU tensors run ``decode_attention_slab_plain``; CUDA tensors launch
+    K2's device code (``decode_attention_slab.launches`` counts them).
+    """
+    del block_s
+    _check_float_slabs("decode_attention_slab", k_slabs)
+    if q.device.type == "cpu":
+        return decode_attention_slab_plain(
+            q, k_slabs, v_slabs, k_self, v_self, layer,
+            *_plain_index(start, end, q.shape[0], q.device), scale=scale)
+    out = _launch("decode_attention_slab", q, k_slabs, v_slabs, k_self,
+                  v_self, layer, start, end, None, None, scale)
+    decode_attention_slab.launches += 1
+    return out
+
+
+def decode_attention(q, k_slab, v_slab, k_self, v_self, start, end, *,
+                     scale: float | None = None, block_s: int = 512):
+    """K6's single-layer wrapper: k/v_slab (B, Hkv, S, D) bf16/f32.
+
+    CPU tensors run ``decode_attention_plain``; CUDA tensors launch K2's
+    device code (``decode_attention.launches`` counts them)."""
+    del block_s
+    _check_float_slabs("decode_attention", k_slab)
+    if q.device.type == "cpu":
+        return decode_attention_plain(
+            q, k_slab, v_slab, k_self, v_self,
+            *_plain_index(start, end, q.shape[0], q.device), scale=scale)
+    out = _launch("decode_attention", q, k_slab[None], v_slab[None], k_self,
+                  v_self, 0, start, end, None, None, scale)
     decode_attention.launches += 1
     return out
 
 
+decode_attention_dma.launches = 0
+decode_attention_slab.launches = 0
 decode_attention.launches = 0

@@ -1,11 +1,13 @@
 """K1: one greedy decode step through all decoder layers, for B rows.
 
 Replaces the Pallas decode megakernel
-``qwen3_asr_rs_tpu/ops/pallas/decode_layer.py::decode_layers_fused`` in
-its ``ffn_tiles=1``, no-fold branches at any B >= 1 (per-row ``start``
-and cos/sin, a shared ``end``), for bf16/f32 activations; float, int8
-(``*_q`` + per-column ``*_s``) or int4 (``*_q4`` + ``*_s``,
-nibble-packed: packed column j holds columns j and j + N/2) weights, in
+``qwen3_asr_rs_tpu/ops/pallas/decode_layer.py::decode_layers_fused``
+in its ``ffn_tiles=1`` branches at any B >= 1 (per-row ``start`` and
+cos/sin, a shared ``end``), for bf16/f32 activations; float, int8
+(``*_q`` + per-column ``*_s``), int4 (``*_q4`` + ``*_s``, nibble-packed:
+packed column j holds columns j and j + N/2) or group-wise int4 (int4g:
+``*_q4`` + ``(L, G, N)`` float32 ``*_s``, one scale per group of
+contraction rows and column, merged layout only, as in JAX) weights, in
 the merged layout (``qkv_w``, ``o_w``, ``gateup_w``, ``down_w``) or per
 projection; and slabs in the compute dtype or int8 with per-slot float32
 ``k_scales``/``v_scales`` (the int8-KV mode). Each row goes through every
@@ -14,27 +16,37 @@ the row's live slab range plus the fresh self K/V -> o-proj + residual
 -> RMSNorm -> SwiGLU -> down + residual); the step returns ``(h (B, H),
 ks, vs (L, B, Hkv, D))`` in the compute dtype and the caller writes
 (and for an int8 slab quantizes) ks/vs into the slab, as in JAX. Every
-product accumulates in float32; a quantized product's scale multiplies
-the whole sum, which then rounds to the compute dtype, as the Pallas
+product accumulates in float32; a per-column scale multiplies the whole
+sum, a group scale each group's float32 partial before the groups are
+summed, and the result then rounds to the compute dtype, as the Pallas
 kernel's ``_mm`` does. Attention is K2's device code: int8 slab scales
 fold into the scores and probabilities (``decode_attention.py``), where
 the Pallas megakernel dequantizes K/V to the compute dtype first; the
 two agree exactly in float32 up to the order of two products.
 
+``fold_lm=True`` (the engine's ``ASR_FOLD_LM=1``) runs, after the last
+layer, the final RMSNorm (the normed row rounded to the compute dtype),
+the lm_head product with float32 logits (a ``(V, H)`` lm_head in the
+compute dtype, or int8 ``(H, V)`` with per-column ``lm_scales`` applied
+to the float32 sum) and the argmax over all V columns, ties to the
+lowest index as ``jnp.argmax``; the step then returns ``(token_ids (B,)
+int32, ks, vs)``. The lm_head is read where it lies: the Pallas
+kernel's padded, transposed copy (``prepare_lm_fold``) is a TPU layout.
+
 Kernel: ``csrc/decode_layer.cu``, one C entry that loops over the layers
 and launches hand-written GEMVs templated on the weight kind and the
 rows per group (RMSNorm prologue; store, residual or SwiGLU epilogue), a
-QK-norm + rotary kernel and K2's attention kernels per layer. What
-bounds it on the H100 is the weight stream: at 0.6B 28 x 15.7 M
-parameters, 0.88 GB per step in bf16, 0.44 GB in int8, 0.22 GB in int4
-(0.26 / 0.13 / 0.07 ms at the data-sheet 3.35 TB/s), which the GEMVs
-read once per step for all B rows (up to 32 rows per launch). This first
-version is far from that bound: its 9 (unmerged) or 7 (merged) launches
-per layer are each latency-bound (small GEMV grids, a chain of dependent
-phases per launch), and enqueueing them takes the host a large share of
-the time the device takes to run them (see PERF.md). The Pallas kernel's
-VMEM budgets, ``ffn_tiles``, resident/DMA slab modes, scale-row packing
-and 8/128 alignments are TPU artifacts and are not carried over.
+QK-norm + rotary kernel and K2's attention kernels per layer, then the
+folded lm_head's GEMV and argmax. What bounds it on the H100 is the
+weight stream: at 0.6B 28 x 15.7 M parameters, 0.88 GB per step in
+bf16, 0.44 GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the
+data-sheet 3.35 TB/s; int4g adds 1/16 of the int4 bytes in scales at
+group size 128), plus 311 / 156 MB for a folded bf16 / int8 lm_head,
+which the GEMVs read once per step for all B rows (up to 32 rows per
+launch; 8 for the folded lm_head). This first version is far from that
+bound (see PERF.md). The Pallas kernel's VMEM budgets, ``ffn_tiles``,
+resident/DMA slab modes, scale-row packing and 8/128 alignments are TPU
+scheduling and are not carried over.
 """
 
 from __future__ import annotations
@@ -43,21 +55,24 @@ import ctypes
 
 import torch
 
-from ..quant import int4_matmul_plain
+from ..quant import int4_grouped_partials, int4_matmul_plain
 from . import _build
 from .decode_attention import (
     _as_index,
     check_slabs,
-    decode_attention,
-    decode_attention_plain,
+    decode_attention_dma,
+    decode_attention_dma_plain,
 )
 from .quant_matmul import quant_matmul_plain
 
 _WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
 _MERGED_WEIGHTS = ("qkv_w", "o_w", "gateup_w", "down_w")
 _NORMS = ("input_ln_w", "post_ln_w", "q_norm_w", "k_norm_w")
-# weight kind codes of the C entry, by the stored name's suffix
-_KINDS = {"": 0, "_q": 1, "_q4": 2}
+# weight kind codes of the C entry (csrc/decode_layer.cu, WeightKind)
+_KINDS = {"": 0, "_q": 1, "_q4": 2, "_q4g": 3}
+# lm_head fold codes of the C entry (FoldKind): none, (V, H) in the
+# compute dtype, int8 (H, V) with per-column scales
+_FOLD_NONE, _FOLD_ROWS, _FOLD_INT8 = 0, 1, 2
 
 
 def _layout(layers):
@@ -69,6 +84,21 @@ def _layout(layers):
     return "", merged
 
 
+def is_grouped(layers) -> bool:
+    """Whether a layer tree holds group-wise int4 weights (int4g): 3-D
+    ``(L, G, N)`` scales beside ``*_q4``."""
+    return any(n.endswith("_s") and t.ndim == 3 for n, t in layers.items())
+
+
+def int4g_group_supported(group_size: int, ks=()) -> bool:
+    """Group sizes the CUDA kernel takes: 32 and 64 (a group spans one or
+    two of a GEMV thread's 32-row stripes) and multiples of 128 (a GEMV
+    block's 128-row K slice lies in one group), dividing every K in ``ks``
+    (the quantizer would clamp the group of a K it does not divide)."""
+    return (group_size in (32, 64) or (group_size > 0 and group_size % 128 == 0)
+            ) and not any(k % group_size for k in ks)
+
+
 def _rms(x, w, eps):
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
@@ -77,27 +107,46 @@ def _rms(x, w, eps):
 
 def _mm(x, layers, name: str, l: int, cdt):
     """x (R, K) @ layer ``l`` of weight ``name`` -> cdt: float32
-    accumulation of x's values times the float, int8 or int4 weights,
-    the per-column scale applied to the whole sum, one rounding."""
+    accumulation of x's values times the float, int8 or int4 weights, a
+    per-column scale applied to the whole sum or group scales to each
+    group's partial, one rounding."""
     if f"{name}_q4" in layers:
-        return int4_matmul_plain(x, layers[f"{name}_q4"][l],
-                                 layers[f"{name}_s"][l], out_dtype=cdt)
+        s = layers[f"{name}_s"][l]
+        if s.ndim == 2:  # int4g: (G, N) scales
+            return int4_grouped_partials(x, layers[f"{name}_q4"][l], s).to(cdt)
+        return int4_matmul_plain(x, layers[f"{name}_q4"][l], s, out_dtype=cdt)
     if f"{name}_q" in layers:
         return quant_matmul_plain(x, layers[f"{name}_q"][l],
                                   layers[f"{name}_s"][l], out_dtype=cdt)
     return (x.float() @ layers[name][l].float()).to(cdt)
 
 
+def lm_fold_plain(h, final_ln_w, lm_head, lm_scales, eps: float):
+    """The folded lm_head of the plain version: final RMSNorm of h (B, H)
+    rounded to h's dtype, float32 logits against a (V, H) lm_head (in
+    h's dtype) or an int8 (H, V) one times ``lm_scales``, and their
+    argmax (ties to the lowest index) as (B,) int32."""
+    xn = _rms(h, final_ln_w, eps).to(h.dtype)
+    if lm_head.dtype == torch.int8:
+        logits = quant_matmul_plain(xn, lm_head, lm_scales,
+                                    out_dtype=torch.float32)
+    else:
+        logits = xn.float() @ lm_head.to(h.dtype).float().T
+    return torch.argmax(logits, -1).to(torch.int32)
+
+
 def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
                               end, *, eps: float, k_scales=None,
-                              v_scales=None):
+                              v_scales=None, fold_lm: bool = False,
+                              final_ln_w=None, lm_head=None, lm_scales=None):
     """Plain PyTorch version, rounding to x.dtype at the kernel's stages.
 
     x (B, H); cos/sin (B, D) float32; layers: stacked (L, ...) tree of
-    float, int8 or int4 weights, merged or per projection;
+    float, int8, int4 or int4g weights, merged or per projection;
     k/v_slabs (L, B, Hkv, S, D), int8 with ``k_scales``/``v_scales``
     (L, B, Hkv, S) float32; start (B,) int tensor or None; end (B,).
-    Returns (h (B, H), ks (L, B, Hkv, D), vs (L, B, Hkv, D)).
+    Returns (h (B, H), ks (L, B, Hkv, D), vs (L, B, Hkv, D)), or with
+    ``fold_lm`` (token ids (B,) int32, ks, vs).
     """
     cdt = x.dtype
     b = x.shape[0]
@@ -126,8 +175,9 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
         k = _rms(k.reshape(b, hkv, d), layers["k_norm_w"][l], eps).to(cdt)
         q, k = rope(q, hq), rope(k, hkv)
         v = v.reshape(b, hkv, d)
-        attn = decode_attention_plain(q, k_slabs, v_slabs, k, v, l, start, end,
-                                      k_scales=k_scales, v_scales=v_scales)
+        attn = decode_attention_dma_plain(q, k_slabs, v_slabs, k, v, l, start,
+                                          end, k_scales=k_scales,
+                                          v_scales=v_scales)
         o = _mm(attn.reshape(b, hq * d), layers, "o_w", l, cdt)
         h = (h.float() + o.float()).to(cdt)
         xn2 = _rms(h, layers["post_ln_w"][l], eps).to(cdt)
@@ -143,12 +193,15 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
         h = (h.float() + down.float()).to(cdt)
         ks.append(k)
         vs.append(v)
+    if fold_lm:
+        h = lm_fold_plain(h, final_ln_w, lm_head, lm_scales, eps)
     return h, torch.stack(ks), torch.stack(vs)
 
 
 # Per (device, stream, dtype, rows, dims, slab length): the step's float32
 # workspace, its split-K counters (zero on entry, and the kernels leave
-# them zero) and its T scratch, made once and reused by every step that is
+# them zero), its T scratch and the folded argmax's (B,) 64-bit keys (zero
+# on entry and left zero), made once and reused by every step that is
 # ordered on the same stream.
 _scratch: dict = {}
 
@@ -159,7 +212,7 @@ def _lib():
         for fn in ("decode_layers_fused_bf16", "decode_layers_fused_f32"):
             f = getattr(lib, fn)
             f.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p] + [ctypes.c_int] * 8
+                           ctypes.c_void_p] + [ctypes.c_int] * 11
                           + [ctypes.c_float, ctypes.c_void_p])
             f.restype = ctypes.c_int
         lib.decode_layers_fused_scratch.argtypes = (
@@ -170,9 +223,20 @@ def _lib():
     return lib
 
 
+def _check_tensor(name, t, shape, dtype, device):
+    if tuple(t.shape) != shape or t.dtype != dtype or (
+        t.device != device or not t.is_contiguous()
+    ):
+        raise ValueError(
+            f"decode_layers_fused: {name} must be a contiguous {shape} "
+            f"{dtype} tensor on {device}, got {tuple(t.shape)} {t.dtype} "
+            f"on {t.device}"
+        )
+
+
 def _check(x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales):
-    """Validate the operands of the CUDA step; returns (suffix, merged,
-    nl, h, hq, hkv, d, inter)."""
+    """Validate the operands of the CUDA step; returns (kind, merged,
+    group size (0 unless int4g), nl, h, hq, hkv, d, inter)."""
     if x.ndim != 2 or x.shape[0] < 1:
         raise ValueError(
             f"decode_layers_fused: x must be (B, H), got {tuple(x.shape)}")
@@ -185,8 +249,9 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales):
     extra = sorted(set(layers) - expected)
     if missing or extra:
         raise ValueError(
-            "decode_layers_fused: takes float, int8 or int4 weights, merged "
-            f"or per projection (missing {missing}, unsupported {extra})"
+            "decode_layers_fused: takes float, int8, int4 or int4g weights, "
+            f"merged or per projection (missing {missing}, unsupported "
+            f"{extra})"
         )
     b, h = x.shape
     nl, _, hkv, _, d = k_slabs.shape
@@ -201,24 +266,28 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales):
         widths = {"q_w": (h, hq * d), "k_w": (h, hkv * d), "v_w": (h, hkv * d),
                   "gate_w": (h, inter), "up_w": (h, inter)}
     widths.update({"o_w": (hq * d, h), "down_w": (inter, h)})
+    gsize = 0
+    if suffix == "_q4" and is_grouped(layers):
+        if not merged:
+            raise ValueError(
+                "decode_layers_fused: grouped int4 scales need the merged "
+                "layout (ASR_MERGE_QKV=0 runs the per-layer decode path)")
+        gsize = h // layers["qkv_w_s"].shape[1]
+        if not int4g_group_supported(gsize, [k for k, _ in widths.values()]):
+            raise ValueError(
+                f"decode_layers_fused: int4 group size {gsize} not supported "
+                "(32, 64 or a multiple of 128 dividing every K)")
     want = {n + suffix: ((nl, k, n_out // pack),
                          torch.int8 if suffix else x.dtype)
             for n, (k, n_out) in widths.items()}
     if suffix:
-        want.update({f"{n}_s": ((nl, n_out), torch.float32)
-                     for n, (_, n_out) in widths.items()})
+        want.update({f"{n}_s": ((nl, k // gsize, n_out) if gsize
+                                else (nl, n_out), torch.float32)
+                     for n, (k, n_out) in widths.items()})
     want.update({"input_ln_w": ((nl, h), x.dtype), "post_ln_w": ((nl, h), x.dtype),
                  "q_norm_w": ((nl, d), x.dtype), "k_norm_w": ((nl, d), x.dtype)})
     for n, (shape, dtype) in want.items():
-        t = layers[n]
-        if tuple(t.shape) != shape or t.dtype != dtype or (
-            t.device != x.device or not t.is_contiguous()
-        ):
-            raise ValueError(
-                f"decode_layers_fused: {n} must be a contiguous {shape} "
-                f"{dtype} tensor on {x.device}, got {tuple(t.shape)} "
-                f"{t.dtype} on {t.device}"
-            )
+        _check_tensor(n, layers[n], shape, dtype, x.device)
     align = 16 if suffix == "_q4" else 8
     if h % align or inter % align:
         raise ValueError(
@@ -232,18 +301,48 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales):
                 v_scales)
     if not x.is_contiguous():
         raise ValueError("decode_layers_fused: x must be contiguous")
-    return suffix, merged, nl, h, hq, hkv, d, inter
+    kind = "_q4g" if gsize else suffix
+    return kind, merged, gsize, nl, h, hq, hkv, d, inter
+
+
+def _check_fold(x, final_ln_w, lm_head, lm_scales):
+    """Validate the folded lm_head's operands; returns (fold code, V)."""
+    h = x.shape[1]
+    _check_tensor("final_ln_w", final_ln_w, (h,), x.dtype, x.device)
+    if lm_head is None or lm_head.ndim != 2:
+        raise ValueError("decode_layers_fused: fold_lm needs a 2-D lm_head")
+    if lm_head.dtype == torch.int8:
+        v = lm_head.shape[1]
+        _check_tensor("lm_head", lm_head, (h, v), torch.int8, x.device)
+        if lm_scales is None:
+            raise ValueError("decode_layers_fused: an int8 lm_head needs "
+                             "lm_scales")
+        _check_tensor("lm_scales", lm_scales, (v,), torch.float32, x.device)
+        if v % 4:
+            raise ValueError("decode_layers_fused: the int8 lm_head's V must "
+                             "be a multiple of 4")
+        return _FOLD_INT8, v
+    v = lm_head.shape[0]
+    _check_tensor("lm_head", lm_head, (v, h), x.dtype, x.device)
+    if lm_scales is not None:
+        raise ValueError("decode_layers_fused: lm_scales go with an int8 "
+                         "lm_head only")
+    return _FOLD_ROWS, v
 
 
 def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
-                        *, eps: float, k_scales=None, v_scales=None):
+                        *, eps: float, k_scales=None, v_scales=None,
+                        fold_lm: bool = False, final_ln_w=None, lm_head=None,
+                        lm_scales=None):
     """One decode step through all layers (see module docstring).
 
     ``start`` (None, int or (B,) tensor) and ``end`` (int or (B,) tensor)
     bound each row's live slab slots; ``k_scales``/``v_scales`` go with
-    int8 slabs. CPU tensors run ``decode_layers_fused_plain``; CUDA
-    tensors launch the kernel (``decode_layers_fused.launches`` counts
-    those launches).
+    int8 slabs; ``fold_lm`` with ``final_ln_w`` (H,), ``lm_head`` ((V, H)
+    in x's dtype, or int8 (H, V)) and ``lm_scales`` ((V,) float32, int8
+    only) returns token ids instead of hidden states. CPU tensors run
+    ``decode_layers_fused_plain``; CUDA tensors launch the kernel
+    (``decode_layers_fused.launches`` counts those launches).
     """
     b = x.shape[0]
     if x.device.type == "cpu":
@@ -251,12 +350,15 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
             x, cos, sin, layers, k_slabs, v_slabs,
             None if start is None else _as_index(start, b, x.device),
             _as_index(end, b, x.device), eps=eps, k_scales=k_scales,
-            v_scales=v_scales,
+            v_scales=v_scales, fold_lm=fold_lm, final_ln_w=final_ln_w,
+            lm_head=lm_head, lm_scales=lm_scales,
         )
     if x.device.type != "cuda":
         raise ValueError(f"decode_layers_fused: device {x.device} not supported")
-    suffix, merged, nl, h, hq, hkv, d, inter = _check(
+    kind, merged, gsize, nl, h, hq, hkv, d, inter = _check(
         x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales)
+    fold, vocab = (_check_fold(x, final_ln_w, lm_head, lm_scales) if fold_lm
+                   else (_FOLD_NONE, 0))
     s_max = k_slabs.shape[3]
     start_t = _as_index(0 if start is None else start, b, x.device)
     end_t = _as_index(end, b, x.device)
@@ -270,12 +372,15 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
             torch.empty(sizes[0], dtype=torch.float32, device=x.device),
             torch.zeros(sizes[1], dtype=torch.int32, device=x.device),
             torch.empty(sizes[2], dtype=x.dtype, device=x.device),
+            torch.zeros(b, dtype=torch.int64, device=x.device),
         )
-    ws, counters, tmp = _scratch[key]
+    ws, counters, tmp, best = _scratch[key]
     h_out = torch.empty_like(x)
+    tok = torch.empty(b, dtype=torch.int32, device=x.device) if fold else None
     ks = torch.empty((nl, b, hkv, d), dtype=x.dtype, device=x.device)
     vs = torch.empty_like(ks)
     # the C entry's pointer table (csrc/decode_layer.cu, enum StepPtr)
+    suffix = "_q4" if gsize else kind
     names = _MERGED_WEIGHTS if merged else _WEIGHTS
     slot = {"qkv_w": "q_w", "gateup_w": "gate_w"}
     weights = dict.fromkeys(_WEIGHTS)
@@ -287,21 +392,24 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
                + [k_slabs, v_slabs, start_t, end_t, h_out, ks, vs, ws,
                   counters, tmp]
                + [weights[n] for n in _WEIGHTS] + [scales[n] for n in _WEIGHTS]
-               + [k_scales, v_scales])
+               + [k_scales, v_scales]
+               + ([final_ln_w, lm_head, lm_scales, best, tok] if fold
+                  else [None] * 5))
     table = (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors))
     attn_launches = ctypes.c_int(0)
     fn = (lib.decode_layers_fused_bf16 if x.dtype == torch.bfloat16
           else lib.decode_layers_fused_f32)
-    rc = fn(table, _KINDS[suffix], int(merged), ctypes.addressof(attn_launches),
-            nl, b, h, hq, hkv, d, inter, s_max, eps, stream)
-    decode_attention.launches += attn_launches.value
+    rc = fn(table, _KINDS[kind], int(merged), ctypes.addressof(attn_launches),
+            nl, b, h, hq, hkv, d, inter, s_max, gsize, fold, vocab, eps,
+            stream)
+    decode_attention_dma.launches += attn_launches.value
     if rc != 0:
-        # a failed launch may leave the split-K counters nonzero
+        # a failed launch may leave the split-K counters or keys nonzero
         del _scratch[key]
     _build.check(lib, rc, "decode_layers_fused")
     decode_layers_fused.launches += 1
-    return h_out, ks, vs
+    return (tok if fold else h_out), ks, vs
 
 
 decode_layers_fused.launches = 0

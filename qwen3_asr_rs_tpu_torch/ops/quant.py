@@ -3,13 +3,17 @@
 Ports the non-kernel functions of
 ``qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py``: per-output-channel
 symmetric int8 (``quantize_weight``), nibble-packed int4 whose packed
-column j holds columns (j, j + N/2) (``quantize_weight_int4``), and the
-lm_head's tile-local int4 packing (``quantize_weight_int4_tiled``), with
-their inverses, and the plain int4 product. Outputs are contiguous whatever the input's strides
-(the lm_head is quantized through a transposed view). The kernels that
-read these layouts are ``ops/kernels/quant_matmul.py`` (int8) and
-``ops/kernels/quant_matvec_int4.py`` (tile-local int4); the decode step
-(``ops/kernels/decode_layer.py``) reads both per-layer layouts.
+column j holds columns (j, j + N/2) (``quantize_weight_int4``), the same
+packing with one scale per group of contraction rows and column
+(``quantize_weight_int4_grouped``, quantize='int4g'), and the lm_head's
+tile-local int4 packing (``quantize_weight_int4_tiled``), with their
+inverses, and the plain int4 products (``int4_grouped_matmul`` reaches
+no Pallas kernel in JAX either). Outputs are contiguous whatever the
+input's strides (the lm_head is quantized through a transposed view).
+The kernels that read these layouts are ``ops/kernels/quant_matmul.py``
+(int8) and ``ops/kernels/quant_matvec_int4.py`` (tile-local int4); the
+decode step (``ops/kernels/decode_layer.py``) reads the per-layer
+layouts, int4g included.
 
 Bit-exactness: ``absmax / 127`` (or ``/ 7``) and the division of the
 weights by the scales run in float32, as in JAX, and ``torch.round``
@@ -106,6 +110,81 @@ def int4_matmul_plain(x, w_q4, scales, out_dtype=None):
     y = torch.cat([matmul_f32(x, lo.to(x.dtype)),
                    matmul_f32(x, hi.to(x.dtype))], -1)
     return (y * scales.float()).to(out_dtype or x.dtype)
+
+
+def int4_group_size(k: int, group_size: int) -> int:
+    """The group size ``quantize_weight_int4_grouped`` uses for K rows:
+    ``group_size``, or the largest divisor of K below it when K is not a
+    multiple of it (tiny test shapes)."""
+    if k % group_size == 0:
+        return group_size
+    return next(d for d in range(min(group_size, k), 0, -1) if k % d == 0)
+
+
+def quantize_weight_int4_grouped(w, group_size: int = 128):
+    """Group-wise symmetric int4 quantization of (..., K, N) weights: each
+    ``group_size`` contraction rows get their own per-column scale.
+
+    Returns (packed int8 (..., K, N // 2), with ``quantize_weight_int4``'s
+    (j, j + N/2) nibble pairing, and scales float32 (..., K // g, N)),
+    where g is ``int4_group_size(K, group_size)``. N must be even."""
+    wf = w.float()
+    k, n = wf.shape[-2:]
+    if n % 2:
+        raise ValueError(f"int4 packing needs an even output dim, got {n}")
+    gs = int4_group_size(k, group_size)
+    g = wf.reshape(*wf.shape[:-2], k // gs, gs, n)
+    scales = torch.clamp(g.abs().amax(dim=-2), min=1e-8) / 7.0
+    q = torch.clamp(torch.round(g / scales.unsqueeze(-2)), -7, 7)
+    q = q.reshape(wf.shape)
+    return _pack_nibbles(q[..., : n // 2], q[..., n // 2:]), scales
+
+
+def dequantize_int4_grouped(packed, scales):
+    """Dense float32 (K, N) of a grouped int4 weight: (K, N // 2) packed
+    and (G, N) scales."""
+    w = unpack_int4(packed)
+    rows = w.shape[0] // scales.shape[0]
+    return w * torch.repeat_interleave(scales.float(), rows, 0)
+
+
+def int4_grouped_matmul(x, packed, scales):
+    """x (..., K) @ a grouped int4 weight ((K, N // 2) packed, (G, N)
+    float32 scales) -> (..., N) float32, in JAX's two regimes:
+
+    * more than 8 rows (prefill): the group-scaled weight is made in x's
+      dtype (nibble times ``scales.to(x.dtype)``, rounded there), then one
+      product with a float32 result;
+    * at most 8 rows (decode): float32 per-group partials of the nibbles
+      (exact in x's dtype), times the float32 scales, summed over groups.
+    """
+    k = x.shape[-1]
+    n_groups, n = scales.shape
+    if x.numel() // k > 8:
+        g = k // n_groups
+        w = (unpack_int4(packed, x.dtype).reshape(n_groups, g, n)
+             * scales.to(x.dtype)[:, None, :]).reshape(k, n)
+        return matmul_f32(x, w)
+    return int4_grouped_partials(x, packed, scales)
+
+
+def int4_grouped_partials(x, packed, scales):
+    """x (..., K) @ a grouped int4 weight -> (..., N) float32: float32
+    per-group partials of the nibbles (exact in x's dtype), times the
+    float32 (G, N) scales, summed over groups; low nibbles give columns
+    [0, N/2), high nibbles [N/2, N). The decode kernel's arithmetic at
+    any row count, and ``int4_grouped_matmul``'s at <= 8 rows."""
+    k = x.shape[-1]
+    n_groups, n = scales.shape
+    g = k // n_groups
+    lo, hi = unpack_nibbles(packed)
+    xg = x.float().reshape(*x.shape[:-1], n_groups, g)
+    sf = scales.float()
+    y = []
+    for half, s in ((lo, sf[:, : n // 2]), (hi, sf[:, n // 2:])):
+        wg = half.to(x.dtype).float().reshape(n_groups, g, n // 2)
+        y.append((torch.einsum("...gk,gkn->...gn", xg, wg) * s).sum(-2))
+    return torch.cat(y, -1)
 
 
 def quantize_weight_int4_tiled(w, tile: int = MATVEC_TILE):

@@ -16,11 +16,13 @@ batch's clips instead of ``vmap``; and the KV slab is allocated once at
 its final length instead of in growing segments, without the JAX
 engine's 8/128-slot rounding (masks make the output independent of the
 slab length). Weight quantization follows the JAX engine's ``quantize=``
-modes 'int8', 'int4' and 'lm8' (with ``ASR_MERGE_QKV`` and
-``ASR_LM_BITS``), the KV slab its ``kv_dtype=`` 'bf16' (the compute
-dtype) and 'int8' (``ASR_KV``); 'int4g', sampling, speculative decoding
-and long-form audio (beyond the largest bucket) are not ported yet and
-raise.
+modes 'int8', 'int4', 'int4g' (group-wise int4, ``ASR_INT4_GROUP``) and
+'lm8' (with ``ASR_MERGE_QKV`` and ``ASR_LM_BITS``), the KV slab its
+``kv_dtype=`` 'bf16' (the compute dtype) and 'int8' (``ASR_KV``), and
+``ASR_FOLD_LM=1`` folds the lm_head and argmax into the decode kernel,
+whose steps then return token ids (default off, as in JAX). Sampling,
+speculative decoding and long-form audio (beyond the largest bucket) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -35,14 +37,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from qwen3_asr_rs_tpu.audio.load import load_audio
-from qwen3_asr_rs_tpu.config import AsrConfig, feat_extract_output_length
-from qwen3_asr_rs_tpu.tokenizer import (
-    ENDOFTEXT_TOKEN_ID,
-    IM_END_TOKEN_ID,
-    AsrTokenizer,
-)
-
+from ..audio.load import load_audio
+from ..config import AsrConfig, feat_extract_output_length
 from ..features.mel import (
     create_mel_filterbank,
     log_mel_from_padded,
@@ -51,6 +47,8 @@ from ..features.mel import (
 )
 from ..models.audio_encoder import AudioEncoder
 from ..models.text_decoder import KVCache, TextDecoder
+from ..ops.kernels.decode_layer import int4g_group_supported
+from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID, AsrTokenizer
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
 from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
@@ -97,11 +95,14 @@ class AsrEngine:
         """``params``: optional (encoder, decoder) trees (torch tensors or
         numpy arrays in the JAX layouts), cast to ``dtype`` on ``device``.
         ``device`` is explicit: there is no CPU fallback for "cuda".
-        ``quantize``: None, 'int8', 'int4' or 'lm8' (int8 lm_head only),
-        applied to the decoder weights after the cast to ``dtype``, as the
-        JAX engine does. ``kv_dtype``: None (``ASR_KV``, else 'bf16'),
-        'bf16' (slabs in ``dtype``) or 'int8' (int8 slabs with per-slot
-        scales: half the slab bytes per decode step)."""
+        ``quantize``: None, 'int8', 'int4', 'int4g' (group-wise int4 with
+        ``ASR_INT4_GROUP`` rows per group, default 128) or 'lm8' (int8
+        lm_head only), applied to the decoder weights after the cast to
+        ``dtype``, as the JAX engine does; on CUDA an int4g group size the
+        decode kernel does not take raises ValueError here. ``kv_dtype``:
+        None (``ASR_KV``, else 'bf16'), 'bf16' (slabs in ``dtype``) or
+        'int8' (int8 slabs with per-slot scales: half the slab bytes per
+        decode step)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AsrEngine(device='cuda'): no CUDA device")
@@ -120,7 +121,18 @@ class AsrEngine:
         self.enc_params, self.dec_params = params
         del params  # so the float linears are freed once quantized
         self.quantize = quantize
-        self.dec_params = self._quantize_params(self.dec_params, quantize)
+        gsize = int(os.environ.get("ASR_INT4_GROUP", "128"))
+        t = config.text
+        ks = (t.hidden_size, t.num_attention_heads * t.head_dim,
+              t.intermediate_size)
+        if (quantize == "int4g" and self.device.type == "cuda"
+                and not int4g_group_supported(gsize, ks)):
+            raise ValueError(
+                f"ASR_INT4_GROUP={gsize}: the CUDA decode kernel takes int4 "
+                "group sizes 32, 64 and multiples of 128 that divide every "
+                f"projection's input width {ks}")
+        self.dec_params = self._quantize_params(self.dec_params, quantize,
+                                                gsize)
         if kv_dtype is None:
             kv_dtype = os.environ.get("ASR_KV")
         if kv_dtype not in (None, "bf16", "int8"):
@@ -143,9 +155,10 @@ class AsrEngine:
         self.last_stats: dict = {}
 
     @staticmethod
-    def _quantize_params(dec, quantize: Optional[str]):
+    def _quantize_params(dec, quantize: Optional[str], gsize: int = 128):
         """The decoder tree under a weight-quantization mode (the JAX
-        engine's ``_quantize_params`` for one device)."""
+        engine's ``_quantize_params`` for one device); ``gsize``: int4g's
+        rows per scale group."""
         if quantize is None:
             return dec
         if quantize in ("int8", "int4"):
@@ -157,10 +170,11 @@ class AsrEngine:
             logger.info("Quantizing lm_head to int8 (layers keep their dtype)")
             return quantize_lm_head_only(dec)
         if quantize == "int4g":
-            raise NotImplementedError(
-                "quantize='int4g' (group-wise int4 scales) is not ported to "
-                "the PyTorch package yet (ROADMAP §1 item 11)"
-            )
+            logger.info("Quantizing decoder weights to int4 (group size %d)",
+                        gsize)
+            merge = os.environ.get("ASR_MERGE_QKV", "1") != "0"
+            return quantize_decoder_params(dec, bits=4, merge=merge,
+                                           group_size=gsize)
         raise ValueError(f"unknown quantize mode {quantize!r}")
 
     def _prompt_bucket(self, num_chunks: int) -> int:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from qwen3_asr_rs_tpu.tokenizer import (
+from ..tokenizer import (
     ASSISTANT_TOKEN_ID,
     AUDIO_END_TOKEN_ID,
     AUDIO_PAD_TOKEN_ID,

@@ -20,7 +20,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from qwen3_asr_rs_tpu.config import AudioEncoderConfig, TextDecoderConfig
+from ..config import AudioEncoderConfig, TextDecoderConfig
 
 Tree = Any
 
@@ -49,7 +49,8 @@ def to_torch(tree: Tree, dtype: torch.dtype | None = None,
     or tensors -> torch tensors on ``device``, float leaves cast to
     ``dtype``. Quantized trees (``weights/quantize.py``) carry across
     unchanged: integer leaves keep their dtype and the ``*_s`` scale
-    leaves stay float32."""
+    leaves stay float32. The JAX engine's ``lm_fold_*`` leaves (a
+    padded copy of the lm_head for the TPU fold) are dropped."""
 
     def conv(name, x):
         if not isinstance(x, torch.Tensor):
@@ -65,7 +66,18 @@ def to_torch(tree: Tree, dtype: torch.dtype | None = None,
             return x.to(device=device, dtype=torch.float32)
         return x.to(device=device, dtype=dtype or x.dtype)
 
-    return tree_map(conv, tree)
+    return _drop_lm_fold(tree_map(conv, tree))
+
+
+def _drop_lm_fold(tree: Tree) -> Tree:
+    """The tree without the JAX engine's ``lm_fold_w``/``lm_fold_s``: a
+    padded, transposed lm_head copy for the TPU fold, derived from the
+    lm_head, which the port's fold reads where it lies."""
+    if isinstance(tree, tuple):
+        return tuple(_drop_lm_fold(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: v for k, v in tree.items() if not k.startswith("lm_fold_")}
+    return tree
 
 
 def _conv_stem_freq(num_mel_bins: int) -> int:

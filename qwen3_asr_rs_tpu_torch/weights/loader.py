@@ -23,8 +23,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from qwen3_asr_rs_tpu.config import AsrConfig
-from qwen3_asr_rs_tpu.errors import WeightsError
+from ..config import AsrConfig
+from ..errors import WeightsError
 
 logger = logging.getLogger(__name__)
 

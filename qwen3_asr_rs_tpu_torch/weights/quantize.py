@@ -3,18 +3,18 @@
 Port of ``qwen3_asr_rs_tpu/weights/quantize.py`` with the same key names
 and merge rules, bit for bit: every decoder linear ``{name}_w`` becomes
 ``{name}_w_q`` (int8) or ``{name}_w_q4`` (nibble-packed int4) plus
-``{name}_w_s`` (float32 per-output-column scales), and the lm_head
-becomes ``lm_head_q`` / ``lm_head_q4`` (stored (H, V)) plus
-``lm_head_s``. Embeddings and norms keep their dtype.
+``{name}_w_s`` (float32 scales: per output column, ``(L, N)``, or with
+``group_size`` per group of contraction rows and column, ``(L, G, N)``),
+and the lm_head becomes ``lm_head_q`` / ``lm_head_q4`` (stored (H, V))
+plus ``lm_head_s``. Embeddings and norms keep their dtype.
 
 With ``merge`` (the default), q|k|v and gate|up are column-concatenated
 before quantizing into ``qkv_w_*`` / ``gateup_w_*``; merging is skipped
 when projection biases exist. Per-column scales make the merged
 quantization equal to the separate one, column by column.
 
-Not ported yet (ROADMAP §1 item 11): group-wise int4 scales
-(``group_size``, quantize='int4g') and the tensor-parallel blocked int4
-packing (``tp_blocks > 1``); both raise NotImplementedError.
+Not ported yet (ROADMAP §1): the tensor-parallel blocked int4 packing
+(``tp_blocks > 1``), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 from ..ops.quant import (
     quantize_weight,
     quantize_weight_int4,
+    quantize_weight_int4_grouped,
     quantize_weight_int4_tiled,
 )
 
@@ -55,18 +56,25 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
     """A new decoder tree with int8 (``bits=8``) or int4 (``bits=4``)
     linears; ``params`` is left as it was.
 
+    ``group_size`` (int4 only, quantize='int4g') gives every
+    ``group_size`` contraction rows their own scales (``(L, G, N)``
+    ``*_s``; the group size is clamped to a divisor of each K).
+
     The lm_head width follows ``lm_bits``, by default ``$ASR_LM_BITS`` or
-    else ``bits``: 8 stores int8 (``lm_head_q``), 4 the tile-local int4
-    packing of the int4 matvec (``lm_head_q4``), under either layer
-    width.
+    else ``bits`` (8 under ``group_size``): 8 stores int8 (``lm_head_q``),
+    4 the tile-local int4 packing of the int4 matvec (``lm_head_q4``),
+    under either layer width.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if group_size is not None:
-        raise NotImplementedError(
-            "group-wise int4 scales (quantize='int4g') are not ported to the "
-            "PyTorch package yet (ROADMAP §1 item 11)"
-        )
+        if bits != 4:
+            raise ValueError("group_size applies to bits=4 only")
+        if tp_blocks > 1:
+            raise ValueError(
+                "group-wise int4 is not supported under tensor parallelism "
+                "(blocked tp packing is per-channel)"
+            )
     if tp_blocks > 1:
         raise NotImplementedError(
             "blocked int4 packing for tensor parallelism (tp_blocks > 1) is "
@@ -87,7 +95,9 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
             plan[name] = layers.pop(name)
 
     for name, w in plan.items():  # w: (L, in, out)
-        if bits == 4:
+        if bits == 4 and group_size is not None:
+            layers[f"{name}_q4"], s = quantize_weight_int4_grouped(w, group_size)
+        elif bits == 4:
             layers[f"{name}_q4"], s = quantize_weight_int4(w, axis=-2)
         else:
             layers[f"{name}_q"], s = quantize_weight(w, axis=-2)
@@ -97,7 +107,8 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
     out = dict(params)
     out["layers"] = layers
     if lm_bits is None:
-        lm_bits = int(os.environ.get("ASR_LM_BITS", bits))
+        default_lm = 8 if group_size is not None else bits
+        lm_bits = int(os.environ.get("ASR_LM_BITS", default_lm))
     if lm_bits not in (4, 8):
         raise ValueError(f"lm_bits must be 4 or 8, got {lm_bits}")
     _quantize_lm_head(params["lm_head"], lm_bits, out)

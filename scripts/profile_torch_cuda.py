@@ -2,15 +2,18 @@
 """Where the time goes in the PyTorch/CUDA port, on one CUDA GPU.
 
     python3 scripts/profile_torch_cuda.py [--seeds 8] [--steps 64]
-                                          [--quantize none,int8,int4]
+                                          [--quantize none,int8,int4,int4g]
                                           [--batch 1,8,32] [--kv bf16,int8]
-                                          [--port-root DIR]
+                                          [--fold] [--port-root DIR]
 
 Full Qwen3-ASR-0.6B width, bf16 activations, synthetic weights from the
 JAX package's seeds, for each weight mode of ``--quantize`` (none: bf16
-weights; int8 / int4: the engine's merged quantized layout, int4 with
-its int4 lm_head). Prints one JSON line per section and mode, each with
-nvidia-smi's name and power limit of the card:
+weights; int8 / int4 / int4g: the engine's merged quantized layout, int4
+with its int4 lm_head, int4g with group size 128 and an int8 lm_head).
+``--fold`` folds the lm_head into K1 (``ASR_FOLD_LM=1``; not with an
+int4 lm_head) in k1_parts and decode_step. Prints one JSON line per
+section and mode, each with nvidia-smi's name and power limit of the
+card:
 
 1. k1_error_spread — K1 (decode_layers_fused) bf16 against its plain
    version at chip_smoke's slab cases, over ``--seeds`` input seeds:
@@ -30,9 +33,10 @@ nvidia-smi's name and power limit of the card:
    by kernel (the largest 12) and the busy share.
 
 ``--port-root DIR`` imports the port from DIR instead (an unpacked
-older commit, say), so that two versions can be compared in turns on one
-card; a port without weight quantization takes ``--quantize none``, one
-without batched K1 or int8 slabs ``--batch 1 --kv bf16``.
+older commit that has the port's own ``config`` and ``audio`` copies),
+so that two versions can be compared in turns on one card; a port
+without weight quantization takes ``--quantize none``, one without
+batched K1 or int8 slabs ``--batch 1 --kv bf16``.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 
@@ -78,7 +82,9 @@ def kernel_class(name: str) -> str:
                        ("flash", "flash attention (K3)"),
                        ("qmv4_kernel", "lm_head int4 (K4)"),
                        ("qmv_kernel", "int8 GEMV (K5)"),
-                       ("qmm_kernel", "int8 tiled matmul (K5)")):
+                       ("qmm_kernel", "int8 tiled matmul (K5)"),
+                       ("lm_fold", "lm_head fold (K1)"),
+                       ("fold_finish", "lm_head fold (K1)")):
         if key in name:
             return label
     return name[:90]
@@ -136,7 +142,8 @@ def k1_error_spread(torch, smoke, layers, seeds: int, mode: str) -> dict:
             "smoke_atol": atol}
 
 
-def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str) -> list:
+def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str,
+             fold: dict) -> list:
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused)
 
@@ -144,12 +151,18 @@ def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str) -> list:
     qd = cfg.num_attention_heads * cfg.head_dim
     kvd = cfg.num_key_value_heads * cfg.head_dim
     nl = cfg.num_hidden_layers
-    wb = {"none": 2, "int8": 1, "int4": 0.5}[mode]  # bytes per weight
+    # bytes per weight (int4g: and a float32 scale per 128 of them)
+    wb = {"none": 2, "int8": 1, "int4": 0.5, "int4g": 0.5 + 4 / 128}[mode]
     weight_bytes = {  # weight bytes per call, by GEMV class
         "gemv q/k/v": wb * nl * h * (qd + 2 * kvd),
         "gemv o/down +residual": wb * nl * (qd * h + inter * h),
         "gemv gate/up SwiGLU": wb * nl * 2 * h * inter,
     }
+    if fold:
+        weight_bytes["lm_head fold (K1)"] = sum(
+            t.numel() * t.element_size() for t in (fold["lm_head"],
+                                                   fold["lm_scales"])
+            if t is not None)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(7)
     for s_max, end in ((360, 217), (4992, 4737))[:1 if b > 8 else 2]:
@@ -166,7 +179,7 @@ def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str) -> list:
 
         def call():
             return decode_layers_fused(x, cos, sin, layers, ks, vs, start,
-                                       end, eps=1e-6, **scales)
+                                       end, eps=1e-6, **scales, **fold)
 
         for _ in range(3):
             call()
@@ -196,7 +209,8 @@ def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str) -> list:
                 parts[k]["bytes"] = n_bytes
                 parts[k]["TB_per_s"] = n_bytes / parts[k]["device_us"] / 1e6
         rows.append({"section": "k1_parts", "weights": mode, "B": b,
-                     "kv": kv, "starts": starts, "S": s_max, "end": end,
+                     "kv": kv, "fold": bool(fold), "starts": starts,
+                     "S": s_max, "end": end,
                      "wall_ms_per_call": wall_ms,
                      "enqueue_ms_per_call": statistics.median(enqueue),
                      "device_ms_per_call": sum(
@@ -228,6 +242,8 @@ def decode_step(torch, engine, samples, steps: int, mode: str) -> dict:
         _, wall, times = profile(torch, lambda: loop(true_len))
     busy_us = sum(us for _, us in times.values())
     return {"section": "decode_step", "weights": mode, "clip_seconds": 4,
+            "fold": dec._fold(engine.dec_params, torch.zeros(
+                (1,), dtype=torch.long, device="cuda")),
             "steps": steps,
             "slab": int(cache.k.shape[3]),
             "wall_ms_per_step": 1e3 * wall_plain / steps,
@@ -255,11 +271,14 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--quantize", default="none,int8,int4",
-                    help="comma-separated weight modes: none, int8, int4")
+                    help="comma-separated weight modes: none, int8, int4, "
+                         "int4g")
     ap.add_argument("--batch", default="1",
                     help="comma-separated K1 batch sizes for k1_parts")
     ap.add_argument("--kv", default="bf16",
                     help="comma-separated slab types for k1_parts: bf16, int8")
+    ap.add_argument("--fold", action="store_true",
+                    help="fold the lm_head into K1 (ASR_FOLD_LM=1)")
     ap.add_argument("--port-root", type=Path, default=REPO,
                     help="directory holding the qwen3_asr_rs_tpu_torch "
                          "package to profile")
@@ -273,13 +292,17 @@ def main() -> int:
     import chip_smoke as smoke
 
     sys.path.insert(0, str(args.port_root.resolve()))
-    from qwen3_asr_rs_tpu.audio.load import load_audio
-    from qwen3_asr_rs_tpu.config import AsrConfig
+    from qwen3_asr_rs_tpu_torch.audio.load import load_audio
+    from qwen3_asr_rs_tpu_torch.config import AsrConfig
     from qwen3_asr_rs_tpu_torch.ops.kernels import _build
     from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
     from qwen3_asr_rs_tpu_torch.weights.convert import (
         init_decoder_params_np, init_encoder_params_np, to_torch)
 
+    if args.fold:
+        import os
+
+        os.environ["ASR_FOLD_LM"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -311,11 +334,18 @@ def main() -> int:
                            tokenizer=smoke.StubTokenizer(), device="cuda",
                            quantize=None if mode == "none" else mode)
         layers = engine.dec_params["layers"]
+        params = engine.dec_params
+        fold = {}
+        if args.fold and "lm_head_q4" not in params:
+            lm_q = params.get("lm_head_q")
+            fold = dict(fold_lm=True, final_ln_w=params["final_ln_w"],
+                        lm_head=params["lm_head"] if lm_q is None else lm_q,
+                        lm_scales=params.get("lm_head_s"))
         emit(k1_error_spread(torch, smoke, layers, args.seeds, mode))
         for b in map(int, args.batch.split(",")):
             for kv in args.kv.split(","):
                 for row in k1_parts(torch, smoke, layers, config.text, mode,
-                                    b, kv):
+                                    b, kv, fold):
                     emit(row)
                 torch.cuda.empty_cache()
         emit(decode_step(torch, engine, clips[4], args.steps, mode))

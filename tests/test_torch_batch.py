@@ -25,6 +25,7 @@ from qwen3_asr_rs_tpu.ops.pallas.decode_layer import (
 )
 from qwen3_asr_rs_tpu.ops.rotary import RotaryTable as JRotary
 from qwen3_asr_rs_tpu.runtime.engine import AsrEngine as JaxEngine
+from qwen3_asr_rs_tpu_torch import config as tconfig
 from qwen3_asr_rs_tpu_torch.models.text_decoder import KVCache, TextDecoder
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
     decode_layers_fused,
@@ -50,11 +51,11 @@ def _engines(kv_dtype, quantize=None):
     cfg = _tiny()
     params = (init_encoder_params(cfg.audio, dtype=jnp.float32),
               init_decoder_params(cfg.text, dtype=jnp.float32))
-    kw = dict(max_new_tokens=4, chunk_buckets=(4,), config=cfg,
-              params=params, tokenizer=_Tok(), kv_dtype=kv_dtype,
-              quantize=quantize)
-    return (JaxEngine(model_dir=None, dtype=jnp.float32, **kw),
-            AsrEngine(None, dtype=torch.float32, device="cpu", **kw))
+    kw = dict(max_new_tokens=4, chunk_buckets=(4,), params=params,
+              tokenizer=_Tok(), kv_dtype=kv_dtype, quantize=quantize)
+    return (JaxEngine(model_dir=None, dtype=jnp.float32, config=cfg, **kw),
+            AsrEngine(None, dtype=torch.float32, device="cpu",
+                      config=_tiny(tconfig), **kw))
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,10 +124,10 @@ def test_prefill_and_decode_aligned_match_jax(rng, monkeypatch, impl, attn,
     steps (logits, slab) against the JAX decoder's scan path, with a
     float or an int8 slab; ``fused`` runs K1's plain version, ``kernel``
     K2's."""
-    cfg = tiny_test_config().text
+    cfg, tcfg = tiny_test_config().text, tconfig.tiny_test_config().text
     jp = init_decoder_params(cfg, dtype=jnp.float32)
-    tp = convert.init_decoder_params(cfg, dtype=torch.float32)
-    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(cfg, 64)
+    tp = convert.init_decoder_params(tcfg, dtype=torch.float32)
+    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(tcfg, 64)
     b, p, s_max = 3, 12, 20
     kv_start = np.asarray([0, 3, 7], np.int32)
     hidden = (rng.standard_normal((b, p, cfg.hidden_size)) * 0.5).astype(
@@ -134,7 +135,7 @@ def test_prefill_and_decode_aligned_match_jax(rng, monkeypatch, impl, attn,
     jlog, jcache = jdec.prefill_aligned(
         jp, jnp.asarray(hidden), jnp.asarray(kv_start),
         JCache.zeros(cfg, b, s_max, jnp.float32, quantized=quantized))
-    cache = KVCache.zeros(cfg, b, s_max, torch.float32, quantized=quantized)
+    cache = KVCache.zeros(tcfg, b, s_max, torch.float32, quantized=quantized)
     tlog, cache = tdec.prefill_aligned(tp, T(hidden), T(kv_start), cache)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
     np.testing.assert_allclose(cache.k.numpy().astype(np.float32),
@@ -163,8 +164,9 @@ def test_decode_layers_plain_batched_matches_pallas(rng):
     against the Pallas megakernel in interpret mode."""
     cfg = tiny_test_config().text
     jparams = init_decoder_params(cfg, dtype=jnp.float32)
-    layers = convert.to_torch(convert.init_decoder_params_np(cfg),
-                              torch.float32)["layers"]
+    layers = convert.to_torch(
+        convert.init_decoder_params_np(tconfig.tiny_test_config().text),
+        torch.float32)["layers"]
     b, s_max, end = 3, 48, 40
     start = np.asarray([0, 10, 25], np.int32)
     shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, s_max,

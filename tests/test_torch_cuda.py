@@ -12,10 +12,10 @@ import dataclasses
 import pytest
 import torch
 
-from qwen3_asr_rs_tpu.config import TextDecoderConfig
+from qwen3_asr_rs_tpu_torch.config import TextDecoderConfig
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention,
-    decode_attention_plain,
+    decode_attention_dma,
+    decode_attention_dma_plain,
 )
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
     decode_layers_fused,
@@ -52,10 +52,10 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, atol):
     v_self = torch.randn_like(k_self)
     start = torch.tensor([0, 70], dtype=torch.int32, device=cuda)
     end = torch.tensor([133, 70], dtype=torch.int32, device=cuda)
-    n = decode_attention.launches
-    got = decode_attention(q, ks, vs, k_self, v_self, 2, start, end)
-    assert decode_attention.launches == n + 1
-    ref = decode_attention_plain(q, ks, vs, k_self, v_self, 2, start, end)
+    n = decode_attention_dma.launches
+    got = decode_attention_dma(q, ks, vs, k_self, v_self, 2, start, end)
+    assert decode_attention_dma.launches == n + 1
+    ref = decode_attention_dma_plain(q, ks, vs, k_self, v_self, 2, start, end)
     assert (got.float() - ref.float()).abs().max() <= atol
 
 
@@ -72,11 +72,11 @@ def test_cuda_decode_layers_matches_plain(cuda):
     x = 0.02 * torch.randn((1, cfg.hidden_size), generator=g, device=cuda)
     cos, sin = torch.ones((1, cfg.head_dim), device=cuda), torch.zeros(
         (1, cfg.head_dim), device=cuda)
-    n, n_attn = decode_layers_fused.launches, decode_attention.launches
+    n, n_attn = decode_layers_fused.launches, decode_attention_dma.launches
     got = decode_layers_fused(x, cos, sin, layers, kc, vc, 3, 77, eps=1e-6)
     assert decode_layers_fused.launches == n + 1
     # the C entry counts its launches of K2's kernels: one per layer
-    assert decode_attention.launches == n_attn + 2
+    assert decode_attention_dma.launches == n_attn + 2
     idx = lambda v: torch.tensor([v], dtype=torch.int32, device=cuda)
     ref = decode_layers_fused_plain(x, cos, sin, layers, kc, vc, idx(3),
                                     idx(77), eps=1e-6)
@@ -177,10 +177,10 @@ def test_cuda_decode_layers_batched_matches_plain(cuda, b, dtype, atol, rtol):
     one launch for all rows, K2 once per layer."""
     lay, kc, vc, x, cos, sin = _k1_case(cuda, dtype, b, 200, 190, 7)
     start = (37 * torch.arange(b, device=cuda) % 150).to(torch.int32)
-    n, n_attn = decode_layers_fused.launches, decode_attention.launches
+    n, n_attn = decode_layers_fused.launches, decode_attention_dma.launches
     got = decode_layers_fused(x, cos, sin, lay, kc, vc, start, 190, eps=1e-6)
     assert decode_layers_fused.launches == n + 1
-    assert decode_attention.launches == n_attn + 2
+    assert decode_attention_dma.launches == n_attn + 2
     end = torch.full((b,), 190, dtype=torch.int32, device=cuda)
     ref = decode_layers_fused_plain(x, cos, sin, lay, kc, vc, start, end,
                                     eps=1e-6)
@@ -265,11 +265,12 @@ def test_cuda_decode_attention_long_slab_matches_plain(cuda, dtype, atol, D,
     q = torch.randn((B, Hq, D), generator=g, device=cuda).to(dtype)
     k_self = torch.randn((B, Hkv, D), generator=g, device=cuda).to(dtype)
     v_self = torch.randn_like(k_self)
-    n = decode_attention.launches
-    got = decode_attention(q, kc, vc, k_self, v_self, 2, start, end, **scales)
-    assert decode_attention.launches == n + 1
-    ref = decode_attention_plain(q, kc, vc, k_self, v_self, 2, start, end,
-                                 **scales)
+    n = decode_attention_dma.launches
+    got = decode_attention_dma(q, kc, vc, k_self, v_self, 2, start, end,
+                               **scales)
+    assert decode_attention_dma.launches == n + 1
+    ref = decode_attention_dma_plain(q, kc, vc, k_self, v_self, 2, start,
+                                     end, **scales)
     assert torch.isfinite(got).all()
     assert (got.float() - ref.float()).abs().max() <= atol
 
@@ -349,3 +350,160 @@ def test_cuda_bf16_mm_keeps_float32(cuda):
     assert y.dtype == torch.float32
     assert (y.bfloat16().float() != y).float().mean() > 0.9
     assert (y - a.float() @ b.float()).abs().max() <= 1e-3
+
+
+def _int4g_layers(cuda, dtype, group, hidden=None):
+    """Merged int4g layers, two layers at the 0.6B widths (or the 1.7B
+    ones: hidden 2048, intermediate 6144)."""
+    from qwen3_asr_rs_tpu_torch.weights.quantize import quantize_decoder_params
+
+    cfg = dataclasses.replace(TextDecoderConfig(), num_hidden_layers=2,
+                              vocab_size=64)
+    if hidden:
+        cfg = dataclasses.replace(cfg, hidden_size=hidden,
+                                  intermediate_size=3 * hidden)
+    params = to_torch(init_decoder_params_np(cfg), dtype, cuda)
+    return cfg, quantize_decoder_params(params, bits=4, group_size=group,
+                                        lm_bits=8)["layers"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,hidden,int8_slab", [(1, None, False),
+                                                (8, None, True),
+                                                (32, None, False),
+                                                (3, 2048, False)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 1e-2, 2 ** -4)])
+def test_cuda_decode_layers_int4g_matches_plain(cuda, group, b, hidden,
+                                                int8_slab, dtype, atol, rtol):
+    """K1 with merged int4g weights at every group size the kernel takes
+    (below 128 the scales apply per 32-row stripe, from 128 on per K
+    block), 0.6B and 1.7B widths, B up to 32, float and int8 slabs."""
+    cfg, lay = _int4g_layers(cuda, dtype, group, hidden)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    shape = (2, b, cfg.num_key_value_heads, 200, cfg.head_dim)
+    kc = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    vc = (0.05 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    scales = {}
+    if int8_slab:
+        (kc, ks), (vc, vs) = _int8(kc), _int8(vc)
+        scales = dict(k_scales=ks, v_scales=vs)
+    x = (0.02 * torch.randn((b, cfg.hidden_size), generator=g,
+                            device=cuda)).to(dtype)
+    ang = 40 * torch.logspace(0, -6, cfg.head_dim // 2, device=cuda)
+    cos = torch.cat([ang.cos(), ang.cos()])[None].expand(b, -1).contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()])[None].expand(b, -1).contiguous()
+    start = (13 * torch.arange(b, device=cuda) % 150).to(torch.int32)
+    end = torch.full((b,), 190, dtype=torch.int32, device=cuda)
+    n = decode_layers_fused.launches
+    got = decode_layers_fused(x, cos, sin, lay, kc, vc, start, end, eps=1e-6,
+                              **scales)
+    assert decode_layers_fused.launches == n + 1
+    ref = decode_layers_fused_plain(x, cos, sin, lay, kc, vc, start, end,
+                                    eps=1e-6, **scales)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max() <= (
+            atol + rtol * r.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_decode_layers_int4g_refuses_other_group_sizes(cuda):
+    cfg, lay = _int4g_layers(cuda, torch.bfloat16, 16)
+    x = torch.zeros((1, cfg.hidden_size), dtype=torch.bfloat16, device=cuda)
+    cs = torch.zeros((1, cfg.head_dim), device=cuda)
+    kc = torch.zeros((2, 1, cfg.num_key_value_heads, 8, cfg.head_dim),
+                     dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="group size 16"):
+        decode_layers_fused(x, cs, cs, lay, kc, kc, None, 4, eps=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 11])
+@pytest.mark.parametrize("lm", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_layers_fold_matches_plain(cuda, b, lm, dtype):
+    """K1 with the folded lm_head over the full 151,936-column vocabulary:
+    each kernel token's logit, recomputed by the plain version, lies
+    within float32 summation-order noise (1e-4 of the largest logit) of
+    the plain maximum; ties go to the lowest index (an lm_head of equal
+    rows gives token 0)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import _rms
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
+
+    lay, kc, vc, x, cos, sin = _k1_case(cuda, dtype, b, 200, 190, 13)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    lm_head = (0.02 * torch.randn((151936, 1024), generator=g,
+                                  device=cuda)).to(dtype)
+    final_ln = torch.ones(1024, dtype=dtype, device=cuda)
+    if lm == "int8":
+        lm_w, lm_s = quantize_weight(lm_head.float().T)
+    else:
+        lm_w, lm_s = lm_head, None
+    start = (7 * torch.arange(b, device=cuda)).to(torch.int32)
+    end = torch.full((b,), 190, dtype=torch.int32, device=cuda)
+    kw = dict(eps=1e-6, fold_lm=True, final_ln_w=final_ln, lm_head=lm_w,
+              lm_scales=lm_s)
+    n = decode_layers_fused.launches
+    tok, ks, vs = decode_layers_fused(x, cos, sin, lay, kc, vc, start, end,
+                                      **kw)
+    assert decode_layers_fused.launches == n + 1
+    assert tok.dtype == torch.int32 and tok.shape == (b,)
+    h, ks_ref, _ = decode_layers_fused_plain(x, cos, sin, lay, kc, vc, start,
+                                             end, eps=1e-6)
+    xn = _rms(h, final_ln, 1e-6).to(dtype).float()
+    logits = (xn @ lm_w.float() * lm_s if lm == "int8"
+              else xn @ lm_w.float().T)
+    best = logits.max(-1).values
+    picked = logits.gather(1, tok.long()[:, None])[:, 0]
+    assert ((best - picked) <= 1e-4 * best.abs().max()).all()
+    assert (ks.float() - ks_ref.float()).abs().max() <= 1e-2 + 2 ** -4 * (
+        ks_ref.float().abs().max())
+    # equal rows (int8: equal columns): every logit ties, token 0
+    same = lm_head[:1].expand(151936, -1).contiguous()
+    tie_w = quantize_weight(same.float().T)[0] if lm == "int8" else same
+    tie_s = None if lm_s is None else torch.ones_like(lm_s)
+    tok, _, _ = decode_layers_fused(x, cos, sin, lay, kc, vc, start, end,
+                                    **dict(kw, lm_head=tie_w,
+                                           lm_scales=tie_s))
+    assert tok.tolist() == [0] * b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,starts,ends", [
+    (1, 584, 16, 8, 128, None, [450]),
+    (2, 304, 16, 8, 128, [0, 37], [296, 120]),
+    (1, 64, 4, 2, 64, None, [64]),
+    (3, 136, 8, 4, 128, [5, 0, 60], [100, 136, 61]),
+    (1, 4992, 16, 8, 128, None, [4737]),
+])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_cuda_decode_attention_slab_matches_plain(cuda, b, s, hq, hkv, d,
+                                                  starts, ends, dtype, atol):
+    """K6, ``decode_attention_slab`` at a layer of a 3-layer slab and the
+    single-layer ``decode_attention``, each counting its own launches."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_attention as da
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    k3, v3 = (torch.randn((3, b, hkv, s, d), generator=g,
+                          device=cuda).to(dtype) for _ in range(2))
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dtype)
+    k_self, v_self = (torch.randn((b, hkv, d), generator=g,
+                                  device=cuda).to(dtype) for _ in range(2))
+    start = None if starts is None else torch.tensor(
+        starts, dtype=torch.int32, device=cuda)
+    end = torch.tensor(ends, dtype=torch.int32, device=cuda)
+    n_slab, n_one, n_dma = (da.decode_attention_slab.launches,
+                            da.decode_attention.launches,
+                            da.decode_attention_dma.launches)
+    got = da.decode_attention_slab(q, k3, v3, k_self, v_self, 1, start, end)
+    one = da.decode_attention(q, k3[2], v3[2], k_self, v_self, start, end)
+    assert (da.decode_attention_slab.launches, da.decode_attention.launches,
+            da.decode_attention_dma.launches) == (n_slab + 1, n_one + 1, n_dma)
+    ref = da.decode_attention_slab_plain(q, k3, v3, k_self, v_self, 1, start,
+                                         end)
+    ref_one = da.decode_attention_plain(q, k3[2], v3[2], k_self, v_self,
+                                        start, end)
+    assert (got.float() - ref.float()).abs().max() <= atol
+    assert (one.float() - ref_one.float()).abs().max() <= atol

@@ -2,7 +2,8 @@
 
 float32 greedy tokens must be equal exactly, on tiny_test_config() and on
 two layers at the real 0.6B widths. bf16 first-step logits agree within
-a stated tolerance.
+a stated tolerance. Each engine gets its own package's config, made by
+the same recipe (``_tiny``, ``_real2``).
 """
 
 import dataclasses
@@ -12,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from qwen3_asr_rs_tpu.config import AsrConfig, tiny_test_config
+from qwen3_asr_rs_tpu import config as jconfig
 from qwen3_asr_rs_tpu.features.mel import log_mel_from_padded
 from qwen3_asr_rs_tpu.models.audio_encoder import init_encoder_params
 from qwen3_asr_rs_tpu.models.text_decoder import KVCache as JCache
 from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
 from qwen3_asr_rs_tpu.runtime.engine import AsrEngine as JaxEngine
 from qwen3_asr_rs_tpu.runtime.prompt import AUDIO_OFFSET
+from qwen3_asr_rs_tpu_torch import config as tconfig
 from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
 
 
@@ -42,12 +44,22 @@ def _with_layers(cfg, text_layers=None, audio_layers=None, vocab=None):
         cfg.thinker_config, text_config=text, audio_config=audio))
 
 
-def _tiny():
-    # prompt special-token ids (151643+) must be in-vocab
-    return _with_layers(tiny_test_config(), vocab=151936)
+def _tiny(module=jconfig):
+    """``tiny_test_config()`` of a package's config ``module`` with the
+    full vocabulary: prompt special-token ids (151643+) must be in-vocab."""
+    return _with_layers(module.tiny_test_config(), vocab=151936)
 
 
-def _engines(cfg, jdtype, tdtype, max_new, buckets, quantize=None):
+def _real2(module=jconfig):
+    """The real 0.6B widths, two decoder and two encoder layers."""
+    return _with_layers(module.AsrConfig(), text_layers=2, audio_layers=2)
+
+
+def _engines(recipe, jdtype, tdtype, max_new, buckets, quantize=None):
+    """(JAX engine, port engine) on the configs ``recipe(module)`` gives
+    for each package's config module, with the same weights."""
+    cfg, tcfg = recipe(jconfig), recipe(tconfig)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
     enc = init_encoder_params(cfg.audio, dtype=jnp.float32)
     dec = init_decoder_params(cfg.text, dtype=jnp.float32)
     jeng = JaxEngine(model_dir=None, dtype=jdtype, max_new_tokens=max_new,
@@ -57,7 +69,7 @@ def _engines(cfg, jdtype, tdtype, max_new, buckets, quantize=None):
                          lambda a: a.astype(jdtype), p) for p in (enc, dec)),
                      tokenizer=_Tok(), quantize=quantize)
     teng = AsrEngine(None, dtype=tdtype, max_new_tokens=max_new,
-                     chunk_buckets=buckets, config=cfg, params=(enc, dec),
+                     chunk_buckets=buckets, config=tcfg, params=(enc, dec),
                      tokenizer=_Tok(), device="cpu", quantize=quantize)
     return jeng, teng
 
@@ -95,7 +107,7 @@ def samples():
 
 
 def test_tiny_slice_f32_tokens_and_logits_match_jax(samples):
-    jeng, teng = _engines(_tiny(), jnp.float32, torch.float32, 8, (2,))
+    jeng, teng = _engines(_tiny, jnp.float32, torch.float32, 8, (2,))
     ref = jeng.transcribe_samples(samples)
     got = teng.transcribe_samples(samples)
     assert got.raw_output == ref.raw_output
@@ -111,10 +123,9 @@ def test_tiny_slice_f32_tokens_and_logits_match_jax(samples):
 def test_real_dims_two_layers_f32_tokens_match_jax():
     """Real 0.6B widths (head_dim 128, hidden 1024, ffn 3072, 16Q/8KV,
     vocab 151936), two layers each, as __graft_entry__.py's parity gate."""
-    cfg = _with_layers(AsrConfig(), text_layers=2, audio_layers=2)
     samples = (np.random.default_rng(7).standard_normal(12000) * 0.1).astype(
         np.float32)
-    jeng, teng = _engines(cfg, jnp.float32, torch.float32, 3, (1,))
+    jeng, teng = _engines(_real2, jnp.float32, torch.float32, 3, (1,))
     assert teng.transcribe_samples(samples).raw_output == (
         jeng.transcribe_samples(samples).raw_output)
 
@@ -123,7 +134,7 @@ def test_tiny_slice_bf16_first_step_logits(samples):
     """bf16 rounds at different places in the two frameworks (both keep
     the lm_head's logits in float32); through two layers the first-step
     logits stay within 0.02 absolute at |logits| < 2."""
-    jeng, teng = _engines(_tiny(), jnp.bfloat16, torch.bfloat16, 2, (2,))
+    jeng, teng = _engines(_tiny, jnp.bfloat16, torch.bfloat16, 2, (2,))
     ref = _jax_prefill_logits(jeng, samples).astype(np.float32)
     logits, _, _ = teng.prefill(samples)
     assert np.abs(ref).max() < 2
@@ -135,7 +146,7 @@ def test_tiny_slice_quantized_f32_tokens_match_jax(samples, quantize):
     """AsrEngine(quantize=...) against the JAX engine: float32 greedy
     tokens equal, prefill logits within 1e-5 (the int4 lm_head through
     K4's plain version and the Pallas matvec in interpret mode)."""
-    jeng, teng = _engines(_tiny(), jnp.float32, torch.float32, 8, (2,),
+    jeng, teng = _engines(_tiny, jnp.float32, torch.float32, 8, (2,),
                           quantize)
     assert "lm_head" not in teng.dec_params
     assert teng.transcribe_samples(samples).raw_output == (
@@ -148,29 +159,34 @@ def test_tiny_slice_quantized_f32_tokens_match_jax(samples, quantize):
 
 @pytest.mark.parametrize("quantize", ["int8", "int4", "lm8"])
 def test_real_dims_two_layers_quantized_f32_tokens_match_jax(quantize):
-    cfg = _with_layers(AsrConfig(), text_layers=2, audio_layers=2)
     samples = (np.random.default_rng(7).standard_normal(12000) * 0.1).astype(
         np.float32)
-    jeng, teng = _engines(cfg, jnp.float32, torch.float32, 3, (1,), quantize)
+    jeng, teng = _engines(_real2, jnp.float32, torch.float32, 3, (1,),
+                          quantize)
     assert teng.transcribe_samples(samples).raw_output == (
         jeng.transcribe_samples(samples).raw_output)
 
 
 def test_unmerged_and_unported_quant_modes(samples, monkeypatch):
+    """Unmerged int8 and int4g (the per-layer decode path in both
+    packages) give the JAX engine's tokens; unknown modes raise."""
     monkeypatch.setenv("ASR_MERGE_QKV", "0")
-    jeng, teng = _engines(_tiny(), jnp.float32, torch.float32, 4, (2,),
+    jeng, teng = _engines(_tiny, jnp.float32, torch.float32, 4, (2,),
                           "int8")
     assert "q_w_q" in teng.dec_params["layers"]
     assert teng.transcribe_samples(samples).raw_output == (
         jeng.transcribe_samples(samples).raw_output)
-    with pytest.raises(NotImplementedError, match="int4g"):
-        _engines(_tiny(), jnp.float32, torch.float32, 4, (2,), "int4g")
+    jeng, teng = _engines(_tiny, jnp.float32, torch.float32, 4, (2,),
+                          "int4g")
+    assert teng.dec_params["layers"]["q_w_s"].ndim == 3
+    assert teng.transcribe_samples(samples).raw_output == (
+        jeng.transcribe_samples(samples).raw_output)
     with pytest.raises(ValueError, match="unknown quantize"):
         teng._quantize_params(teng.dec_params, "int3")
 
 
 def test_engine_limits_and_unported_paths(samples):
-    _, teng = _engines(_tiny(), jnp.float32, torch.float32, 4, (1, 2))
+    _, teng = _engines(_tiny, jnp.float32, torch.float32, 4, (1, 2))
     with pytest.raises(ValueError, match="largest bucket"):
         teng.transcribe_samples(np.zeros(16000 * 3, np.float32))
     # a batch of two identical rows gives each row the same tokens

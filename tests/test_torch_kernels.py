@@ -13,16 +13,18 @@ import torch
 
 from qwen3_asr_rs_tpu.config import tiny_test_config
 from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
-from qwen3_asr_rs_tpu.ops.pallas.decode_attention import decode_attention_dma
+from qwen3_asr_rs_tpu.ops.pallas.decode_attention import (
+    decode_attention_dma as jax_decode_attention_dma,
+)
 from qwen3_asr_rs_tpu.ops.pallas.decode_layer import (
     decode_layers_fused as jax_decode_layers_fused,
 )
 from qwen3_asr_rs_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention,
 )
+from qwen3_asr_rs_tpu_torch import config as tconfig
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention,
-    decode_attention_plain,
+    decode_attention_dma,
 )
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
     decode_layers_fused,
@@ -42,7 +44,7 @@ T = torch.from_numpy
 
 
 def _counts():
-    return (decode_attention.launches, decode_layers_fused.launches,
+    return (decode_attention_dma.launches, decode_layers_fused.launches,
             flash_attention.launches)
 
 
@@ -57,14 +59,14 @@ def test_decode_attention_plain_matches_pallas(rng, start, end):
     v_self = rng.standard_normal((B, Hkv, D)).astype(np.float32)
     st = None if start is None else np.asarray(start, np.int32)
     en = np.asarray(end, np.int32)
-    ref = decode_attention_dma(
+    ref = jax_decode_attention_dma(
         jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(k_self),
         jnp.asarray(v_self), 1, None if st is None else jnp.asarray(st),
         jnp.asarray(en), block_s=16, interpret=True,
     )
     before = _counts()
-    got = decode_attention(T(q), T(ks), T(vs), T(k_self), T(v_self), 1,
-                           None if st is None else T(st), T(en))
+    got = decode_attention_dma(T(q), T(ks), T(vs), T(k_self), T(v_self), 1,
+                               None if st is None else T(st), T(en))
     assert _counts() == before  # CPU tensors run the plain version
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
@@ -76,7 +78,8 @@ def test_decode_attention_plain_matches_pallas(rng, start, end):
 def test_decode_layers_plain_matches_pallas(rng, b, s_max, start, end):
     cfg = tiny_test_config().text
     jparams = init_decoder_params(cfg, dtype=jnp.float32)
-    layers = to_torch(init_decoder_params_np(cfg), torch.float32)["layers"]
+    layers = to_torch(init_decoder_params_np(tconfig.tiny_test_config().text),
+                      torch.float32)["layers"]
     shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, s_max,
              cfg.head_dim)
     kc = (rng.standard_normal(shape) * 0.3).astype(np.float32)
@@ -142,7 +145,7 @@ def test_flash_attention_plain_matches_pallas(rng, causal, kv_valid, kv_start):
 def test_wrappers_reject_other_devices():
     meta = torch.empty((1, 2, 128), device="meta")
     with pytest.raises(ValueError, match="not supported"):
-        decode_attention(meta, meta, meta, meta, meta, 0, None, 1)
+        decode_attention_dma(meta, meta, meta, meta, meta, 0, None, 1)
     with pytest.raises(ValueError, match="not supported"):
         flash_attention(meta[None], meta[None], meta[None])
     with pytest.raises(ValueError, match="not supported"):

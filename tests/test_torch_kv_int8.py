@@ -20,10 +20,13 @@ from qwen3_asr_rs_tpu.models.text_decoder import TextDecoder as JDecoder
 from qwen3_asr_rs_tpu.models.text_decoder import dequantize_kv as jdequantize
 from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
 from qwen3_asr_rs_tpu.models.text_decoder import quantize_kv as jquantize
-from qwen3_asr_rs_tpu.ops.pallas.decode_attention import decode_attention_dma
+from qwen3_asr_rs_tpu.ops.pallas.decode_attention import (
+    decode_attention_dma as jax_decode_attention_dma,
+)
 from qwen3_asr_rs_tpu.ops.pallas.decode_layer import (
     decode_layers_fused as jax_decode_layers_fused,
 )
+from qwen3_asr_rs_tpu_torch import config as tconfig
 from qwen3_asr_rs_tpu_torch.models.text_decoder import (
     KVCache,
     TextDecoder,
@@ -31,7 +34,7 @@ from qwen3_asr_rs_tpu_torch.models.text_decoder import (
     quantize_kv,
 )
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention,
+    decode_attention_dma,
 )
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
     decode_layers_fused,
@@ -87,17 +90,17 @@ def test_decode_attention_plain_int8_matches_pallas(rng, b, s, starts, ends):
     kq, ks, vq, vs = _int8_slabs(rng, (L, b, hkv, s, d), ends)
     st = None if starts is None else np.asarray(starts, np.int32)
     en = np.asarray(ends, np.int32)
-    ref = decode_attention_dma(
+    ref = jax_decode_attention_dma(
         jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(k_self),
         jnp.asarray(v_self), 1, None if st is None else jnp.asarray(st),
         jnp.asarray(en), k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs),
         block_s=128, interpret=True,
     )
-    n = decode_attention.launches
-    got = decode_attention(T(q), T(kq), T(vq), T(k_self), T(v_self), 1,
-                           None if st is None else T(st), T(en),
-                           k_scales=T(ks), v_scales=T(vs))
-    assert decode_attention.launches == n  # CPU tensors: the plain version
+    n = decode_attention_dma.launches
+    got = decode_attention_dma(T(q), T(kq), T(vq), T(k_self), T(v_self), 1,
+                               None if st is None else T(st), T(en),
+                               k_scales=T(ks), v_scales=T(vs))
+    assert decode_attention_dma.launches == n  # CPU tensors: the plain version
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
@@ -106,8 +109,9 @@ def test_decode_attention_plain_int8_matches_pallas(rng, b, s, starts, ends):
 def test_decode_layers_plain_int8_kv_matches_pallas(rng, b, start):
     cfg = tiny_test_config().text
     jparams = init_decoder_params(cfg, dtype=jnp.float32)
-    layers = convert.to_torch(convert.init_decoder_params_np(cfg),
-                              torch.float32)["layers"]
+    layers = convert.to_torch(
+        convert.init_decoder_params_np(tconfig.tiny_test_config().text),
+        torch.float32)["layers"]
     s_max, end = 40, 29
     kq, ks, vq, vs = _int8_slabs(
         rng, (cfg.num_hidden_layers, b, cfg.num_key_value_heads, s_max,
@@ -139,20 +143,20 @@ def test_decoder_int8_kv_matches_jax(rng, monkeypatch, impl):
     equal to JAX's, scales and logits within 1e-5; prefill
     logits equal the unquantized slab's (prefill attends the fresh keys).
     ``fused``: K1's plain version; ``scan``: the dense int8 path."""
-    cfg = tiny_test_config().text
+    cfg, tcfg = tiny_test_config().text, tconfig.tiny_test_config().text
     jp = init_decoder_params(cfg, dtype=jnp.float32)
-    tp = convert.init_decoder_params(cfg, dtype=torch.float32)
-    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(cfg, 64)
+    tp = convert.init_decoder_params(tcfg, dtype=torch.float32)
+    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(tcfg, 64)
     hidden = (rng.standard_normal((1, 9, cfg.hidden_size)) * 0.5).astype(
         np.float32)
     jlog, jcache = jdec.prefill(jp, jnp.asarray(hidden), jnp.arange(9),
                                 JCache.zeros(cfg, 1, 24, quantized=True),
                                 jnp.int32(9))
-    cache = KVCache.zeros(cfg, 1, 24, dtype=torch.float32, quantized=True)
+    cache = KVCache.zeros(tcfg, 1, 24, dtype=torch.float32, quantized=True)
     assert cache.quantized and cache.k.dtype == torch.int8
     tlog, cache = tdec.prefill(tp, T(hidden), torch.arange(9), cache, 9)
     plain_log, _ = tdec.prefill(tp, T(hidden), torch.arange(9),
-                                KVCache.zeros(cfg, 1, 24, torch.float32), 9)
+                                KVCache.zeros(tcfg, 1, 24, torch.float32), 9)
     np.testing.assert_array_equal(tlog.numpy(), plain_log.numpy())
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
 
@@ -196,7 +200,7 @@ def test_asr_kv_env_and_unknown_values(monkeypatch):
 
     from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
 
-    cfg = _tiny()
+    cfg = _tiny(tconfig)
     params = convert.init_encoder_params(cfg.audio), convert.init_decoder_params(
         cfg.text)
 

@@ -7,26 +7,32 @@ import numpy as np
 import pytest
 import torch
 
-from qwen3_asr_rs_tpu.config import (
-    AudioEncoderConfig,
-    feat_extract_output_length,
-    tiny_test_config,
-)
+from qwen3_asr_rs_tpu import config as jconfig
 from qwen3_asr_rs_tpu.models.audio_encoder import AudioEncoder as JEncoder
 from qwen3_asr_rs_tpu.models.audio_encoder import init_encoder_params
 from qwen3_asr_rs_tpu.models.text_decoder import KVCache as JCache
 from qwen3_asr_rs_tpu.models.text_decoder import TextDecoder as JDecoder
 from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
+from qwen3_asr_rs_tpu.weights import quantize as jquant
+from qwen3_asr_rs_tpu_torch import config as tconfig
+from qwen3_asr_rs_tpu_torch.config import (
+    AudioEncoderConfig,
+    feat_extract_output_length,
+)
 from qwen3_asr_rs_tpu_torch.models.audio_encoder import AudioEncoder
 from qwen3_asr_rs_tpu_torch.models.text_decoder import KVCache, TextDecoder
 from qwen3_asr_rs_tpu_torch.weights import convert
+from qwen3_asr_rs_tpu_torch.weights import quantize as tquant
 
 T = torch.from_numpy
 
 
 def _encoders():
-    cfg = tiny_test_config().audio
-    return (cfg, init_encoder_params(cfg, dtype=jnp.float32),
+    """(port config, JAX params, port params) of the tiny encoder, each
+    package's params from its own config."""
+    cfg = tconfig.tiny_test_config().audio
+    return (cfg, init_encoder_params(jconfig.tiny_test_config().audio,
+                                     dtype=jnp.float32),
             convert.init_encoder_params(cfg, dtype=torch.float32))
 
 
@@ -37,7 +43,8 @@ def test_encoder_matches_jax(rng, num_frames, bucket_chunks):
     mel = np.zeros((cfg.num_mel_bins, bucket_chunks * cfg.chunk_frames),
                    np.float32)
     mel[:, :num_frames] = rng.standard_normal((cfg.num_mel_bins, num_frames))
-    jflat, jn = JEncoder(cfg)(jp, jnp.asarray(mel), jnp.int32(num_frames))
+    jflat, jn = JEncoder(jconfig.tiny_test_config().audio)(
+        jp, jnp.asarray(mel), jnp.int32(num_frames))
     flat, n = AudioEncoder(cfg)(tp, T(mel), num_frames)
     assert n == int(jn)
     assert flat.shape == tuple(jflat.shape)
@@ -71,11 +78,13 @@ def test_valid_tokens_formula():
 
 
 def _decoders(tied=True):
-    cfg = tiny_test_config().text
-    if not tied:
-        cfg = dataclasses.replace(cfg, tie_word_embeddings=False)
+    """(JAX config, JAX params, port params, port config) of the tiny
+    decoder, each package's from its own ``tiny_test_config()``."""
+    cfg, tcfg = (dataclasses.replace(m.tiny_test_config().text,
+                                     tie_word_embeddings=tied)
+                 for m in (jconfig, tconfig))
     return (cfg, init_decoder_params(cfg, dtype=jnp.float32),
-            convert.init_decoder_params(cfg, dtype=torch.float32))
+            convert.init_decoder_params(tcfg, dtype=torch.float32), tcfg)
 
 
 @pytest.mark.parametrize("tied", [True, False])
@@ -83,15 +92,15 @@ def _decoders(tied=True):
 def test_prefill_and_decode_match_jax(rng, monkeypatch, tied, impl):
     """Prefill logits, slab contents, then three decode steps (logits and
     the slab writes) against the JAX decoder's scan path."""
-    cfg, jp, tp = _decoders(tied)
+    cfg, jp, tp, tcfg = _decoders(tied)
     p_len, true_len, s_max = 12, 9, 24
     hidden = (rng.standard_normal((1, p_len, cfg.hidden_size)) * 0.5).astype(
         np.float32)
-    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(cfg, 64)
+    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(tcfg, 64)
     jlog, jcache = jdec.prefill(jp, jnp.asarray(hidden), jnp.arange(p_len),
                                 JCache.zeros(cfg, 1, s_max, jnp.float32),
                                 jnp.int32(true_len))
-    cache = KVCache.zeros(cfg, 1, s_max, dtype=torch.float32)
+    cache = KVCache.zeros(tcfg, 1, s_max, dtype=torch.float32)
     tlog, cache = tdec.prefill(tp, T(hidden), torch.arange(p_len), cache,
                                true_len)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5,
@@ -119,7 +128,7 @@ def test_prefill_and_decode_match_jax(rng, monkeypatch, tied, impl):
 
 
 def test_decode_dense_attention_path_matches_kernel_path(rng, monkeypatch):
-    cfg, _, tp = _decoders()
+    _, _, tp, cfg = _decoders()
     tdec = TextDecoder(cfg, 64)
     cache = KVCache.zeros(cfg, 1, 32, dtype=torch.float32)
     cache.k.copy_(torch.randn(cache.k.shape, generator=torch.Generator()
@@ -137,31 +146,47 @@ def test_decode_dense_attention_path_matches_kernel_path(rng, monkeypatch):
 
 
 def test_argmax_ties_break_on_first_index(monkeypatch):
-    cfg, _, tp = _decoders()
+    _, _, tp, cfg = _decoders()
     tdec = TextDecoder(cfg, 64)
     logits = torch.zeros(1, cfg.vocab_size)
     logits[0, [5, 9]] = 1.0
     monkeypatch.setattr(tdec, "decode_step",
-                        lambda *a: (logits, None))
+                        lambda *a, **kw: (logits, None))
     tok, _ = tdec.decode_step_token(tp, torch.tensor([1]), 3, None)
     assert int(tok[0]) == int(np.argmax(logits.numpy()[0])) == 5
 
 
-def test_unported_branches_raise():
-    cfg, _, tp = _decoders()
-    tdec = TextDecoder(cfg, 64)
+def test_unported_branches_raise(rng, monkeypatch):
+    """Grouped int4 scales (int4g, a 3-D ``*_s``) run and match JAX's
+    decode step, merged (K1's plain version) and unmerged (the per-layer
+    path); blocked int4 (a 4-D ``*_q4``), the JAX engine's ``lm_fold_*``
+    copies and per-example positions raise."""
+    jcfg, jp, tp, cfg = _decoders()
+    tdec, jdec = TextDecoder(cfg, 64), JDecoder(jcfg, max_position=64)
+    kc = (rng.standard_normal((cfg.num_hidden_layers, 1,
+                               cfg.num_key_value_heads, 16, cfg.head_dim))
+          * 0.3).astype(np.float32)
+    for merge in (True, False):
+        kw = dict(bits=4, merge=merge, group_size=16, lm_bits=8)
+        jq, tq = (jquant.quantize_decoder_params(jp, **kw),
+                  tquant.quantize_decoder_params(tp, **kw))
+        assert tq["layers"]["qkv_w_s" if merge else "q_w_s"].ndim == 3
+        monkeypatch.setenv("ASR_DECODE_IMPL", "scan")
+        jlog, _ = jdec.decode_step(jq, jnp.asarray([7], jnp.int32),
+                                   jnp.int32(9), JCache(k=jnp.asarray(kc),
+                                                        v=jnp.asarray(kc)))
+        monkeypatch.setenv("ASR_DECODE_IMPL", "fused")
+        tlog, _ = tdec.decode_step(tq, torch.tensor([7]), 9,
+                                   KVCache(k=T(kc.copy()), v=T(kc.copy())))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5,
+                                   rtol=1e-5)
     cache = KVCache.zeros(cfg, 1, 16, dtype=torch.float32)
-    # quantized trees run; grouped int4 scales (int4g, a 3-D *_s),
-    # blocked int4 (a 4-D *_q4) and the folded lm_head do not yet
-    grouped = dict(tp, layers=dict(tp["layers"],
-                                   q_w_q4=torch.zeros(2, 64, 32, dtype=torch.int8),
-                                   q_w_s=torch.ones(2, 1, 64)))
     blocked = dict(tp, layers=dict(tp["layers"],
                                    q_w_q4=torch.zeros(2, 64, 2, 16, dtype=torch.int8),
                                    q_w_s=torch.ones(2, 64)))
     folded = dict(tp, lm_fold_w=tp["lm_head"])
-    for tree in (grouped, blocked, folded):
-        with pytest.raises(NotImplementedError, match="int4g"):
+    for tree in (blocked, folded):
+        with pytest.raises(NotImplementedError, match="blocked int4"):
             tdec.decode_step(tree, torch.tensor([1]), 3, cache)
     with pytest.raises(NotImplementedError, match="aligned"):
         tdec.decode_step(tp, torch.tensor([1, 2]), torch.tensor([3, 4]), cache)

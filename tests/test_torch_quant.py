@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from qwen3_asr_rs_tpu.config import tiny_test_config
+from qwen3_asr_rs_tpu import config as jconfig
 from qwen3_asr_rs_tpu.models import text_decoder as jtd
 from qwen3_asr_rs_tpu.models.text_decoder import KVCache as JCache
 from qwen3_asr_rs_tpu.models.text_decoder import TextDecoder as JDecoder
@@ -25,6 +25,7 @@ from qwen3_asr_rs_tpu.ops.pallas.decode_layer import (
     decode_layers_fused as jax_decode_layers_fused,
 )
 from qwen3_asr_rs_tpu.weights import quantize as jquant
+from qwen3_asr_rs_tpu_torch import config as tconfig
 from qwen3_asr_rs_tpu_torch.models import text_decoder as ttd
 from qwen3_asr_rs_tpu_torch.models.text_decoder import KVCache, TextDecoder
 from qwen3_asr_rs_tpu_torch.ops import quant as tq
@@ -125,9 +126,16 @@ def test_unpack_stacked_and_blocked_raises(rng):
         tq.quantize_weight_int4(T(w), blocks=2)
 
 
-def _dec_params(cfg, dtype=jnp.float32):
-    jp = init_decoder_params(cfg, dtype=dtype)
-    tp = to_torch(init_decoder_params_np(cfg),
+def _cfgs(**changes):
+    """(JAX, port) text configs: each package's ``tiny_test_config()``
+    with the same changes."""
+    return tuple(dataclasses.replace(m.tiny_test_config().text, **changes)
+                 for m in (jconfig, tconfig))
+
+
+def _dec_params(cfgs, dtype=jnp.float32):
+    jp = init_decoder_params(cfgs[0], dtype=dtype)
+    tp = to_torch(init_decoder_params_np(cfgs[1]),
                   torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
     return jp, tp
 
@@ -141,8 +149,7 @@ def _dec_params(cfg, dtype=jnp.float32):
      ("lm8", None, None, jnp.bfloat16)],
 )
 def test_quantized_trees_bit_equal_jax(bits, merge, lm_bits, dtype):
-    cfg = dataclasses.replace(tiny_test_config().text, vocab_size=9000)
-    jp, tp = _dec_params(cfg, dtype)
+    jp, tp = _dec_params(_cfgs(vocab_size=9000), dtype)
     if bits == "lm8":
         ref, got = (jquant.quantize_lm_head_only(jp),
                     tquant.quantize_lm_head_only(tp))
@@ -161,8 +168,7 @@ def test_quantized_trees_bit_equal_jax(bits, merge, lm_bits, dtype):
 
 
 def test_lm_bits_env_and_biases_skip_merge(monkeypatch):
-    cfg = tiny_test_config().text
-    jp, tp = _dec_params(cfg)
+    jp, tp = _dec_params(_cfgs())
     monkeypatch.setenv("ASR_LM_BITS", "4")
     assert "lm_head_q4" in tquant.quantize_decoder_params(tp, bits=8)
     assert set(tquant.quantize_decoder_params(tp, bits=8)) == set(
@@ -173,10 +179,19 @@ def test_lm_bits_env_and_biases_skip_merge(monkeypatch):
 
 
 def test_unported_quant_modes_raise():
-    cfg = tiny_test_config().text
-    _, tp = _dec_params(cfg)
-    with pytest.raises(NotImplementedError, match="int4g"):
-        tquant.quantize_decoder_params(tp, bits=4, group_size=128)
+    """int4g (``group_size``) gives JAX's tree bit for bit, with JAX's
+    ValueErrors; blocked int4 (``tp_blocks``) is not ported and raises."""
+    jp, tp = _dec_params(_cfgs())
+    ref = _flat(jquant.quantize_decoder_params(jp, bits=4, group_size=128))
+    got = _flat(tquant.quantize_decoder_params(tp, bits=4, group_size=128))
+    assert ref.keys() == got.keys() and "lm_head_q" in got
+    for k in ref:
+        assert _bits(got[k]) == _bits(ref[k]), k
+    with pytest.raises(ValueError, match="bits=4 only"):
+        tquant.quantize_decoder_params(tp, bits=8, group_size=128)
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        tquant.quantize_decoder_params(tp, bits=4, merge=False, tp_blocks=2,
+                                       group_size=64)
     with pytest.raises(NotImplementedError, match="tp_blocks"):
         tquant.quantize_decoder_params(tp, bits=4, merge=False, tp_blocks=2)
     with pytest.raises(ValueError, match="bits"):
@@ -273,8 +288,8 @@ def test_decode_layers_plain_quantized_matches_pallas(rng, bits, merge, s_max,
                                                       start, end):
     """K1's plain version with int8/int4, merged and per-projection trees
     against the Pallas megakernel in interpret mode, float32."""
-    cfg = tiny_test_config().text
-    jp, tp = _dec_params(cfg)
+    cfg, _ = cfgs = _cfgs()
+    jp, tp = _dec_params(cfgs)
     jlayers = jquant.quantize_decoder_params(jp, bits=bits, merge=merge,
                                              lm_bits=8)["layers"]
     tlayers = tquant.quantize_decoder_params(tp, bits=bits, merge=merge,
@@ -315,12 +330,12 @@ def test_bf16_logits_are_float32_and_match_jax(rng):
     one bf16 ulp of the largest logit of JAX's (the two sides sum the
     same exact products in different orders; rounding to bf16 would move
     logits by up to half an ulp)."""
-    cfg = dataclasses.replace(tiny_test_config().text, vocab_size=151936)
-    jp, tp = _dec_params(cfg, jnp.bfloat16)
+    cfg, tcfg = cfgs = _cfgs(vocab_size=151936)
+    jp, tp = _dec_params(cfgs, jnp.bfloat16)
     hidden = rng.standard_normal((1, 3, cfg.hidden_size)).astype(np.float32)
     ref = np.asarray(JDecoder(cfg, 64).logits(
         jp, jnp.asarray(hidden).astype(jnp.bfloat16)))
-    got = TextDecoder(cfg, 64).logits(tp, T(hidden).bfloat16())
+    got = TextDecoder(tcfg, 64).logits(tp, T(hidden).bfloat16())
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert (got.bfloat16().float() != got).float().mean() > 0.9
     ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
@@ -332,7 +347,7 @@ def test_jax_quantized_tree_carries_across_to_torch(rng):
     """A JAX-quantized bf16 tree keeps its int8 leaves and float32 scales
     through ``to_torch``, and a float32 one runs in the port's decoder
     with JAX's prefill and decode logits."""
-    cfg = tiny_test_config().text
+    cfg, tcfg = _cfgs()
     jbf = jquant.quantize_decoder_params(
         init_decoder_params(cfg, dtype=jnp.bfloat16), bits=4)
     tbf = _flat(to_torch(jbf, torch.bfloat16))
@@ -348,11 +363,11 @@ def test_jax_quantized_tree_carries_across_to_torch(rng):
     p_len, true_len, s_max = 10, 8, 16
     hidden = (rng.standard_normal((1, p_len, cfg.hidden_size)) * 0.5).astype(
         np.float32)
-    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(cfg, 64)
+    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(tcfg, 64)
     jlog, jcache = jdec.prefill(jq8, jnp.asarray(hidden), jnp.arange(p_len),
                                 JCache.zeros(cfg, 1, s_max, jnp.float32),
                                 jnp.int32(true_len))
-    cache = KVCache.zeros(cfg, 1, s_max, dtype=torch.float32)
+    cache = KVCache.zeros(tcfg, 1, s_max, dtype=torch.float32)
     tlog, cache = tdec.prefill(tq8, T(hidden), torch.arange(p_len), cache,
                                true_len)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
@@ -370,8 +385,8 @@ def test_quantized_decoder_matches_jax(rng, monkeypatch, mode, impl):
     """Prefill and three decode steps (K1's plain version, or the plain
     per-layer path) with quantized trees against the JAX decoder's scan
     path, float32."""
-    cfg = tiny_test_config().text
-    jp, tp = _dec_params(cfg)
+    cfg, tcfg = cfgs = _cfgs()
+    jp, tp = _dec_params(cfgs)
     if mode == "lm8":
         jq_, tq_ = jquant.quantize_lm_head_only(jp), tquant.quantize_lm_head_only(tp)
     else:
@@ -383,11 +398,11 @@ def test_quantized_decoder_matches_jax(rng, monkeypatch, mode, impl):
     p_len, true_len, s_max = 12, 9, 24
     hidden = (rng.standard_normal((1, p_len, cfg.hidden_size)) * 0.5).astype(
         np.float32)
-    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(cfg, 64)
+    jdec, tdec = JDecoder(cfg, max_position=64), TextDecoder(tcfg, 64)
     jlog, jcache = jdec.prefill(jq_, jnp.asarray(hidden), jnp.arange(p_len),
                                 JCache.zeros(cfg, 1, s_max, jnp.float32),
                                 jnp.int32(true_len))
-    cache = KVCache.zeros(cfg, 1, s_max, dtype=torch.float32)
+    cache = KVCache.zeros(tcfg, 1, s_max, dtype=torch.float32)
     tlog, cache = tdec.prefill(tq_, T(hidden), torch.arange(p_len), cache,
                                true_len)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
@@ -412,8 +427,8 @@ def test_quantized_decoder_matches_jax(rng, monkeypatch, mode, impl):
 def test_merged_qkv_slices_are_contiguous(rng, bits):
     """The merged product's q/k/v come out as contiguous tensors, which
     the attention kernels take (the flash kernel refuses strided ones)."""
-    cfg = tiny_test_config().text
-    _, tp = _dec_params(cfg)
+    _, cfg = cfgs = _cfgs()
+    _, tp = _dec_params(cfgs)
     layers = tquant.quantize_decoder_params(tp, bits=bits)["layers"]
     layer = {k: v[0] for k, v in layers.items()}
     x = T(rng.standard_normal((1, 5, cfg.hidden_size)).astype(np.float32))
