@@ -25,7 +25,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (bf16/f32 and int8 lm_head, B = 1 and 8, and a constructed
              tie), and K6 (decode_attention_slab and the single-layer
              decode_attention) on the JAX package's test cases and at
-             S = 4992.
+             S = 4992. K2 (B = 1, S = 360; B = 8, S = 4992 on bf16 and
+             int8 slabs), K3 (bf16 causal, B = 1 and 2) and K6 (S = 4992)
+             also report their device
+             time from torch.profiler (device_ms), and so do their library
+             calls (library_device_ms). Every bf16 case of K2, K3 and K6 is
+             also held element by element (ELEMENT_TOL) against a float32
+             reference with the kernel's roundings. The build phase counts
+             the tensor-core instructions (HMMA, HGMMA) in K3's SASS and
+             fails if there are none.
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
              synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
@@ -102,6 +110,22 @@ TOL = {
     ("quant_matmul", "bfloat16->float32"): (1e-4, 1e-5),
     ("quant_matvec_int4", "float32"): (1e-4, 1e-5),
     ("quant_matvec_int4", "bfloat16->float32"): (1e-4, 1e-5),
+}
+# The bf16 attention kernels are also held element by element, |kernel -
+# ref| <= atol + rtol * |ref| at every compared element, against a float32
+# reference that makes the kernel's roundings up to its output: K2 and K6
+# (float32 inside, only the output rounds) against their plain version
+# computed from float32 queries; K3 against flash_attention_tile_reference
+# (P rounded to bf16 per 64-key tile). rtol 2^-8 is the output's own
+# rounding; atol is summation order (K2, K6) and, for K3, the P entries
+# whose bf16 rounding the kernel's and the reference's exponentials can
+# flip (scripts/attention_check_strength.py measures both on the card and
+# shows that this check fails kernels with a key tile or a slot dropped).
+ELEMENT_TOL = {
+    "decode_attention_dma": (2e-5, 2 ** -8),
+    "decode_attention_slab": (2e-5, 2 ** -8),
+    "decode_attention": (2e-5, 2 ** -8),
+    "flash_attention": (2e-3, 2 ** -8),
 }
 # float32 teacher-forced logits, decode kernel vs plain per-layer path
 PARITY_LOGITS_ATOL = 1e-3
@@ -286,6 +310,24 @@ def attn_work(q, ks, starts, ends, int8=False) -> dict:
                  * q.element_size(), 4 * (live + q.shape[0]) * q.shape[1] * d)
 
 
+def tensor_core_sass(build) -> dict:
+    """K3's tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in
+    ``cuobjdump -sass`` of its library; raises unless there are some (its
+    bf16 kernel runs on the tensor cores)."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts = {op: sum(f" {op}." in ln or f" {op} " in ln
+                      for ln in sass.splitlines())
+              for op in ("HMMA", "HGMMA")}
+    if not sum(counts.values()) > 0:
+        raise AssertionError(f"flash_attention: no tensor-core instruction "
+                             f"in its SASS ({counts})")
+    return counts
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -307,6 +349,34 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps: int = 10, windows: int = 3,
+              warmup: int = 2) -> float:
+    """Device milliseconds of one fn() call: the total time of the device
+    events (every kernel, copy and set) that torch.profiler records in a
+    window of reps calls and one synchronisation, over reps; the median
+    of ``windows`` windows. Raises if a window records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if not total_us > 0:
+            raise AssertionError(f"profiler: no device time in a window of "
+                                 f"{reps} calls")
+        per_call.append(total_us / reps / 1e3)
+    return statistics.median(per_call)
+
+
 def max_err(torch, a, b) -> float:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -316,13 +386,25 @@ def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def element_excess(torch, got, ref, rtol: float) -> float:
+    """max over elements of |got - ref| - rtol * |ref|: the per-element
+    check passes when it is at most the atol of ELEMENT_TOL."""
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite values in the kernel output")
+    ref = ref.float()
+    return float(((got.float() - ref).abs() - rtol * ref.abs()).max())
+
+
 def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
-               rows=slice(None), work=None, library=None, headline=False):
+               rows=slice(None), work=None, library=None, headline=False,
+               device=False, reference=None):
     """Compare kernel_fn() with plain_fn() (a tensor or a tuple of them,
-    each against its own tolerance), then time both; ``work`` is the
-    case's ``bound_of()``, ``library`` one PyTorch call that computes the same
-    function (timed, never compared), ``headline`` marks the case the
-    kernels line reports."""
+    each against its own tolerance), and with ``reference()`` element by
+    element (ELEMENT_TOL) where one is given, then time both; ``work`` is
+    the case's ``bound_of()``, ``library`` one PyTorch call that computes
+    the same function (timed, never compared), ``headline`` marks the case
+    the kernels line reports, ``device`` adds the device time of the
+    kernel's call (and of the library call) from torch.profiler."""
     out, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if isinstance(out, torch.Tensor):
@@ -342,14 +424,29 @@ def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
             raise AssertionError(f"{name} {case} {dt}: error {e} > "
                                  f"{atol} + {rtol} * {sc}")
         err, bound, scale = max(err, e), max(bound, atol + rtol * sc), max(scale, sc)
+    element = {}
+    if reference is not None:
+        eatol, ertol = ELEMENT_TOL[name]
+        excess = element_excess(torch, out[0][rows], reference()[rows], ertol)
+        element = {"element_excess": excess, "element_atol": eatol,
+                   "element_rtol": ertol}
+        if not excess <= eatol:
+            emit({"phase": "kernel", "kernel": name, "dtype": dt,
+                  "case": case, **element, "ok": False})
+            raise AssertionError(f"{name} {case} {dt}: |err| - {ertol} * "
+                                 f"|ref| reaches {excess} > {eatol}")
     ms = cuda_ms(torch, kernel_fn)
     plain_ms = cuda_ms(torch, plain_fn, reps=3, warmup=1)
     row = {"phase": "kernel", "kernel": name, "dtype": dt, "case": case,
            "max_abs_err": err, "ref_max": scale, "bound": bound,
-           "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
-           **(work or {}), "headline": headline}
+           "atol": atol, "rtol": rtol, **element, "ms": ms,
+           "plain_ms": plain_ms, **(work or {}), "headline": headline}
     if library is not None:
         row["library_ms"] = cuda_ms(torch, library)
+    if device:
+        row["device_ms"] = device_ms(torch, kernel_fn)
+        if library is not None:
+            row["library_device_ms"] = device_ms(torch, library)
     emit(row)
     results.append(row)
 
@@ -406,7 +503,7 @@ def kernel_checks(torch, dec_params_f32):
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused, decode_layers_fused_plain)
     from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, flash_attention_tile_reference)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -431,11 +528,15 @@ def kernel_checks(torch, dec_params_f32):
                                              start, end),
                 lambda: decode_attention_dma_plain(q, ks, vs, k_self, v_self,
                                                    27, idx(start), idx(end)),
+                reference=(lambda: decode_attention_dma_plain(
+                    q.float(), ks, vs, k_self, v_self, 27, idx(start),
+                    idx(end))) if dtype == torch.bfloat16 else None,
                 work=attn_work(q, ks, [start], [end]),
                 library=(sdpa_decode(torch, q, ks, vs, k_self, v_self, 27,
                                      start, end)
                          if dtype == torch.bfloat16 else None),
                 headline=dtype == torch.bfloat16 and s_max == 360,
+                device=dtype == torch.bfloat16 and s_max == 360,
             )
             del ks, vs
 
@@ -490,12 +591,16 @@ def kernel_checks(torch, dec_params_f32):
             lambda: flash_attention_plain(q, k, v, kv_valid, kv_start,
                                           causal=causal),
             rows=(slice(None), slice(first_row, None)),
+            reference=(lambda: flash_attention_tile_reference(
+                q, k, v, kv_valid, kv_start, causal=causal))
+            if dtype == torch.bfloat16 else None,
             # causal: half the score matrix (plus its diagonal) is computed
             work=bound_of(nbytes(q, k, v, q),
                           4 * HQ * D * (S * (S + 1) // 2 if causal
                                         else S * S)),
             library=sdpa_causal(torch, q, k, v) if headline else None,
             headline=headline,
+            device=headline,
         )
         del q, k, v
     torch.cuda.empty_cache()
@@ -774,10 +879,14 @@ def slab_kernel_checks(torch, gen, results):
                                               start, end),
                 lambda: decode_attention_slab_plain(q, k3, v3, k_self, v_self,
                                                     1, start, end),
+                reference=(lambda: decode_attention_slab_plain(
+                    q.float(), k3, v3, k_self, v_self, 1, start, end))
+                if dtype == torch.bfloat16 else None,
                 work=attn_work(q, k3, first, ends),
                 library=(sdpa_decode(torch, q, k3, v3, k_self, v_self, 1,
                                      first[0], ends[0]) if headline else None),
                 headline=headline,
+                device=headline,
             )
             check_case(
                 torch, results, "decode_attention", dtype,
@@ -786,6 +895,9 @@ def slab_kernel_checks(torch, gen, results):
                                          start, end),
                 lambda: decode_attention_plain(q, k3[2], v3[2], k_self,
                                                v_self, start, end),
+                reference=(lambda: decode_attention_plain(
+                    q.float(), k3[2], v3[2], k_self, v_self, start, end))
+                if dtype == torch.bfloat16 else None,
                 work=attn_work(q, k3, first, ends),
             )
             del k3, v3
@@ -801,7 +913,7 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
         decode_layers_fused, decode_layers_fused_plain)
     from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, flash_attention_tile_reference)
 
     dev = torch.device("cuda")
 
@@ -846,8 +958,38 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
                 lambda: decode_attention_dma_plain(q, kq, vq, k_self, v_self, 27,
                                                start, ends, k_scales=kscale,
                                                v_scales=vscale),
+                reference=(lambda: decode_attention_dma_plain(
+                    q.float(), kq, vq, k_self, v_self, 27, start, ends,
+                    k_scales=kscale, v_scales=vscale))
+                if dtype == torch.bfloat16 else None,
+                work=attn_work(q, kq, row_starts(b), [end] * b, int8=True),
+                device=dtype == torch.bfloat16 and b > 1 and s_max > 360,
             )
             del kq, vq, kscale, vscale
+        # the same rows on a slab of the compute dtype (the bf16 cell of
+        # K2 inside K1 at B = 8, S = 4992)
+        for b, s_max, end in (c for c in KV8_CASES if c[0] > 1 and c[1] > 360):
+            ks, vs = (torch.randn((L, b, HKV, s_max, D), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+            q = torch.randn((b, HQ, D), generator=gen, device=dev).to(dtype)
+            k_self, v_self = (torch.randn((b, HKV, D), generator=gen,
+                                          device=dev).to(dtype)
+                              for _ in range(2))
+            start, ends = idx(row_starts(b)), idx([end] * b)
+            check_case(
+                torch, results, "decode_attention_dma", dtype,
+                f"B={b} S={s_max} start={row_starts(b)} end={end} layer=27",
+                lambda: decode_attention_dma(q, ks, vs, k_self, v_self, 27,
+                                             start, ends),
+                lambda: decode_attention_dma_plain(q, ks, vs, k_self, v_self,
+                                                   27, start, ends),
+                reference=(lambda: decode_attention_dma_plain(
+                    q.float(), ks, vs, k_self, v_self, 27, start, ends))
+                if dtype == torch.bfloat16 else None,
+                work=attn_work(q, ks, row_starts(b), [end] * b),
+                device=dtype == torch.bfloat16,
+            )
+            del ks, vs
 
     # K3 at the 360-chunk prefill bucket, B = 2 right-aligned rows; query
     # rows before a row's start have no key (compared from the later one)
@@ -863,6 +1005,12 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
             lambda: flash_attention(q, k, v, None, start, causal=True),
             lambda: flash_attention_plain(q, k, v, None, start, causal=True),
             rows=(slice(None), slice(max(kv_start), None)),
+            reference=(lambda: flash_attention_tile_reference(
+                q, k, v, None, start, causal=True))
+            if dtype == torch.bfloat16 else None,
+            work=bound_of(nbytes(q, k, v, q), 4 * HQ * D * sum(
+                (S - s0) * (S - s0 + 1) // 2 for s0 in kv_start)),
+            device=dtype == torch.bfloat16,
         )
         del q, k, v
     torch.cuda.empty_cache()
@@ -1260,6 +1408,7 @@ def main() -> int:
     per_kernel = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": per_kernel,
+          "flash_attention_sass": tensor_core_sass(_build),
           "ptxas": {n: [ln.strip() for ln in
                         (_build.BUILD_DIR / f"{n}.log").read_text().splitlines()
                         if "registers" in ln or "spill" in ln][:12]
@@ -1371,6 +1520,9 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head.get("library_ms"),
             "library": LIBRARY[name],
+            **({"device_ms": head["device_ms"],
+                "library_device_ms": head.get("library_device_ms")}
+               if "device_ms" in head else {}),
             "case": head["case"],
         }
         if name == "decode_layers_fused":

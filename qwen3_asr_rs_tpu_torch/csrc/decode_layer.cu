@@ -41,7 +41,7 @@
 // time (RB * accumulators <= 8, so B = 32 does not spill), so B rows
 // share one weight stream. This first version is a chain of simple
 // kernels, launched by one C entry that loops over the layers on the host
-// side: 9 launches per layer unmerged, 7 merged, each latency-bound
+// side: 8 launches per layer unmerged, 6 merged, each latency-bound
 // (small grids, dependent phases), so latency, not bytes, sets its time
 // at small B. The GEMVs read 8 consecutive weights per thread and row (16
 // bytes of bf16, 8 of int8, 8 bytes = 16 int4 weights), coalesced along
@@ -684,13 +684,10 @@ cudaError_t launch_lm_fold(const T* h, const T* norm_w, float eps,
   return cudaGetLastError();
 }
 
-// Scratch sizes for one step of B rows: sizes[0] float32 workspace (GEMV
-// partials of up to GEMV_MAX_ROWS rows + attention partials), sizes[1]
-// int32 counters, sizes[2] T elements. Enough for every weight kind and
-// layout.
-extern "C" void decode_layers_fused_scratch(int B, int H, int Hq, int Hkv,
-                                            int D, int I, int S,
-                                            long long* sizes) {
+// float32 words of the GEMV split-K partials of one step, rounded up to
+// a 16-byte boundary: the attention workspace follows them.
+static long long gemv_workspace_words(int B, int H, int Hq, int Hkv, int D,
+                                      int I) {
   auto splits = [](int K) { return (long long)(K + GEMV_KC - 1) / GEMV_KC; };
   const long long rows = B < GEMV_MAX_ROWS ? B : GEMV_MAX_ROWS;
   const long long qkv = (long long)Hq * D + 2LL * Hkv * D;
@@ -698,9 +695,22 @@ extern "C" void decode_layers_fused_scratch(int B, int H, int Hq, int Hkv,
   g = g > splits(Hq * D) * H ? g : splits(Hq * D) * H;  // o
   g = g > 2 * splits(H) * I ? g : 2 * splits(H) * I;    // gate + up
   g = g > splits(I) * H ? g : splits(I) * H;            // down
+  return (rows * g + 3) & ~3LL;
+}
+
+// Scratch sizes for one step of B rows: sizes[0] 4-byte words of
+// workspace (GEMV partials of up to GEMV_MAX_ROWS rows, then K2's
+// partials and counters, which must be zero before the first step: the
+// kernels leave them zero), sizes[1] int32 GEMV counters (zero likewise),
+// sizes[2] T elements. Enough for every weight kind and layout.
+extern "C" void decode_layers_fused_scratch(int B, int H, int Hq, int Hkv,
+                                            int D, int I, int S,
+                                            long long* sizes) {
+  const long long qkv = (long long)Hq * D + 2LL * Hkv * D;
   long long n_max = qkv > I ? qkv : I;
   n_max = n_max > H ? n_max : H;
-  sizes[0] = rows * g + (long long)B * Hq * attn_num_splits(S) * (D + 2);
+  sizes[0] = gemv_workspace_words(B, H, Hq, Hkv, D, I) +
+             attn_workspace_words(B, Hq, Hkv, S, D);
   sizes[1] = (n_max + GEMV_TN - 1) / GEMV_TN;
   sizes[2] = (long long)B * (2LL * Hq * D + (long long)Hkv * D + I);
 }
@@ -739,8 +749,8 @@ struct Stacked {
 };
 
 // attn_launches is a host int, incremented once each time
-// launch_decode_attention has enqueued K2's kernels (split + merge)
-// without error, so the caller counts K2's launches where they are made.
+// launch_decode_attention has enqueued K2's kernel (one launch, the merge
+// inside it) without error, so the caller counts K2's launches where they are made.
 template <typename T, int WK>
 cudaError_t decode_layers_fused(const void* const* p, int merged,
                                 int* attn_launches, int L, int B, int H,
@@ -771,12 +781,7 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
   T* attn = qbuf + (size_t)B * qd;        // (B, Hq * D)
   T* kbuf = attn + (size_t)B * qd;        // (B, Hkv * D)
   T* act = kbuf + (size_t)B * kvd;        // (B, I)
-  float* attn_ws = ws;
-  {
-    long long sz[3];
-    decode_layers_fused_scratch(B, H, Hq, Hkv, D, I, S, sz);
-    attn_ws = ws + (sz[0] - (long long)B * Hq * attn_num_splits(S) * (D + 2));
-  }
+  float* attn_ws = ws + gemv_workspace_words(B, H, Hq, Hkv, D, I);
   const float scale = 1.f / sqrtf((float)D);
   cudaError_t err = cudaMemcpyAsync(h, x, sizeof(T) * B * H,
                                     cudaMemcpyDeviceToDevice, stream);
@@ -823,12 +828,14 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
       err = launch_decode_attention<T, int8_t>(
           qbuf, static_cast<const int8_t*>(p[P_K_SLABS]),
           static_cast<const int8_t*>(p[P_V_SLABS]), k_scales, v_scales, k_l,
-          v_l, start, end, attn, attn_ws, l, B, Hq, Hkv, S, D, scale, stream);
+          v_l, start, end, 0, 0, attn, attn_ws, l, B, Hq, Hkv, S, D, scale,
+          stream);
     } else {
       err = launch_decode_attention<T, T>(
           qbuf, static_cast<const T*>(p[P_K_SLABS]),
           static_cast<const T*>(p[P_V_SLABS]), nullptr, nullptr, k_l, v_l,
-          start, end, attn, attn_ws, l, B, Hq, Hkv, S, D, scale, stream);
+          start, end, 0, 0, attn, attn_ws, l, B, Hq, Hkv, S, D, scale,
+          stream);
     }
     if (err != cudaSuccess) return err;
     ++*attn_launches;

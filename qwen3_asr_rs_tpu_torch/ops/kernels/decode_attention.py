@@ -19,21 +19,25 @@ slabs only, any slab length. The Pallas version walks a grid over every
 slot block and clamps the block index outside the live range so that
 dead blocks cost no copy; K2's Pallas version copies only live blocks by
 hand. On the H100 both schedules are one design, so K6 launches K2's
-device code: split-K over the chunks that intersect the live range only.
-The JAX package calls K6 from its tests and scripts only; the port's
-main path runs K2 (inside K1, and in the per-layer decode path).
+device code. The JAX package calls K6 from its tests and scripts only;
+the port's main path runs K2 (inside K1, and in the per-layer decode
+path).
 
-Kernel: ``csrc/decode_attention.cuh`` (split-K flash decoding, see the
-note there). What bounds it on the H100 is the live K/V bytes: 2 * live *
+Kernel: ``csrc/decode_attention.cuh`` (see the note there), one launch
+per call. What bounds it on the H100 is the live K/V bytes: 2 * live *
 Hkv * D * 2 bytes per layer and example in bf16 (20 MB at 4992 live
 slots, 6 us at 3.35 TB/s), half that in int8 plus 4 bytes of scales per
-slot and head; the kernel reads only chunks that intersect the live
-range and spreads them over (chunks x kv heads x examples) blocks so the
-slab streams from many SMs at once. The same device code is the
-attention stage of the decode step (K1, ``decode_layer.py``): K1's C
-entry counts each of its launches of these kernels, and K1's wrapper
-adds that count to ``decode_attention_dma.launches``. Each of the three
-entries has its own plain version and its own launch counter.
+slot and head. The slot axis is cut into chunks by the split rule
+(``split_chunk``, the Python mirror of the C ``attn_chunk``); each
+(chunk, kv head, example) block streams the live part of its chunk
+through a cp.async ring in shared memory and publishes a (max, sum,
+acc) partial per query head, and the last block of each (kv head,
+example) to arrive folds the partials and the self K/V in the same
+launch. The same device code is the attention stage of the decode step
+(K1, ``decode_layer.py``): K1's C entry counts each of its launches, and
+K1's wrapper adds that count to ``decode_attention_dma.launches``. Each
+of the three entries has its own plain version and its own launch
+counter.
 """
 
 from __future__ import annotations
@@ -46,6 +50,37 @@ from . import _build
 
 _SUPPORTED_D = (64, 128)
 _MAX_GROUPS = 8
+# the split rule's least chunk (ATTN_MIN_CHUNK in csrc/decode_attention.cuh)
+MIN_CHUNK = 64
+
+# The Python mirror of the split rule, for tests. ``target_blocks`` is the
+# kernel's block target, ATTN_TARGET_BLOCKS, which only the C library
+# holds (``decode_attention_target_blocks()``); the wrappers size their
+# workspace through the library and never call these.
+
+
+def split_chunk(b: int, hkv: int, s: int, target_blocks: int) -> int:
+    """Slots per split for b examples and hkv kv heads over an s-slot
+    slab: as many splits as keep splits x hkv x b within target_blocks
+    blocks (at least one), in chunks of a multiple of MIN_CHUNK slots
+    (``attn_chunk``)."""
+    splits = max(target_blocks // (b * hkv), 1)
+    chunk = -(-s // splits)
+    return max(-(-chunk // MIN_CHUNK) * MIN_CHUNK, MIN_CHUNK)
+
+
+def num_splits(b: int, hkv: int, s: int, target_blocks: int) -> int:
+    """Splits of the slot axis (the kernel's grid.x)."""
+    return -(-s // split_chunk(b, hkv, s, target_blocks))
+
+
+def workspace_words(b: int, hq: int, hkv: int, s: int, d: int,
+                    target_blocks: int) -> int:
+    """4-byte words of the launch's workspace: acc[d] and (max, sum) per
+    (example, query head, split), then one int32 counter per (example, kv
+    head) (``attn_workspace_words``)."""
+    n = b * hq * num_splits(b, hkv, s, target_blocks)
+    return n * d + 2 * n + b * hkv
 
 
 def _attention_plain(q, k_slabs, v_slabs, k_self, v_self, layer: int, start,
@@ -176,11 +211,30 @@ def _lib():
     lib = _build.load("decode_attention")
     if not getattr(lib, "_bound", False):
         for fn in ("decode_attention_bf16", "decode_attention_f32"):
-            _build.bind(lib, fn, 11, (ctypes.c_int,) * 6 + (ctypes.c_float,))
-        lib.decode_attention_workspace.argtypes = [ctypes.c_int] * 4
+            _build.bind(lib, fn, 11, (ctypes.c_int,) * 8 + (ctypes.c_float,))
+        lib.decode_attention_workspace.argtypes = [ctypes.c_int] * 5
         lib.decode_attention_workspace.restype = ctypes.c_longlong
+        lib.decode_attention_chunk.argtypes = [ctypes.c_int] * 3
+        lib.decode_attention_chunk.restype = ctypes.c_int
+        lib.decode_attention_target_blocks.argtypes = []
+        lib.decode_attention_target_blocks.restype = ctypes.c_int
         lib._bound = True
     return lib
+
+
+# Per (device, stream, shape): the launch's workspace, its counters zero
+# on entry (the kernel leaves them zero), reused by every launch that is
+# ordered on the same stream.
+_workspaces: dict = {}
+
+
+def _index_arg(x, b: int, device):
+    """(tensor, value) of a start/end argument: a (B,) int32 device
+    tensor (kept alive by the caller until the launch), or None and an int
+    for every row."""
+    if isinstance(x, torch.Tensor):
+        return _as_index(x, b, device), 0
+    return None, int(x)
 
 
 def _launch(what, q, k_slabs, v_slabs, k_self, v_self, layer: int, start,
@@ -195,19 +249,28 @@ def _launch(what, q, k_slabs, v_slabs, k_self, v_self, layer: int, start,
     nl, _, hkv, s_max, _ = k_slabs.shape
     if not 0 <= layer < nl:
         raise ValueError(f"{what}: layer {layer} out of range")
-    start_t = _as_index(0 if start is None else start, b, q.device)
-    end_t = _as_index(end, b, q.device)
+    start_t, start_v = _index_arg(0 if start is None else start, b, q.device)
+    end_t, end_v = _index_arg(end, b, q.device)
     lib = _lib()
-    ws = torch.empty(lib.decode_attention_workspace(b, hq, s_max, d),
-                     dtype=torch.float32, device=q.device)
+    stream = _build.stream_of(q)
+    key = (q.device, stream.value, b, hq, hkv, s_max, d)
+    if key not in _workspaces:
+        _workspaces[key] = torch.zeros(
+            lib.decode_attention_workspace(b, hq, hkv, s_max, d),
+            dtype=torch.float32, device=q.device)
+    ws = _workspaces[key]
     out = torch.empty_like(q)
     fn = (lib.decode_attention_bf16 if q.dtype == torch.bfloat16
           else lib.decode_attention_f32)
     p = _build.ptr
     scales = (None, None) if k_scales is None else (p(k_scales), p(v_scales))
     rc = fn(p(q), p(k_slabs), p(v_slabs), *scales, p(k_self), p(v_self),
-            p(start_t), p(end_t), p(out), p(ws), layer, b, hq, hkv, s_max, d,
-            d ** -0.5 if scale is None else scale, _build.stream_of(q))
+            None if start_t is None else p(start_t),
+            None if end_t is None else p(end_t), p(out), p(ws), layer, b, hq,
+            hkv, s_max, d,
+            start_v, end_v, d ** -0.5 if scale is None else scale, stream)
+    if rc != 0:
+        del _workspaces[key]  # a failed launch may leave a counter nonzero
     _build.check(lib, rc, what)
     return out
 

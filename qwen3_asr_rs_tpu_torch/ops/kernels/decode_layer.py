@@ -36,7 +36,7 @@ kernel's padded, transposed copy (``prepare_lm_fold``) is a TPU layout.
 Kernel: ``csrc/decode_layer.cu``, one C entry that loops over the layers
 and launches hand-written GEMVs templated on the weight kind and the
 rows per group (RMSNorm prologue; store, residual or SwiGLU epilogue), a
-QK-norm + rotary kernel and K2's attention kernels per layer, then the
+QK-norm + rotary kernel and K2's attention kernel per layer, then the
 folded lm_head's GEMV and argmax. What bounds it on the H100 is the
 weight stream: at 0.6B 28 x 15.7 M parameters, 0.88 GB per step in
 bf16, 0.44 GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the
@@ -199,10 +199,10 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
 
 
 # Per (device, stream, dtype, rows, dims, slab length): the step's float32
-# workspace, its split-K counters (zero on entry, and the kernels leave
-# them zero), its T scratch and the folded argmax's (B,) 64-bit keys (zero
-# on entry and left zero), made once and reused by every step that is
-# ordered on the same stream.
+# workspace (its tail holds K2's fold counters), its split-K counters (all
+# counters zero on entry, and the kernels leave them zero), its T scratch
+# and the folded argmax's (B,) 64-bit keys (zero on entry and left zero),
+# made once and reused by every step that is ordered on the same stream.
 _scratch: dict = {}
 
 
@@ -369,7 +369,7 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
         sizes = (ctypes.c_longlong * 3)()
         lib.decode_layers_fused_scratch(b, h, hq, hkv, d, inter, s_max, sizes)
         _scratch[key] = (
-            torch.empty(sizes[0], dtype=torch.float32, device=x.device),
+            torch.zeros(sizes[0], dtype=torch.float32, device=x.device),
             torch.zeros(sizes[1], dtype=torch.int32, device=x.device),
             torch.empty(sizes[2], dtype=x.dtype, device=x.device),
             torch.zeros(b, dtype=torch.int64, device=x.device),

@@ -5,11 +5,13 @@ Replaces the Pallas kernel
 causal, ``kv_valid`` and ``kv_start`` masks, GQA h -> h // G, and the
 (Sq, Sk) score matrix is never written to device memory.
 
-Kernel: ``csrc/flash_attention.cu`` (64 x 64 tiles in shared memory,
-float32 products on the CUDA cores, see the note there). What bounds it
+Kernel: ``csrc/flash_attention.cu`` (see the note there). What bounds it
 on the H100 is arithmetic: a causal 4736-token prefill at 16 heads and
-D = 128 is ~92 GFLOP per layer, and this first version does not use the
-tensor cores. ``ops/attention.py::attention`` dispatches here by the JAX
+D = 128 is ~92 GFLOP per layer. bf16 inputs run both products on the
+tensor cores (``mma.sync`` with bf16 K/V tiles streamed by ``cp.async``
+into swizzled shared memory, P fed from the score registers to the PV
+product); float32 inputs, the parity mode, keep float32 products on the
+CUDA cores. ``ops/attention.py::attention`` dispatches here by the JAX
 package's score-bytes rule.
 
 Rows with no attendable key come out finite (as in the Pallas kernel);
@@ -36,6 +38,55 @@ def flash_attention_plain(q, k, v, kv_valid=None, kv_start=None, *,
 
     return attention(q, k, v, causal=causal, kv_valid=kv_valid,
                      kv_start=kv_start, scale=scale, impl="dense")
+
+
+def flash_attention_tile_reference(q, k, v, kv_valid=None, kv_start=None, *,
+                                   causal: bool = False,
+                                   scale: float | None = None,
+                                   block_k: int = 64):
+    """The arithmetic of K3's bf16 kernel (and of the Pallas kernel at
+    ``block_k``) in its key-tile order, in float32 and unrounded at the
+    end: per example the tiles of ``block_k`` keys from kv_start's tile
+    to the last one below kv_valid, scores of the inputs in float32 times
+    scale, masked to -1e9, a running max from -1e30, the softmax sum of
+    the float32 P, the PV product of P rounded to v's dtype per tile, one
+    division at the end. A tile that is wholly masked for a row once the
+    row has a live key adds exactly nothing, so the kernel's per-block
+    stop at the diagonal needs no emulation. Returns float32
+    (B, Sq, Hq, D); the kernel's output is this rounded to its dtype,
+    which is what per-element checks hold it to."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    for bi in range(b):
+        valid = sk if kv_valid is None else min(int(kv_valid[bi]), sk)
+        kbegin = 0 if kv_start is None else max(int(kv_start[bi]), 0)
+        qf = q[bi].float().transpose(0, 1)  # (Hq, Sq, D)
+        kf, vf = (x[bi].transpose(0, 1).repeat_interleave(g, 0)
+                  for x in (k, v))          # (Hq, Sk, D)
+        m = torch.full((hq, sq), -1e30, device=q.device)
+        l = torch.zeros((hq, sq), device=q.device)
+        acc = torch.zeros((hq, sq, d), device=q.device)
+        for k0 in range(kbegin // block_k * block_k, valid, block_k):
+            k1 = min(k0 + block_k, sk)
+            cols = torch.arange(k0, k1, device=q.device)[None, :]
+            s = qf @ kf[:, k0:k1].float().transpose(1, 2) * scale
+            bad = (cols >= valid) | (cols < kbegin)
+            if causal:
+                bad = bad | (cols > rows)
+            s = torch.where(bad, -1e9, s)
+            mn = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - mn)
+            p = torch.exp(s - mn[..., None])
+            l = l * corr + p.sum(-1)
+            acc = (acc * corr[..., None]
+                   + p.to(v.dtype).float() @ vf[:, k0:k1].float())
+            m = mn
+        out[bi] = (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(0, 1)
+    return out
 
 
 def _lib():
@@ -87,6 +138,9 @@ def flash_attention(q, k, v, kv_valid=None, kv_start=None, *,
                 "flash_attention: q, k, v must share dtype and device and "
                 "be contiguous"
             )
+    scale = d ** -0.5 if scale is None else scale
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError("flash_attention: the bf16 kernel takes scale > 0")
     valid_t = _index_or_none(kv_valid, b, q.device)
     start_t = _index_or_none(kv_start, b, q.device)
     out = torch.empty_like(q)
@@ -97,8 +151,7 @@ def flash_attention(q, k, v, kv_valid=None, kv_start=None, *,
     rc = fn(p(q), p(k), p(v),
             None if valid_t is None else p(valid_t),
             None if start_t is None else p(start_t),
-            p(out), b, sq, sk, hq, hkv, d,
-            d ** -0.5 if scale is None else scale, int(causal),
+            p(out), b, sq, sk, hq, hkv, d, scale, int(causal),
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1

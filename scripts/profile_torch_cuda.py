@@ -76,8 +76,7 @@ def kernel_class(name: str) -> str:
         epi = name.split("gemv_kernel<", 1)[1].split(">", 1)[0].split(",")[1]
         return {"0": "gemv q/k/v", "1": "gemv o/down +residual",
                 "2": "gemv gate/up SwiGLU"}.get(epi.strip(), name[:90])
-    for key, label in (("attn_split", "attention split (K2)"),
-                       ("attn_merge", "attention merge (K2)"),
+    for key, label in (("attn_kernel", "attention (K2)"),
                        ("qk_norm_rope", "qk-norm + rope"),
                        ("flash", "flash attention (K3)"),
                        ("qmv4_kernel", "lm_head int4 (K4)"),
@@ -200,7 +199,7 @@ def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str,
         _, _, times = profile(torch, lambda: [call() for _ in range(n)])
         parts = by_class(times, n)
         live = sum(end - st for st in starts)
-        weight_bytes["attention split (K2)"] = (
+        weight_bytes["attention (K2)"] = (
             2 * nl * kvd * live * (1 if kv == "int8" else 2)
             + (2 * 4 * nl * cfg.num_key_value_heads * live
                if kv == "int8" else 0))

@@ -24,6 +24,7 @@ from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
 from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_tile_reference,
 )
 from qwen3_asr_rs_tpu_torch.weights.convert import (
     init_decoder_params_np,
@@ -507,3 +508,151 @@ def test_cuda_decode_attention_slab_matches_plain(cuda, b, s, hq, hkv, d,
                                         start, end)
     assert (got.float() - ref.float()).abs().max() <= atol
     assert (one.float() - ref_one.float()).abs().max() <= atol
+
+
+def _bf16_bound(ref, atol=2e-2, rtol=2 ** -7):
+    """chip_smoke's bf16 tolerance for K2 and K3: atol + rtol * max|ref|."""
+    return atol + rtol * ref.float().abs().max()
+
+
+def _assert_elementwise(got, ref, atol, rtol=2 ** -8):
+    """chip_smoke's ELEMENT_TOL: |got - ref| <= atol + rtol * |ref| at
+    every element, ref the float32 reference with the kernel's roundings
+    up to its bf16 output."""
+    excess = ((got.float() - ref).abs() - rtol * ref.abs()).max()
+    assert excess <= atol, f"|err| - {rtol} |ref| reaches {float(excess)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,kw", [
+    (1, 300, 16, 8, 128, dict(causal=True)),
+    (1, 4736, 16, 8, 128, dict(causal=True)),
+    (2, 1000, 16, 8, 64, dict(causal=True, kv_start=[0, 333])),
+    (2, 777, 16, 8, 128, dict(causal=False, kv_valid=[700, 129])),
+    (1, 517, 4, 4, 128, dict(causal=True)),
+    (3, 200, 8, 1, 64, dict(causal=False, kv_valid=[200, 1, 64])),
+])
+def test_cuda_flash_attention_bf16_tensor_cores(cuda, b, s, hq, hkv, d, kw):
+    """K3's bf16 tensor-core path: causal at the 300 s bucket's 4736
+    tokens and at 300, D = 64 with per-row kv_start, non-causal kv_valid,
+    lengths that are no multiple of a tile, one query head per kv head
+    (a block of 128 rows of one head) and eight (pairs of heads)."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q = torch.randn((b, s, hq, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((b, s, hkv, d), generator=g, device=cuda).bfloat16()
+    v = torch.randn((b, s, hkv, d), generator=g, device=cuda).bfloat16()
+    idx = {n: torch.tensor(kw[n], dtype=torch.int32, device=cuda)
+           for n in ("kv_valid", "kv_start") if n in kw}
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, idx.get("kv_valid"), idx.get("kv_start"),
+                          causal=kw["causal"])
+    assert flash_attention.launches == n + 1
+    ref = flash_attention_plain(q, k, v, idx.get("kv_valid"),
+                                idx.get("kv_start"), causal=kw["causal"])
+    tiles = flash_attention_tile_reference(
+        q, k, v, idx.get("kv_valid"), idx.get("kv_start"),
+        causal=kw["causal"])
+    assert torch.isfinite(got.float()).all()
+    for i in range(b):
+        # rows with no attendable key are discarded by callers
+        s0 = kw.get("kv_start", [0] * b)[i] if kw["causal"] else 0
+        if kw.get("kv_valid", [1] * b)[i] < 1:
+            continue
+        assert (got[i, s0:].float() - ref[i, s0:].float()).abs().max() <= (
+            _bf16_bound(ref[i, s0:]))
+        _assert_elementwise(got[i, s0:], tiles[i, s0:], 2e-3)
+
+
+def _k2_case(cuda, seed, b, s, hq, hkv, d, starts, ends, dtype, int8):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    L = 2
+    kc, vc = (torch.randn((L, b, hkv, s, d), generator=g, device=cuda)
+              for _ in range(2))
+    scales = {}
+    if int8:
+        (kc, ks), (vc, vs) = _int8(kc), _int8(vc)
+        scales = dict(k_scales=ks, v_scales=vs)
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dtype)
+    k_self = torch.randn((b, hkv, d), generator=g, device=cuda).to(dtype)
+    v_self = torch.randn_like(k_self)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    end = torch.tensor(ends, dtype=torch.int32, device=cuda)
+    return (q, kc, vc, k_self, v_self, 1, start, end), scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b,s,hq,hkv,d,starts,ends", [
+    (8, 4992, 16, 8, 128, [0, 37, 129, 200, 5, 77, 150, 263], [4737] * 8),
+    (2, 4992, 16, 2, 128, [0, 4000], [4737, 4000]),
+    (3, 1000, 16, 2, 64, [0, 0, 900], [65, 999, 900]),
+    (4, 360, 8, 8, 128, [0, 64, 100, 301], [301, 128, 101, 301]),
+])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, None)])
+def test_cuda_decode_attention_one_launch_matches_plain(cuda, int8, b, s, hq,
+                                                        hkv, d, starts, ends,
+                                                        dtype, atol):
+    """K2 through its own entry: B = 8 at the 300 s bucket's slab, G = 8
+    (Hq 16 over 2 kv heads), rows with start == end (only the self key),
+    live ranges that end inside a split chunk and inside a 64-slot tile,
+    bf16/f32 and int8 slabs."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_attention as da
+
+    args, scales = _k2_case(cuda, 17, b, s, hq, hkv, d, starts, ends, dtype,
+                            int8)
+    blocks = da._lib().decode_attention_target_blocks()
+    assert any(e % da.split_chunk(b, hkv, s, blocks) for e in ends)
+    n = decode_attention_dma.launches
+    got = decode_attention_dma(*args, **scales)
+    assert decode_attention_dma.launches == n + 1
+    ref = decode_attention_dma_plain(*args, **scales)
+    assert torch.isfinite(got.float()).all()
+    bound = _bf16_bound(ref) if atol is None else atol
+    assert (got.float() - ref.float()).abs().max() <= bound
+    if atol is None:  # bf16: the plain version from float32 queries
+        ref32 = decode_attention_dma_plain(args[0].float(), *args[1:],
+                                           **scales)
+        _assert_elementwise(got, ref32, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_fold_counters_return_to_zero(cuda, dtype):
+    """The last block of each (kv head, example) leaves its fold counter
+    at zero: back-to-back launches on one workspace give identical
+    results, and python-int start/end (passed by value) give the same as
+    index tensors."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_attention as da
+
+    args, _ = _k2_case(cuda, 18, 4, 4992, 16, 8, 128, [7] * 4, [4000] * 4,
+                       dtype, False)
+    first = decode_attention_dma(*args)
+    for _ in range(3):
+        assert torch.equal(decode_attention_dma(*args), first)
+    assert torch.equal(decode_attention_dma(*args[:6], 7, 4000), first)
+    ws = [w for key, w in da._workspaces.items() if key[2:] == (4, 16, 8,
+                                                                4992, 128)]
+    n_part = 4 * 16 * da.num_splits(4, 8, 4992,
+                                    da._lib().decode_attention_target_blocks())
+    assert ws and all(int(w[n_part * 130:].view(torch.int32).abs().sum()) == 0
+                      for w in ws)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_split_rule_mirror(cuda):
+    """The Python mirror of the split rule and of the workspace size
+    agrees with the C entries (which K2, K6 and K1 share)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_attention as da
+
+    lib = da._lib()
+    blocks = lib.decode_attention_target_blocks()
+    for b in (1, 2, 3, 8, 32, 33):
+        for hkv in (1, 2, 8):
+            for s in (1, 63, 64, 65, 360, 4992, 20000):
+                assert lib.decode_attention_chunk(b, hkv, s) == (
+                    da.split_chunk(b, hkv, s, blocks))
+                assert lib.decode_attention_workspace(b, 16, hkv, s, 128) == (
+                    da.workspace_words(b, 16, hkv, s, 128, blocks))
