@@ -15,25 +15,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              call's time on the same inputs (LIBRARY): K2, K1
              (bf16/f32 weights, and int8 merged, int4 merged, int8
              unmerged weights quantized by the port's own quantizer), K3,
-             K4 (int4 lm_head) and K5 (int8 prefill linears and lm_head);
-             then K1 at B = 2, 8, 32 with per-row starts (float weights,
-             int8 merged at B = 8, int4 merged at B = 8 and 32), K1 and
-             K2 on int8 slabs at B = 1 and 8, S = 360 and 4992, and K3 at
-             B = 2 with per-row kv_start; then K1 with int4g weights at
-             group sizes 128 and 64 (B = 1 at S = 360 and 4992, B = 8 and
-             32, B = 1 and 8 on int8 slabs), K1 with the folded lm_head
-             (bf16/f32 and int8 lm_head, B = 1 and 8, and a constructed
-             tie), and K6 (decode_attention_slab and the single-layer
-             decode_attention) on the JAX package's test cases and at
-             S = 4992. K2 (B = 1, S = 360; B = 8, S = 4992 on bf16 and
-             int8 slabs), K3 (bf16 causal, B = 1 and 2) and K6 (S = 4992)
-             also report their device
+             K4 (int4 lm_head at 1, 8 and 32 rows) and K5 (int8 prefill
+             linears and lm_head); then K1 at B = 2, 8, 32 with per-row
+             starts (float weights, int8 merged at B = 8, int4 merged at
+             B = 8 and 32), K1 and K2 on int8 slabs at B = 1 and 8, S =
+             360 and 4992, and K3 at B = 2 with per-row kv_start; then K1
+             with int4g weights at group sizes 128, 64 and 32 (B = 1 at
+             S = 360 and 4992, B = 8 and 32, B = 1 and 8 on int8 slabs),
+             K1 with the folded lm_head (bf16/f32 and int8 lm_head, B = 1
+             and 8, and a constructed tie), K6 (decode_attention_slab and
+             the single-layer decode_attention) on the JAX package's test
+             cases and at S = 4992, K1's bf16 GEMV alone (gemv_single:
+             every weight kind and epilogue at B = 1, 8 and 32), and K1's
+             kernels per call in every weight layout (at most 6 per
+             layer, counted by torch.profiler). K2 (B = 1, S = 360; B =
+             8, S = 4992 on bf16 and int8 slabs), K3 (bf16 causal, B = 1
+             and 2), K4 (bf16) and K6 (S = 4992) also report their device
              time from torch.profiler (device_ms), and so do their library
-             calls (library_device_ms). Every bf16 case of K2, K3 and K6 is
-             also held element by element (ELEMENT_TOL) against a float32
-             reference with the kernel's roundings. The build phase counts
-             the tensor-core instructions (HMMA, HGMMA) in K3's SASS and
-             fails if there are none.
+             calls (library_device_ms). Every bf16 case of K2, K3 and K6,
+             and every GEMV case, is also held element by element
+             (ELEMENT_TOL) against a float32 reference with the kernel's
+             roundings. A yardstick for K1's GEMVs, one layer's seven
+             products as torch.mm at B = 1, 8 and 32, is timed beside
+             them. The build phase counts the tensor-core instructions
+             (HMMA, HGMMA) in the SASS of K3, K1 and K4 and fails if a
+             library has none, and fails if a tensor-core GEMV spills.
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
              synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
@@ -126,6 +132,13 @@ ELEMENT_TOL = {
     "decode_attention_slab": (2e-5, 2 ** -8),
     "decode_attention": (2e-5, 2 ** -8),
     "flash_attention": (2e-3, 2 ** -8),
+    # K1's bf16 GEMV alone, against the float32 product with its scales and
+    # the epilogue's roundings (plus their flips, gemv_single_reference's
+    # slack): rtol 2^-8 is the output's rounding; atol the float32
+    # summation order, the tensor cores' additions included (they may
+    # truncate; the real kernel's largest excess on the H100 was 1e-7,
+    # scripts/gemv_check_strength.py, where a dropped K split exceeds 0.5)
+    "gemv_single": (1e-5, 2 ** -8),
 }
 # float32 teacher-forced logits, decode kernel vs plain per-layer path
 PARITY_LOGITS_ATOL = 1e-3
@@ -194,7 +207,7 @@ LIBRARY = {
                          "tinygemm's layout untimed)",
 }
 # K1 int4g checks: group sizes, (B, S, end, int8 slab)
-K1_INT4G_GROUPS = (128, 64)
+K1_INT4G_GROUPS = (128, 64, 32)
 K1_INT4G_CASES = ((1, 360, 217, False), (1, 4992, 4737, False),
                   (8, 360, 301, False), (32, 360, 301, False),
                   (1, 360, 301, True), (8, 360, 301, True))
@@ -208,6 +221,8 @@ K6_CASES = ((1, 584, 16, 8, 128, None, [450]),
 # K1 quantized layouts checked in phase 3: (label, bits, merge)
 K1_QUANT = (("int8 merged", 8, True), ("int4 merged", 4, True),
             ("int8 unmerged", 8, False))
+# K4's rows: one decode step, and batched steps of 8 and 32 rows
+K4_ROWS = (1, 8, 32)
 # K5's prefill rows (30 s and 300 s prompts) and its four linears (K, N)
 K5_ROWS = (432, 4736)
 K5_LINEARS = (("qkv_w", 1024, 4096), ("o_w", 2048, 1024),
@@ -310,22 +325,49 @@ def attn_work(q, ks, starts, ends, int8=False) -> dict:
                  * q.element_size(), 4 * (live + q.shape[0]) * q.shape[1] * d)
 
 
-def tensor_core_sass(build) -> dict:
-    """K3's tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in
-    ``cuobjdump -sass`` of its library; raises unless there are some (its
-    bf16 kernel runs on the tensor cores)."""
+# the libraries whose bf16 kernels run on the tensor cores: K3, K1's
+# GEMVs, K4
+TENSOR_CORE_LIBS = ("flash_attention", "decode_layer", "quant_matvec_int4")
+
+
+def tensor_core_sass(build, name: str) -> dict:
+    """The tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in
+    ``cuobjdump -sass`` of a kernel library; raises unless there are
+    some."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(build.library_path("flash_attention"))],
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     counts = {op: sum(f" {op}." in ln or f" {op} " in ln
                       for ln in sass.splitlines())
               for op in ("HMMA", "HGMMA")}
     if not sum(counts.values()) > 0:
-        raise AssertionError(f"flash_attention: no tensor-core instruction "
-                             f"in its SASS ({counts})")
+        raise AssertionError(f"{name}: no tensor-core instruction in its "
+                             f"SASS ({counts})")
     return counts
+
+
+def ptxas_spills(build) -> dict:
+    """{library: ptxas lines that report spill stores or loads}; raises
+    if a tensor-core GEMV (gemv_mma_kernel, qmv4_mma_kernel) spills."""
+    out = {}
+    for n in build.KERNEL_SOURCES:
+        log = build.BUILD_DIR / f"{n}.log"
+        if not log.exists():
+            continue
+        lines, fn = [], ""
+        for ln in log.read_text().splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1] if "'" in ln else ln
+            elif "spill" in ln and not ln.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads"):
+                lines.append(f"{fn}: {ln.strip()}")
+        out[n] = lines
+        bad = [ln for ln in lines if "mma_kernel" in ln]
+        if bad:
+            raise AssertionError(f"{n}: a tensor-core GEMV spills: {bad[:3]}")
+    return out
 
 
 def emit(obj) -> None:
@@ -349,12 +391,26 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def busy_us(events) -> float:
+    """Microseconds in which at least one of the device events ran: the
+    union of their intervals. Kernels launched with programmatic dependent
+    launch overlap their predecessor (they start early and wait), so a sum
+    of their durations counts that overlap twice."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return total
+
+
 def device_ms(torch, fn, reps: int = 10, windows: int = 3,
               warmup: int = 2) -> float:
-    """Device milliseconds of one fn() call: the total time of the device
-    events (every kernel, copy and set) that torch.profiler records in a
-    window of reps calls and one synchronisation, over reps; the median
-    of ``windows`` windows. Raises if a window records no device time."""
+    """Device milliseconds of one fn() call: the time in which the device
+    ran any of the events (every kernel, copy and set, busy_us) that
+    torch.profiler records in a window of reps calls and one
+    synchronisation, over reps; the median of ``windows`` windows. Raises
+    if a window records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -368,8 +424,8 @@ def device_ms(torch, fn, reps: int = 10, windows: int = 3,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
+        total_us = busy_us(e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA)
         if not total_us > 0:
             raise AssertionError(f"profiler: no device time in a window of "
                                  f"{reps} calls")
@@ -609,6 +665,8 @@ def kernel_checks(torch, dec_params_f32):
     int4g_kernel_checks(torch, dec_params_f32, gen, results)
     fold_kernel_checks(torch, dec_params_f32, gen, results)
     slab_kernel_checks(torch, gen, results)
+    gemv_kernel_checks(torch, gen, results)
+    k1_layout_launches(torch, dec_params_f32, gen, results)
     return results
 
 
@@ -674,22 +732,25 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
             del qtree, lay
             torch.cuda.empty_cache()
 
-    # K4 at the int4 lm_head's shape
+    # K4 at the int4 lm_head's shape, one row (a decode step) and the rows
+    # of batched steps: one read of the weight for all of them
     w_q4, sc = quantize_weight_int4_tiled(dec_params_f32["lm_head"].T)
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn((1, H), generator=gen, device=dev).to(dtype)
-        check_case(
-            torch, results, "quant_matvec_int4", dtype,
-            f"lm_head (1, {H}) @ unpack{tuple(w_q4.shape)} -> "
-            f"(1, {sc.shape[0]})",
-            lambda: quant_matvec_int4(x, w_q4, sc),
-            lambda: quant_matvec_int4_plain(x, w_q4, sc),
-            work=bound_of(nbytes(x, w_q4, sc) + 4 * sc.shape[0],
-                          2 * H * sc.shape[0]),
-            library=(int4pack_mm(torch, x, w_q4, sc)
-                     if dtype == torch.bfloat16 else None),
-            headline=dtype == torch.bfloat16,
-        )
+        for rows in K4_ROWS:
+            x = torch.randn((rows, H), generator=gen, device=dev).to(dtype)
+            bf16 = dtype == torch.bfloat16
+            check_case(
+                torch, results, "quant_matvec_int4", dtype,
+                f"lm_head ({rows}, {H}) @ unpack{tuple(w_q4.shape)} -> "
+                f"({rows}, {sc.shape[0]})",
+                lambda: quant_matvec_int4(x, w_q4, sc),
+                lambda: quant_matvec_int4_plain(x, w_q4, sc),
+                work=bound_of(nbytes(x, w_q4, sc) + 4 * rows * sc.shape[0],
+                              2 * rows * H * sc.shape[0]),
+                library=int4pack_mm(torch, x, w_q4, sc) if bf16 else None,
+                headline=bf16 and rows == 1,
+                device=bf16,
+            )
     del w_q4, sc
     torch.cuda.empty_cache()
 
@@ -719,6 +780,214 @@ def k1_check(torch, gen, results, dtype, lay, b, s_max, end, label,
                                           ends, eps=1e-6, **scales),
         work=k1_work(lay, x, ks, vs, starts, end, scales.get("k_scales")),
     )
+
+
+# K1's bf16 tensor-core GEMV alone (gemv_single): (weight kind, epilogue,
+# SwiGLU from the low and high nibbles of one int4 weight), each at
+# GEMV_ROWS rows
+GEMV_CASES = (
+    [(k, e, False) for e in ("store", "residual")
+     for k in ("float", "int8", "int4", "int4g32", "int4g64", "int4g128")]
+    + [(k, "swiglu", False) for k in ("float", "int8", "int4")]
+    + [(k, "swiglu", True) for k in ("int4", "int4g32", "int4g64",
+                                     "int4g128")])
+GEMV_ROWS = (1, 8, 32)
+
+
+def gemv_single_inputs(torch, gen, kind, epilogue, nibbles, rows):
+    """(x, w, scales, keyword arguments) of one GEMV of K1 at the 0.6B
+    widths: q|k|v (1024 -> 4096, RMSNorm prologue) for "store", down (3072
+    -> 1024) for "residual", gate and up (1024 -> 3072 each, RMSNorm
+    prologue) for "swiglu"; weights from the port's quantizers."""
+    from qwen3_asr_rs_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    k, n = {"store": (H, 4096), "residual": (3072, H),
+            "swiglu": (H, 3072)}[epilogue]
+
+    def weight(cols):
+        w = 0.02 * torch.randn((k, cols), generator=gen, device=dev)
+        if kind == "float":
+            return w.bfloat16(), None
+        if kind == "int8":
+            return quant.quantize_weight(w)
+        if kind == "int4":
+            return quant.quantize_weight_int4(w)
+        return quant.quantize_weight_int4_grouped(w, int(kind[5:]))
+
+    x = torch.randn((rows, k), generator=gen, device=dev).bfloat16()
+    kw = dict(int4=kind.startswith("int4"), epilogue=epilogue)
+    if epilogue == "residual":
+        kw["res"] = torch.randn((rows, n), generator=gen,
+                                device=dev).bfloat16()
+    else:
+        kw["norm_w"] = (1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+                        ).bfloat16()
+    if epilogue == "swiglu" and nibbles:
+        w, s = weight(2 * n)
+    else:
+        w, s = weight(n)
+        if epilogue == "swiglu":
+            kw["w_up"], kw["s_up"] = weight(n)
+    return x, w, s, kw
+
+
+def gemv_excess(torch, got, ref, slack) -> float:
+    """max over elements of |got - ref| - 2^-8 |ref| - slack (ELEMENT_TOL
+    of gemv_single; slack: the epilogue's inner roundings)."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("non-finite values in the GEMV output")
+    rtol = ELEMENT_TOL["gemv_single"][1]
+    return float(((got.float() - ref).abs() - rtol * ref.abs() - slack).max())
+
+
+def gemv_kernel_checks(torch, gen, results):
+    """Phase 3, K1's bf16 GEMV alone: every weight kind and epilogue at
+    B = 1, 8 and 32, element by element against the float32 reference
+    with the kernel's roundings (a whole-step check of K1 is too loose to
+    see a dropped K split or a skipped group scale)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        gemv_single, gemv_single_reference)
+
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        GEMV_TN, ssq_parts)
+
+    atol = ELEMENT_TOL["gemv_single"][0]
+    for kind, epilogue, nibbles in GEMV_CASES:
+        for rows in GEMV_ROWS:
+            x, w, s, kw = gemv_single_inputs(torch, gen, kind, epilogue,
+                                             nibbles, rows)
+            ref, slack = gemv_single_reference(x, w, s, **kw)
+            # as the decode step runs it: each row's sum of squares in parts
+            # (a residual GEMV leaves them, a normed one takes them); and a
+            # normed GEMV that sums its rows itself (layer 0)
+            for ssq in (True, False) if "norm_w" in kw else (True,):
+                got = gemv_single(x, w, s, ssq=ssq, **kw)
+                parts_err = None
+                if epilogue == "residual":
+                    got, parts = got
+                    want = ssq_parts(got, GEMV_TN, kw["int4"])
+                    parts_err = float(((parts - want).abs()
+                                       / want.abs().clamp(min=1e-6)).max())
+                excess = gemv_excess(torch, got, ref, slack)
+                row = {"phase": "kernel", "kernel": "gemv_single",
+                       "case": f"{kind} {epilogue}"
+                               f"{' (nibbles)' if nibbles else ''} B={rows}"
+                               f"{'' if ssq else ' (own sums)'}",
+                       "element_excess": excess, "element_atol": atol,
+                       "ref_max": float(ref.abs().max()),
+                       "ssq_parts_rel_err": parts_err}
+                emit(row)
+                results.append(row)
+                if not excess <= atol:
+                    raise AssertionError(
+                        f"gemv_single {row['case']}: |err| - 2^-8 |ref| "
+                        f"reaches {excess} > {atol}")
+                if parts_err is not None and not parts_err <= 1e-5:
+                    raise AssertionError(
+                        f"gemv_single {row['case']}: sums of squares off by "
+                        f"{parts_err} (relative)")
+
+
+def gemv_yardstick(torch, dec_params_f32) -> dict:
+    """The GEMVs' yardstick per layer: one 0.6B layer's seven products (q,
+    k, v, o, gate, up, down) as torch.mm on bf16 weights at B = 1, 8 and
+    32; event and device ms. Timed here only, never on the port's path."""
+    lay = dec_params_f32["layers"]
+    ws = [lay[n][0].to(torch.bfloat16) for n in ("q_w", "k_w", "v_w", "o_w",
+                                                 "gate_w", "up_w", "down_w")]
+    out = {}
+    for b in GEMV_ROWS:
+        xs = [torch.randn((b, w.shape[0]), device="cuda").bfloat16()
+              for w in ws]
+
+        def products():
+            return [torch.mm(x, w) for x, w in zip(xs, ws)]
+
+        out[f"B={b}"] = {"ms": cuda_ms(torch, products),
+                         "device_ms": device_ms(torch, products)}
+    return out
+
+
+def kernel_launches(torch, fn, reps: int = 5) -> tuple:
+    """(K1's kernels, PyTorch's kernels, their names) launched per fn()
+    call, counted from torch.profiler's device events (copies and sets
+    not counted; PyTorch's kernels are those of its at:: namespace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    torch_names = [n for n in names if "at::" in n]
+    mine = len(names) - len(torch_names)
+    if not mine > 0:
+        raise AssertionError("profiler: no K1 kernel launches recorded")
+    return (mine / reps, len(torch_names) / reps,
+            sorted({n[:60] for n in torch_names}))
+
+
+def k1_launch_check(torch, results, label, fn, extra: int = 0) -> None:
+    """K1's kernels per call, which must be at most 6 per layer (+ extra:
+    the folded lm_head's); the wrapper's own (a fill of a start index
+    given as an int) are reported beside them."""
+    n, other, other_names = kernel_launches(torch, fn)
+    row = {"phase": "kernel", "kernel": "k1_launches", "case": label,
+           "launches_per_call": n, "per_layer": (n - extra) / L,
+           "pytorch_kernels_per_call": other,
+           "pytorch_kernels": other_names}
+    emit(row)
+    results.append(row)
+    if not n <= 6 * L + extra:
+        raise AssertionError(f"K1 {label}: {n} kernels per call, more than "
+                             f"6 per layer")
+
+
+# K1 layouts whose kernels per call are counted: (label, bits or None,
+# merged, int4g group size or None, folded int8 lm_head)
+K1_LAYOUTS = (("bf16 per projection", None, False, None, False),
+              ("int8 merged", 8, True, None, False),
+              ("int8 per projection", 8, False, None, False),
+              ("int4 merged", 4, True, None, False),
+              ("int4 per projection", 4, False, None, False),
+              ("int4g g128 merged", 4, True, 128, False),
+              ("bf16 per projection, folded int8 lm_head", None, False, None,
+               True))
+
+
+def k1_layout_launches(torch, dec_params_f32, gen, results):
+    """Phase 3: K1's kernels per call in every weight layout (B = 1, S =
+    360, bf16), at most 6 per layer; the folded lm_head adds its GEMV and
+    the argmax's finish."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
+        decode_layers_fused)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
+
+    dt = torch.bfloat16
+    x, cos, sin, ks, vs = k1_inputs(torch, gen, dt, 360, 217)
+    for label, bits, merge, group, fold in K1_LAYOUTS:
+        if bits is None:
+            lay = {k: v.to(dt) for k, v in dec_params_f32["layers"].items()}
+        else:
+            lay = quantized_tree(torch, dec_params_f32, dt, bits, merge,
+                                 group)["layers"]
+        kw = {}
+        if fold:
+            lm_w, lm_s = quantize_weight(dec_params_f32["lm_head"].T)
+            kw = dict(fold_lm=True, final_ln_w=torch.ones(H, dtype=dt,
+                                                          device="cuda"),
+                      lm_head=lm_w, lm_scales=lm_s)
+        k1_launch_check(torch, results, label, lambda: decode_layers_fused(
+            x, cos, sin, lay, ks, vs, 0, 217, eps=1e-6, **kw),
+            extra=2 if fold else 0)
+        del lay, kw
+    torch.cuda.empty_cache()
 
 
 def int4g_kernel_checks(torch, dec_params_f32, gen, results):
@@ -1408,7 +1677,9 @@ def main() -> int:
     per_kernel = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": per_kernel,
-          "flash_attention_sass": tensor_core_sass(_build),
+          "tensor_core_sass": {n: tensor_core_sass(_build, n)
+                               for n in TENSOR_CORE_LIBS},
+          "spills": ptxas_spills(_build),
           "ptxas": {n: [ln.strip() for ln in
                         (_build.BUILD_DIR / f"{n}.log").read_text().splitlines()
                         if "registers" in ln or "spill" in ln][:12]
@@ -1431,6 +1702,10 @@ def main() -> int:
 
     # 3. kernels
     kernel_rows = kernel_checks(torch, dec32)
+    yardstick = gemv_yardstick(torch, dec32)
+    emit({"phase": "kernel", "kernel": "gemv_yardstick",
+          "case": "one 0.6B layer's 7 products as torch.mm, bf16",
+          **yardstick})
     fns = kernel_wrappers()
     k6_launches = {n: fns[n].launches
                    for n in ("decode_attention_slab", "decode_attention")}
@@ -1527,6 +1802,10 @@ def main() -> int:
         }
         if name == "decode_layers_fused":
             row["covers"] = K1_COVERS
+            row["gemv_yardstick_per_layer"] = yardstick
+            row["kernels_per_call"] = {r["case"]: r["launches_per_call"]
+                                       for r in kernel_rows
+                                       if r["kernel"] == "k1_launches"}
         if name == "decode_attention_slab":
             row["callers"] = K6_CALLERS
             row["launches"] = sum(k6_launches.values())

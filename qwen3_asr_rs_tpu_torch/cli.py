@@ -89,8 +89,15 @@ def main(argv=None) -> int:
             return 1
         else:
             rest.append(arg)
-    if language is None and len(rest) == 2 and not Path(rest[1]).exists():
-        language = rest.pop()
+    if language is None and len(rest) == 2:
+        if not Path(rest[1]).exists():
+            language = rest.pop()
+        elif "." not in Path(rest[1]).name:
+            logging.getLogger("asr").warning(
+                "treating %r as an audio file because it exists; pass "
+                "--language %s if you meant to force a language",
+                rest[1], rest[1],
+            )
     audio_files = rest
     for f in audio_files:
         if not Path(f).exists():

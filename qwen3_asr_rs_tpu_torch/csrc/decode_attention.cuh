@@ -186,6 +186,10 @@ attn_kernel(const T* __restrict__ q, const KV* __restrict__ k_slabs,
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x, G = Hq / Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a next kernel launched with programmatic dependent launch (K1's
+  // o-projection) may start fetching its weights now; it waits for this
+  // kernel's completion before it reads the output
+  pdl_launch_dependents();
   // the live range is clamped to the slab: no slot outside [0, S) is read
   const int lo = max(split * chunk, start != nullptr ? start[b] : start_val);
   const int hi = min(min(split * chunk + chunk,

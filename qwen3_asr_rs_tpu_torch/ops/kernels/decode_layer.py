@@ -34,19 +34,24 @@ int32, ks, vs)``. The lm_head is read where it lies: the Pallas
 kernel's padded, transposed copy (``prepare_lm_fold``) is a TPU layout.
 
 Kernel: ``csrc/decode_layer.cu``, one C entry that loops over the layers
-and launches hand-written GEMVs templated on the weight kind and the
-rows per group (RMSNorm prologue; store, residual or SwiGLU epilogue), a
-QK-norm + rotary kernel and K2's attention kernel per layer, then the
-folded lm_head's GEMV and argmax. What bounds it on the H100 is the
-weight stream: at 0.6B 28 x 15.7 M parameters, 0.88 GB per step in
-bf16, 0.44 GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the
-data-sheet 3.35 TB/s; int4g adds 1/16 of the int4 bytes in scales at
-group size 128), plus 311 / 156 MB for a folded bf16 / int8 lm_head,
-which the GEMVs read once per step for all B rows (up to 32 rows per
-launch; 8 for the folded lm_head). This first version is far from that
-bound (see PERF.md). The Pallas kernel's VMEM budgets, ``ffn_tiles``,
-resident/DMA slab modes, scale-row packing and 8/128 alignments are TPU
-scheduling and are not carried over.
+and launches hand-written GEMVs templated on the weight kind (RMSNorm
+prologue; store, residual or SwiGLU epilogue), a QK-norm + rotary kernel
+and K2's attention kernel per layer: 6 launches per layer in every layout
+(unmerged q/k/v are one launch over three column segments), then the
+folded lm_head and argmax. What bounds it on the H100 is the weight
+stream: at 0.6B 28 x 15.7 M parameters, 0.88 GB per step in bf16, 0.44
+GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the data-sheet
+3.35 TB/s; int4g adds 1/16 of the int4 bytes in scales at group size
+128), plus 311 / 156 MB for a folded bf16 / int8 lm_head, which the
+GEMVs read once per step for up to 32 rows. With bf16 activations the
+GEMVs run on the tensor cores (``csrc/gemv_mma.cuh``: bf16 ``mma.sync``
+with int8/int4 weights converted exactly, 16-byte ``cp.async`` rings, a
+K split from the shapes and B (``gemv_split_rows``), programmatic
+dependent launch between the kernels of a layer); float32 activations
+keep CUDA-core GEMVs (the parity path). ``gemv_single`` launches one
+such GEMV alone, for the card checks. The Pallas kernel's VMEM budgets,
+``ffn_tiles``, resident/DMA slab modes, scale-row packing and 8/128
+alignments are TPU scheduling and are not carried over.
 """
 
 from __future__ import annotations
@@ -55,7 +60,12 @@ import ctypes
 
 import torch
 
-from ..quant import int4_grouped_partials, int4_matmul_plain
+from ..quant import (
+    dequantize_int4_grouped,
+    int4_grouped_partials,
+    int4_matmul_plain,
+    unpack_int4,
+)
 from . import _build
 from .decode_attention import (
     _as_index,
@@ -198,7 +208,8 @@ def decode_layers_fused_plain(x, cos, sin, layers, k_slabs, v_slabs, start,
     return h, torch.stack(ks), torch.stack(vs)
 
 
-# Per (device, stream, dtype, rows, dims, slab length): the step's float32
+# Per (device, stream, dtype, rows, dims, slab length, int4g group size,
+# folded vocabulary): the step's float32
 # workspace (its tail holds K2's fold counters), its split-K counters (all
 # counters zero on entry, and the kernels leave them zero), its T scratch
 # and the folded argmax's (B,) 64-bit keys (zero on entry and left zero),
@@ -216,9 +227,17 @@ def _lib():
                           + [ctypes.c_float, ctypes.c_void_p])
             f.restype = ctypes.c_int
         lib.decode_layers_fused_scratch.argtypes = (
-            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
         )
         lib.decode_layers_fused_scratch.restype = None
+        lib.gemv_single_bf16.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 10
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.gemv_single_bf16.restype = ctypes.c_int
+        lib.gemv_single_ws_words.argtypes = [ctypes.c_int] * 3
+        lib.gemv_single_ws_words.restype = ctypes.c_longlong
+        lib.gemv_split_rows.argtypes = [ctypes.c_int] * 7
+        lib.gemv_split_rows.restype = ctypes.c_int
         lib._bound = True
     return lib
 
@@ -288,10 +307,12 @@ def _check(x, cos, sin, layers, k_slabs, v_slabs, k_scales, v_scales):
                  "q_norm_w": ((nl, d), x.dtype), "k_norm_w": ((nl, d), x.dtype)})
     for n, (shape, dtype) in want.items():
         _check_tensor(n, layers[n], shape, dtype, x.device)
-    align = 16 if suffix == "_q4" else 8
-    if h % align or inter % align:
+    # the GEMVs copy whole 16-byte chunks of a weight row
+    align = {"": 8, "_q": 16, "_q4": 32}[suffix]
+    if h % align or inter % align or (hq * d) % align or (hkv * d) % align:
         raise ValueError(
-            f"decode_layers_fused: H and I must be multiples of {align}")
+            f"decode_layers_fused: H, I, Hq * D and Hkv * D must be "
+            f"multiples of {align}")
     for t in (cos, sin):
         if t.shape != (b, d) or t.dtype != torch.float32 or (
             t.device != x.device or not t.is_contiguous()
@@ -318,9 +339,9 @@ def _check_fold(x, final_ln_w, lm_head, lm_scales):
             raise ValueError("decode_layers_fused: an int8 lm_head needs "
                              "lm_scales")
         _check_tensor("lm_scales", lm_scales, (v,), torch.float32, x.device)
-        if v % 4:
+        if v % 16:
             raise ValueError("decode_layers_fused: the int8 lm_head's V must "
-                             "be a multiple of 4")
+                             "be a multiple of 16")
         return _FOLD_INT8, v
     v = lm_head.shape[0]
     _check_tensor("lm_head", lm_head, (v, h), x.dtype, x.device)
@@ -364,10 +385,12 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
     end_t = _as_index(end, b, x.device)
     stream = _build.stream_of(x)
     lib = _lib()
-    key = (x.device, stream.value, x.dtype, b, h, hq, hkv, d, inter, s_max)
+    key = (x.device, stream.value, x.dtype, b, h, hq, hkv, d, inter, s_max,
+           gsize, vocab)
     if key not in _scratch:
         sizes = (ctypes.c_longlong * 3)()
-        lib.decode_layers_fused_scratch(b, h, hq, hkv, d, inter, s_max, sizes)
+        lib.decode_layers_fused_scratch(b, h, hq, hkv, d, inter, s_max, gsize,
+                                        vocab, sizes)
         _scratch[key] = (
             torch.zeros(sizes[0], dtype=torch.float32, device=x.device),
             torch.zeros(sizes[1], dtype=torch.int32, device=x.device),
@@ -413,3 +436,208 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
 
 
 decode_layers_fused.launches = 0
+
+
+# ---- the tensor-core GEMV alone (card checks) ---------------------------
+
+# gm_split_rows's constants (csrc/gemv_mma.cuh)
+GEMV_KS = 64              # weight rows per stage (the split granule)
+GEMV_TN = 64              # loaded columns per block
+GEMV_TARGET_BLOCKS = 264  # two blocks per SM of the H100 SXM
+GEMV_EPI_ROWS = 256       # rows x splits of a last block's reduction
+GEMV_XS_MAX = 68 * 1024   # bytes of staged x rows
+_EPILOGUES = {"store": 0, "residual": 1, "swiglu": 2}
+
+
+def gemv_split_rows(k: int, tiles: int, rows: int, nacc: int, wbytes: int,
+                    granule: int, nb8: int) -> int:
+    """Rows of K per block of a tensor-core GEMV (``gm_split_rows``): a
+    multiple of ``granule`` with as many splits as keep tiles x splits
+    within GEMV_TARGET_BLOCKS (one round of the SMs), but no more than
+    keeps the split-K partials (rows x nacc float32 per loaded column and
+    split) within the weight bytes they sum (``wbytes`` per loaded column
+    and K row) and rows x splits within GEMV_EPI_ROWS, and no more K than
+    GEMV_XS_MAX bytes of 8 * nb8 staged bf16 rows hold."""
+    units = -(-k // granule)
+    want = max(1, GEMV_TARGET_BLOCKS // tiles)
+    steps = -(-units // want)
+    steps = max(steps, -(-(-(-4 * rows * nacc // wbytes)) // granule),
+                -(-units // max(1, GEMV_EPI_ROWS // rows)))
+    steps = min(steps, (GEMV_XS_MAX // (16 * nb8) - 8) // granule, units)
+    return max(steps, 1) * granule
+
+
+def _single_kind(w, scales, int4: bool) -> int:
+    if w.dtype != torch.int8:
+        return _KINDS[""]
+    if int4:
+        return _KINDS["_q4g" if scales.ndim == 2 else "_q4"]
+    return _KINDS["_q"]
+
+
+def _single_product(xn, w, scales, int4: bool):
+    """float32 x @ W times its scales: per-column scales on the whole
+    sum, int4g group scales on each group's partial."""
+    if int4:
+        if scales.ndim == 2:
+            return int4_grouped_partials(xn, w, scales)
+        return int4_matmul_plain(xn, w, scales, out_dtype=torch.float32)
+    if w.dtype == torch.int8:
+        return quant_matmul_plain(xn, w, scales, out_dtype=torch.float32)
+    return xn.float() @ w.float()
+
+
+def _single_dense(w, scales, int4: bool):
+    """The (K, N) float32 weight values of ``_single_product``, scaled."""
+    if int4:
+        if scales.ndim == 2:
+            return dequantize_int4_grouped(w, scales)
+        return unpack_int4(w) * scales.float()
+    if w.dtype == torch.int8:
+        return w.float() * scales.float()
+    return w.float()
+
+
+def gemv_single_reference(x, w, scales=None, *, int4: bool = False,
+                          epilogue: str = "store", norm_w=None,
+                          eps: float = 1e-6, res=None, w_up=None, s_up=None):
+    """The float32 reference of one GEMV of K1 with the kernel's roundings
+    up to its output: the normed row rounded to x's dtype, the float32
+    product times its scales (``_single_product``), then the epilogue's
+    inner roundings (residual: T(y); SwiGLU: T(gate), T(up), T(silu)).
+    Returns (reference, slack): ``slack`` bounds, per element, how far a
+    flip of one inner rounding (the kernel sums in another order) can move
+    the output: a normed x element within 2e-6 of a rounding boundary (the
+    kernel's RMSNorm factor sums in another order) by its one-ulp flip
+    times |W|; one bf16 ulp (<= 2^-7 of the value) of each rounded
+    intermediate, carried through the epilogue. An int4 SwiGLU without
+    ``w_up`` takes gate and up from the low and high nibbles."""
+    cdt = x.dtype
+    ulp = 2.0 ** -7
+
+    def product(w_, s_):
+        """(x @ W, the prologue's flips through |W|)."""
+        y = _single_product(xn, w_, s_, int4)
+        if flip is None:
+            return y, torch.zeros_like(y)
+        return y, flip @ _single_dense(w_, s_, int4).abs()
+
+    flip = None
+    if norm_w is None:
+        xn = x
+    else:
+        v = _rms(x, norm_w, eps)
+        xn = v.to(cdt)
+        flip = ((v * (1 + 2e-6)).to(cdt).float()
+                - (v * (1 - 2e-6)).to(cdt).float()).abs()
+    y, dy = product(w, scales)
+    if epilogue == "store":
+        return y, dy
+    if epilogue == "residual":
+        return res.float() + y.to(cdt).float(), ulp * y.abs() + dy
+    if w_up is None:
+        (gate, up), (dg, du) = y.chunk(2, -1), dy.chunk(2, -1)
+    else:
+        (gate, dg), (up, du) = (y, dy), product(w_up, s_up)
+    g, u = gate.to(cdt).float(), up.to(cdt).float()
+    act = (g * torch.sigmoid(g)).to(cdt).float()
+    slack = (ulp * u.abs() * (1.1 * g.abs() + 2 * act.abs())
+             + 1.1 * u.abs() * dg + act.abs() * du)
+    return act * u, slack
+
+
+def ssq_parts(y, tile_cols: int, int4: bool):
+    """A residual GEMV's parts of each row's sum of squares: float32 sums
+    of y (rows, N)'s squares over the outputs of each tile of tile_cols
+    loaded columns (int4: loaded column j gives outputs j and j + N/2)."""
+    sq = y.float() ** 2
+    if int4:
+        lo, hi = sq.chunk(2, -1)
+        sq = torch.stack([lo, hi], -1).flatten(-2)
+        tile_cols *= 2
+    n = sq.shape[-1]
+    sq = torch.nn.functional.pad(sq, (0, -n % tile_cols))
+    return sq.reshape(sq.shape[0], -1, tile_cols).sum(-1)
+
+
+def gemv_single_plain(x, w, scales=None, *, ssq: bool = False, **kw):
+    """Plain version of ``gemv_single``: the reference rounded to x's
+    dtype (and, residual with ``ssq``, its sums of squares' parts)."""
+    out = gemv_single_reference(x, w, scales, **kw)[0].to(x.dtype)
+    if ssq and kw.get("epilogue") == "residual":
+        return out, ssq_parts(out, GEMV_TN, kw.get("int4", False))
+    return out
+
+
+# Per device: the single GEMV's split-K counters (zero on entry and left
+# zero by the kernel)
+_single_counters: dict = {}
+
+
+def gemv_single(x, w, scales=None, *, int4: bool = False,
+                epilogue: str = "store", norm_w=None, eps: float = 1e-6,
+                res=None, w_up=None, s_up=None, ssq: bool = False):
+    """One GEMV of K1 alone, as the decode step launches it with bf16
+    activations: x (rows, K) bf16 (RMSNorm by ``norm_w`` first, when
+    given) @ w (K, N) bf16, int8 with (N,) scales, or int4 (``int4``: (K,
+    N/2) packed, (N,) or int4g (G, N) scales), then the epilogue: "store"
+    (rows, N); "residual" res + y; "swiglu" silu(gate) * up, gate from w
+    and up from ``w_up``/``s_up`` (or, int4 without ``w_up``, the low and
+    high nibbles of w). ``ssq``, as in the decode step: a normed GEMV
+    takes each row's sum of squares in parts (here the sums over 64-column
+    tiles of x) instead of summing the row itself; a residual one returns
+    (out, its parts, one per column tile: ``ssq_parts``). For the card
+    checks; the decode step does not call it. CPU tensors run
+    ``gemv_single_plain``; CUDA tensors launch the kernel
+    (``gemv_single.launches``)."""
+    if x.device.type == "cpu":
+        return gemv_single_plain(x, w, scales, int4=int4, epilogue=epilogue,
+                                 norm_w=norm_w, eps=eps, res=res, w_up=w_up,
+                                 s_up=s_up, ssq=ssq)
+    if x.dtype != torch.bfloat16 or x.ndim != 2:
+        raise ValueError("gemv_single: x must be (rows, K) bf16")
+    rows, k = x.shape
+    nl = w.shape[1]
+    kind = _single_kind(w, scales, int4)
+    gsize = k // scales.shape[0] if kind == _KINDS["_q4g"] else 0
+    nsrc = 2 if w_up is not None else 1
+    n = nl * (2 if int4 else 1)
+    n_out = n // 2 if epilogue == "swiglu" and w_up is None else n
+    if epilogue == "swiglu" and w_up is None and kind == _KINDS["_q4"]:
+        s_up = scales[nl:]  # the high nibbles' (up's) per-column scales
+    out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    ws = torch.empty(lib.gemv_single_ws_words(rows, k, nl),
+                     dtype=torch.float32, device=x.device)
+    if x.device not in _single_counters:
+        _single_counters[x.device] = torch.zeros(
+            1 << 16, dtype=torch.int32, device=x.device)
+    counters = _single_counters[x.device]
+    if -(-nl // GEMV_TN) > counters.numel():
+        raise ValueError("gemv_single: too many columns")
+    ssq_in = ssq_out = None
+    ssq_stride = ssq_tiles = 0
+    if ssq and norm_w is not None:
+        ssq_in = ssq_parts(x, GEMV_TN, False)
+        ssq_stride = ssq_tiles = ssq_in.shape[1]
+    elif ssq and epilogue == "residual":
+        ssq_stride = -(-nl // GEMV_TN)
+        ssq_out = torch.empty((rows, ssq_stride), dtype=torch.float32,
+                              device=x.device)
+    tensors = [x, norm_w, w, w_up, scales, s_up, res, out, ws, counters,
+               ssq_in, ssq_out]
+    for t in tensors:
+        if t is not None and (t.device != x.device or not t.is_contiguous()):
+            raise ValueError("gemv_single: operands must be contiguous "
+                             "tensors on one device")
+    table = (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
+    rc = lib.gemv_single_bf16(table, kind, _EPILOGUES[epilogue], nsrc, rows,
+                              k, nl, nl, gsize, ssq_stride, ssq_tiles, eps,
+                              _build.stream_of(x))
+    _build.check(lib, rc, "gemv_single")
+    gemv_single.launches += 1
+    return out if ssq_out is None else (out, ssq_out)
+
+
+gemv_single.launches = 0

@@ -12,10 +12,13 @@ exact), float32 accumulation, the scale applied to the whole sum; the
 padded columns are not part of the (R, N) float32 result.
 
 Kernel: ``csrc/quant_matvec_int4.cu`` (see the note there: bound by the
-80 MB of packed weight at 0.6B). It takes any number of rows, in blocks
-of 4 that each read the weight again; the JAX package dequantizes
-outside its Pallas call for R > 64 instead, which gives the same values
-within float32 summation order.
+80 MB of packed weight at 0.6B, which it reads once per call whatever R
+is): the nibbles converted to bf16 on the tensor cores (``mma.sync``)
+against x staged as bf16 (float32 x as three bf16 terms that sum to it
+exactly), up to 32 rows per pass, a K split from the shapes with a
+deterministic last-block sum. The JAX package dequantizes outside its
+Pallas call for R > 64 instead, which gives the same values within
+float32 summation order.
 """
 
 from __future__ import annotations
@@ -34,13 +37,35 @@ def quant_matvec_int4_plain(x, w_q4, scales, *, tile: int = MATVEC_TILE):
     return (x.float() @ w)[:, : scales.shape[0]] * scales.float()
 
 
+# Per device: the split-K counters of the column tiles (zero on entry,
+# left zero by the kernel)
+_counters: dict = {}
+# Per (device, stream, rows, K, packed columns, dtype): the C entry and
+# the split-K workspace of its launch plan, made once; calls ordered on
+# one stream share it
+_launches: dict = {}
+
+
 def _lib():
     lib = _build.load("quant_matvec_int4")
     if not getattr(lib, "_bound", False):
         for fn in ("quant_matvec_int4_bf16", "quant_matvec_int4_f32"):
-            _build.bind(lib, fn, 4, (ctypes.c_int,) * 4)
+            _build.bind(lib, fn, 6, (ctypes.c_int,) * 4)
+        lib.quant_matvec_int4_plan.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.quant_matvec_int4_plan.restype = None
         lib._bound = True
     return lib
+
+
+def launch_plan(r: int, k: int, half: int, f32: bool) -> dict:
+    """The kernel's launch plan for r rows (``q4_plan``): K rows per
+    block, splits, workspace floats, staged rows per pass, whether the K
+    range stays resident, shared-memory bytes."""
+    plan = (ctypes.c_longlong * 6)()
+    _lib().quant_matvec_int4_plan(r, k, half, int(f32), plan)
+    return dict(zip(("kb", "splits", "ws_words", "rows", "resident",
+                     "smem"), plan))
 
 
 def quant_matvec_int4(x, w_q4, scales, *, tile: int = MATVEC_TILE):
@@ -73,14 +98,30 @@ def quant_matvec_int4(x, w_q4, scales, *, tile: int = MATVEC_TILE):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("quant_matvec_int4: operands must be contiguous "
                              "tensors on one device")
+    if k % 8:
+        raise ValueError(f"quant_matvec_int4: K must be a multiple of 8, "
+                         f"got {k}")
     out = torch.empty((r, n), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    fn = (lib.quant_matvec_int4_bf16 if x.dtype == torch.bfloat16
-          else lib.quant_matvec_int4_f32)
+    stream = _build.stream_of(x)
+    key = (x.device, stream.value, r, k, half, x.dtype)
+    if key not in _launches:
+        lib = _lib()
+        plan = launch_plan(r, k, half, x.dtype == torch.float32)
+        if x.device not in _counters:
+            _counters[x.device] = torch.zeros(1 << 16, dtype=torch.int32,
+                                              device=x.device)
+        if half // 64 > _counters[x.device].numel():
+            raise ValueError("quant_matvec_int4: too many columns")
+        _launches[key] = (
+            lib.quant_matvec_int4_bf16 if x.dtype == torch.bfloat16
+            else lib.quant_matvec_int4_f32,
+            torch.empty(max(plan["ws_words"], 1), dtype=torch.float32,
+                        device=x.device))
+    fn, ws = _launches[key]
     p = _build.ptr
-    rc = fn(p(x), p(w_q4), p(scales), p(out), r, k, half, n,
-            _build.stream_of(x))
-    _build.check(lib, rc, "quant_matvec_int4")
+    rc = fn(p(x), p(w_q4), p(scales), p(out), p(ws), p(_counters[x.device]),
+            r, k, half, n, stream)
+    _build.check(_lib(), rc, "quant_matvec_int4")
     quant_matvec_int4.launches += 1
     return out
 

@@ -23,14 +23,18 @@ card:
    capped at half the end) and slab type of ``--kv`` (bf16, or int8 with
    per-slot scales): wall per call (20 calls between synchronisations),
    host time to enqueue one call, and per kernel class its launches,
-   device microseconds and weight or K/V bytes per call, from
-   torch.profiler's device events.
+   device microseconds (exclusive of the overlap of kernels launched with
+   programmatic dependent launch, device_times) and weight or K/V bytes
+   per call, from torch.profiler's device events.
 3. decode_step — ``decode_step_token`` as the engine's loop runs it (one
    host read of the token per step) on the 4 s clip: wall per step with
    and without the profiler, device time by kernel class per step, and
    the device's busy share under the profiler.
 4. prefill — the 300 s clip's ``AsrEngine.prefill``: wall, device time
    by kernel (the largest 12) and the busy share.
+5. k4 — once, K4 (quant_matvec_int4) on the int4 lm_head at 1, 8 and 32
+   bf16 rows: event and device ms (chip_smoke's cuda_ms and device_ms),
+   the bound, and tinygemm's (torch._weight_int4pack_mm) times.
 
 ``--port-root DIR`` imports the port from DIR instead (an unpacked
 older commit that has the port's own ``config`` and ``audio`` copies),
@@ -55,15 +59,24 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def device_times(prof) -> dict:
-    """{device event name: [count, total microseconds]} of a profile."""
+    """{device event name: [count, exclusive microseconds]} of a profile:
+    each event counts from its start, or from the end of the events that
+    started before it where that is later, to its end, so that a kernel
+    launched with programmatic dependent launch, which starts while its
+    predecessor runs and waits for it, counts only its own time; the
+    totals add up to the time in which the device ran anything."""
     from torch.autograd import DeviceType
 
     out: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            c = out.setdefault(e.name, [0, 0.0])
-            c[0] += 1
-            c[1] += e.time_range.elapsed_us()
+    run_end = float("-inf")
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        c = out.setdefault(e.name, [0, 0.0])
+        c[0] += 1
+        c[1] += max(0.0, b - max(a, run_end))
+        run_end = max(run_end, b)
     if not out:
         raise RuntimeError("torch.profiler recorded no device events")
     return out
@@ -71,15 +84,19 @@ def device_times(prof) -> dict:
 
 def kernel_class(name: str) -> str:
     """The decode step's kernels by role; anything else by its name."""
-    if "gemv_kernel" in name:
-        # gemv_kernel<T, EPI, weight kind, sources>
-        epi = name.split("gemv_kernel<", 1)[1].split(">", 1)[0].split(",")[1]
-        return {"0": "gemv q/k/v", "1": "gemv o/down +residual",
-                "2": "gemv gate/up SwiGLU"}.get(epi.strip(), name[:90])
+    for gemv in ("gemv_kernel<", "gemv_mma_kernel<"):
+        if gemv in name:
+            # gemv_kernel<EPI, weight kind, sources, rows> (an older
+            # tree's: gemv_kernel<T, EPI, ...>), gemv_mma_kernel<EPI, ...>
+            args = name.split(gemv, 1)[1].split(">", 1)[0].split(",")
+            epi = args[1] if not args[0].strip().isdigit() else args[0]
+            return {"0": "gemv q/k/v", "1": "gemv o/down +residual",
+                    "2": "gemv gate/up SwiGLU",
+                    "3": "lm_head fold (K1)"}.get(epi.strip(), name[:90])
     for key, label in (("attn_kernel", "attention (K2)"),
                        ("qk_norm_rope", "qk-norm + rope"),
                        ("flash", "flash attention (K3)"),
-                       ("qmv4_kernel", "lm_head int4 (K4)"),
+                       ("qmv4_", "lm_head int4 (K4)"),
                        ("qmv_kernel", "int8 GEMV (K5)"),
                        ("qmm_kernel", "int8 tiled matmul (K5)"),
                        ("lm_fold", "lm_head fold (K1)"),
@@ -207,15 +224,18 @@ def k1_parts(torch, smoke, layers, cfg, mode: str, b: int, kv: str,
             if k in parts:
                 parts[k]["bytes"] = n_bytes
                 parts[k]["TB_per_s"] = n_bytes / parts[k]["device_us"] / 1e6
+        device_us = sum(p["device_us"] for p in parts.values())
+        launches = sum(p["launches"] for p in parts.values())
         rows.append({"section": "k1_parts", "weights": mode, "B": b,
                      "kv": kv, "fold": bool(fold), "starts": starts,
                      "S": s_max, "end": end,
                      "wall_ms_per_call": wall_ms,
                      "enqueue_ms_per_call": statistics.median(enqueue),
-                     "device_ms_per_call": sum(
-                         p["device_us"] for p in parts.values()) / 1e3,
-                     "launches_per_call": sum(
-                         p["launches"] for p in parts.values()),
+                     "device_ms_per_call": device_us / 1e3,
+                     "launches_per_call": launches,
+                     "launches_per_layer": launches / nl,
+                     "gemv_share": sum(p["device_us"] for k, p in parts.items()
+                                       if k.startswith("gemv")) / device_us,
                      "parts": parts})
         del ks, vs
     return rows
@@ -263,6 +283,28 @@ def prefill(torch, engine, samples, mode: str) -> dict:
             "device_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall,
             "top": [{"name": n[:90], "launches": c, "device_ms": us / 1e3}
                     for n, (c, us) in top]}
+
+
+def k4_rows(torch, smoke, dec) -> list:
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
+        quant_matvec_int4)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight_int4_tiled
+
+    w_q4, sc = quantize_weight_int4_tiled(dec["lm_head"].float().T)
+    rows = []
+    for r in (1, 8, 32):
+        x = torch.randn((r, w_q4.shape[0]), device="cuda").bfloat16()
+        lib = smoke.int4pack_mm(torch, x, w_q4, sc)
+        rows.append({
+            "section": "k4", "rows": r,
+            "ms": smoke.cuda_ms(torch, lambda: quant_matvec_int4(x, w_q4, sc)),
+            "device_ms": smoke.device_ms(
+                torch, lambda: quant_matvec_int4(x, w_q4, sc)),
+            **smoke.bound_of(smoke.nbytes(x, w_q4, sc) + 4 * r * sc.shape[0],
+                             2 * r * w_q4.shape[0] * sc.shape[0]),
+            "tinygemm_ms": smoke.cuda_ms(torch, lib),
+            "tinygemm_device_ms": smoke.device_ms(torch, lib)})
+    return rows
 
 
 def main() -> int:
@@ -327,6 +369,8 @@ def main() -> int:
             path = Path(tmp) / f"clip_{seconds}s.wav"
             smoke.write_wav(path, seconds, seed)
             clips[seconds] = load_audio(path, 16000)
+    for row in k4_rows(torch, smoke, dec):
+        emit(row)
     for mode in args.quantize.split(","):
         engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
                            config=config, params=(enc, dec),

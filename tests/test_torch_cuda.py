@@ -2,7 +2,8 @@
 
 Marked ``cuda``: they skip without a CUDA device. This file imports no
 JAX, so it runs on a GPU machine without jax (tests/conftest.py imports
-jax, hence ``--noconftest``):
+jax, hence ``--noconftest``); it shares chip_smoke.py's GEMV cases and
+element check:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -11,6 +12,8 @@ import dataclasses
 
 import pytest
 import torch
+
+import chip_smoke as smoke
 
 from qwen3_asr_rs_tpu_torch.config import TextDecoderConfig
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
@@ -321,11 +324,12 @@ def test_cuda_quant_matmul_matches_plain(cuda, rows, dtype, out_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 3, 64, 65, 300])
+@pytest.mark.parametrize("rows", [1, 3, 8, 32, 64, 65, 300])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_quant_matvec_int4_matches_plain(cuda, rows, dtype):
     """K4 at N = 9000 (two 8192 tiles, padded); every row count launches
-    the kernel."""
+    the kernel: up to 32 rows from one read of the weight, above that 32
+    at a time over a resident K range."""
     from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
         quant_matvec_int4, quant_matvec_int4_plain)
     from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight_int4_tiled
@@ -656,3 +660,81 @@ def test_cuda_decode_attention_split_rule_mirror(cuda):
                     da.split_chunk(b, hkv, s, blocks))
                 assert lib.decode_attention_workspace(b, 16, hkv, s, 128) == (
                     da.workspace_words(b, 16, hkv, s, 128, blocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", smoke.GEMV_ROWS)
+@pytest.mark.parametrize("kind,epilogue,nibbles", smoke.GEMV_CASES)
+def test_cuda_gemv_single_elementwise(cuda, kind, epilogue, nibbles, rows):
+    """The bf16 tensor-core GEMV, every weight kind and epilogue, held
+    element by element against the float32 reference with its roundings
+    (chip_smoke's ELEMENT_TOL): tight enough that a dropped K split or a
+    skipped group scale fails (scripts/gemv_check_strength.py)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    x, w, s, kw = smoke.gemv_single_inputs(torch, g, kind, epilogue, nibbles,
+                                           rows)
+    n = dl.gemv_single.launches
+    got = dl.gemv_single(x, w, s, **kw)
+    assert dl.gemv_single.launches == n + 1
+    ref, slack = dl.gemv_single_reference(x, w, s, **kw)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    excess = smoke.gemv_excess(torch, got, ref, slack)
+    assert excess <= smoke.ELEMENT_TOL["gemv_single"][0], excess
+    # the split-K counters return to zero: a second launch is identical
+    assert torch.equal(dl.gemv_single(x, w, s, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", smoke.GEMV_ROWS)
+@pytest.mark.parametrize("kind,epilogue,nibbles", smoke.GEMV_CASES)
+def test_cuda_gemv_single_sums_of_squares(cuda, kind, epilogue, nibbles,
+                                          rows):
+    """The decode step's way: a normed GEMV takes each row's sum of
+    squares in parts (the element check holds as with its own sums); a
+    residual GEMV leaves the parts of its output, one per column tile,
+    equal to the sums of the squares of what it wrote."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x, w, s, kw = smoke.gemv_single_inputs(torch, g, kind, epilogue, nibbles,
+                                           rows)
+    got = dl.gemv_single(x, w, s, ssq=True, **kw)
+    if epilogue == "residual":
+        got, parts = got
+        torch.testing.assert_close(parts, dl.ssq_parts(
+            got, dl.GEMV_TN, kind.startswith("int4")), rtol=1e-5, atol=1e-6)
+    ref, slack = dl.gemv_single_reference(x, w, s, **kw)
+    excess = smoke.gemv_excess(torch, got, ref, slack)
+    assert excess <= smoke.ELEMENT_TOL["gemv_single"][0], excess
+
+
+@pytest.mark.cuda
+def test_cuda_gemv_split_rule_mirror(cuda):
+    """The Python mirror of the tensor-core GEMVs' K split agrees with the
+    C rule (gemv_split_rows), and K4's launch plan uses it up to 32
+    rows."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+    from qwen3_asr_rs_tpu_torch.ops.kernels import quant_matvec_int4 as q4
+
+    lib = dl._lib()
+    for k in (64, 1000, 1024, 2048, 3072, 6144):
+        for tiles in (1, 16, 48, 64, 1216, 2374):
+            for rows in (1, 8, 17, 32):
+                for nacc, wbytes in ((1, 2), (1, 1), (2, 1), (4, 2), (2, 2)):
+                    for granule in (64, 128, 256):
+                        for nb8 in (1, 2, 4, 12):
+                            args = (k, tiles, rows, nacc, wbytes, granule,
+                                    nb8)
+                            assert lib.gemv_split_rows(*args) == (
+                                dl.gemv_split_rows(*args)), args
+    for r in (1, 3, 8, 9, 32):
+        for f32 in (False, True):
+            for k, half in ((1024, 77824), (1024, 8192), (256, 8192)):
+                plan = q4.launch_plan(r, k, half, f32)
+                nb8 = -(-r // 8) * (3 if f32 else 1)
+                assert plan["kb"] == dl.gemv_split_rows(
+                    k, half // dl.GEMV_TN, r, 2, 1, dl.GEMV_KS, nb8)
+                assert plan["splits"] == -(-k // plan["kb"])
+                assert not plan["resident"]

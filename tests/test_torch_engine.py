@@ -273,3 +273,34 @@ def test_cli_errors(model_and_wav, capsys, monkeypatch, tmp_path):
     bad.write_bytes(b"RIFF....WAVEjunk")
     rc, out, err = _run_cli(main, [model, bad], capsys)
     assert rc == 1 and err.startswith("Error: ") and err.count("\n") == 1
+
+
+def test_cli_warns_on_existing_language_like_file(model_and_wav, capsys,
+                                                  monkeypatch, caplog):
+    """A second trailing argument that names an existing file without a
+    "." is taken as audio, with the JAX CLI's warning that suggests
+    --language."""
+    import logging
+    import shutil
+
+    from qwen3_asr_rs_tpu.cli import main as jax_main
+    from qwen3_asr_rs_tpu_torch.cli import main
+
+    model, wav = model_and_wav
+    monkeypatch.setenv("ASR_MAX_NEW_TOKENS", "2")
+    monkeypatch.setenv("ASR_DTYPE", "float32")
+    monkeypatch.setenv("ASR_DEVICE", "cpu")
+    lang_file = wav.parent / "english"
+    shutil.copy(wav, lang_file)
+    want = (f"treating {str(lang_file)!r} as an audio file because it "
+            "exists; pass --language")
+    logs = {}
+    for name, fn in (("port", main), ("jax", jax_main)):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="asr"):
+            rc, out, _ = _run_cli(fn, [model, wav, lang_file], capsys)
+        assert rc == 0 and out.count("File: ") == 2, name
+        logs[name] = [r.getMessage() for r in caplog.records
+                      if r.levelno == logging.WARNING and r.name == "asr"]
+        assert any(m.startswith(want) for m in logs[name]), (name, logs)
+    assert logs["port"] == logs["jax"]
