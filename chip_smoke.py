@@ -15,8 +15,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              call's time on the same inputs (LIBRARY): K2, K1
              (bf16/f32 weights, and int8 merged, int4 merged, int8
              unmerged weights quantized by the port's own quantizer), K3,
-             K4 (int4 lm_head at 1, 8 and 32 rows) and K5 (int8 prefill
-             linears and lm_head); then K1 at B = 2, 8, 32 with per-row
+             K4 (int4 lm_head at 1, 8 and 32 rows) and K5 (the int8
+             prefill linears at the rows of the 30 s and 300 s clips and
+             of the 5-clip batch, a ragged shape, the lm_head at 1, 8, 16
+             and 32 rows: each with its device time, its bound and two
+             library calls, bf16 x element by element against the
+             float64 product); then K1 at B = 2, 8, 32 with per-row
              starts (float weights, int8 merged at B = 8, int4 merged at
              B = 8 and 32), K1 and K2 on int8 slabs at B = 1 and 8, S =
              360 and 4992, and K3 at B = 2 with per-row kv_start; then K1
@@ -38,8 +42,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              roundings. A yardstick for K1's GEMVs, one layer's seven
              products as torch.mm at B = 1, 8 and 32, is timed beside
              them. The build phase counts the tensor-core instructions
-             (HMMA, HGMMA) in the SASS of K3, K1 and K4 and fails if a
-             library has none, and fails if a tensor-core GEMV spills.
+             (HMMA, HGMMA) in the SASS of K3, K1, K4 and K5 and fails if a
+             library has none (K5: no HGMMA), and fails if a tensor-core
+             kernel spills.
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
              synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
@@ -139,6 +144,13 @@ ELEMENT_TOL = {
     # truncate; the real kernel's largest excess on the H100 was 1e-7,
     # scripts/gemv_check_strength.py, where a dropped K split exceeds 0.5)
     "gemv_single": (1e-5, 2 ** -8),
+    # K5 against the float64 product with its scales (k5_reference): rtol
+    # the output's one rounding (bf16 2^-8, float32 1e-6), atol the float32
+    # summation order (the real kernel's largest excess on the H100 was
+    # 1.6e-6, scripts/k5_check_strength.py, where a dropped K stage or a
+    # split partial added twice exceeds 0.7)
+    ("quant_matmul", "bfloat16"): (1e-5, 2 ** -8),
+    ("quant_matmul", "bfloat16->float32"): (1e-5, 1e-6),
 }
 # float32 teacher-forced logits, decode kernel vs plain per-layer path
 PARITY_LOGITS_ATOL = 1e-3
@@ -199,7 +211,10 @@ LIBRARY = {
                        "untimed)",
     "quant_matmul": "torch._weight_int8pack_mm: x @ int8 W^T times "
                     "per-column scales, bf16 out (the (N, K) copy of the "
-                    "weights and the bf16 scales made untimed)",
+                    "weights and the bf16 scales made untimed); and "
+                    "library_mm: torch.mm(x, W) on a copy of the weights "
+                    "with the scales folded in, in x's dtype (made "
+                    "untimed), the tensor-core yardstick",
     "quant_matvec_int4": "torch._weight_int4pack_mm (tinygemm): bf16 x @ "
                          "int4 W with a bf16 scale and zero per 256-row "
                          "group, K4's per-column scale repeated over the "
@@ -223,10 +238,16 @@ K1_QUANT = (("int8 merged", 8, True), ("int4 merged", 4, True),
             ("int8 unmerged", 8, False))
 # K4's rows: one decode step, and batched steps of 8 and 32 rows
 K4_ROWS = (1, 8, 32)
-# K5's prefill rows (30 s and 300 s prompts) and its four linears (K, N)
-K5_ROWS = (432, 4736)
+# K5's prefill rows (the 30 s prompt, the 5-clip batch's 8 x 432 and the
+# 300 s prompt; float32 x at the first and last), its four linears (K, N),
+# a ragged shape (R, K, N: no tile, stage or 16-byte multiple) and the
+# lm_head's rows (a decode step, batched steps of 8, 16 and 32 rows)
+K5_ROWS = (432, 3456, 4736)
+K5_ROWS_F32 = (432, 4736)
 K5_LINEARS = (("qkv_w", 1024, 4096), ("o_w", 2048, 1024),
               ("gateup_w", 1024, 6144), ("down_w", 3072, 1024))
+K5_RAGGED = (37, 600, 136)
+K5_LM_ROWS = (1, 8, 16, 32)
 
 
 # (S, start, end) of the decode kernels' checks: the 4 s bucket's slab and
@@ -240,7 +261,7 @@ K1_BATCH = (2, 8, 32)
 K1_BATCH_QUANT = ((8, (8,)), (4, (8, 32)))
 KV8_CASES = ((1, 360, 301), (8, 360, 301), (1, 4992, 4737), (8, 4992, 4737))
 # Qwen3-ASR-0.6B decoder dims
-L, HQ, HKV, D, H = 28, 16, 8, 128, 1024
+L, HQ, HKV, D, H, V = 28, 16, 8, 128, 1024, 151936
 
 
 def row_starts(b: int) -> list:
@@ -326,14 +347,16 @@ def attn_work(q, ks, starts, ends, int8=False) -> dict:
 
 
 # the libraries whose bf16 kernels run on the tensor cores: K3, K1's
-# GEMVs, K4
-TENSOR_CORE_LIBS = ("flash_attention", "decode_layer", "quant_matvec_int4")
+# GEMVs, K4, K5; K5's prefill tiles must run wgmma (HGMMA)
+TENSOR_CORE_LIBS = ("flash_attention", "decode_layer", "quant_matvec_int4",
+                    "quant_matmul")
+NEEDS_HGMMA = ("quant_matmul",)
 
 
 def tensor_core_sass(build, name: str) -> dict:
     """The tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in
     ``cuobjdump -sass`` of a kernel library; raises unless there are
-    some."""
+    some (HGMMA among them, for the libraries of NEEDS_HGMMA)."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, timeout=120,
@@ -341,15 +364,17 @@ def tensor_core_sass(build, name: str) -> dict:
     counts = {op: sum(f" {op}." in ln or f" {op} " in ln
                       for ln in sass.splitlines())
               for op in ("HMMA", "HGMMA")}
-    if not sum(counts.values()) > 0:
-        raise AssertionError(f"{name}: no tensor-core instruction in its "
-                             f"SASS ({counts})")
+    if not sum(counts.values()) > 0 or (name in NEEDS_HGMMA
+                                        and not counts["HGMMA"] > 0):
+        raise AssertionError(f"{name}: no (or no wgmma) tensor-core "
+                             f"instruction in its SASS ({counts})")
     return counts
 
 
 def ptxas_spills(build) -> dict:
-    """{library: ptxas lines that report spill stores or loads}; raises
-    if a tensor-core GEMV (gemv_mma_kernel, qmv4_mma_kernel) spills."""
+    """{library: ptxas lines that report spill stores or loads, or wgmma
+    serialized (C7513)}; raises if a tensor-core kernel (gemv_mma_kernel,
+    qmv4_mma_kernel, qmv8_mma_kernel, qmm_wgmma_kernel) spills."""
     out = {}
     for n in build.KERNEL_SOURCES:
         log = build.BUILD_DIR / f"{n}.log"
@@ -359,12 +384,12 @@ def ptxas_spills(build) -> dict:
         for ln in log.read_text().splitlines():
             if "Compiling entry function" in ln:
                 fn = ln.split("'")[1] if "'" in ln else ln
-            elif "spill" in ln and not ln.strip().startswith(
+            elif ("spill" in ln and not ln.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                    "spill loads"):
+                    "spill loads")) or "C7513" in ln:
                 lines.append(f"{fn}: {ln.strip()}")
         out[n] = lines
-        bad = [ln for ln in lines if "mma_kernel" in ln]
+        bad = [ln for ln in lines if "mma_kernel" in ln and "spill" in ln]
         if bad:
             raise AssertionError(f"{n}: a tensor-core GEMV spills: {bad[:3]}")
     return out
@@ -404,33 +429,75 @@ def busy_us(events) -> float:
     return total
 
 
-def device_ms(torch, fn, reps: int = 10, windows: int = 3,
-              warmup: int = 2) -> float:
-    """Device milliseconds of one fn() call: the time in which the device
-    ran any of the events (every kernel, copy and set, busy_us) that
-    torch.profiler records in a window of reps calls and one
-    synchronisation, over reps; the median of ``windows`` windows. Raises
-    if a window records no device time."""
+# profiler windows: "short" were kept with device events missing
+# ("events_missing" in all; their time is divided by the calls they
+# hold), "retaken" held less than half or exceeded the CUDA-event time
+PROFILER_WINDOWS = {"short": 0, "events_missing": 0, "retaken": 0}
+# slack of the busy time over the CUDA-event time: the event median and
+# the window's mean are taken over different calls
+EVENT_SLACK = (1.05, 0.001)
+# idle seconds at each end of a profiler window
+WINDOW_MARGIN_S = 0.005
+
+
+def device_events(torch, fn, reps: int) -> list:
+    """The device events (kernels, copies, sets) torch.profiler records
+    in a window of reps fn() calls between two idle margins."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_MARGIN_S)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(torch, fn, reps: int = 10, windows: int = 3,
+              warmup: int = 2, tries: int = 5) -> float:
+    """Device milliseconds of one fn() call: the time in which the device
+    ran any of the events (every kernel, copy and set, busy_us) of a
+    profiler window of reps calls, over the calls the window holds; the
+    median of ``windows`` windows.
+
+    The profiler loses events: whole windows, and on the card up to 3 of
+    the 10 of a window, the same case in window after window. So p, the
+    events of one call, is the largest count of the windows taken over
+    reps, rounded up; a window counts when it holds at least half of its
+    reps p events, its busy time is divided by its events / p calls, and
+    that time per call is at most the CUDA-event time of a call (cuda_ms,
+    within EVENT_SLACK). Up to ``tries`` more windows are taken in place
+    of those that do not count, then it raises. PROFILER_WINDOWS, which
+    the run reports, counts both kinds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    per_call = []
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = busy_us(e for e in prof.events()
-                           if e.device_type == DeviceType.CUDA)
-        if not total_us > 0:
-            raise AssertionError(f"profiler: no device time in a window of "
-                                 f"{reps} calls")
-        per_call.append(total_us / reps / 1e3)
-    return statistics.median(per_call)
+    ratio, extra = EVENT_SLACK
+    limit = ratio * cuda_ms(torch, fn, warmup=0) + extra
+    seen = []  # (events, busy ms) per window
+    for _ in range(windows + tries):
+        events = device_events(torch, fn, reps)
+        seen.append((len(events), busy_us(events) / 1e3))
+        per_fn = -(-max(n for n, _ in seen) // reps)
+        kept = [(n, busy * per_fn / n) for n, busy in seen
+                if n and 2 * n >= reps * per_fn
+                and busy * per_fn / n <= limit]
+        if len(kept) >= windows:
+            break
+    else:
+        raise AssertionError(
+            f"profiler: {len(seen)} windows of {reps} calls, (device events, "
+            f"busy ms) {seen}, {len(kept)} of them within half of "
+            f"{reps * per_fn} events and the event time limit {limit} ms")
+    PROFILER_WINDOWS["retaken"] += len(seen) - len(kept)
+    for n, _ in kept:
+        if n < reps * per_fn:
+            PROFILER_WINDOWS["short"] += 1
+            PROFILER_WINDOWS["events_missing"] += reps * per_fn - n
+    return statistics.median(ms for _, ms in kept)
 
 
 def max_err(torch, a, b) -> float:
@@ -453,14 +520,15 @@ def element_excess(torch, got, ref, rtol: float) -> float:
 
 def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
                rows=slice(None), work=None, library=None, headline=False,
-               device=False, reference=None):
+               device=False, reference=None, library_mm=None):
     """Compare kernel_fn() with plain_fn() (a tensor or a tuple of them,
     each against its own tolerance), and with ``reference()`` element by
     element (ELEMENT_TOL) where one is given, then time both; ``work`` is
     the case's ``bound_of()``, ``library`` one PyTorch call that computes
-    the same function (timed, never compared), ``headline`` marks the case
-    the kernels line reports, ``device`` adds the device time of the
-    kernel's call (and of the library call) from torch.profiler."""
+    the same function (timed, never compared), ``library_mm`` a second
+    one (K5's tensor-core yardstick), ``headline`` marks the case the
+    kernels line reports, ``device`` adds the device time of the kernel's
+    call (and of the library calls) from torch.profiler."""
     out, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if isinstance(out, torch.Tensor):
@@ -482,7 +550,7 @@ def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
         err, bound, scale = max(err, e), max(bound, atol + rtol * sc), max(scale, sc)
     element = {}
     if reference is not None:
-        eatol, ertol = ELEMENT_TOL[name]
+        eatol, ertol = ELEMENT_TOL.get((name, dt)) or ELEMENT_TOL[name]
         excess = element_excess(torch, out[0][rows], reference()[rows], ertol)
         element = {"element_excess": excess, "element_atol": eatol,
                    "element_rtol": ertol}
@@ -499,10 +567,14 @@ def check_case(torch, results, name, dtype, case, kernel_fn, plain_fn,
            "plain_ms": plain_ms, **(work or {}), "headline": headline}
     if library is not None:
         row["library_ms"] = cuda_ms(torch, library)
+    if library_mm is not None:
+        row["library_mm_ms"] = cuda_ms(torch, library_mm)
     if device:
         row["device_ms"] = device_ms(torch, kernel_fn)
         if library is not None:
             row["library_device_ms"] = device_ms(torch, library)
+        if library_mm is not None:
+            row["library_mm_device_ms"] = device_ms(torch, library_mm)
     emit(row)
     results.append(row)
 
@@ -532,6 +604,28 @@ def int8pack_mm(torch, x, w_q, scales):
     scales in x's dtype (made here, untimed)."""
     w_nk, s = w_q.T.contiguous(), scales.to(x.dtype)
     return lambda: torch._weight_int8pack_mm(x, w_nk, s)
+
+
+def mm_yardstick(torch, x, w_q, scales):
+    """K5's tensor-core yardstick: torch.mm(x, W) on a copy of the weights
+    with the scales folded in, in x's dtype (made here, untimed)."""
+    w = (w_q.float() * scales.float()).to(x.dtype)
+    return lambda: torch.mm(x, w)
+
+
+def k5_reference(x, w_q, scales):
+    """K5's element reference: the float64 product of x's values and the
+    int8 weights times the scales, unrounded (ELEMENT_TOL's rtol is the
+    kernel's one output rounding)."""
+    return (x.double() @ w_q.double()) * scales.double()
+
+
+def k5_work(x, w_q, out_bytes: int) -> dict:
+    """K5's bound: x, the int8 weight and the scales read once, the (R, N)
+    output written once; two operations per weight and row."""
+    r, n = x.shape[0], w_q.shape[1]
+    return bound_of(nbytes(x, w_q) + 4 * n + out_bytes * r * n,
+                    2 * r * w_q.numel())
 
 
 def int4pack_mm(torch, x, w_q4, scales, group: int = 256):
@@ -702,33 +796,7 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
                 )
                 del ks, vs
             if label == "int8 merged":
-                # K5 at the int8 path's shapes: layer 0's merged linears
-                # over the prefill rows, and the lm_head at one row
-                for rows in K5_ROWS:
-                    for name, k, n in K5_LINEARS:
-                        w_q, sc = lay[f"{name}_q"][0], lay[f"{name}_s"][0]
-                        x = torch.randn((rows, k), generator=gen,
-                                        device=dev).to(dtype)
-                        check_case(
-                            torch, results, "quant_matmul", dtype,
-                            f"{name} ({rows}, {k}) @ ({k}, {n})",
-                            lambda: quant_matmul(x, w_q, sc),
-                            lambda: quant_matmul_plain(x, w_q, sc),
-                        )
-                w_q, sc = qtree["lm_head_q"], qtree["lm_head_s"]
-                x = torch.randn((1, H), generator=gen, device=dev).to(dtype)
-                check_case(
-                    torch, results, "quant_matmul", dtype,
-                    f"lm_head (1, {H}) @ {tuple(w_q.shape)} -> float32",
-                    lambda: quant_matmul(x, w_q, sc, out_dtype=torch.float32),
-                    lambda: quant_matmul_plain(x, w_q, sc,
-                                               out_dtype=torch.float32),
-                    work=bound_of(nbytes(x, w_q, sc) + 4 * w_q.shape[1],
-                                  2 * w_q.numel()),
-                    library=(int8pack_mm(torch, x, w_q, sc)
-                             if dtype == torch.bfloat16 else None),
-                    headline=dtype == torch.bfloat16,
-                )
+                k5_checks(torch, gen, results, dtype, qtree)
             del qtree, lay
             torch.cuda.empty_cache()
 
@@ -753,6 +821,59 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
             )
     del w_q4, sc
     torch.cuda.empty_cache()
+
+
+def k5_cases(bf16: bool = True) -> list:
+    """(weight, rows, K, N, float32 logits) of K5's cases: layer 0's merged
+    linears over the prefill rows (K5_ROWS; float32 x: K5_ROWS_F32), the
+    ragged shape, the lm_head at K5_LM_ROWS rows (float32 x: one)."""
+    out = [(name, rows, k, n, False)
+           for rows in (K5_ROWS if bf16 else K5_ROWS_F32)
+           for name, k, n in K5_LINEARS]
+    out.append(("ragged", *K5_RAGGED, False))
+    out += [("lm_head", rows, H, V, True)
+            for rows in (K5_LM_ROWS if bf16 else K5_LM_ROWS[:1])]
+    return out
+
+
+def k5_case_name(weight, rows, k, n, logits) -> str:
+    return (f"{weight} ({rows}, {k}) @ ({k}, {n})"
+            + (" -> float32" if logits else ""))
+
+
+def k5_checks(torch, gen, results, dtype, qtree):
+    """Phase 3, K5 at the int8 path's shapes (k5_cases; the ragged
+    weight quantized here), each case with its device time, bound, both
+    library times and (bf16 x) the element check against k5_reference."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
+
+    dev = torch.device("cuda")
+    bf16 = dtype == torch.bfloat16
+    for weight, rows, k, n, logits in k5_cases(bf16):
+        if weight == "lm_head":
+            w_q, sc = qtree["lm_head_q"], qtree["lm_head_s"]
+        elif weight == "ragged":
+            w_q, sc = quantize_weight(0.02 * torch.randn(
+                (k, n), generator=gen, device=dev))
+        else:
+            w_q, sc = (qtree["layers"][f"{weight}_{t}"][0] for t in "qs")
+        x = torch.randn((rows, k), generator=gen, device=dev).to(dtype)
+        out_dtype = torch.float32 if logits else dtype
+        check_case(
+            torch, results, "quant_matmul", dtype,
+            k5_case_name(weight, rows, k, n, logits),
+            lambda: quant_matmul(x, w_q, sc, out_dtype=out_dtype),
+            lambda: quant_matmul_plain(x, w_q, sc, out_dtype=out_dtype),
+            reference=(lambda: k5_reference(x, w_q, sc)) if bf16 else None,
+            work=k5_work(x, w_q, 4 if logits else 2),
+            library=int8pack_mm(torch, x, w_q, sc) if bf16 else None,
+            library_mm=mm_yardstick(torch, x, w_q, sc),
+            headline=bf16 and logits and rows == 1,
+            device=True,
+        )
+        del x, w_q, sc
 
 
 def k1_check(torch, gen, results, dtype, lay, b, s_max, end, label,
@@ -907,6 +1028,14 @@ def gemv_yardstick(torch, dec_params_f32) -> dict:
         out[f"B={b}"] = {"ms": cuda_ms(torch, products),
                          "device_ms": device_ms(torch, products)}
     return out
+
+
+def k5_summary(rows) -> dict:
+    """K5's bf16 cases for the kernels line: each case's device time,
+    bound, both library times and element excess."""
+    keys = ("case", "dtype", "ms", "device_ms", "bound_ms", "bound_by",
+            "library_device_ms", "library_mm_device_ms", "element_excess")
+    return {"cases": [{k: r[k] for k in keys if k in r} for r in rows]}
 
 
 def kernel_launches(torch, fn, reps: int = 5) -> tuple:
@@ -1806,6 +1935,8 @@ def main() -> int:
             row["kernels_per_call"] = {r["case"]: r["launches_per_call"]
                                        for r in kernel_rows
                                        if r["kernel"] == "k1_launches"}
+        if name == "quant_matmul":
+            row.update(k5_summary(rows))
         if name == "decode_attention_slab":
             row["callers"] = K6_CALLERS
             row["launches"] = sum(k6_launches.values())
@@ -1815,6 +1946,7 @@ def main() -> int:
         elif not row["launches"] > 0:
             raise AssertionError(f"kernel {name} never launched on a main path")
         summary.append(row)
+    emit({"phase": "profiler", "windows": PROFILER_WINDOWS})
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

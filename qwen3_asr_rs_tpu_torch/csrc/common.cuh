@@ -93,6 +93,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(full ? 16 : 0));
 }
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 8 : 0));
+}
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool full) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

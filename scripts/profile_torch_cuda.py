@@ -5,6 +5,8 @@
                                           [--quantize none,int8,int4,int4g]
                                           [--batch 1,8,32] [--kv bf16,int8]
                                           [--fold] [--port-root DIR]
+                                          [--prefill 30,300]
+                                          [--sections k4,k1,decode,prefill]
 
 Full Qwen3-ASR-0.6B width, bf16 activations, synthetic weights from the
 JAX package's seeds, for each weight mode of ``--quantize`` (none: bf16
@@ -30,13 +32,20 @@ card:
    host read of the token per step) on the 4 s clip: wall per step with
    and without the profiler, device time by kernel class per step, and
    the device's busy share under the profiler.
-4. prefill — the 300 s clip's ``AsrEngine.prefill``: wall, device time
-   by kernel (the largest 12) and the busy share.
+4. prefill — ``AsrEngine.prefill`` of each clip of ``--prefill`` (30
+   and 300 s: prompts of 432 and 4736 tokens; "batch": chip_smoke's five
+   clips of 4 to 30 s through ``prefill_batch``, 8 rows of 432): wall,
+   device time by
+   kernel (the largest 12) and by kernel class, the busy share, and K5's
+   (int8 quant_matmul's) launches, device time and share of the device
+   time; fails unless the profile holds one K5 product kernel per launch
+   that K5's wrapper counted.
 5. k4 — once, K4 (quant_matvec_int4) on the int4 lm_head at 1, 8 and 32
    bf16 rows: event and device ms (chip_smoke's cuda_ms and device_ms),
    the bound, and tinygemm's (torch._weight_int4pack_mm) times.
 
-``--port-root DIR`` imports the port from DIR instead (an unpacked
+``--sections`` picks the sections to run (k1 covers k1_error_spread and
+k1_parts). ``--port-root DIR`` imports the port from DIR instead (an unpacked
 older commit that has the port's own ``config`` and ``audio`` copies),
 so that two versions can be compared in turns on one card; a port
 without weight quantization takes ``--quantize none``, one without
@@ -99,6 +108,9 @@ def kernel_class(name: str) -> str:
                        ("qmv4_", "lm_head int4 (K4)"),
                        ("qmv_kernel", "int8 GEMV (K5)"),
                        ("qmm_kernel", "int8 tiled matmul (K5)"),
+                       ("qmm_wgmma", "int8 wgmma tiles (K5)"),
+                       ("qmv8_mma", "int8 tensor-core GEMV (K5)"),
+                       ("qmm_sum", "int8 split-K sum (K5)"),
                        ("lm_fold", "lm_head fold (K1)"),
                        ("fold_finish", "lm_head fold (K1)")):
         if key in name:
@@ -272,15 +284,40 @@ def decode_step(torch, engine, samples, steps: int, mode: str) -> dict:
             "parts_per_step": by_class(times, steps)}
 
 
-def prefill(torch, engine, samples, mode: str) -> dict:
+def prefill(torch, engine, samples, seconds, mode: str) -> dict:
+    """One clip's prefill, or (samples a list) one batch's. Raises unless
+    the profile holds one K5 product kernel for each launch K5's wrapper
+    counted (a profiler that drops events would read K5 low)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    if isinstance(samples, list):
+        def run():
+            return engine.prefill_batch(samples, [None] * len(samples))
+    else:
+        def run():
+            return engine.prefill(samples)
     with torch.inference_mode():
-        engine.prefill(samples)  # warm-up: this bucket's shapes
-        _, wall, times = profile(torch, lambda: engine.prefill(samples))
+        run()  # warm-up: this bucket's shapes
+        calls = quant_matmul.launches
+        _, wall, times = profile(torch, run)
+        calls = quant_matmul.launches - calls
     busy_us = sum(us for _, us in times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"section": "prefill", "weights": mode, "clip_seconds": 300,
+    parts = by_class(times, 1)
+    k5 = [p for k, p in parts.items() if k.endswith("(K5)")]
+    k5_us = sum(p["device_us"] for p in k5)
+    products = sum(p["launches"] for k, p in parts.items()
+                   if k.endswith("(K5)") and "split-K sum" not in k)
+    if products != calls:
+        raise RuntimeError(f"prefill {seconds}: the profile holds {products} "
+                           f"K5 product kernels, the wrapper launched {calls}")
+    return {"section": "prefill", "weights": mode, "clip_seconds": seconds,
             "wall_ms": 1e3 * wall,
             "device_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall,
+            "k5_wrapper_launches": calls,
+            "k5_launches": sum(p["launches"] for p in k5),
+            "k5_device_ms": k5_us / 1e3, "k5_share": k5_us / busy_us,
+            "parts": parts,
             "top": [{"name": n[:90], "launches": c, "device_ms": us / 1e3}
                     for n, (c, us) in top]}
 
@@ -320,6 +357,10 @@ def main() -> int:
                     help="comma-separated slab types for k1_parts: bf16, int8")
     ap.add_argument("--fold", action="store_true",
                     help="fold the lm_head into K1 (ASR_FOLD_LM=1)")
+    ap.add_argument("--prefill", default="300",
+                    help="comma-separated clip seconds of the prefill section")
+    ap.add_argument("--sections", default="k4,k1,decode,prefill",
+                    help="comma-separated sections: k4, k1, decode, prefill")
     ap.add_argument("--port-root", type=Path, default=REPO,
                     help="directory holding the qwen3_asr_rs_tpu_torch "
                          "package to profile")
@@ -363,14 +404,18 @@ def main() -> int:
                    "cuda")
     dec = to_torch(init_decoder_params_np(config.text), torch.bfloat16,
                    "cuda")
+    sections = set(args.sections.split(","))
+    prefill_clips = args.prefill.split(",")
     with tempfile.TemporaryDirectory(prefix="profile_torch_") as tmp:
         clips = {}
-        for seconds, seed in ((4, 1), (300, 3)):
+        for seconds, seed in ((4, 1), (30, 2), (300, 3), (8, 4), (15, 5),
+                              (22, 6)):
             path = Path(tmp) / f"clip_{seconds}s.wav"
             smoke.write_wav(path, seconds, seed)
             clips[seconds] = load_audio(path, 16000)
-    for row in k4_rows(torch, smoke, dec):
-        emit(row)
+    if "k4" in sections:
+        for row in k4_rows(torch, smoke, dec):
+            emit(row)
     for mode in args.quantize.split(","):
         engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
                            config=config, params=(enc, dec),
@@ -384,15 +429,21 @@ def main() -> int:
             fold = dict(fold_lm=True, final_ln_w=params["final_ln_w"],
                         lm_head=params["lm_head"] if lm_q is None else lm_q,
                         lm_scales=params.get("lm_head_s"))
-        emit(k1_error_spread(torch, smoke, layers, args.seeds, mode))
-        for b in map(int, args.batch.split(",")):
-            for kv in args.kv.split(","):
-                for row in k1_parts(torch, smoke, layers, config.text, mode,
-                                    b, kv, fold):
-                    emit(row)
-                torch.cuda.empty_cache()
-        emit(decode_step(torch, engine, clips[4], args.steps, mode))
-        emit(prefill(torch, engine, clips[300], mode))
+        if "k1" in sections:
+            emit(k1_error_spread(torch, smoke, layers, args.seeds, mode))
+            for b in map(int, args.batch.split(",")):
+                for kv in args.kv.split(","):
+                    for row in k1_parts(torch, smoke, layers, config.text,
+                                        mode, b, kv, fold):
+                        emit(row)
+                    torch.cuda.empty_cache()
+        if "decode" in sections:
+            emit(decode_step(torch, engine, clips[4], args.steps, mode))
+        if "prefill" in sections:
+            for c in prefill_clips:
+                samples = ([clips[t] for t in smoke.FIVE_CLIPS]
+                           if c == "batch" else clips[int(c)])
+                emit(prefill(torch, engine, samples, c, mode))
         del engine, layers
         torch.cuda.empty_cache()
     return 0

@@ -299,13 +299,17 @@ def test_cuda_flash_attention_per_row_kv_start(cuda, dtype, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 5, 300])
+@pytest.mark.parametrize("rows", [1, 5, 16, 32, 64, 300, 437])
 @pytest.mark.parametrize("dtype,out_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32)])
 def test_cuda_quant_matmul_matches_plain(cuda, rows, dtype, out_dtype):
-    """K5, GEMV (R <= 8) and tiled (R > 8), K = 1000 not a multiple of
-    the 16-row slice, N = 1032 not a multiple of the 128/256 tiles."""
+    """K5: bf16 x on the tensor-core GEMV blocks (up to 32 rows) and the
+    wgmma tiles (above, K split), float32 x on the CUDA cores; K = 1000
+    not a multiple of the 64-row stage, N = 1032 not a multiple of the
+    tiles nor of 16 (the weight's rows are 8-byte aligned: 8-byte copies).
+    bf16 x is also held element by element against the float64 product
+    with the output's one rounding (chip_smoke's ELEMENT_TOL)."""
     from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import (
         quant_matmul, quant_matmul_plain)
     from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
@@ -321,6 +325,54 @@ def test_cuda_quant_matmul_matches_plain(cuda, rows, dtype, out_dtype):
     bound = 1e-4 + (2 ** -7 if out_dtype == torch.bfloat16 else 1e-5) * (
         ref.abs().max())
     assert (got.float() - ref).abs().max() <= bound
+    if dtype == torch.bfloat16:
+        dt = "bfloat16" + ("" if out_dtype == dtype else "->float32")
+        atol, rtol = smoke.ELEMENT_TOL[("quant_matmul", dt)]
+        excess = smoke.element_excess(torch, got, smoke.k5_reference(
+            x, w_q, s), rtol)
+        assert excess <= atol, excess
+    # the workspace is reused: a second call is identical
+    assert torch.equal(quant_matmul(x, w_q, s, out_dtype=out_dtype), got)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_matmul_plan_mirror(cuda):
+    """The C launch plan (qm_plan) equals the Python mirror
+    (launch_plan): routes, tiles, splits, workspace and shared memory,
+    for ragged shapes, the 0.6B linears and the lm_head."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import quant_matmul as qm
+
+    for r in (1, 5, 8, 9, 16, 32, 33, 37, 437, 3456, 4736):
+        for k, n in ((600, 136), (1000, 1032), (1024, 4096), (2048, 1024),
+                     (1024, 6144), (3072, 1024), (1024, 151936)):
+            for f32 in (False, True):
+                assert (qm.kernel_plan(r, k, n, f32)
+                        == qm.launch_plan(r, k, n, f32)), (r, k, n, f32)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_matmul_shares_one_workspace(cuda):
+    """K5's split-K calls on one stream share one workspace: a larger
+    split plan grows it, and a smaller one after it (in the grown buffer)
+    gives the same output as before."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import quant_matmul as qm
+    from qwen3_asr_rs_tpu_torch.ops.quant import quantize_weight
+
+    outs = {}
+    for rows, k, n in ((37, 2048, 1024), (432, 3072, 1024), (37, 2048, 1024)):
+        assert qm.launch_plan(rows, k, n, False)["splits"] > 1
+        w_q, s = quantize_weight(0.02 * torch.randn(
+            (k, n), generator=torch.Generator(device=cuda).manual_seed(k),
+            device=cuda))
+        x = torch.randn((rows, k), generator=torch.Generator(
+            device=cuda).manual_seed(rows), device=cuda).bfloat16()
+        got = qm.quant_matmul(x, w_q, s)
+        if rows in outs:
+            assert torch.equal(got, outs[rows])
+        outs[rows] = got
+        ref = qm.quant_matmul_plain(x, w_q, s).float()
+        assert (got.float() - ref).abs().max() <= 1e-4 + 2 ** -7 * (
+            ref.abs().max())
 
 
 @pytest.mark.cuda
