@@ -73,6 +73,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              to the argmax of the plain logits); then a batch of 3 clips
              (4, 8, 15 s) with bf16 and with int8 KV, every live row's
              logits from the same slab state on both paths.
+7. graphs  — the engine's decode loop (CUDA graphs replayed over device
+             state) against the same step function run eagerly on the
+             card, tokens equal, per step of both: wall, GPU elapsed
+             (CUDA events around the loop) and busy ms (the union of the
+             loop's kernel intervals in a torch.profiler run; eager only
+             for bf16 at B = 1 and 8): bf16 at B = 1, 8 and 32 on the 4 s
+             clip,
+             int8 weights with the int8 KV slab at B = 8, ASR_FOLD_LM=1
+             at B = 1; sampling (temperature 0.7, top-k 50, top-p 0.9) at
+             B = 1 and 8, the same seed twice equal, graph equal to
+             eager, another seed other tokens, top-k 1 equal to greedy up
+             to a tie of the scaled logits (shown), with the sampled
+             step's times; the draw hash on the card equal to the CPU's
+             bit for bit; the segmented slab at B = 1 and 8
+             (max_new_tokens 300: caps [256, 300], one grow copy, the
+             second stage captured in the call, the first stage's slab
+             released, tokens equal to one 300-token segment); and a 400
+             s clip through transcribe (two overlapped decode segments in
+             one B = 2 batch, stitched). Every run's launch counts hold
+             with the replays counted. Phases 4-6 run the same graphs
+             through the engine.
 
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -80,6 +101,7 @@ last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -395,7 +417,14 @@ def ptxas_spills(build) -> dict:
     return out
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1526,18 +1555,32 @@ def expected_launches(quantize, env, layers: int, steps: int, seconds: int):
     }
 
 
-def count_lm_head(engine) -> list:
-    """Count the decoder's lm_head products (``TextDecoder.logits``, the
-    cuBLAS, K5 or K4 product after the final norm) in a one-item list."""
-    calls = [0]
-    logits = engine.decoder.logits
+@contextlib.contextmanager
+def lm_head_counter(engine):
+    """The counter of the decoder's lm_head products (``TextDecoder.logits``,
+    the cuBLAS, K5 or K4 product after the final norm) while the block
+    runs: a wrapper whose ``launches`` counts its calls, registered with
+    the decode loop's graph captures (``cuda_graph.COUNTED``) so that
+    replays add the products they hold, as for the kernel wrappers. Held
+    over every run of an engine, whose graphs keep their counter; on exit
+    the decoder gets its method back and ``COUNTED`` drops the counter."""
+    from qwen3_asr_rs_tpu_torch.runtime.cuda_graph import COUNTED
+
+    dec = engine.decoder
+    logits = dec.logits
 
     def counted(*args, **kwargs):
-        calls[0] += 1
+        counted.launches += 1
         return logits(*args, **kwargs)
 
-    engine.decoder.logits = counted
-    return calls
+    counted.launches = 0
+    dec.logits = counted
+    COUNTED.append(counted)
+    try:
+        yield counted
+    finally:
+        COUNTED.remove(counted)
+        del dec.logits
 
 
 def check_launches(what, got, want):
@@ -1547,21 +1590,20 @@ def check_launches(what, got, want):
                                  f"expected {'> 0' if w is None else w}")
 
 
-def run_path(torch, engine, clips, label, quantize, env, card):
-    """Phase 4 for one engine: a warm-up, then the counters set to 0 and
-    the clips transcribed, each checked against expected_launches.
-    Returns ({kernel: launches in this path's run}, {clip seconds:
-    {kernel: launches}})."""
+def run_path(torch, engine, lm, clips, label, quantize, env, card):
+    """Phase 4 for one engine (``lm``: its lm_head_counter): a warm-up,
+    then the counters set to 0 and the clips transcribed, each checked
+    against expected_launches. Returns ({kernel: launches in this path's
+    run}, {clip seconds: {kernel: launches}})."""
     fns = kernel_wrappers()
     layers = engine.config.text.num_hidden_layers
-    lm_calls = count_lm_head(engine)
     engine.transcribe(clips[4])  # warm-up: CUDA context, cuBLAS, kernels
     for fn in fns.values():
         fn.launches = 0
     per_clip = {}
     for seconds, path in clips.items():
         before = {n: fn.launches for n, fn in fns.items()}
-        lm_before = lm_calls[0]
+        lm_before = lm.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = engine.transcribe(path)
@@ -1570,12 +1612,14 @@ def run_path(torch, engine, clips, label, quantize, env, card):
         st = engine.last_stats
         steps = st["decode_steps"]
         got = {n: fn.launches - before[n] for n, fn in fns.items()}
-        got["lm_head_products"] = lm_calls[0] - lm_before
+        got["lm_head_products"] = lm.launches - lm_before
         per_clip[seconds] = got
         row = {"phase": "main", "path": label, "quantize": quantize,
                "env": env, "clip_seconds": seconds,
                "language": r.language, "text_chars": len(r.text),
                "tokens": len(r.raw_output.split()), "decode_steps": steps,
+               "replays": st["replays"], "slab_lens": st["slab_lens"],
+               "segments": len(r.segments or []),
                "k1_launches": got["decode_layers_fused"],
                "k2_launches": got["decode_attention_dma"],
                "k3_launches": got["flash_attention"],
@@ -1586,6 +1630,9 @@ def run_path(torch, engine, clips, label, quantize, env, card):
                "prefill_s": st["prefill_seconds"],
                "decode_ms_per_token": (1e3 * st["decode_seconds"] / steps
                                        if steps else None),
+               "decode_gpu_ms_per_step": (
+                   1e3 * st["decode_gpu_seconds"] / steps
+                   if steps else None),
                "card": card}
         emit(row)
         if not isinstance(r.language, str) or not isinstance(r.text, str):
@@ -1611,9 +1658,10 @@ BATCH_RUNS = (("5 clips", FIVE_CLIPS, None, None, {}),
               ("5 clips", FIVE_CLIPS, None, "int4g", {"ASR_FOLD_LM": "1"}))
 
 
-def run_batch(torch, engine, samples, label, seconds, kv_dtype, quantize,
+def run_batch(torch, engine, lm, samples, label, seconds, kv_dtype, quantize,
               env, card):
-    """Phase 5 for one batch: a warm-up of the same batch, then the
+    """Phase 5 for one batch (``lm``: the engine's lm_head_counter): a
+    warm-up of the same batch, then the
     counters set to 0 and the batch transcribed once more; checks the
     launch counts (K1 once per step, K2 once per layer and step, K3 in
     the 300 s bucket's prefill, K4/K5 and the lm_head products as
@@ -1623,20 +1671,18 @@ def run_batch(torch, engine, samples, label, seconds, kv_dtype, quantize,
 
     fns = kernel_wrappers()
     layers = engine.config.text.num_hidden_layers
-    lm_calls = count_lm_head(engine)
     with Env(env):
         engine.transcribe_batch(samples)
         for fn in fns.values():
             fn.launches = 0
-        lm_calls[0] = 0
+        lm.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results = engine.transcribe_batch(samples)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    engine.decoder.__dict__.pop("logits")
     got = {n: fn.launches for n, fn in fns.items()}
-    got["lm_head_products"] = lm_calls[0]
+    got["lm_head_products"] = lm.launches
     st = engine.last_stats
     steps, n_gen = st["decode_steps"], st["n_gen"]
     b, live = len(n_gen), len(samples)
@@ -1650,8 +1696,11 @@ def run_batch(torch, engine, samples, label, seconds, kv_dtype, quantize,
            "decode_tokens_per_s": (sum(n_gen) / st["decode_seconds"]
                                    if st["decode_seconds"] else None),
            "prefill_s": st["prefill_seconds"], "decode_steps": steps,
+           "replays": st["replays"],
            "decode_ms_per_step": (1e3 * st["decode_seconds"] / steps
                                   if steps else None),
+           "decode_gpu_ms_per_step": (
+               1e3 * st["decode_gpu_seconds"] / steps if steps else None),
            "n_gen": n_gen,
            "k1_launches": got["decode_layers_fused"],
            "k2_launches": got["decode_attention_dma"],
@@ -1771,6 +1820,328 @@ def parity(torch, engine32, clip, quantize):
                              f"{len(teacher) - 1} steps")
 
 
+# phase 7: (label, quantize, kv_dtype, environment, B); B = 1 and 8 at
+# bf16 also run the sampled variant
+GRAPH_CASES = (("bf16 B=1", None, None, {}, 1),
+               ("bf16 B=8", None, None, {}, 8),
+               ("bf16 B=32", None, None, {}, 32),
+               ("int8 int8-KV B=8", "int8", "int8", {}, 8),
+               ("bf16 fold B=1", None, None, {"ASR_FOLD_LM": "1"}, 1))
+SAMPLED = dict(temperature=0.7, top_k=50, top_p=0.9)
+
+
+def loop_events(torch, run):
+    """run() (one decode through the engine) under torch.profiler, device
+    activity only (host events cost seconds per run to record and parse):
+    (its result, the device events of the decode loop). The loop's
+    events start at its first K1 kernel (qk_norm_rope, K1's own; the
+    first step's q/k/v GEMVs before it, about 0.03 ms in all, fall
+    outside); the prefill runs no K1. Empty if the profile holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    first = min((e.time_range.start for e in device
+                 if "qk_norm_rope" in e.name), default=None)
+    if first is None:
+        return out, []
+    return out, [e for e in device if e.time_range.start >= first]
+
+
+def decode_run(torch, engine, lm, samples, graphs=True, sampling=None,
+               profiled=False):
+    """One decode through the engine (``generate`` at B = 1, else
+    ``generate_batch`` with every row live), the launch counters (and
+    ``lm``, the engine's lm_head_counter) set to 0 just before it and read
+    just after. Returns (tokens per row, last_stats, {kernel: launches,
+    "lm_head_products": n}); ``profiled``: under torch.profiler, with
+    last_stats' "busy_ms_per_step" (the union of the loop's device
+    events' intervals per step, busy_us) and "device_events"."""
+    import numpy as np
+
+    fns = kernel_wrappers()
+    engine.cuda_graphs = graphs
+    for fn in list(fns.values()) + [lm]:
+        fn.launches = 0
+
+    def run():
+        if len(samples) == 1:
+            return [engine.generate(samples[0], sampling=sampling)]
+        return engine.generate_batch(samples, [None] * len(samples),
+                                     np.ones(len(samples), bool),
+                                     sampling=sampling)
+
+    if profiled:
+        toks, events = loop_events(torch, run)
+    else:
+        toks = run()
+    got = {n: fn.launches for n, fn in fns.items()}
+    got["lm_head_products"] = lm.launches
+    engine.cuda_graphs = True
+    st = dict(engine.last_stats)
+    if profiled:
+        st["busy_ms_per_step"] = (busy_us(events) / 1e3 / st["decode_steps"]
+                                  if events else None)
+        st["device_events"] = len(events)
+    return toks, st, got
+
+
+def busy_pair(torch, engine, lm, samples, eager=True):
+    """Profiled decode_run stats of the graph loop and (``eager``) of the
+    same loop run eagerly. Both run the same kernels, so their device
+    events must be equal in number; the profiler loses events (PERF.md),
+    so the run with fewer is taken once more. Each keeps its count
+    ("device_events"), and the other's ("events_expected"). A profile
+    of an eager loop costs seconds at large B: the phase profiles eager
+    loops at B = 1 and 8 only."""
+    def run(graphs):
+        return decode_run(torch, engine, lm, samples, graphs=graphs,
+                          profiled=True)[1]
+
+    g = run(True)
+    if not eager:
+        return g, None
+    e = run(False)
+    if g["device_events"] < e["device_events"]:
+        g = run(True)
+    elif e["device_events"] < g["device_events"]:
+        e = run(False)
+    g["events_expected"] = e["device_events"]
+    e["events_expected"] = g["device_events"]
+    return g, e
+
+
+def step_times(st, busy=None) -> dict:
+    """Per decode step of one run: wall (host clock, synchronized), GPU
+    elapsed (CUDA events around the loop: busy time plus any time the
+    host left the card idle) and, from ``busy`` (a profiled run of the
+    same loop, decode_run), busy ms (the union of the loop's kernel
+    intervals) and the loop's device events."""
+    n = st["decode_steps"]
+    out = {"steps": n, "wall_ms_per_step": 1e3 * st["decode_seconds"] / n,
+           "gpu_ms_per_step": 1e3 * st["decode_gpu_seconds"] / n}
+    if busy is not None:
+        for k in ("busy_ms_per_step", "device_events", "events_expected"):
+            if k in busy:
+                out[k] = busy[k]
+    return out
+
+
+def top_k1_ties(torch, engine, samples, greedy, top_k1, temperature):
+    """Where the top-k 1 tokens leave the greedy ones, the logits there:
+    each row's first differing token is teacher-forced eagerly on the
+    greedy prefix (the logits variant, which the sampled step runs).
+    JAX's top-k filter keeps every logit tied with the largest, so top-k
+    1 may draw another token only at a tie of the logits divided by the
+    temperature. Returns ([{row, token, greedy, top_k1, logits, scaled,
+    tie}], every divergence at a tie)."""
+    rows = {r: next(i for i, (g, t) in enumerate(zip(gr, tr)) if g != t)
+            for r, (gr, tr) in enumerate(zip(greedy, top_k1)) if gr != tr}
+    if not rows:
+        return [], True
+    dec, params = engine.decoder, engine.dec_params
+    b = len(samples)
+    with torch.inference_mode():
+        if b == 1:
+            logits, cache, base = engine.prefill(samples[0])
+        else:
+            logits, cache, kv_start, base = engine.prefill_batch(
+                samples, [None] * b)
+        at = {0: logits}
+        for i in range(max(rows.values())):
+            ids = torch.tensor([g[i] for g in greedy], device="cuda")
+            if b == 1:
+                logits, _ = dec.decode_step(params, ids, base + i, cache)
+            else:
+                logits, _ = dec.decode_step_aligned(params, ids, base + i,
+                                                    kv_start, cache)
+            at[i + 1] = logits
+    out = []
+    for r, i in rows.items():
+        row = at[i][r].float()
+        scaled = row / temperature
+        g, t = greedy[r][i], top_k1[r][i]
+        top = float(scaled.max())
+        out.append({"row": r, "token": i, "greedy": g, "top_k1": t,
+                    "logits": [float(row[g]), float(row[t])],
+                    "scaled": [float(scaled[g]), float(scaled[t])],
+                    "tie": float(scaled[g]) == float(scaled[t]) == top})
+    return out, all(x["tie"] for x in out)
+
+
+def graph_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
+    """Phase 7 (see the module docstring). Returns {run: {kernel:
+    launches}} of the counted graph runs."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.runtime.sampling import (
+        SamplingParams, draw_bits)
+
+    layers = config.text.num_hidden_layers
+    launches = {}
+
+    def engine_for(quantize=None, kv=None, max_new=128):
+        return AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=max_new,
+                         config=config, params=(enc32, dec32),
+                         tokenizer=StubTokenizer(), device="cuda",
+                         quantize=quantize, kv_dtype=kv)
+
+    def counted(engine, lm, label, quantize, env, samples, sampling=None):
+        """A capture run, then the counted run, checked: a one-stage run
+        replays the kept graph of the first; a run that leaves the first
+        stage freed it, so the next captures every stage's graph (one
+        eager step each) and replays it."""
+        decode_run(torch, engine, lm, samples, sampling=sampling)
+        toks, st, got = decode_run(torch, engine, lm, samples,
+                                   sampling=sampling)
+        stages = len(st["slab_lens"])
+        captures = stages if stages > 1 else 0
+        if (st["captures"] != captures or not st["replays"]
+                or st["replays"] + captures != st["decode_steps"]):
+            raise AssertionError(
+                f"graphs {label}: {st['replays']} replays and "
+                f"{st['captures']} captures in {st['decode_steps']} steps "
+                f"over {len(st['slab_lens'])} stages")
+        want = expected_launches(quantize, env, layers, st["decode_steps"], 4)
+        if sampling is not None:  # the logits variant, never the fold
+            want["lm_head_products"] = st["decode_steps"] + 1
+        check_launches(f"graphs {label}", got, want)
+        launches[f"graphs {label}"] = got
+        return toks, st
+
+    for label, quantize, kv, env, b in GRAPH_CASES:
+        with Env(env):
+            engine = engine_for(quantize, kv)
+            samples = [audio[4]] * b
+            with lm_head_counter(engine) as lm:
+                toks_g, st_g = counted(engine, lm, label, quantize, env,
+                                       samples)
+                toks_e, st_e, _ = decode_run(torch, engine, lm, samples,
+                                             graphs=False)
+                busy_g, busy_e = busy_pair(
+                    torch, engine, lm, samples,
+                    eager=quantize is None and not env and b <= 8)
+                row = {"phase": "graphs", "case": label, "B": b,
+                       "tokens_equal": toks_g == toks_e,
+                       "tokens_per_row": [len(t) for t in toks_g[:2]],
+                       "graph": step_times(st_g, busy_g),
+                       "eager": step_times(st_e, busy_e),
+                       "steps_past_done": st_g["steps_past_done"],
+                       "slab_lens": st_g["slab_lens"], "card": card}
+                if toks_g != toks_e:
+                    emit(row)
+                    raise AssertionError(f"graphs {label}: graph tokens "
+                                         "differ from the eager step's")
+                if quantize is None and kv is None and b in (1, 8) and not env:
+                    sp = SamplingParams(seed=0, **SAMPLED)
+                    s1, st_s = counted(engine, lm, f"{label} sampled", None,
+                                       env, samples, sp)
+                    _, busy_s, _ = decode_run(torch, engine, lm, samples,
+                                              sampling=sp, profiled=True)
+                    s2, _, _ = decode_run(torch, engine, lm, samples,
+                                          sampling=sp)
+                    s_e, _, _ = decode_run(torch, engine, lm, samples,
+                                           graphs=False, sampling=sp)
+                    s_o, _, _ = decode_run(torch, engine, lm, samples,
+                                           sampling=SamplingParams(
+                                               seed=1, **SAMPLED))
+                    k1_sp = SamplingParams(temperature=0.7, top_k=1, seed=0)
+                    k1, _, _ = decode_run(torch, engine, lm, samples,
+                                          sampling=k1_sp)
+                    ties, at_ties = top_k1_ties(torch, engine, samples,
+                                                toks_g, k1,
+                                                k1_sp.temperature)
+                    row["sampled"] = {
+                        "same_seed_equal": s1 == s2,
+                        "graph_equals_eager": s1 == s_e,
+                        "other_seed_differs": s1 != s_o,
+                        "top_k1_rows_equal_greedy": sum(
+                            a == g for a, g in zip(k1, toks_g)),
+                        "top_k1_divergences": ties,
+                        "graph": step_times(st_s, busy_s)}
+                    if not (s1 == s2 == s_e and s1 != s_o and at_ties):
+                        emit(row)
+                        raise AssertionError(f"graphs {label}: sampling "
+                                             f"checks {row['sampled']}")
+            emit(row)
+            del engine
+            torch.cuda.empty_cache()
+
+    # the draw hash on the card against the CPU's, bit for bit
+    grid = [(seed, step) for seed in (0, 1, 2**33 + 5) for step in (0, 1, 299)]
+    same = all(torch.equal(draw_bits(seed, step, 32, config.text.vocab_size,
+                                     device="cuda").cpu(),
+                           draw_bits(seed, step, 32, config.text.vocab_size))
+               for seed, step in grid)
+    emit({"phase": "graphs", "case": "draw hash, card vs CPU",
+          "grid": len(grid), "rows": 32, "cols": config.text.vocab_size,
+          "equal": same})
+    if not same:
+        raise AssertionError("the draw hash differs between card and CPU")
+
+    # the segmented slab: 300 tokens, default segment -> caps [256, 300];
+    # a call that leaves the first stage frees its slab and graphs
+    engine = engine_for(max_new=300)
+    with lm_head_counter(engine) as lm:
+        for b in (1, 8):
+            samples = [audio[4]] * b
+            toks, st = counted(engine, lm, f"segments B={b}", None, {},
+                               samples)
+            released = b not in engine._arenas
+            allocated = torch.cuda.memory_allocated()
+            toks2, _, _ = decode_run(torch, engine, lm, samples)
+            retained = torch.cuda.memory_allocated() - allocated
+            with Env({"ASR_DECODE_SEGMENT": "512"}):
+                one, st1, _ = decode_run(torch, engine, lm, samples)
+            row = {"phase": "graphs", "case": f"segments B={b}",
+                   "caps": engine._segment_caps(),
+                   "slab_lens": st["slab_lens"],
+                   "one_segment_slab_lens": st1["slab_lens"],
+                   "tokens_equal": toks == one == toks2,
+                   "captures": st["captures"],
+                   "first_stage_released": released,
+                   "bytes_retained_by_a_call": retained,
+                   "graph": step_times(st), "card": card}
+            emit(row)
+            if len(st["slab_lens"]) != 2 or len(st1["slab_lens"]) != 1 or (
+                    not row["tokens_equal"] or not released
+                    or engine._segment_caps() != [256, 300]):
+                raise AssertionError(f"segments B={b}: {row}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # long form: 400 s -> decode segments at 0 and 358 s in one B = 2 batch
+    long_wav = tmp / "clip_400s.wav"
+    write_wav(long_wav, 400, 7)
+    engine = engine_for(max_new=16)
+    batches = []
+    orig = engine.transcribe_batch
+
+    def spy(samples_list, languages=None, **kw):
+        batches.append(len(samples_list))
+        return orig(samples_list, languages, **kw)
+
+    engine.transcribe_batch = spy
+    t0 = time.perf_counter()
+    r = engine.transcribe(long_wav)
+    wall = time.perf_counter() - t0
+    segs = r.segments or []
+    ends_ok = all(a.end <= b.start for a, b in zip(segs, segs[1:]))
+    row = {"phase": "graphs", "case": "long form 400 s", "batches": batches,
+           "decode_segments": r.raw_output.count("\n") + 1,
+           "segments": [(s.start, s.end, len(s.text)) for s in segs],
+           "text_is_concat": "".join(s.text for s in segs) == r.text,
+           "ends_non_overlapping": ends_ok, "wall_s": wall, "card": card}
+    emit(row)
+    if batches != [2] or row["decode_segments"] != 2 or not segs or (
+            not ends_ok or not row["text_is_concat"]):
+        raise AssertionError(f"long form: {row}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1857,9 +2228,10 @@ def main() -> int:
                                config=config, params=(enc32, dec32),
                                tokenizer=StubTokenizer(), device="cuda",
                                quantize=quantize)
-            launches[label], per_clip = run_path(
-                torch, engine, {c: clips[c] for c in seconds}, label,
-                quantize, env, card)
+            with lm_head_counter(engine) as lm:
+                launches[label], per_clip = run_path(
+                    torch, engine, lm, {c: clips[c] for c in seconds}, label,
+                    quantize, env, card)
         if 30 in per_clip:
             per_30s[label] = per_clip[30]
         del engine
@@ -1875,14 +2247,16 @@ def main() -> int:
                            config=config, params=(enc32, dec32),
                            tokenizer=StubTokenizer(), device="cuda",
                            kv_dtype=kv_dtype, quantize=quantize)
-        for label, seconds, kv, quant, env in BATCH_RUNS:
-            if (kv, quant) == (kv_dtype, quantize):
+        with lm_head_counter(engine) as lm:
+            for label, seconds, kv, quant, env in BATCH_RUNS:
+                if (kv, quant) != (kv_dtype, quantize):
+                    continue
                 name = (f"batch {label}"
                         + (f" {quantize} weights" if quantize else "")
                         + (" int8 KV" if kv else "")
                         + (" fold" if env.get("ASR_FOLD_LM") else ""))
                 launches[name] = run_batch(
-                    torch, engine, [audio[c] for c in seconds], label,
+                    torch, engine, lm, [audio[c] for c in seconds], label,
                     seconds, kv, quantize, env, card)
         del engine
         torch.cuda.empty_cache()
@@ -1902,6 +2276,10 @@ def main() -> int:
                                       device="cuda", kv_dtype=kv_dtype),
                      [audio[c] for c in (4, 8, 15)], kv_dtype)
         torch.cuda.empty_cache()
+
+    # 7. graphs: the decode loop's CUDA graphs, sampling, segments, long form
+    launches.update(graph_phase(torch, config, enc32, dec32, audio, tmp,
+                                card))
 
     summary = []
     for name in SOURCES:

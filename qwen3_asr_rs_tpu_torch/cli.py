@@ -9,8 +9,11 @@ prints ``Language: <lang>`` and ``Text: <text>`` (preceded by ``File:``
 per file when several are given), or a one-line ``Error: ...`` on
 stderr with exit code 1. Several files are transcribed as one batch
 (``AsrEngine.transcribe_batch``: one prefill and one decode loop), as
-the JAX CLI does; its sampling, timestamp and speculative options are
-rejected until those paths are ported.
+the JAX CLI does. ``--temperature``/``--top-k``/``--top-p``/``--seed``
+sample, ``--timestamps`` prints the segments with their words, and
+``ASR_METRICS=<path>`` dumps the stage timers, as in the JAX CLI; its
+speculative options (``--draft*``) are rejected until that path is
+ported.
 """
 
 from __future__ import annotations
@@ -30,7 +33,25 @@ Arguments:
   model_path   Path to the Qwen3-ASR model directory
   audio_file   Path to the input audio file (WAV and, via the native
                libav decoder or an ffmpeg binary, any other format)
-  language     Optional: force language (e.g., chinese, english, japanese)
+  language     Optional: force language (e.g., chinese, english, japanese).
+               With a single audio file the third positional argument is
+               the language; with several audio files (one batched
+               dispatch) use --language.
+
+Options:
+  --temperature T   Stochastic decode (default 0 = greedy argmax). Not
+                    available for audio longer than the largest bucket
+                    (long-form stitching needs deterministic transcripts).
+  --top-k K         With --temperature: sample among the K most likely
+                    tokens only (0 = disabled).
+  --top-p P         With --temperature: nucleus sampling mass (1.0 =
+                    disabled).
+  --seed N          Seed of the draws for --temperature (default 0).
+  --timestamps      After the Text: line, print one `[start - end] text`
+                    line per time-stamped segment (long-form audio gets
+                    one per stitched chunk, short audio a single span),
+                    each followed by indented per-word `[start - end]`
+                    lines (length-proportional within the segment).
 
 Environment variables:
   ASR_LOG / RUST_LOG   Set logging level (e.g., info, debug)
@@ -46,6 +67,9 @@ Environment variables:
   ASR_KV               KV slab: bf16 (default: the compute dtype) | int8
   ASR_FOLD_LM          1 folds the final norm, lm_head and argmax into the
                        decode kernel (not with a 4-bit lm_head)
+  ASR_DECODE_SEGMENT   Tokens of the first KV slab segment (default 256;
+                       the slab grows 4x per stage)
+  ASR_METRICS          Write the stage timers as JSON to this path
 """
 
 
@@ -70,16 +94,35 @@ def main(argv=None) -> int:
 
     model_path = argv[0]
     language = None
+    sample_opts = {"temperature": 0.0, "top-k": 0, "top-p": 1.0, "seed": 0}
+    timestamps = False
     rest = []
     it = iter(argv[1:])
     for arg in it:
-        if arg in ("--language", "-l"):
+        if arg == "--timestamps":
+            timestamps = True
+        elif arg in ("--language", "-l"):
             language = next(it, None)
             if language is None:
                 print("Error: --language needs a value", file=sys.stderr)
                 return 1
         elif arg.startswith("--language="):
             language = arg.split("=", 1)[1]
+        elif arg.startswith("--") and arg.lstrip("-").split("=")[0] in (
+            sample_opts
+        ):
+            name, eq, val = arg.lstrip("-").partition("=")
+            if not eq:
+                val = next(it, None)
+            if val is None:
+                print(f"Error: --{name} needs a value", file=sys.stderr)
+                return 1
+            try:
+                cast = int if name in ("top-k", "seed") else float
+                sample_opts[name] = cast(val)
+            except ValueError:
+                print(f"Error: bad --{name} value {val!r}", file=sys.stderr)
+                return 1
         elif arg.startswith("--"):
             print(
                 f"Error: option {arg.split('=', 1)[0]} is not supported by "
@@ -115,6 +158,9 @@ def main(argv=None) -> int:
 
     from .errors import AsrError
     from .runtime.engine import AsrEngine, load_audio
+    from .runtime.longform import Segment, attach_words
+    from .runtime.sampling import SamplingParams
+    from .utils.tracing import dump_metrics
 
     device = os.environ.get("ASR_DEVICE", "cuda")
     if device.startswith("cuda") and not torch.cuda.is_available():
@@ -129,23 +175,66 @@ def main(argv=None) -> int:
     max_new = int(os.environ.get("ASR_MAX_NEW_TOKENS", "4096"))
     quantize = os.environ.get("ASR_QUANT") or None
     logger = logging.getLogger("asr")
+
+    def print_segments(segments):
+        for s in segments or []:
+            print(f"[{s.start:.2f} - {s.end:.2f}] {s.text.strip()}")
+            for w in s.words or []:
+                print(f"  [{w.start:.2f} - {w.end:.2f}] {w.word}")
+
+    def finish():
+        metrics_path = os.environ.get("ASR_METRICS")
+        if metrics_path:
+            dump_metrics(metrics_path)
+        return 0
+
     try:
         engine = AsrEngine(model_path, dtype=dtype, max_new_tokens=max_new,
                            device=device, quantize=quantize)
+        sampling = None
+        if sample_opts["temperature"] != 0 or any(
+            sample_opts[k] != d
+            for k, d in (("top-k", 0), ("top-p", 1.0), ("seed", 0))
+        ):
+            # validated whenever any sampling flag was given: a negative
+            # --temperature or a --top-k without --temperature must
+            # error or warn, not silently decode greedily
+            sampling = SamplingParams(
+                temperature=sample_opts["temperature"],
+                top_k=sample_opts["top-k"],
+                top_p=sample_opts["top-p"],
+                seed=sample_opts["seed"],
+            ).validate()
+            if sampling.greedy:
+                logger.warning(
+                    "--top-k/--top-p/--seed have no effect without "
+                    "--temperature > 0; decoding greedily"
+                )
+                sampling = None
         if len(audio_files) == 1:
             logger.info("Transcribing: %s", audio_files[0])
-            result = engine.transcribe(audio_files[0], language)
+            result = engine.transcribe(audio_files[0], language,
+                                       sampling=sampling)
             print(f"Language: {result.language}")
             print(f"Text: {result.text}")
-            return 0
+            if timestamps:
+                print_segments(result.segments)
+            return finish()
         logger.info("Transcribing %d files as one batch", len(audio_files))
         samples = [load_audio(f, 16000) for f in audio_files]
-        results = engine.transcribe_batch(samples, [language] * len(samples))
-        for f, result in zip(audio_files, results):
+        results = engine.transcribe_batch(samples, [language] * len(samples),
+                                          sampling=sampling)
+        for f, s, result in zip(audio_files, samples, results):
             print(f"File: {f}")
             print(f"Language: {result.language}")
             print(f"Text: {result.text}")
-        return 0
+            if timestamps:
+                # one whole-file span per file, as transcribe() gives
+                # short audio
+                print_segments(attach_words(
+                    [Segment(0, 0.0, len(s) / 16000, result.text)]
+                    if result.text.strip() else []))
+        return finish()
     except (AsrError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

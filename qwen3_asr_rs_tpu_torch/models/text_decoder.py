@@ -14,8 +14,12 @@ the kernels) at the attention site.
 Decode steps read each row's stale slab range (``[0, pos)`` for one
 utterance, ``[kv_start_b, slot)`` for a right-aligned batch, where every
 row writes the same slot) plus the current token as an explicit self
-term, then write every layer's fresh K/V at that slot. On CUDA the step
-runs the decode kernel (``ops/kernels/decode_layer.py``) at any B;
+term, then write every layer's fresh K/V at that slot. The position or
+slot is a host int or a 0-d device tensor: the engine's decode loop
+captures a step in a CUDA graph, whose replays advance the slot on the
+device. ``KVCache.grow`` copies a slab into a longer one (the engine's
+segmented slab). On CUDA the step runs the decode kernel
+(``ops/kernels/decode_layer.py``) at any B;
 ``ASR_DECODE_IMPL=scan`` selects the plain per-layer loop, whose
 attention is the K2 kernel (``ASR_DECODE_ATTN=kernel``, the CUDA
 default) or the masked dense path (``dense``, the CPU default).
@@ -108,16 +112,39 @@ class KVCache:
         self.k[l, :, :, :s] = k.to(self.k.dtype)
         self.v[l, :, :, :s] = v.to(self.v.dtype)
 
-    def store_token(self, ks, vs, slot: int) -> None:
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    def store_token(self, ks, vs, slot) -> None:
         """Write one token's fresh K/V (L, B, Hkv, D) of every layer at the
         shared slot, quantized per (layer, row, head) for an int8 slab
-        (JAX ``_write_token_kv``)."""
+        (JAX ``_write_token_kv``). ``slot``: an int, or a 0-d integer
+        device tensor (a step captured in a CUDA graph writes where the
+        graph's own counter points)."""
+        pairs = [(self.k, ks), (self.v, vs)]
         if self.quantized:
             (ks, k_scale), (vs, v_scale) = quantize_kv(ks), quantize_kv(vs)
-            self.k_scale[:, :, :, slot] = k_scale
-            self.v_scale[:, :, :, slot] = v_scale
-        self.k[:, :, :, slot] = ks.to(self.k.dtype)
-        self.v[:, :, :, slot] = vs.to(self.v.dtype)
+            pairs = [(self.k, ks), (self.v, vs), (self.k_scale, k_scale),
+                     (self.v_scale, v_scale)]
+        idx = torch.as_tensor(slot, device=self.k.device).reshape(1).long()
+        for dst, src in pairs:
+            dst.index_copy_(3, idx, src.to(dst.dtype).unsqueeze(3))
+
+    def grow(self, new_len: int) -> "KVCache":
+        """This slab copied into the first slots of a larger zero slab of
+        ``new_len`` slots, int8 scales too (the JAX engine's
+        ``grow_cache``)."""
+        n = self.max_len
+        big = []
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is None:
+                big.append(None)
+                continue
+            g = t.new_zeros(t.shape[:3] + (new_len,) + t.shape[4:])
+            g[:, :, :, :n].copy_(t)
+            big.append(g)
+        return KVCache(*big)
 
     def layer(self, l: int, dtype):
         """Layer ``l``'s slabs (B, Hkv, S, D): dequantized to ``dtype``
@@ -337,39 +364,44 @@ class TextDecoder:
         return eligible and device.type == "cuda" and self.cfg.head_dim == 128
 
     @torch.inference_mode()
-    def decode_step(self, params: Tree, token_ids, pos: int, cache: KVCache,
+    def decode_step(self, params: Tree, token_ids, pos, cache: KVCache,
                     *, fold: bool = False):
-        """Single greedy decode step at host-known position ``pos``, shared
-        by every row (slab slots [0, pos) are live). Returns (logits (B, V)
-        float32 — with ``fold``, token ids (B,) int32 — and the cache
+        """Single greedy decode step at position ``pos``, shared by every
+        row (slab slots [0, pos) are live): an int, or a 0-d integer
+        device tensor (the engine's captured steps). Returns (logits (B,
+        V) float32 — with ``fold``, token ids (B,) int32 — and the cache
         updated in place)."""
-        if not isinstance(pos, int):
+        if isinstance(pos, torch.Tensor) and pos.ndim == 0:
+            cos, sin = self.rotary.lookup_at(pos)
+        elif isinstance(pos, int):
+            cos, sin = self.rotary.lookup_pos(pos)  # (1, D)
+        else:
             raise NotImplementedError(
                 "per-example decode positions (serving's scatter write) are "
-                "not ported yet: pos must be an int; right-aligned batches "
-                "use decode_step_aligned"
+                "not ported yet: pos must be an int or a 0-d tensor; "
+                "right-aligned batches use decode_step_aligned"
             )
         b = token_ids.shape[0]
-        cos, sin = self.rotary.lookup_pos(pos)  # (1, D)
         return self._step(params, token_ids, cos.expand(b, -1),
                           sin.expand(b, -1), cache, None, pos, fold)
 
     @torch.inference_mode()
-    def decode_step_aligned(self, params: Tree, token_ids, slot: int,
-                            kv_start, cache: KVCache, *, fold: bool = False):
+    def decode_step_aligned(self, params: Tree, token_ids, slot, kv_start,
+                            cache: KVCache, *, fold: bool = False):
         """Right-aligned decode step: every row writes the shared slot
-        ``slot`` (== P + step); row b attends to slots [kv_start[b], slot)
-        at position slot - kv_start[b]. Returns what ``decode_step``
-        returns."""
+        ``slot`` (== P + step; an int or a 0-d integer device tensor); row
+        b attends to slots [kv_start[b], slot) at position slot -
+        kv_start[b]. Returns what ``decode_step`` returns."""
         positions = (slot - kv_start)[:, None]  # (B, 1)
         cos, sin = self.rotary.lookup_batch(positions)
         return self._step(params, token_ids, cos[:, 0], sin[:, 0], cache,
                           kv_start, slot, fold)
 
     def _step(self, params: Tree, token_ids, cos, sin, cache: KVCache,
-              start, end: int, fold: bool):
+              start, end, fold: bool):
         """One decode step of every row: cos/sin (B, D), live slab slots
-        [start_b, end) (start None: 0), the fresh K/V written at ``end``.
+        [start_b, end) (start None: 0; ``end`` an int or a 0-d device
+        tensor), the fresh K/V written at ``end``.
         ``fold``: the final RMSNorm, lm_head and argmax run inside the
         decode kernel, which returns token ids in place of the logits."""
         check_params(params)
@@ -402,7 +434,7 @@ class TextDecoder:
             params, token_ids.device, fold_lm=True)
 
     @torch.inference_mode()
-    def decode_step_token(self, params: Tree, token_ids, pos: int,
+    def decode_step_token(self, params: Tree, token_ids, pos,
                           cache: KVCache):
         """Greedy decode step emitting the next token ids (B,); ties break
         on the first index, as jnp.argmax does. Folded (``ASR_FOLD_LM=1``)
@@ -413,7 +445,7 @@ class TextDecoder:
         return (out if fold else torch.argmax(out, dim=-1)), cache
 
     @torch.inference_mode()
-    def decode_step_aligned_token(self, params: Tree, token_ids, slot: int,
+    def decode_step_aligned_token(self, params: Tree, token_ids, slot,
                                   kv_start, cache: KVCache):
         """Right-aligned ``decode_step_token`` (see decode_step_aligned)."""
         fold = self._fold(params, token_ids)
@@ -422,7 +454,7 @@ class TextDecoder:
         return (out if fold else torch.argmax(out, dim=-1)), cache
 
     def _decode_scan(self, params: Tree, hidden, cos, sin, cache: KVCache,
-                     start, end: int):
+                     start, end):
         """Plain per-layer decode over each row's stale slab [start_b, end).
         Returns (hidden (B, H), ks, vs (L, B, Hkv, D))."""
         impl = os.environ.get("ASR_DECODE_ATTN", "auto")
@@ -443,7 +475,7 @@ class TextDecoder:
         return h[:, 0], torch.stack(ks), torch.stack(vs)
 
     def _decode_layer(self, layer: Tree, l: int, h, cos, sin, cache: KVCache,
-                      start, end: int, impl: str):
+                      start, end, impl: str):
         """One decode layer; attention through K2 ('kernel') or the masked
         dense einsums of the JAX scan path ('dense'). The self K/V stay
         unquantized: in the slab dtype, or in h's for an int8 slab."""
@@ -475,7 +507,7 @@ class TextDecoder:
         x = rms_norm(h, layer["post_ln_w"], cfg.rms_norm_eps)
         return residual + _mlp(layer, x), k[:, 0], v[:, 0]
 
-    def _dense_self_attention(self, q, k, v, k_lay, v_lay, start, end: int):
+    def _dense_self_attention(self, q, k, v, k_lay, v_lay, start, end):
         """Masked dense decode attention (JAX ``_decode_layer_masked``):
         slab slots [start_b, end) (start None: 0) plus the self term;
         probabilities normalized first and rounded to the slab dtype

@@ -129,6 +129,20 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def check_not_frozen(what: str, value) -> None:
+    """Raise if a host int would be frozen into a CUDA graph: while the
+    current stream is capturing, a bound such as a decode step's ``end``
+    must be a device tensor, which the graph's replays read afresh."""
+    import torch
+
+    if not isinstance(value, torch.Tensor) and (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise ValueError(
+            f"{what}: a host int is frozen into a captured CUDA graph; "
+            "pass a device tensor")
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -249,6 +249,7 @@ def _launch(what, q, k_slabs, v_slabs, k_self, v_self, layer: int, start,
     nl, _, hkv, s_max, _ = k_slabs.shape
     if not 0 <= layer < nl:
         raise ValueError(f"{what}: layer {layer} out of range")
+    _build.check_not_frozen(f"{what}: end", end)
     start_t, start_v = _index_arg(0 if start is None else start, b, q.device)
     end_t, end_v = _index_arg(end, b, q.device)
     lib = _lib()
@@ -284,7 +285,8 @@ def decode_attention_dma(q, k_slabs, v_slabs, k_self, v_self, layer: int,
                          start, end, *, k_scales=None, v_scales=None,
                          scale: float | None = None):
     """K2 (see module docstring). ``start`` (None, int or (B,) tensor) and
-    ``end`` (int or (B,) tensor) bound the live slots of layer ``layer``;
+    ``end`` (int or (B,) tensor; a tensor while a CUDA graph is captured)
+    bound the live slots of layer ``layer``;
     ``k_scales``/``v_scales`` go with int8 slabs.
 
     CPU tensors run ``decode_attention_dma_plain``; CUDA tensors launch

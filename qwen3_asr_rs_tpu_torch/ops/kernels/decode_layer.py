@@ -357,8 +357,9 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
                         lm_scales=None):
     """One decode step through all layers (see module docstring).
 
-    ``start`` (None, int or (B,) tensor) and ``end`` (int or (B,) tensor)
-    bound each row's live slab slots; ``k_scales``/``v_scales`` go with
+    ``start`` (None, int or (B,) tensor) and ``end`` (int or (B,) tensor;
+    a tensor while a CUDA graph is captured) bound each row's live slab
+    slots; ``k_scales``/``v_scales`` go with
     int8 slabs; ``fold_lm`` with ``final_ln_w`` (H,), ``lm_head`` ((V, H)
     in x's dtype, or int8 (H, V)) and ``lm_scales`` ((V,) float32, int8
     only) returns token ids instead of hidden states. CPU tensors run
@@ -381,6 +382,7 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
     fold, vocab = (_check_fold(x, final_ln_w, lm_head, lm_scales) if fold_lm
                    else (_FOLD_NONE, 0))
     s_max = k_slabs.shape[3]
+    _build.check_not_frozen("decode_layers_fused: end", end)
     start_t = _as_index(0 if start is None else start, b, x.device)
     end_t = _as_index(end, b, x.device)
     stream = _build.stream_of(x)

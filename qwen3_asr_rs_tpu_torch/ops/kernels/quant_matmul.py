@@ -116,13 +116,17 @@ def kernel_plan(r: int, k: int, n: int, f32: bool) -> dict:
 # Per shape: the split-K workspace floats of its launch plan
 _ws_words: dict = {}
 # Per (device, stream): one split-K workspace, grown to the largest plan
-# seen; calls ordered on one stream share it
+# seen; calls ordered on one stream share it. A grown-out workspace is
+# kept: a CUDA graph captured with it goes on writing there.
 _workspaces: dict = {}
+_superseded: list = []
 
 
 def _workspace(device, stream: int, words: int):
     ws = _workspaces.get((device, stream))
     if ws is None or ws.numel() < words:
+        if ws is not None:
+            _superseded.append(ws)
         ws = torch.empty(max(words, 1), dtype=torch.float32, device=device)
         _workspaces[(device, stream)] = ws
     return ws

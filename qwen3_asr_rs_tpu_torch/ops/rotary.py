@@ -106,6 +106,13 @@ class RotaryTable:
         return (torch.cat([cos_half, cos_half], dim=-1),
                 torch.cat([sin_half, sin_half], dim=-1))
 
+    def lookup_at(self, pos):
+        """cos/sin (n, head_dim) at device positions: a 0-d (n = 1) or
+        (n,) integer tensor. A decode step captured in a CUDA graph reads
+        its position here, as a gather on the device: a host int would be
+        frozen into the graph."""
+        return self.lookup_batch(pos.reshape(-1).long())
+
 
 def apply_rotary(x, cos, sin):
     """Rotate ``x`` (B, S, H, D) by cos/sin of shape (S, D) or (B, S, D).

@@ -1,0 +1,70 @@
+"""A decode step captured as a CUDA graph, and its kernels' launches.
+
+``StepGraph`` captures one call of a step function on a side stream
+(``torch.cuda.CUDAGraph``) and replays it. The caller runs the same step
+once eagerly on that stream first, so that every kernel wrapper's
+per-stream scratch exists and every C launcher has set its attributes
+before the capture: nothing is allocated or configured for the first
+time mid-capture. Whatever the step reads and writes must live at fixed
+addresses (the engine's decode state and slabs), and its positions must
+be device tensors: a host int would be frozen into the graph
+(``_build.check_not_frozen``).
+
+Launch counts: a kernel wrapper adds to its ``launches`` counter in
+Python, which a replay does not run. The capture records how much each
+counter in ``COUNTED`` moved while the step was captured (the launches
+the graph holds), takes that back, and every replay adds it again, so
+that the counters count launches on the card, replayed or not. A caller
+may append any object with a ``launches`` counter to ``COUNTED`` (the
+card checks count the lm_head products so).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_dma,
+    decode_attention_slab,
+)
+from ..ops.kernels.decode_layer import decode_layers_fused
+from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.quant_matmul import quant_matmul
+from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
+
+# every kernel wrapper with a launch counter that a step can reach
+COUNTED = [decode_layers_fused, decode_attention_dma, decode_attention_slab,
+           decode_attention, flash_attention, quant_matmul,
+           quant_matvec_int4]
+
+
+class StepGraph:
+    """One capture of ``fn`` (on ``stream``, allocating from the graph
+    memory pool ``pool``, kept as ``.pool``); ``replay()`` enqueues it on
+    the current stream."""
+
+    def __init__(self, fn, stream, pool):
+        self.pool = pool
+        counted = list(COUNTED)
+        before = [w.launches for w in counted]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=pool)
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+            self.launches = [(w, w.launches - n)
+                             for w, n in zip(counted, before)
+                             if w.launches != n]
+        finally:
+            for w, n in zip(counted, before):
+                w.launches = n
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for w, n in self.launches:
+            w.launches += n

@@ -1,34 +1,50 @@
-"""AsrEngine — end-to-end greedy transcription in PyTorch.
+"""AsrEngine — end-to-end transcription in PyTorch.
 
-Port of the greedy paths of ``qwen3_asr_rs_tpu/runtime/engine.py``:
-log-mel -> audio encoder -> prompt embedding with the audio embeddings
-injected at ``AUDIO_OFFSET`` -> prefill -> greedy decode until an EOS
-token or ``max_new_tokens``, for one utterance (left-aligned prompt) or
-a batch (``transcribe_batch``: padded to a power of two with born-done
-rows, one shared chunk bucket, right-aligned prompts, per-row EOS).
-Audio lengths round up to the same chunk buckets and prompt buckets as
-the JAX engine.
+Port of ``qwen3_asr_rs_tpu/runtime/engine.py`` without speculative
+decoding: log-mel -> audio encoder -> prompt embedding with the audio
+embeddings injected at ``AUDIO_OFFSET`` -> prefill -> decode until an EOS
+token or ``max_new_tokens``, greedy or sampled (``sampling=``: the
+temperature, top-k, top-p and seed of ``runtime/sampling.py``), for one
+utterance (left-aligned prompt) or a batch (``transcribe_batch``: padded
+to a power of two with born-done rows, one shared chunk bucket,
+right-aligned prompts, per-row EOS). Audio lengths round up to the same
+chunk buckets and prompt buckets as the JAX engine; ``transcribe`` cuts
+longer audio into overlapped segments (``runtime/longform.py``) and
+attaches time-stamped segments with word times to every result.
 
-Differences from the JAX engine, none of which changes the tokens: the
-decode loop is a Python loop with one host read of the B tokens per
-step (CUDA graphs are later work); mel and the encoder loop over the
-batch's clips instead of ``vmap``; and the KV slab is allocated once at
-its final length instead of in growing segments, without the JAX
-engine's 8/128-slot rounding (masks make the output independent of the
-slab length). Weight quantization follows the JAX engine's ``quantize=``
-modes 'int8', 'int4', 'int4g' (group-wise int4, ``ASR_INT4_GROUP``) and
-'lm8' (with ``ASR_MERGE_QKV`` and ``ASR_LM_BITS``), the KV slab its
-``kv_dtype=`` 'bf16' (the compute dtype) and 'int8' (``ASR_KV``), and
-``ASR_FOLD_LM=1`` folds the lm_head and argmax into the decode kernel,
-whose steps then return token ids (default off, as in JAX). Sampling,
-speculative decoding and long-form audio (beyond the largest bucket) are
-not ported yet and raise.
+The decode loop runs on device state, as the JAX engine's
+``lax.while_loop`` does (``_generate``): the pending token, the tokens
+per row, done flags, the token buffer and the step counter stay on the
+device, and the slab grows in segments (``ASR_DECODE_SEGMENT`` tokens,
+then 4x per stage). On CUDA each step is a CUDA graph replay
+(``runtime/cuda_graph.py``), with one non-blocking read of the done
+flags per chunk of steps and one read of the tokens per transcription.
+Device memory: the first stage's slab and graphs stay with the engine
+per batch size, so that a short transcription captures nothing; a call
+that decodes past the first stage frees them and allocates and captures
+its later stages itself, which it frees at its end.
+
+Differences from the JAX engine, none of which changes the greedy
+tokens: mel and the encoder loop over the batch's clips instead of
+``vmap``; slabs round up to 8 slots, not the JAX engine's 8/128 (masks
+make the output independent of the slab length); the loop stops one
+decode step earlier at the cap (the JAX loop's last step makes a token
+it discards); sampled draws come from a counter-based hash, not JAX's
+random stream. Weight quantization follows the JAX engine's
+``quantize=`` modes 'int8', 'int4', 'int4g' (group-wise int4,
+``ASR_INT4_GROUP``) and 'lm8' (with ``ASR_MERGE_QKV`` and
+``ASR_LM_BITS``), the KV slab its ``kv_dtype=`` 'bf16' (the compute
+dtype) and 'int8' (``ASR_KV``), and ``ASR_FOLD_LM=1`` folds the lm_head
+and argmax into the decode kernel for greedy steps (default off, as in
+JAX). Stage timers (``utils/tracing.py``): ``device_dispatch`` per
+transcription, ``warmup_c{c}_b{b}`` per warmed graph set.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from pathlib import Path
@@ -52,7 +68,11 @@ from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID, AsrTokenizer
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
 from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
+from ..utils.tracing import stage_timer
+from .cuda_graph import StepGraph
+from .longform import Segment, attach_words, transcribe_long
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
+from .sampling import SamplingParams, normalize, sample_token
 
 logger = logging.getLogger(__name__)
 
@@ -71,8 +91,8 @@ class TranscribeResult:
     text: str
     language: str
     raw_output: str
-    # time-stamped spans (the JAX engine's runtime/longform.Segment);
-    # not produced by this port yet
+    # time-stamped spans (runtime/longform.Segment) with word times, set
+    # by transcribe()
     segments: Optional[list] = None
 
 
@@ -151,7 +171,16 @@ class AsrEngine:
             max_pos = max(max_pos, self._prompt_bucket(c) + max_new_tokens + 8)
         self.decoder = TextDecoder(config.text, max_position=max_pos,
                                    device=self.device)
-        # step count and stage times of the last generate() call
+        # decode steps per non-blocking read of the done flags
+        self.decode_chunk = 4
+        # on CUDA, replay each decode step as a captured CUDA graph (False
+        # runs the same step eagerly: the card checks compare the two)
+        self.cuda_graphs = True
+        self._states: dict = {}   # B -> _DecodeState
+        self._arenas: dict = {}   # B -> the first stage's slab storage
+        self._graphs: dict = {}   # _graph_key -> the first stage's StepGraph
+        self._side = self._pool = None  # capture stream, graph memory pool
+        # step counts, slab lengths and stage times of the last call
         self.last_stats: dict = {}
 
     @staticmethod
@@ -182,6 +211,11 @@ class AsrEngine:
         p = AUDIO_OFFSET + num_chunks * tpc + PROMPT_SLACK
         return -(-p // 16) * 16
 
+    def _chunk_bucket(self, samples_list: Sequence[np.ndarray]) -> int:
+        """The chunk bucket that utterances share: the largest any needs."""
+        return max(self._pick_bucket(num_mel_frames(len(s)))
+                   for s in samples_list)
+
     def _pick_bucket(self, n_frames: int) -> int:
         cf = self.config.audio.chunk_frames
         chunks_needed = -(-n_frames // cf)
@@ -190,8 +224,8 @@ class AsrEngine:
                 return c
         raise ValueError(
             f"audio needs {chunks_needed} chunks, exceeding the largest "
-            f"bucket {self.chunk_buckets[-1]}; long-form audio is not "
-            "ported to the PyTorch package yet"
+            f"bucket {self.chunk_buckets[-1]}; use transcribe() which "
+            "segments long audio"
         )
 
     @property
@@ -199,10 +233,29 @@ class AsrEngine:
         cf = self.config.audio.chunk_frames
         return self.chunk_buckets[-1] * cf * 160 / 16000
 
-    def _slab_len(self, p_bucket: int) -> int:
-        return -(-(p_bucket + self.max_new_tokens + 1) // 8) * 8
+    def _segment_caps(self) -> list[int]:
+        """Token caps of the decode stages (the JAX engine's segmented
+        slab): ``ASR_DECODE_SEGMENT`` tokens (default 256), then 4x per
+        stage, the last at ``max_new_tokens``."""
+        max_new = self.max_new_tokens
+        seg = max(1, min(int(os.environ.get("ASR_DECODE_SEGMENT", "256")),
+                         max_new))
+        caps = []
+        while True:
+            caps.append(min(seg, max_new))
+            if seg >= max_new:
+                return caps
+            seg *= 4
+
+    def _slab_len(self, p_bucket: int, cap: Optional[int] = None) -> int:
+        """Slots of a slab for prompt bucket P and a stage of ``cap`` tokens
+        (default: ``max_new_tokens``), rounded up to 8 slots."""
+        cap = self.max_new_tokens if cap is None else cap
+        return -(-(p_bucket + cap + 1) // 8) * 8
 
     def _new_cache(self, batch: int, p_bucket: int) -> KVCache:
+        """A fresh zero slab of the full length: the slab of ``prefill``
+        and ``prefill_batch`` when the caller passes none."""
         return KVCache.zeros(self.config.text, batch, self._slab_len(p_bucket),
                              dtype=self.dtype, device=self.device,
                              quantized=self.kv_quant)
@@ -218,8 +271,7 @@ class AsrEngine:
         cfg = self.config
         cf = cfg.audio.chunk_frames
         tpc = cfg.audio.tokens_per_chunk
-        bucket_chunks = max(self._pick_bucket(num_mel_frames(len(s)))
-                            for s in samples_list)
+        bucket_chunks = self._chunk_bucket(samples_list)
         p_bucket = self._prompt_bucket(bucket_chunks)
         ids = torch.zeros((len(samples_list), p_bucket), dtype=torch.long)
         audio, true_lens = [], []
@@ -245,14 +297,17 @@ class AsrEngine:
         return hidden, true_lens
 
     @torch.inference_mode()
-    def prefill(self, samples: np.ndarray, language: Optional[str] = None):
-        """Mel, encoder, prompt injection and prefill for one utterance.
-        Returns (logits (1, V) at the last prompt token, KV cache,
-        true prompt length)."""
+    def prefill(self, samples: np.ndarray, language: Optional[str] = None,
+                cache: Optional[KVCache] = None):
+        """Mel, encoder, prompt injection and prefill for one utterance,
+        into ``cache`` (a slab of at least the prompt bucket's slots;
+        default ``_new_cache``). Returns (logits (1, V) at the last prompt
+        token, KV cache, true prompt length)."""
         hidden, (true_len,) = self._embed_prompts([samples], [language],
                                                   aligned=False)
         p_bucket = hidden.shape[1]
-        cache = self._new_cache(1, p_bucket)
+        if cache is None:
+            cache = self._new_cache(1, p_bucket)
         logits, cache = self.decoder.prefill(
             self.dec_params, hidden, torch.arange(p_bucket, device=self.device),
             cache, true_len,
@@ -260,90 +315,285 @@ class AsrEngine:
         return logits, cache, true_len
 
     @torch.inference_mode()
-    def generate(self, samples: np.ndarray,
-                 language: Optional[str] = None) -> list[int]:
-        """Greedy token ids for one utterance (EOS excluded).
-
-        Fills ``last_stats``: decode steps run, and host-clock seconds of
-        the part up to the first token (mel, encoder, prefill; it ends in
-        the first token's host read) and of the decode loop.
-        """
-        t0 = time.perf_counter()
-        logits, cache, true_len = self.prefill(samples, language)
-        tok = torch.argmax(logits, dim=-1)
-        return self._decode_loop(
-            tok, np.ones(1, bool), t0,
-            lambda tok, step: self.decoder.decode_step_token(
-                self.dec_params, tok, true_len + step, cache)[0],
-        )[0]
-
-    @torch.inference_mode()
     def prefill_batch(self, samples_list: Sequence[np.ndarray],
-                      languages: Sequence[Optional[str]]):
+                      languages: Sequence[Optional[str]],
+                      cache: Optional[KVCache] = None):
         """Mel, encoder, prompt injection and right-aligned prefill for B
-        utterances: row b's prompt spans slots [kv_start_b, P). Returns
-        (logits (B, V) at slot P - 1, KV cache, kv_start (B,) int32, P)."""
+        utterances into ``cache`` (default ``_new_cache``): row b's prompt
+        spans slots [kv_start_b, P). Returns (logits (B, V) at slot P - 1,
+        KV cache, kv_start (B,) int32, P)."""
         hidden, true_lens = self._embed_prompts(samples_list, languages,
                                                 aligned=True)
         b, p_bucket = hidden.shape[:2]
         kv_start = torch.tensor([p_bucket - n for n in true_lens],
                                 dtype=torch.int32, device=self.device)
-        cache = self._new_cache(b, p_bucket)
+        if cache is None:
+            cache = self._new_cache(b, p_bucket)
         logits, cache = self.decoder.prefill_aligned(self.dec_params, hidden,
                                                      kv_start, cache)
         return logits, cache, kv_start, p_bucket
 
+    def _slab0(self, b: int, n: int) -> KVCache:
+        """The first stage's ``n``-slot slab for B = ``b``: a view of the
+        first elements of B's arena, so that a captured step keeps its
+        address from call to call. A longer slab than the arena holds
+        replaces the arena (``_release``)."""
+        cfg = self.config.text
+        shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, n,
+                 cfg.head_dim)
+        numel = math.prod(shape)
+        arena = self._arenas.get(b)
+        if arena is None or arena[0].numel() < numel:
+            self._release(b)
+            kw = dict(device=self.device)
+            dt = torch.int8 if self.kv_quant else self.dtype
+            arena = [torch.zeros(numel, dtype=dt, **kw) for _ in range(2)]
+            if self.kv_quant:
+                arena += [torch.zeros(numel // cfg.head_dim,
+                                      dtype=torch.float32, **kw)
+                          for _ in range(2)]
+            self._arenas[b] = arena
+        views = [t[:numel].view(shape) for t in arena[:2]]
+        views += [t[:numel // cfg.head_dim].view(shape[:-1])
+                  for t in arena[2:]]
+        return KVCache(*views)
+
+    def _release(self, b: int) -> None:
+        """Free B's first-stage arena and the graphs captured on it."""
+        self._arenas.pop(b, None)
+        self._graphs = {k: g for k, g in self._graphs.items() if k[0] != b}
+        self._drop_dead_pool()
+
+    def _drop_dead_pool(self) -> None:
+        """Forget the graph memory pool once no kept graph uses it: a pool
+        whose graphs are all gone may not take a capture again (a PyTorch
+        allocator assert), so the next capture takes a new one."""
+        if not any(g.pool == self._pool for g in self._graphs.values()):
+            self._pool = None
+
+    def _state(self, b: int) -> "_DecodeState":
+        if b not in self._states:
+            self._states[b] = _DecodeState.zeros(b, self.max_new_tokens,
+                                                 self.device)
+        return self._states[b]
+
+    def _step_fn(self, st: "_DecodeState", cache: KVCache, aligned: bool,
+                 sampling: SamplingParams):
+        """One decode step over the device state (the body of the JAX
+        engine's loop, ``engine.py:731-771``): step ``st.step`` writes slot
+        ``st.base + st.step`` (base: the prompt length, or the prompt
+        bucket P of a right-aligned batch), and its token, the greedy one
+        or a draw keyed by the token's index, is appended."""
+        dec, params = self.decoder, self.dec_params
+        sample = not sampling.greedy
+
+        def step():
+            slot = st.base + st.step
+            if sample:  # the logits variant, never the fold, as in JAX
+                if aligned:
+                    logits, _ = dec.decode_step_aligned(
+                        params, st.tok, slot, st.kv_start, cache)
+                else:
+                    logits, _ = dec.decode_step(params, st.tok, slot, cache)
+                tok = sample_token(logits, st.seed, st.step + 1, st.temp,
+                                   sampling.top_k, sampling.top_p)
+            elif aligned:
+                tok, _ = dec.decode_step_aligned_token(
+                    params, st.tok, slot, st.kv_start, cache)
+            else:
+                tok, _ = dec.decode_step_token(params, st.tok, slot, cache)
+            st.append(tok)
+            st.step.add_(1)
+
+        return step
+
+    def _graph_key(self, b: int, cache: KVCache, aligned: bool,
+                   sampling: SamplingParams) -> tuple:
+        """What a captured first-stage step depends on: B, the slab length,
+        the layout, greedy or sampled with its static filters, and the
+        environment switches that the step reads while it is captured."""
+        variant = (("sample", sampling.top_k, sampling.top_p)
+                   if not sampling.greedy else ("greedy",))
+        env = tuple(os.environ.get(k) for k in (
+            "ASR_FOLD_LM", "ASR_DECODE_IMPL", "ASR_DECODE_ATTN"))
+        return (b, cache.max_len, aligned, variant, env)
+
+    def _capture(self, fn) -> StepGraph:
+        """Run ``fn`` once eagerly on the capture stream (a real decode
+        step: it creates the wrappers' per-stream scratch), then capture
+        it into the engine's graph memory pool. Returns the graph."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            fn()
+        graph = StepGraph(fn, self._side, self._pool)
+        main.wait_stream(self._side)
+        return graph
+
     @torch.inference_mode()
+    def _generate(self, samples_list: Sequence[np.ndarray],
+                  languages: Sequence[Optional[str]], live: np.ndarray,
+                  sampling: Optional[SamplingParams] = None,
+                  warmup: bool = False) -> list[list[int]]:
+        """Token ids (EOS excluded) for B utterances: one prefill (B = 1
+        ``prefill``, else ``prefill_batch``) into the first stage's slab
+        and the decode loop on device state. Rows with ``live`` False are
+        born done and emit nothing.
+
+        The loop runs in stages of growing slabs (``_segment_caps``),
+        each of up to cap - 1 decode steps (max_new_tokens - 1 in all);
+        a stage grows the slab into the next one (``KVCache.grow``) and is
+        skipped once every row is done. Steps run in chunks of
+        ``decode_chunk`` (4); after each chunk one non-blocking read of
+        the done flags is enqueued, and the host waits for a chunk's flags
+        only after it has enqueued the next chunk. On CUDA each step is a
+        replay of a CUDA graph (one eager step on the capture stream
+        first): the first stage's graphs are kept per ``_graph_key`` with
+        its slab (``_slab0``); a call that leaves the first stage frees
+        them (``_release``), and captures its later stages' graphs, which
+        go with their slabs at its end. With ``cuda_graphs`` False, or on
+        the CPU, the same step runs eagerly. ``warmup``: the first stage's
+        graph is captured and nothing is replayed.
+
+        Fills ``last_stats``: ``decode_steps`` (steps run, eager and
+        replayed), ``replays``, ``captures``, ``steps_past_done`` (steps
+        run after the step that made every row done), ``slab_lens`` (the
+        stages' slab lengths), ``n_gen`` (tokens per row),
+        ``prefill_seconds`` (host clock up to the first token,
+        synchronized), ``decode_seconds`` (host clock of the loop, to its
+        one read of the tokens) and, on CUDA, ``decode_gpu_seconds`` (the
+        GPU's elapsed time over the same loop, between CUDA events: the
+        card's busy time plus any time the host left it idle).
+        """
+        sampling = normalize(sampling)
+        t0 = time.perf_counter()
+        live = np.asarray(live, bool)
+        b = len(samples_list)
+        p = self._prompt_bucket(self._chunk_bucket(samples_list))
+        caps = self._segment_caps()
+        st = self._state(b)
+        cache = self._slab0(b, self._slab_len(p, caps[0]))
+        aligned = b > 1
+        if aligned:
+            logits, _, kv_start, _ = self.prefill_batch(samples_list,
+                                                        languages, cache)
+            st.kv_start.copy_(kv_start)
+            base = p
+        else:
+            logits, _, base = self.prefill(samples_list[0], languages[0],
+                                           cache)
+        st.start(live, base, sampling)
+        if sampling.greedy:
+            tok0 = torch.argmax(logits, dim=-1)
+        else:  # the prefill's token takes draw 0
+            tok0 = sample_token(logits, st.seed, 0, st.temp, sampling.top_k,
+                                sampling.top_p)
+        st.append(tok0)
+        cuda = self.device.type == "cuda"
+        graphs = cuda and self.cuda_graphs
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        t_first = time.perf_counter()
+
+        flags = _DoneFlags(self.device)
+        # decode steps: one per token but the prefill's
+        total = self.max_new_tokens - 1
+        steps = replays = captures = 0
+        all_done = not live.any()
+        slab_lens = [cache.max_len]
+        try:
+            for i, cap in enumerate(caps):
+                if i > 0:
+                    if all_done:
+                        break
+                    cache = cache.grow(self._slab_len(p, cap))
+                    if i == 1:
+                        self._release(b)
+                    slab_lens.append(cache.max_len)
+                stop = min(cap, total)
+                if steps >= stop or (all_done and not warmup):
+                    continue
+                fn = self._step_fn(st, cache, aligned, sampling)
+                graph = None
+                if graphs:  # the first stage's graphs are kept
+                    key = (self._graph_key(b, cache, aligned, sampling)
+                           if i == 0 else None)
+                    graph = self._graphs.get(key)
+                    if graph is None:
+                        graph = self._capture(fn)
+                        captures += 1
+                        steps += 1
+                        if key is not None:
+                            self._graphs[key] = graph
+                if warmup:
+                    continue
+                run = fn if graph is None else graph.replay
+                pending = None
+                while steps < stop:
+                    n = min(self.decode_chunk, stop - steps)
+                    for _ in range(n):
+                        run()
+                    steps += n
+                    replays += n if graph is not None else 0
+                    posted = flags.post(st.done)
+                    if pending is not None and flags.read(pending):
+                        all_done = True
+                        break
+                    pending = posted
+                else:
+                    if pending is not None:
+                        all_done = flags.read(pending)
+        finally:  # the later stages' graphs go with this call
+            self._drop_dead_pool()
+        if cuda:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+        n_gen = st.n_gen.tolist()
+        out_buf = st.out_buf.cpu()
+        done = st.done.tolist()
+        t_end = time.perf_counter()
+        # decode steps each row needed: its EOS is token n_gen (the step
+        # n_gen - 1 made it); a row without one needed every step
+        need = [g if d else total
+                for g, d, lv in zip(n_gen, done, live) if lv]
+        self.last_stats = {
+            "decode_steps": steps,
+            "replays": replays,
+            "captures": captures,
+            "steps_past_done": max(steps - max(need, default=0), 0),
+            "slab_lens": slab_lens,
+            "prefill_seconds": t_first - t0,
+            "decode_seconds": t_end - t_first,
+            "n_gen": n_gen,
+        }
+        if cuda:
+            self.last_stats["decode_gpu_seconds"] = (
+                ev0.elapsed_time(ev1) / 1e3)
+        return [out_buf[i, :g].tolist() for i, g in enumerate(n_gen)]
+
+    def generate(self, samples: np.ndarray, language: Optional[str] = None,
+                 sampling: Optional[SamplingParams] = None) -> list[int]:
+        """Token ids (EOS excluded) for one utterance; fills ``last_stats``
+        (see ``_generate``)."""
+        return self._generate([samples], [language], np.ones(1, bool),
+                              sampling)[0]
+
     def generate_batch(self, samples_list: Sequence[np.ndarray],
                        languages: Sequence[Optional[str]],
-                       live: np.ndarray) -> list[list[int]]:
-        """Greedy token ids (EOS excluded) for B > 1 utterances in one
+                       live: np.ndarray,
+                       sampling: Optional[SamplingParams] = None
+                       ) -> list[list[int]]:
+        """Token ids (EOS excluded) for B > 1 utterances in one
         right-aligned batch (``prefill_batch``); decode step i writes slot
         P + i for every row. Rows with ``live`` False are born done and
         emit no token. Fills ``last_stats`` as ``generate`` does."""
-        t0 = time.perf_counter()
-        logits, cache, kv_start, p_bucket = self.prefill_batch(samples_list,
-                                                               languages)
-        tok = torch.argmax(logits, dim=-1)
-        return self._decode_loop(
-            tok, np.asarray(live, bool), t0,
-            lambda tok, step: self.decoder.decode_step_aligned_token(
-                self.dec_params, tok, p_bucket + step, kv_start, cache)[0],
-        )
-
-    def _decode_loop(self, tok, live: np.ndarray, t0: float, step_fn):
-        """Greedy decode of B rows from the prefill's tokens ``tok`` (B,):
-        each iteration reads the B tokens with one host read, appends each
-        live row's token until its EOS, and stops when every row is done
-        or a row holds ``max_new_tokens``; ``step_fn(tok, i)`` runs decode
-        step i. Returns the tokens of every row (none for rows not live)."""
-        done = ~live
-        generated: list[list[int]] = [[] for _ in range(len(live))]
-        steps = 0
-        t_first = None
-        while steps < self.max_new_tokens:
-            toks = tok.tolist()  # the one host sync per step
-            if t_first is None:
-                t_first = time.perf_counter()
-            for i, t in enumerate(toks):
-                if not done[i]:
-                    if t in EOS_TOKEN_IDS:
-                        done[i] = True
-                    else:
-                        generated[i].append(t)
-            if done.all() or steps + 1 == self.max_new_tokens:
-                break
-            tok = step_fn(tok, steps)
-            steps += 1
-        t_end = time.perf_counter()
-        t_first = t_end if t_first is None else t_first
-        self.last_stats = {
-            "decode_steps": steps,
-            "prefill_seconds": t_first - t0,
-            "decode_seconds": t_end - t_first,
-            "n_gen": [len(g) for g in generated],
-        }
-        return generated
+        return self._generate(samples_list, languages, live, sampling)
 
     def _result(self, generated: list[int],
                 language: Optional[str]) -> TranscribeResult:
@@ -351,24 +601,52 @@ class AsrEngine:
         lang, text = parse_asr_output(raw, language is not None)
         return TranscribeResult(text=text, language=lang, raw_output=raw)
 
+    def warmup(self, batch_sizes: Sequence[int] = (1,),
+               buckets: Optional[Sequence[int]] = None,
+               sampling: Optional[SamplingParams] = None) -> None:
+        """Capture the first stage's decode graph of each (bucket, batch
+        size) — of the sampled variant with ``sampling``'s static top_k /
+        top_p, else the greedy one — so that no request that ends within
+        the first stage pays a capture. Each runs the whole path with
+        every row born done: the prefill, the first stage's slab and one
+        eager step for the capture, and no replay. Buckets go largest
+        first, so that each batch size's arena is sized once."""
+        if buckets is None:
+            buckets = list(self.chunk_buckets)
+        cf = self.config.audio.chunk_frames
+        for c in sorted(buckets, reverse=True):
+            clip = np.zeros(int(c * cf * 160), np.float32)
+            for b in batch_sizes:
+                with stage_timer(f"warmup_c{c}_b{b}"):
+                    self.transcribe_batch([clip] * b, sampling=sampling,
+                                          _warmup=True)
+                logger.info("warmed bucket %d chunks, batch %d", c, b)
+
     def transcribe_samples(self, samples: np.ndarray,
-                           language: Optional[str] = None) -> TranscribeResult:
-        """Transcribe mono 16 kHz f32 samples."""
-        generated = self.generate(samples, language)
-        logger.info("Generated %d tokens", len(generated))
-        return self._result(generated, language)
+                           language: Optional[str] = None,
+                           sampling: Optional[SamplingParams] = None
+                           ) -> TranscribeResult:
+        """Transcribe mono 16 kHz f32 samples (one bucket)."""
+        return self.transcribe_batch([samples], [language],
+                                     sampling=sampling)[0]
 
     def transcribe_batch(self, samples_list: list,
-                         languages: Optional[list] = None) -> list:
+                         languages: Optional[list] = None,
+                         sampling: Optional[SamplingParams] = None,
+                         _warmup: bool = False) -> list:
         """Transcribe a batch of utterances in one prefill and one decode
-        loop with per-example EOS (the JAX engine's ``transcribe_batch``,
-        greedy): the decode step streams the weights once for all rows.
+        loop with per-example EOS (the JAX engine's ``transcribe_batch``):
+        the decode step streams the weights once for all rows.
 
         The batch pads to the next power of two by repeating the last
         utterance; pad rows are born done and emit nothing. A single
-        utterance takes the left-aligned B = 1 path. ``last_stats["n_gen"]``
-        holds the token count of every row, pad rows included.
+        utterance takes the left-aligned B = 1 path. ``sampling``
+        (``SamplingParams``) switches the argmax for temperature / top-k /
+        top-p sampling on the device; None or temperature <= 0 is greedy.
+        ``last_stats["n_gen"]`` holds the token count of every row, pad
+        rows included. ``_warmup`` (see ``warmup``): every row born done.
         """
+        sampling = normalize(sampling)
         n_real = len(samples_list)
         if n_real == 0:
             return []
@@ -379,25 +657,140 @@ class AsrEngine:
                 f"languages has {len(languages)} entries for {n_real} "
                 "utterances"
             )
-        if n_real == 1:
-            return [self.transcribe_samples(samples_list[0], languages[0])]
         b = 1 << (n_real - 1).bit_length()
         samples_list = list(samples_list) + [samples_list[-1]] * (b - n_real)
         languages = list(languages) + [languages[-1]] * (b - n_real)
-        live = np.arange(b) < n_real
-        generated = self.generate_batch(samples_list, languages, live)
+        live = (np.arange(b) < n_real) & (not _warmup)
+        with stage_timer("device_dispatch"):
+            generated = self._generate(samples_list, languages, live,
+                                       sampling, warmup=_warmup)
         logger.info("Generated %s tokens", self.last_stats["n_gen"][:n_real])
         return [self._result(g, lang)
                 for g, lang in zip(generated[:n_real], languages)]
 
     def transcribe(self, audio_path: str | Path,
-                   language: Optional[str] = None) -> TranscribeResult:
-        """Transcribe an audio file that fits the largest bucket."""
+                   language: Optional[str] = None,
+                   segment_seconds: Optional[float] = None,
+                   overlap_seconds: float = 2.0,
+                   sampling: Optional[SamplingParams] = None
+                   ) -> TranscribeResult:
+        """Transcribe an audio file of any length.
+
+        Audio up to the largest bucket is one dispatch whose result
+        carries one segment (with word times) spanning the file. Longer
+        audio is transcribed in overlapped segments stitched at the
+        transcript level (``runtime/longform.py``). Long-form is greedy
+        only: overlap stitching matches the two segments' transcripts at
+        the junction, which stochastic decoding would break.
+        """
+        sampling = normalize(sampling)
         samples = load_audio(audio_path, 16000)
-        if len(samples) > int(self.max_bucket_seconds * 16000):
-            raise ValueError(
-                f"audio of {len(samples) / 16000:.1f}s exceeds the largest "
-                f"bucket ({self.max_bucket_seconds:.0f}s); long-form audio "
-                "is not ported to the PyTorch package yet"
+        # clamp to bucket capacity: a larger segment_seconds would cut
+        # segments no bucket can hold
+        max_seconds = min(segment_seconds or self.max_bucket_seconds,
+                          self.max_bucket_seconds)
+        if len(samples) <= int(max_seconds * 16000):
+            r = self.transcribe_samples(samples, language, sampling=sampling)
+            seg = attach_words(
+                [Segment(0, 0.0, len(samples) / 16000, r.text)]
+                if r.text.strip() else []
             )
-        return self.transcribe_samples(samples, language)
+            return dataclasses.replace(r, segments=seg)
+        if not sampling.greedy:
+            raise ValueError(
+                "sampling is not supported on long-form audio: overlap "
+                "stitching needs deterministic transcripts at segment "
+                "junctions (pass sampling=None, or transcribe segments "
+                "yourself via transcribe_samples)"
+            )
+        logger.info("Long-form audio (%.1fs): overlapped segments of %.0fs",
+                    len(samples) / 16000, max_seconds)
+        return transcribe_long(self, samples, language,
+                               segment_seconds=max_seconds,
+                               overlap_seconds=overlap_seconds)
+
+
+@dataclasses.dataclass
+class _DecodeState:
+    """The decode loop's device state for B rows, at fixed addresses (the
+    captured steps read and write it): the pending token, tokens emitted
+    and done flag per row, the token buffer, the step counter, and the
+    per-call inputs the steps read (the slot base, right-aligned rows'
+    first slots, the sampling seed and temperature)."""
+
+    tok: torch.Tensor       # (B,) int64
+    n_gen: torch.Tensor     # (B,) int64
+    done: torch.Tensor      # (B,) bool
+    out_buf: torch.Tensor   # (B, max_new) int64
+    step: torch.Tensor      # () int64, decode steps run
+    base: torch.Tensor      # () int64
+    kv_start: torch.Tensor  # (B,) int32
+    seed: torch.Tensor      # () int64
+    temp: torch.Tensor      # () float32
+
+    @classmethod
+    def zeros(cls, b: int, max_new: int, device) -> "_DecodeState":
+        i64 = dict(dtype=torch.int64, device=device)
+        return cls(tok=torch.zeros(b, **i64), n_gen=torch.zeros(b, **i64),
+                   done=torch.zeros(b, dtype=torch.bool, device=device),
+                   out_buf=torch.zeros((b, max_new), **i64),
+                   step=torch.zeros((), **i64), base=torch.zeros((), **i64),
+                   kv_start=torch.zeros(b, dtype=torch.int32, device=device),
+                   seed=torch.zeros((), **i64),
+                   temp=torch.zeros((), dtype=torch.float32, device=device))
+
+    def start(self, live: np.ndarray, base: int,
+              sampling: SamplingParams) -> None:
+        """Reset for a call: no token emitted, rows not ``live`` done."""
+        self.n_gen.zero_()
+        self.step.zero_()
+        self.done.copy_(torch.from_numpy(~live))
+        self.base.fill_(base)
+        self.seed.fill_(sampling.seed)
+        self.temp.fill_(sampling.temperature)
+
+    def append(self, tok) -> None:
+        """JAX's loop body on the new token ``tok`` (B,): write it at
+        out_buf[b, n_gen[b]] unless the row is done (so that steps after
+        every row is done change neither out_buf nor n_gen), mark rows
+        whose token is an EOS done, count the token of every row not
+        done."""
+        idx = self.n_gen[:, None]
+        cur = self.out_buf.gather(1, idx)
+        tok = tok.to(torch.int64)
+        self.out_buf.scatter_(1, idx, torch.where(self.done[:, None], cur,
+                                                  tok[:, None]))
+        is_eos = (tok == EOS_TOKEN_IDS[0]) | (tok == EOS_TOKEN_IDS[1])
+        self.done.logical_or_(is_eos)
+        self.n_gen.add_((~self.done).to(torch.int64))
+        self.tok.copy_(tok)
+
+
+class _DoneFlags:
+    """Non-blocking reads of "every row is done": ``post`` enqueues the
+    flag's copy to pinned host memory and an event; ``read`` waits for
+    that event. Two host slots alternate: a slot is read before it is
+    posted again. On the CPU the flag is read at once."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.host = torch.zeros(2, dtype=torch.bool, pin_memory=True)
+            self.i = 0
+
+    def post(self, done):
+        if not self.cuda:
+            return bool(done.all())
+        slot = self.host[self.i]
+        self.i ^= 1
+        slot.copy_(done.all(), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return slot, event
+
+    def read(self, posted) -> bool:
+        if not self.cuda:
+            return posted
+        slot, event = posted
+        event.synchronize()
+        return bool(slot)

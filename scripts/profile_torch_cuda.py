@@ -28,8 +28,9 @@ card:
    device microseconds (exclusive of the overlap of kernels launched with
    programmatic dependent launch, device_times) and weight or K/V bytes
    per call, from torch.profiler's device events.
-3. decode_step — ``decode_step_token`` as the engine's loop runs it (one
-   host read of the token per step) on the 4 s clip: wall per step with
+3. decode_step — ``decode_step_token`` with one host read of the token
+   per step (the engine's loop before its CUDA graphs; chip_smoke.py's
+   phase 7 times the graph loop) on the 4 s clip: wall per step with
    and without the profiler, device time by kernel class per step, and
    the device's busy share under the profiler.
 4. prefill — ``AsrEngine.prefill`` of each clip of ``--prefill`` (30

@@ -1,6 +1,8 @@
 """The port's copies of the JAX package's JAX-free modules (``config``,
-``errors``, ``tokenizer``, ``audio``) against the originals, on the same
-inputs: equal results, exactly."""
+``errors``, ``tokenizer``, ``audio``, ``runtime/longform``, ``utils/wer``)
+against the originals, on the same inputs: equal results, exactly (the
+long-form functions and the error rates are also held in
+``test_torch_longform.py`` and ``test_torch_tracing.py``)."""
 
 import dataclasses
 import json
@@ -77,3 +79,18 @@ def test_tokenizer_special_ids_and_errors_equal():
             tcls = getattr(terrors, name)
             assert [c.__name__ for c in tcls.__mro__] == [
                 c.__name__ for c in cls.__mro__]
+
+
+@pytest.mark.parametrize("path", ["runtime/longform.py", "utils/wer.py"])
+def test_copies_hold_the_originals_code(path):
+    """Copies whose relative imports name the same modules in both
+    packages: the original's code (its syntax tree, docstrings included;
+    comments may differ) under a one-line note naming it."""
+    import ast
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    copy = (repo / "qwen3_asr_rs_tpu_torch" / path).read_text()
+    assert copy.startswith(f"# A copy of qwen3_asr_rs_tpu/{path}")
+    original = (repo / "qwen3_asr_rs_tpu" / path).read_text()
+    assert ast.dump(ast.parse(copy)) == ast.dump(ast.parse(original))

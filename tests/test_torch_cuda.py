@@ -790,3 +790,93 @@ def test_cuda_gemv_split_rule_mirror(cuda):
                     k, half // dl.GEMV_TN, r, 2, 1, dl.GEMV_KS, nb8)
                 assert plan["splits"] == -(-k // plan["kb"])
                 assert not plan["resident"]
+
+
+def _engine_two_layers(**kw):
+    """AsrEngine at the real 0.6B widths, two decoder and two encoder
+    layers, bf16, buckets (1, 2): prompts of two lengths."""
+    from qwen3_asr_rs_tpu_torch.config import AsrConfig
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.weights.convert import init_encoder_params_np
+
+    cfg = AsrConfig()
+    text = dataclasses.replace(cfg.text, num_hidden_layers=2)
+    audio = dataclasses.replace(cfg.audio, encoder_layers=2)
+    cfg = dataclasses.replace(cfg, thinker_config=dataclasses.replace(
+        cfg.thinker_config, text_config=text, audio_config=audio))
+    return AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=12,
+                     chunk_buckets=(1, 2), config=cfg,
+                     params=(init_encoder_params_np(audio),
+                             init_decoder_params_np(text)),
+                     tokenizer=smoke.StubTokenizer(), device="cuda", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_cuda_graph_loop_matches_eager(cuda, kv, monkeypatch):
+    """The decode loop's graph replays give the eager step's tokens, over
+    a slab grow (ASR_DECODE_SEGMENT=4: caps [4, 12]) and in one stage
+    (12: caps [12]), at B = 1 and 4, with a first-stage arena that grows
+    between a 1-chunk and a 2-chunk prompt. A one-stage call keeps its
+    graph for the next call of its key, a two-stage call frees its
+    batch size's first stage and captures its second stage itself,
+    while other batch sizes' graphs stay in the shared memory pool; K1
+    counts one launch per step."""
+    import numpy as np
+
+    eng = _engine_two_layers(kv_dtype=kv)
+    clips = [(np.random.default_rng(i).standard_normal(n) * 0.1).astype(
+        np.float32) for i, n in enumerate((8000, 24000, 12000))]
+    kept = set()  # (B, first clip, segment) whose graph the engine keeps
+    for batch, segment in (([clips[0]], "12"), ([clips[1]], "12"),
+                           (clips, "12"), (clips, "4"), ([clips[0]], "12"),
+                           ([clips[1]], "12"), ([clips[1]], "4")):
+        monkeypatch.setenv("ASR_DECODE_SEGMENT", segment)
+        b = 1 if len(batch) == 1 else 4
+        arena = eng._arenas[b][0].numel() if b in eng._arenas else 0
+        eng.cuda_graphs = True
+        n = decode_layers_fused.launches
+        got = [r.raw_output for r in eng.transcribe_batch(batch)]
+        st = eng.last_stats
+        assert decode_layers_fused.launches - n == st["decode_steps"] == 11
+        stages = 1 if segment == "12" else 2
+        assert len(st["slab_lens"]) == stages
+        assert st["replays"] + st["captures"] == 11
+        key = (b, len(batch[0]), segment)
+        assert st["captures"] == (0 if key in kept else stages)
+        if stages == 2 or eng._arenas[b][0].numel() > arena:
+            kept = {k for k in kept if k[0] != b}  # released or regrown
+        if stages == 1:
+            kept.add(key)
+        assert (b in eng._arenas) == (stages == 1)
+        eng.cuda_graphs = False
+        assert [r.raw_output for r in eng.transcribe_batch(batch)] == got
+        assert eng.last_stats["replays"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_capture_refuses_a_host_int_end(cuda):
+    """A host int end would be frozen into a captured graph: the wrappers
+    raise while the stream is capturing, and take a device tensor."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ks = torch.randn((1, 1, 8, 64, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    q = torch.randn((1, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k_self = torch.randn((1, 8, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    end = torch.tensor([40], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        decode_attention_dma(q, ks, ks, k_self, k_self, 0, None, end)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(ValueError, match="frozen"):
+                decode_attention_dma(q, ks, ks, k_self, k_self, 0, None, 40)
+            out = decode_attention_dma(q, ks, ks, k_self, k_self, 0, None, end)
+        finally:
+            graph.capture_end()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = decode_attention_dma_plain(q, ks, ks, k_self, k_self, 0, None, end)
+    assert (out.float() - want.float()).abs().max() < 3e-2

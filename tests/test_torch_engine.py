@@ -263,7 +263,7 @@ def test_cli_errors(model_and_wav, capsys, monkeypatch, tmp_path):
         ([model], "Usage"),
         ([model, tmp_path / "missing.wav"], "Error: Audio file not found"),
         ([tmp_path / "nomodel", wav], "Error: Model directory not found"),
-        ([model, wav, "--temperature", "0.5"], "Error: option --temperature"),
+        ([model, wav, "--draft", "int4"], "Error: option --draft"),
         ([model, wav, "--language"], "Error: --language needs a value"),
     ]
     for argv, msg in cases:
@@ -304,3 +304,109 @@ def test_cli_warns_on_existing_language_like_file(model_and_wav, capsys,
                       if r.levelno == logging.WARNING and r.name == "asr"]
         assert any(m.startswith(want) for m in logs[name]), (name, logs)
     assert logs["port"] == logs["jax"]
+
+
+def _error_lines(err):
+    return [ln for ln in err.splitlines() if ln.startswith("Error:")]
+
+
+@pytest.fixture
+def words_model_and_wav(model_and_wav, tmp_path):
+    """The synthetic checkpoint with an embedding / lm_head table that is
+    zero but for the rows of "hello" (14) and "world" (15), u and -u: every
+    token the model emits is one of the two words."""
+    from qwen3_asr_rs_tpu.weights.export import save_checkpoint
+    from test_weights_roundtrip import write_word_tokenizer
+
+    cfg = _tiny()
+    _, wav = model_and_wav
+    table = np.zeros((cfg.text.vocab_size, cfg.text.hidden_size), np.float32)
+    table[14] = np.random.default_rng(4).standard_normal(cfg.text.hidden_size)
+    table[15] = -table[14]
+    dec = dict(init_decoder_params(cfg.text, dtype=jnp.float32),
+               embed=jnp.asarray(table), lm_head=jnp.asarray(table))
+    model = tmp_path / "words_model"
+    save_checkpoint(model, init_encoder_params(cfg.audio, dtype=jnp.float32),
+                    dec, cfg)
+    write_word_tokenizer(model)
+    return model, wav
+
+
+def test_cli_timestamps_match_jax_cli(words_model_and_wav, capsys,
+                                      monkeypatch):
+    """--timestamps: the `[start - end] text` segment line and the
+    indented word lines, single file and batched, as the JAX CLI prints."""
+    from qwen3_asr_rs_tpu.cli import main as jax_main
+    from qwen3_asr_rs_tpu_torch.cli import main
+
+    model, wav = words_model_and_wav
+    monkeypatch.setenv("ASR_MAX_NEW_TOKENS", "3")
+    monkeypatch.setenv("ASR_DTYPE", "float32")
+    monkeypatch.setenv("ASR_DEVICE", "cpu")
+    for argv in ([model, wav, "--timestamps"],
+                 [model, wav, wav, "--timestamps"]):
+        rc, out, _ = _run_cli(main, argv, capsys)
+        jrc, jout, _ = _run_cli(jax_main, argv, capsys)
+        assert rc == 0 and (rc, out) == (jrc, jout)
+        assert out.count("\n[0.00 - 0.70] ") == len(argv) - 2
+        assert out.count("\n  [") == 3 * (len(argv) - 2)
+
+
+def test_cli_sampling_flags_match_jax_cli(model_and_wav, capsys,
+                                          monkeypatch):
+    """The sampling flags' errors are the JAX CLI's; a sampled run is
+    deterministic per seed; flags without a temperature decode greedily."""
+    from qwen3_asr_rs_tpu.cli import main as jax_main
+    from qwen3_asr_rs_tpu_torch.cli import main
+
+    model, wav = model_and_wav
+    monkeypatch.setenv("ASR_MAX_NEW_TOKENS", "3")
+    monkeypatch.setenv("ASR_DTYPE", "float32")
+    monkeypatch.setenv("ASR_DEVICE", "cpu")
+    for extra in (["--top-p", "0"], ["--temperature", "-1"],
+                  ["--top-k=-2", "--temperature", "1"], ["--top-k", "abc"],
+                  ["--temperature=x"], ["--seed"]):
+        rc, out, err = _run_cli(main, [model, wav, *extra], capsys)
+        jrc, jout, jerr = _run_cli(jax_main, [model, wav, *extra], capsys)
+        assert rc == jrc == 1 and out == jout == "", extra
+        assert _error_lines(err) == _error_lines(jerr) != [], extra
+    sampled = [model, wav, "--temperature", "0.8", "--top-k", "20",
+               "--top-p=0.9", "--seed", "3"]
+    rc, out, _ = _run_cli(main, sampled, capsys)
+    assert rc == 0 and (rc, out) == _run_cli(main, sampled, capsys)[:2]
+    greedy_out = _run_cli(main, [model, wav], capsys)[1]
+    rc, out, _ = _run_cli(main, [model, wav, "--seed", "5"], capsys)
+    jrc, jout, _ = _run_cli(jax_main, [model, wav, "--seed", "5"], capsys)
+    assert rc == jrc == 0 and out == jout == greedy_out
+
+
+def test_cli_metrics_keys_match_jax_cli(model_and_wav, capsys, monkeypatch,
+                                        tmp_path):
+    """ASR_METRICS=<path>: the stage timers as JSON, the JAX CLI's keys."""
+    from collections import defaultdict
+
+    import json
+
+    from qwen3_asr_rs_tpu.cli import main as jax_main
+    from qwen3_asr_rs_tpu.utils import tracing as jtracing
+    from qwen3_asr_rs_tpu_torch.cli import main
+    from qwen3_asr_rs_tpu_torch.utils import tracing
+
+    model, wav = model_and_wav
+    monkeypatch.setenv("ASR_MAX_NEW_TOKENS", "2")
+    monkeypatch.setenv("ASR_DTYPE", "float32")
+    monkeypatch.setenv("ASR_DEVICE", "cpu")
+    data = {}
+    for name, fn, mod in (("port", main, tracing), ("jax", jax_main,
+                                                   jtracing)):
+        for attr in ("totals", "counts"):
+            monkeypatch.setattr(mod.GLOBAL_TIMINGS, attr,
+                                defaultdict(getattr(mod.GLOBAL_TIMINGS,
+                                                    attr).default_factory))
+        path = tmp_path / f"{name}.json"
+        monkeypatch.setenv("ASR_METRICS", str(path))
+        assert _run_cli(fn, [model, wav, wav], capsys)[0] == 0
+        data[name] = json.loads(path.read_text())
+    assert set(data["port"]) == set(data["jax"]) == {"device_dispatch"}
+    assert data["port"]["device_dispatch"]["count"] == 1
+    assert set(data["port"]["device_dispatch"]) == {"total_ms", "count"}
