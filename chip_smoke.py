@@ -17,7 +17,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              unmerged weights quantized by the port's own quantizer), K3,
              K4 (int4 lm_head at 1, 8 and 32 rows) and K5 (the int8
              prefill linears at the rows of the 30 s and 300 s clips and
-             of the 5-clip batch, a ragged shape, the lm_head at 1, 8, 16
+             of the 5-clip batch, the same linears at an int8 serving
+             step's 1 and 8 rows, a ragged shape, the lm_head at 1, 8, 16
              and 32 rows: each with its device time, its bound and two
              library calls, bf16 x element by element against the
              float64 product); then K1 at B = 2, 8, 32 with per-row
@@ -94,6 +95,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              one B = 2 batch, stitched). Every run's launch counts hold
              with the replays counted. Phases 4-6 run the same graphs
              through the engine.
+8. serving — the continuous batcher (runtime/serving.py: every slot at
+             its own position, K2 at per-row ends, one CUDA graph per
+             segment variant and precision) at full width: a float32
+             pool of 4 slots on 4 / 8 / 15 s clips, tokens equal to the
+             float32 offline engine's (where not, the step and both
+             paths' top-2 logits, and a failure unless the two tokens'
+             logits lie within SERVING_TIE); a float32 pool with
+             serving_precision="auto" on 4 / 15 s clips, every segment
+             int8, tokens equal (with the same tie rule) to offline
+             decode steps over the pool's own int8 tree after the
+             engine's prefill; bf16, 8 slots after
+             warmup: a burst of 4 / 8 / 15 / 30 / 4 / 8 / 120 s clips
+             (batched, chunked and segmented-encode admission) with a
+             sampled request (T 0.7, top-p 0.9) submitted mid-flight,
+             no capture during it; 16 and 32 slots of 4 s clips; an
+             int8 KV pool; serving_precision="auto" (int8 segments with
+             K5 at low occupancy); per run: latency p50/p95, aggregate
+             xRT, tokens/s, ms per decode step (wall, GPU elapsed from
+             CUDA events around each segment; in a steady window
+             profiled on its own, GPU elapsed and busy over the same
+             segments), admission GPU ms per kind, replays, captures,
+             slab, kept and peak GiB, and launch counts (K2 28 per
+             decode step, K1 never, K5 113 per int8 step; the kernels
+             line gives each run's measured count per step); then an
+             in-process HTTP server on 127.0.0.1 (/healthz,
+             /transcribe, /v1/audio/transcriptions: text equal to the
+             same request submitted directly). The kernels phase also
+             holds K2 at distinct per-row ends (B = 8, S = 2048, one row
+             at end 0, bf16 and int8 slabs) against its plain version,
+             with device time and SDPA's over a mask.
 
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -102,6 +133,7 @@ last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -261,10 +293,13 @@ K1_QUANT = (("int8 merged", 8, True), ("int4 merged", 4, True),
 # K4's rows: one decode step, and batched steps of 8 and 32 rows
 K4_ROWS = (1, 8, 32)
 # K5's prefill rows (the 30 s prompt, the 5-clip batch's 8 x 432 and the
-# 300 s prompt; float32 x at the first and last), its four linears (K, N),
-# a ragged shape (R, K, N: no tile, stage or 16-byte multiple) and the
-# lm_head's rows (a decode step, batched steps of 8, 16 and 32 rows)
+# 300 s prompt; float32 x at the first and last), its decode rows (an int8
+# serving segment's step at 1 and 8 live slots: the GEMV blocks, split-K
+# at K = 2048 and 3072), its four linears (K, N), a ragged shape (R, K, N:
+# no tile, stage or 16-byte multiple) and the lm_head's rows (a decode
+# step, batched steps of 8, 16 and 32 rows)
 K5_ROWS = (432, 3456, 4736)
+K5_DECODE_ROWS = (1, 8)
 K5_ROWS_F32 = (432, 4736)
 K5_LINEARS = (("qkv_w", 1024, 4096), ("o_w", 2048, 1024),
               ("gateup_w", 1024, 6144), ("down_w", 3072, 1024))
@@ -282,6 +317,11 @@ K1_BATCH = (2, 8, 32)
 # K1 at B > 1 with merged quantized weights: (bits, batch sizes)
 K1_BATCH_QUANT = ((8, (8,)), (4, (8, 32)))
 KV8_CASES = ((1, 360, 301), (8, 360, 301), (1, 4992, 4737), (8, 4992, 4737))
+# K2 at distinct per-row ends (serving's route: every slot at its own
+# position; an empty slot at end 0 attends only to its own K/V), start
+# None, on an S-slot slab
+K2_ROW_ENDS = (0, 1, 37, 217, 1000, 2047, 64, 511)
+K2_ROW_END_S = 2048
 # Qwen3-ASR-0.6B decoder dims
 L, HQ, HKV, D, H, V = 28, 16, 8, 128, 1024, 151936
 
@@ -788,6 +828,7 @@ def kernel_checks(torch, dec_params_f32):
     int4g_kernel_checks(torch, dec_params_f32, gen, results)
     fold_kernel_checks(torch, dec_params_f32, gen, results)
     slab_kernel_checks(torch, gen, results)
+    k2_row_end_checks(torch, gen, results)
     gemv_kernel_checks(torch, gen, results)
     k1_layout_launches(torch, dec_params_f32, gen, results)
     return results
@@ -854,10 +895,11 @@ def quant_kernel_checks(torch, dec_params_f32, gen, results):
 
 def k5_cases(bf16: bool = True) -> list:
     """(weight, rows, K, N, float32 logits) of K5's cases: layer 0's merged
-    linears over the prefill rows (K5_ROWS; float32 x: K5_ROWS_F32), the
-    ragged shape, the lm_head at K5_LM_ROWS rows (float32 x: one)."""
+    linears over the prefill rows (K5_ROWS; float32 x: K5_ROWS_F32) and,
+    bf16 x, the decode rows (K5_DECODE_ROWS), the ragged shape, the
+    lm_head at K5_LM_ROWS rows (float32 x: one)."""
     out = [(name, rows, k, n, False)
-           for rows in (K5_ROWS if bf16 else K5_ROWS_F32)
+           for rows in (K5_ROWS + K5_DECODE_ROWS if bf16 else K5_ROWS_F32)
            for name, k, n in K5_LINEARS]
     out.append(("ragged", *K5_RAGGED, False))
     out += [("lm_head", rows, H, V, True)
@@ -1328,6 +1370,68 @@ def slab_kernel_checks(torch, gen, results):
                 work=attn_work(q, k3, first, ends),
             )
             del k3, v3
+    torch.cuda.empty_cache()
+
+
+def sdpa_rows(torch, q, ks, vs, k_self, v_self, layer, ends):
+    """One PyTorch call computing K2's function at per-row ends: SDPA with
+    GQA over the whole slab with the self K/V appended and a boolean mask
+    of each row's live slots and its self slot (made here, untimed)."""
+    b, _, s, _ = ks[layer].shape
+    k = torch.cat([ks[layer], k_self[:, :, None]], 2)
+    v = torch.cat([vs[layer], v_self[:, :, None]], 2)
+    slot = torch.arange(s + 1, device=q.device)[None, :]
+    end = torch.tensor(ends, device=q.device)[:, None]
+    mask = ((slot < end) | (slot == s))[:, None, None, :]
+    qq = q[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qq, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def k2_row_end_checks(torch, gen, results):
+    """Phase 3, serving's K2 route: B = 8 rows at the distinct ends of
+    K2_ROW_ENDS (one at 0: only its own K/V) with start None, on bf16
+    and int8 slabs (bf16 queries), each against its plain version and
+    element by element against it from float32 queries, with device
+    times; the bf16 case also times SDPA with a mask over the same rows
+    (one call)."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import quantize_kv
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_dma, decode_attention_dma_plain)
+
+    dev = torch.device("cuda")
+    b, s, dtype = len(K2_ROW_ENDS), K2_ROW_END_S, torch.bfloat16
+    ends = torch.tensor(K2_ROW_ENDS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, HQ, D), generator=gen, device=dev).to(dtype)
+    k_self, v_self = (torch.randn((b, HKV, D), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+    for int8 in (False, True):
+        raw = [torch.randn((L, b, HKV, s, D), generator=gen, device=dev)
+               for _ in range(2)]
+        if int8:
+            (ks, kscale), (vs, vscale) = (quantize_kv(t) for t in raw)
+            kw = dict(k_scales=kscale, v_scales=vscale)
+        else:
+            ks, vs = (t.to(dtype) for t in raw)
+            kw = {}
+        del raw
+        check_case(
+            torch, results, "decode_attention_dma", dtype,
+            f"{'int8 slab ' if int8 else ''}per-row ends B={b} S={s} "
+            f"start=None end={list(K2_ROW_ENDS)} layer=27",
+            lambda: decode_attention_dma(q, ks, vs, k_self, v_self, 27, None,
+                                         ends, **kw),
+            lambda: decode_attention_dma_plain(q, ks, vs, k_self, v_self, 27,
+                                               None, ends, **kw),
+            reference=lambda: decode_attention_dma_plain(
+                q.float(), ks, vs, k_self, v_self, 27, None, ends, **kw),
+            work=attn_work(q, ks, [0] * b, K2_ROW_ENDS, int8=int8),
+            library=None if int8 else sdpa_rows(torch, q, ks, vs, k_self,
+                                                v_self, 27, K2_ROW_ENDS),
+            device=True,
+        )
+        del ks, vs
+        kw.clear()
     torch.cuda.empty_cache()
 
 
@@ -2142,6 +2246,537 @@ def graph_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     return launches
 
 
+# the kernels whose launches per serving decode step the kernels line
+# gives, measured in each counted run (K5: per int8 step where the run
+# had any)
+SERVING_KERNELS = ("decode_attention_dma", "quant_matmul",
+                   "decode_layers_fused")
+# phase 8: the mixed burst's clips (seconds; 30 s and 120 s prompts are
+# chunked, 120 s also encoded in window groups), the sampled request
+# submitted mid-flight, the slot-scaling pools, the float32 pool, and the
+# float32 auto pool (two requests: every segment int8)
+SERVING_BURST = (4, 8, 15, 30, 4, 8, 120)
+SERVING_SAMPLED = dict(temperature=0.7, top_p=0.9)
+SERVING_SCALING = (16, 32)
+SERVING_F32 = (4, 8, 15)
+SERVING_F32_AUTO = (4, 15)
+# the greedy tokens of a float32 pool and the offline engine may differ
+# only where the two best logits lie closer than this (a tie that the
+# two paths' summation orders can flip)
+SERVING_TIE = 1e-4
+# scheduler steps (one segment each) timed, then profiled, in a steady
+# window of a pool
+SERVING_STEADY_STEPS = 4
+SERVING_PROFILE_STEPS = 3
+
+
+class SegmentClock:
+    """The GPU elapsed time of a batcher's decode segments: CUDA events
+    recorded around each enqueued segment (no host wait), and the
+    precision each segment ran; admissions likewise, per kind."""
+
+    def __init__(self, torch, batcher):
+        self.torch, self.b = torch, batcher
+        self.segments, self.precisions = [], []
+        self.admissions = {}  # kind -> [(event, event)]
+        self._wrap("_dispatch_segment", self.segments, self._segment_kind)
+        self._wrap("_admit_rows", None,
+                   lambda rows: ("monolithic" if len({r[0] for r in rows})
+                                 == 1 else f"batched {len(rows)}"))
+        for name in ("_start_chunked", "_advance_encode", "_advance_prefill"):
+            self._wrap(name, None, lambda *a, _n=name: f"chunked{_n}")
+
+    def _segment_kind(self, *args):
+        self.precisions.append(self.b._segment_params()[0])
+        return None
+
+    def _wrap(self, name, store, kind):
+        orig = getattr(self.b, name)
+        torch = self.torch
+
+        def timed(*args, **kw):
+            k = kind(*args)
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(*args, **kw)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            (store if store is not None
+             else self.admissions.setdefault(k, [])).append((a, e))
+            return out
+
+        setattr(self.b, name, timed)
+
+    def reset(self):
+        self.segments.clear()
+        self.precisions.clear()
+        self.admissions.clear()
+
+    def report(self) -> dict:
+        self.torch.cuda.synchronize()
+        steps = self.b.segment_steps * len(self.segments)
+        gpu = sum(a.elapsed_time(e) for a, e in self.segments)
+        return {"segments": len(self.segments),
+                "gpu_ms_per_step": gpu / steps if steps else None,
+                "admission_gpu_ms": {
+                    k: statistics.mean(a.elapsed_time(e) for a, e in v)
+                    for k, v in sorted(self.admissions.items())},
+                "admission_calls": {k: len(v) for k, v in
+                                    sorted(self.admissions.items())}}
+
+
+def serving_burst(torch, batcher, clock, reqs, mid=None, after_steps=2):
+    """Submit ``reqs`` at once (and ``mid`` after ``after_steps``
+    scheduler steps), drive the batcher until all finish, with the launch
+    counters set to 0 just before and read just after. Returns (wall s,
+    {kernel: launches}, requests)."""
+    fns = kernel_wrappers()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    clock.reset()
+    for k in ("segments", "steps", "replays", "captures"):
+        batcher.stats[k] = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        batcher.submit(r)
+    allr = list(reqs)
+    n = 0
+    while not all(r.event.is_set() for r in allr):
+        batcher.step(block_timeout=0.001)
+        n += 1
+        if mid is not None and n == after_steps:
+            batcher.submit(mid)
+            allr.append(mid)
+        if n > 20000:
+            raise AssertionError("serving: the batcher did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in allr:
+        if r.error is not None:
+            raise AssertionError(f"serving: a request failed: {r.error!r}")
+    return wall, {k: fn.launches for k, fn in kernel_wrappers().items()}, allr
+
+
+def serving_steady(torch, batcher, clock, clips) -> dict:
+    """A pool's decode step with every slot decoding and nothing to
+    admit: a burst of ``clips`` admitted, two segments enqueued, then
+    SERVING_STEADY_STEPS scheduler steps timed (wall on the host clock:
+    each step waits for the previous segment; GPU elapsed from the
+    clock's events), then, with nothing in flight, SERVING_PROFILE_STEPS
+    more under torch.profiler (device activity only), which give GPU
+    elapsed and busy over the same segments: the clock's events around
+    the segments enqueued in the window, and the union of the window's
+    device intervals (every one from those segments), each per decode
+    step (busy counts its steps by K2's kernels, 28 per step, since the
+    profiler may lose events); the rest driven to the end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3_asr_rs_tpu_torch.runtime.serving import Request
+
+    reqs = [Request(c) for c in clips]
+    for r in reqs:
+        batcher.submit(r)
+    batcher.step(block_timeout=0.001)
+    batcher.step(block_timeout=0.001)
+    clock.reset()
+    t0 = time.perf_counter()
+    for _ in range(SERVING_STEADY_STEPS):
+        batcher.step(block_timeout=0.001)
+    wall = time.perf_counter() - t0
+    gpu = clock.report()["gpu_ms_per_step"]
+    torch.cuda.synchronize()
+    clock.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SERVING_PROFILE_STEPS):
+            batcher.step(block_timeout=0.001)
+        torch.cuda.synchronize()
+    window = clock.report()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    while not all(r.event.is_set() for r in reqs):
+        batcher.step(block_timeout=0.001)
+    steps = sum("attn_kernel" in e.name for e in events) / L
+    busy = busy_us(events) / 1e3 / steps if steps else None
+    gpu_w = window["gpu_ms_per_step"]
+    return {"wall_ms_per_step": 1e3 * wall / (SERVING_STEADY_STEPS
+                                              * batcher.segment_steps),
+            "gpu_ms_per_step": gpu,
+            "profiled_gpu_ms_per_step": gpu_w, "busy_ms_per_step": busy,
+            "busy_share": busy / gpu_w if busy else None,
+            "profiled_steps": steps,
+            "profiled_segment_steps": window["segments"]
+            * batcher.segment_steps,
+            "device_events": len(events)}
+
+
+def serving_admission(torch, batcher, samples) -> dict:
+    """One monolithic admission of ``samples`` into slot 0 of an idle
+    pool, repeated: host wall (synchronized, the median of 3), and in a
+    profiled one its device kernels and busy ms; the slot is freed after
+    each."""
+    from qwen3_asr_rs_tpu_torch.runtime.serving import Request
+
+    req = Request(samples)
+    prep = batcher._prepare(req)
+
+    def admit():
+        batcher._admit_rows([(0, req, prep)])
+        batcher.slots[0].request = None
+        batcher._set_slot_state(0, 0, 0, True)
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    events = device_events(torch, admit, 1)
+    return {"host_wall_ms": statistics.median(walls),
+            "device_kernels": len(events),
+            "busy_ms": busy_us(events) / 1e3}
+
+
+def served_tokens(r) -> list:
+    """A served request's token ids (StubTokenizer's text)."""
+    return [int(t) for t in r.result.raw_output.split()]
+
+
+def serving_gap(torch, engine, samples, want, got, params=None) -> dict:
+    """Where a float32 pool's tokens ``got`` first leave the offline
+    engine's ``want``: both paths teacher-forced on the offline prefix
+    from one prefill (the engine's), decoding over ``params`` (default
+    the engine's; the offline step with a shared position, the serving
+    step with a per-row one), the top-2 logits of each there and the
+    largest gap between the two tokens' logits."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import KVCache
+
+    dec = engine.decoder
+    params = engine.dec_params if params is None else params
+    t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    logits, cache_o, base = engine.prefill(samples)
+    cache_s = KVCache(k=cache_o.k.clone(), v=cache_o.v.clone())
+    lo = ls = logits
+    for i in range(t):
+        ids = torch.tensor([want[i]], device="cuda")
+        lo, _ = dec.decode_step(params, ids, base + i, cache_o)
+        ls, _ = dec.decode_step(params, ids,
+                                torch.tensor([base + i], device="cuda"),
+                                cache_s)
+    pair = [want[t], got[t]]
+    out = {"step": t, "tokens": pair}
+    gap = 0.0
+    for name, lg in (("offline", lo), ("serving", ls)):
+        top = torch.topk(lg[0].float(), 2)
+        out[name] = {"top2_ids": top.indices.tolist(),
+                     "top2_logits": top.values.tolist()}
+        gap = max(gap, abs(float(lg[0, pair[0]] - lg[0, pair[1]])))
+    out["gap"] = gap
+    return out
+
+
+def offline_tokens(torch, engine, params, samples) -> list:
+    """Greedy token ids (EOS excluded) of one utterance as a pool decodes
+    it over ``params``: the engine's prefill and first token (admission
+    runs the engine's own weights), then offline decode steps at a shared
+    position over ``params``, to an EOS or the engine's
+    max_new_tokens."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import EOS_TOKEN_IDS
+
+    logits, cache, base = engine.prefill(samples)
+    toks = []
+    tok = int(logits[0].argmax())
+    while tok not in EOS_TOKEN_IDS:
+        toks.append(tok)
+        if len(toks) == engine.max_new_tokens:
+            break
+        logits, _ = engine.decoder.decode_step(
+            params, torch.tensor([tok], device="cuda"),
+            base + len(toks) - 1, cache)
+        tok = int(logits[0].argmax())
+    return toks
+
+
+def pool_memory(torch, batcher, base: int, peak: int) -> dict:
+    """A pool's slab GiB, and the device memory it keeps and peaked at
+    above ``base`` (allocated before it was built)."""
+    c = batcher.cache
+    slab = nbytes(c.k, c.v, c.k_scale, c.v_scale)
+    return {"slab_gib": slab / 2**30,
+            "kept_gib": (torch.cuda.memory_allocated() - base) / 2**30,
+            "peak_gib": (peak - base) / 2**30}
+
+
+def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
+    """Phase 8 (see the module docstring). Returns ({run: {kernel:
+    launches}} of the counted serving runs, {kernel: {run: launches per
+    decode step}}, K5's per int8 step where the run had any)."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine, load_audio
+    from qwen3_asr_rs_tpu_torch.runtime.serving import (
+        ContinuousBatcher, Request)
+
+    launches = {}
+    per_step = {k: {} for k in SERVING_KERNELS}
+    clips = dict(audio)
+    write_wav(tmp / "clip_120s.wav", 120, 8)
+    clips[120] = load_audio(tmp / "clip_120s.wav", 16000)
+
+    def check(label, got, steps, k5_steps=0):
+        want = {"decode_layers_fused": 0, "decode_attention_dma": L * steps,
+                "flash_attention": 0, "quant_matvec_int4": 0,
+                "quant_matmul": (4 * L + 1) * k5_steps,
+                "decode_attention_slab": 0, "decode_attention": 0}
+        check_launches(f"serving {label}", got, want)
+        launches[f"serving {label}"] = got
+        for k in SERVING_KERNELS:
+            n = k5_steps if k == "quant_matmul" and k5_steps else steps
+            per_step[k][label] = got[k] / n
+
+    def pool(engine, **kw):
+        gc.collect()  # a pool's wrapped methods form a cycle
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        b = ContinuousBatcher(engine, **kw)
+        return b, SegmentClock(torch, b), base
+
+    def row_of(label, b, clock, wall, got, reqs, base, extra=None):
+        audio_s = sum(len(r.samples) / 16000 for r in reqs)
+        toks = sum(len(r.result.raw_output.split()) for r in reqs)
+        lat = sorted(r.finish_time - r.submit_time for r in reqs)
+        steps = b.stats["steps"]
+        row = {"phase": "serving", "case": label, "slots": b.n_slots,
+               "requests": len(reqs), "audio_s": audio_s, "tokens": toks,
+               "wall_s": wall, "xRT": audio_s / wall,
+               "tokens_per_s": toks / wall,
+               "latency_s": {"p50": lat[len(lat) // 2],
+                             "p95": lat[min(len(lat) - 1,
+                                            int(0.95 * len(lat)))],
+                             "all": lat},
+               "decode_steps": steps, "replays": b.stats["replays"],
+               "captures": b.stats["captures"],
+               "k1_launches": got["decode_layers_fused"],
+               "k2_launches": got["decode_attention_dma"],
+               "k5_launches": got["quant_matmul"],
+               "k2_per_step": got["decode_attention_dma"] / steps
+               if steps else None,
+               **clock.report(),
+               **pool_memory(torch, b, base,
+                             torch.cuda.max_memory_allocated()),
+               "card": card}
+        row.update(extra or {})
+        emit(row)
+        return row
+
+    # 1. float32, 4 slots: tokens equal to the offline float32 engine's
+    engine32 = AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
+                         config=config, params=(enc32, dec32),
+                         tokenizer=StubTokenizer(), device="cuda")
+    f32 = [clips[c] for c in SERVING_F32]
+    want = [engine32.generate(c) for c in f32]
+    b, clock, base = pool(engine32, n_slots=4)
+    wall, got, reqs = serving_burst(torch, b, clock,
+                                    [Request(c) for c in f32])
+    check("f32 4 slots", got, b.stats["steps"])
+    gaps = [serving_gap(torch, engine32, c, w, served_tokens(r))
+            for c, w, r in zip(f32, want, reqs) if served_tokens(r) != w]
+    row_of("f32 4 slots", b, clock, wall, got, reqs, base,
+           {"tokens_equal": [served_tokens(r) == w
+                             for r, w in zip(reqs, want)],
+            "divergences": gaps})
+    if any(g["gap"] >= SERVING_TIE for g in gaps):
+        raise AssertionError(f"serving f32: tokens differ from the offline "
+                             f"engine's without a tie: {gaps}")
+    del b, clock, reqs
+    torch.cuda.empty_cache()
+
+    # 1b. float32, serving_precision="auto" with two requests (at most
+    # ASR_SERVING_INT8_MAX_OCC live slots: every segment int8, K5 on the
+    # four linears at the live rows and the lm_head), tokens equal to the
+    # offline steps over the pool's own int8 tree (offline_tokens), with
+    # the same tie rule
+    b, clock, base = pool(engine32, n_slots=4, serving_precision="auto")
+    params8 = b._params_by_precision["int8"]
+    f32_auto = [clips[c] for c in SERVING_F32_AUTO]
+    want = [offline_tokens(torch, engine32, params8, c) for c in f32_auto]
+    wall, got, reqs = serving_burst(torch, b, clock,
+                                    [Request(c) for c in f32_auto])
+    precisions = list(clock.precisions)
+    check("f32 auto precision", got, b.stats["steps"],
+          b.segment_steps * precisions.count("int8"))
+    gaps = [serving_gap(torch, engine32, c, w, served_tokens(r), params8)
+            for c, w, r in zip(f32_auto, want, reqs)
+            if served_tokens(r) != w]
+    row_of("f32 auto precision", b, clock, wall, got, reqs, base,
+           {"precisions": precisions,
+            "tokens_equal": [served_tokens(r) == w
+                             for r, w in zip(reqs, want)],
+            "divergences": gaps})
+    if set(precisions) != {"int8"}:
+        raise AssertionError(f"serving f32 auto: segment precisions "
+                             f"{precisions}")
+    if any(g["gap"] >= SERVING_TIE for g in gaps):
+        raise AssertionError(f"serving f32 auto: int8 tokens differ from "
+                             f"the offline int8 steps' without a tie: "
+                             f"{gaps}")
+    del b, clock, engine32, params8, reqs
+    torch.cuda.empty_cache()
+
+    # 2. bf16, 8 slots: warmup, then the mixed burst with a sampled
+    # request mid-flight
+    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                       config=config, params=(enc32, dec32),
+                       tokenizer=StubTokenizer(), device="cuda")
+    b, clock, base = pool(engine, n_slots=8)
+    t0 = time.perf_counter()
+    b.warmup(buckets=sorted({engine._pick_bucket(-(-len(clips[c]) // 160))
+                             for c in SERVING_BURST}))
+    warm = {"warmup_s": time.perf_counter() - t0,
+            "graphs": sorted(map(list, b._graphs))}
+    burst = [Request(clips[c]) for c in SERVING_BURST]
+    sampled = Request(clips[4], **SERVING_SAMPLED)
+    wall, got, reqs = serving_burst(torch, b, clock, burst, mid=sampled)
+    check("bf16 8 slots burst", got, b.stats["steps"])
+    row = row_of("bf16 8 slots burst", b, clock, wall, got, reqs, base,
+                 {**warm, "clip_seconds": list(SERVING_BURST) + [4],
+                  "sampled": SERVING_SAMPLED,
+                  "latency_by_clip_s": [r.finish_time - r.submit_time
+                                        for r in reqs]})
+    if row["captures"]:
+        raise AssertionError("serving: a live burst captured a graph that "
+                             "warmup left out")
+    # the greedy requests' tokens beside the offline engine's: reported,
+    # not gated (in bf16, cuBLAS picks other kernels for other row counts,
+    # so the two paths round differently)
+    offline = [engine.generate(r.samples) for r in reqs[:-1]]
+    emit({"phase": "serving", "case": "bf16 8 slots burst against offline",
+          "tokens_equal": [served_tokens(r) == o
+                           for r, o in zip(reqs, offline)],
+          "first_difference": [
+              next((i for i, (x, y) in enumerate(zip(served_tokens(r), o))
+                    if x != y), None) for r, o in zip(reqs, offline)],
+          "card": card})
+    emit({"phase": "serving", "case": "bf16 8 slots steady",
+          **serving_steady(torch, b, clock, [clips[4]] * 8),
+          "admission_4s": serving_admission(torch, b, clips[4]),
+          "card": card})
+
+    # 3. the HTTP server on this pool's engine: healthz, /transcribe and
+    # the OpenAI route against the same request submitted directly
+    serving_http(torch, engine, tmp, clips, card)
+    del b, clock
+    torch.cuda.empty_cache()
+
+    # 4. slot scaling: 16 and 32 slots of 4 s requests
+    for n in SERVING_SCALING:
+        b, clock, base = pool(engine, n_slots=n)
+        b.warmup(buckets=[engine._pick_bucket(-(-len(clips[4]) // 160))])
+        wall, got, reqs = serving_burst(
+            torch, b, clock, [Request(clips[4]) for _ in range(n)])
+        check(f"bf16 {n} slots", got, b.stats["steps"])
+        row_of(f"bf16 {n} slots", b, clock, wall, got, reqs, base)
+        emit({"phase": "serving", "case": f"bf16 {n} slots steady",
+              **serving_steady(torch, b, clock, [clips[4]] * n),
+              "card": card})
+        del b, clock
+        torch.cuda.empty_cache()
+
+    # 5. the int8 KV pool, and serving_precision="auto" (int8 segments at
+    # low occupancy: K5 for the four int8 linears and the lm_head)
+    b, clock, base = pool(engine, n_slots=8, kv_dtype="int8")
+    b.warmup(buckets=[engine._pick_bucket(-(-len(clips[4]) // 160))])
+    wall, got, reqs = serving_burst(torch, b, clock,
+                                    [Request(clips[4]) for _ in range(8)])
+    check("bf16 weights int8 KV 8 slots", got, b.stats["steps"])
+    row_of("bf16 weights int8 KV 8 slots", b, clock, wall, got, reqs, base)
+    emit({"phase": "serving", "case": "bf16 weights int8 KV 8 slots steady",
+          **serving_steady(torch, b, clock, [clips[4]] * 8), "card": card})
+    del b, clock
+    torch.cuda.empty_cache()
+    b, clock, base = pool(engine, n_slots=8, serving_precision="auto")
+    b.warmup(buckets=[engine._pick_bucket(-(-len(clips[4]) // 160))])
+    # one request: int8 segments; eight, six of them capped at 16 tokens:
+    # bf16 segments, then int8 ones once two slots are left
+    for n in (1, 8):
+        wall, got, reqs = serving_burst(
+            torch, b, clock, [Request(clips[4], max_new_tokens=(
+                16 if i >= 2 else None)) for i in range(n)])
+        precisions = list(clock.precisions)
+        k5_steps = b.segment_steps * precisions.count("int8")
+        check(f"auto precision {n}", got, b.stats["steps"], k5_steps)
+        row_of(f"auto precision {n}", b, clock, wall, got, reqs, base,
+               {"precisions": precisions})
+        if set(precisions) != ({"int8"} if n == 1 else {"int8", "bf16"}):
+            raise AssertionError(f"serving auto, {n} requests: segment "
+                                 f"precisions {precisions}")
+    del b, clock, engine
+    torch.cuda.empty_cache()
+    return launches, per_step
+
+
+def serving_http(torch, engine, tmp, clips, card) -> None:
+    """An in-process server on 127.0.0.1 over a 4-slot worker on
+    ``engine``: /healthz, then the 4 s WAV through /transcribe and
+    /v1/audio/transcriptions, each text equal to the same Request
+    submitted to the worker directly."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from qwen3_asr_rs_tpu_torch.runtime.server import (
+        BatchingWorker, make_handler)
+    from qwen3_asr_rs_tpu_torch.runtime.serving import Request
+
+    worker = BatchingWorker(engine, max_batch=4)
+    worker.batcher.warmup(buckets=[engine._pick_bucket(
+        -(-len(clips[4]) // 160))])
+    worker.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        body = (tmp / "clip_4s.wav").read_bytes()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{url}/transcribe", data=body, method="POST"),
+                timeout=300) as r:
+            plain = json.loads(r.read())
+        plain_s = time.perf_counter() - t0
+        boundary = "smokeboundary"
+        form = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f'name="file"; filename="a.wav"\r\n'
+                f"Content-Type: audio/wav\r\n\r\n").encode() + body + (
+                    f"\r\n--{boundary}--\r\n").encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{url}/v1/audio/transcriptions", data=form, method="POST",
+                headers={"Content-Type":
+                         f"multipart/form-data; boundary={boundary}"}),
+                timeout=300) as r:
+            oai = json.loads(r.read())
+        direct = Request(clips[4])
+        worker.submit(direct)
+        want = direct.wait(timeout=300)
+    finally:
+        httpd.shutdown()
+        worker.stop()
+        worker.join(timeout=60)
+    row = {"phase": "serving", "case": "http", "healthz": health,
+           "transcribe_text_equal": plain["text"] == want.text,
+           "openai_text_equal": oai["text"] == want.text,
+           "transcribe_s": plain_s, "text_chars": len(want.text),
+           "worker_stopped": not worker.is_alive(), "card": card}
+    emit(row)
+    if health != {"status": "ok"} or not (
+            row["transcribe_text_equal"] and row["openai_text_equal"]
+            and row["worker_stopped"]):
+        raise AssertionError(f"serving http: {row}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2281,6 +2916,11 @@ def main() -> int:
     launches.update(graph_phase(torch, config, enc32, dec32, audio, tmp,
                                 card))
 
+    # 8. serving: the continuous batcher and the HTTP server
+    serving_launches, serving_per_step = serving_phase(
+        torch, config, enc32, dec32, audio, tmp, card)
+    launches.update(serving_launches)
+
     summary = []
     for name in SOURCES:
         # K6's row covers its two entries
@@ -2315,6 +2955,8 @@ def main() -> int:
                                        if r["kernel"] == "k1_launches"}
         if name == "quant_matmul":
             row.update(k5_summary(rows))
+        if name in serving_per_step:
+            row["launches_per_serving_step"] = serving_per_step[name]
         if name == "decode_attention_slab":
             row["callers"] = K6_CALLERS
             row["launches"] = sum(k6_launches.values())

@@ -40,9 +40,16 @@ sends it to its scan path.
 With ``ASR_FOLD_LM=1`` the token steps (``decode_step_token``,
 ``decode_step_aligned_token``) fold the final RMSNorm, the bf16/f32 or
 int8 lm_head and the argmax into the decode kernel, which then returns
-token ids; an int4 lm_head is not folded (K4 runs), as in JAX. Blocked
-int4, per-example decode positions (serving's scatter write) and
-speculative calls are not ported yet and raise NotImplementedError.
+token ids; an int4 lm_head is not folded (K4 runs), as in JAX.
+
+Serving (``runtime/serving.py``) adds three entries: ``decode_step`` at
+per-row positions (a (B,) ``pos``: per-row rotary, K2 at each row's own
+end, the fresh K/V scattered to each row's slot; the decode kernel
+needs a shared slot, as JAX's dispatch does), ``prefill`` with per-row
+true lengths, and ``prefill_chunk`` (a block of the prompt at [start,
+start + P) over a cache holding [0, start), in plain torch as JAX's
+einsums). Blocked int4 and speculative calls are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -101,35 +108,40 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
-    def store(self, l: int, k, v) -> None:
-        """Write fresh K/V (B, Hkv, S, D) of layer ``l`` at slots [0, S),
-        quantized for an int8 slab (JAX ``_store_kv``)."""
-        s = k.shape[2]
+    def store(self, l: int, k, v, start: int = 0) -> None:
+        """Write fresh K/V (B, Hkv, S, D) of layer ``l`` at slots [start,
+        start + S), quantized for an int8 slab (JAX ``_store_kv``)."""
+        sl = slice(start, start + k.shape[2])
         if self.quantized:
             (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-            self.k_scale[l, :, :, :s] = ks
-            self.v_scale[l, :, :, :s] = vs
-        self.k[l, :, :, :s] = k.to(self.k.dtype)
-        self.v[l, :, :, :s] = v.to(self.v.dtype)
+            self.k_scale[l, :, :, sl] = ks
+            self.v_scale[l, :, :, sl] = vs
+        self.k[l, :, :, sl] = k.to(self.k.dtype)
+        self.v[l, :, :, sl] = v.to(self.v.dtype)
 
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
 
     def store_token(self, ks, vs, slot) -> None:
-        """Write one token's fresh K/V (L, B, Hkv, D) of every layer at the
-        shared slot, quantized per (layer, row, head) for an int8 slab
-        (JAX ``_write_token_kv``). ``slot``: an int, or a 0-d integer
-        device tensor (a step captured in a CUDA graph writes where the
-        graph's own counter points)."""
+        """Write one token's fresh K/V (L, B, Hkv, D) of every layer,
+        quantized per (layer, row, head) for an int8 slab (JAX
+        ``_write_token_kv``), by one scatter. ``slot``: the shared slot,
+        an int or a 0-d integer device tensor (a step captured in a CUDA
+        graph writes where the graph's own counter points); or a (B,)
+        integer tensor, row b's slot (the serving scheduler's per-row
+        positions, which the caller keeps inside the slab)."""
         pairs = [(self.k, ks), (self.v, vs)]
         if self.quantized:
             (ks, k_scale), (vs, v_scale) = quantize_kv(ks), quantize_kv(vs)
             pairs = [(self.k, ks), (self.v, vs), (self.k_scale, k_scale),
                      (self.v_scale, v_scale)]
-        idx = torch.as_tensor(slot, device=self.k.device).reshape(1).long()
-        for dst, src in pairs:
-            dst.index_copy_(3, idx, src.to(dst.dtype).unsqueeze(3))
+        b = self.k.shape[1]
+        pos = torch.as_tensor(slot, device=self.k.device).long()
+        pos = pos.reshape(-1).expand(b)  # a shared slot is every row's
+        rows = torch.arange(b, device=self.k.device)
+        for dst, src in pairs:  # indexed subspace (B, L, Hkv[, D])
+            dst[:, rows, :, pos] = src.to(dst.dtype).transpose(0, 1)
 
     def grow(self, new_len: int) -> "KVCache":
         """This slab copied into the first slots of a larger zero slab of
@@ -153,6 +165,11 @@ class KVCache:
             return (dequantize_kv(self.k[l], self.k_scale[l], dtype),
                     dequantize_kv(self.v[l], self.v_scale[l], dtype))
         return self.k[l], self.v[l]
+
+
+def _per_row(pos) -> bool:
+    """Whether a decode position is one per row (a (B,) tensor)."""
+    return isinstance(pos, torch.Tensor) and pos.ndim == 1
 
 
 def quantize_kv(t):
@@ -311,16 +328,78 @@ class TextDecoder:
 
     @torch.inference_mode()
     def prefill(self, params: Tree, hidden, position_ids, cache: KVCache,
-                true_len: int):
+                true_len):
         """Full-sequence prefill of (B, P, H) embeddings. Writes
         cache[0:P] in place; returns (logits at true_len - 1 (B, V), cache).
-        The padded suffix [true_len, P) is causal garbage that later
-        decode steps overwrite."""
+        ``true_len``: an int shared by the rows, or a sequence of one per
+        row (the serving scheduler's batched admission). The padded suffix
+        [true_len, P) is causal garbage that later decode steps
+        overwrite."""
         check_params(params)
         cos, sin = self.rotary.lookup(position_ids)
         hidden = self._run_layers(params, hidden, cos, sin, cache)
+        if isinstance(true_len, int):
+            last = hidden[:, true_len - 1: true_len]
+        else:  # host lengths: row slices, no copy to the device
+            last = torch.stack([hidden[i, int(n) - 1]
+                                for i, n in enumerate(true_len)])[:, None]
+        return self.logits(params, last)[:, 0], cache
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params: Tree, hidden, start: int, cache: KVCache,
+                      true_len: int):
+        """Incremental (chunked) prefill of (B, P, H) embeddings at
+        positions [start, start + P), extending a cache whose slots [0,
+        start) hold the earlier chunks (JAX ``prefill_chunk``): each layer
+        writes the block at [start, start + P), then chunk query i attends
+        to slab slot j iff j <= start + i, over the slab as stored
+        (dequantized from an int8 slab). Returns (logits at chunk index
+        true_len - 1 (B, V), cache)."""
+        check_params(params)
+        cos, sin = self.rotary.lookup(
+            start + torch.arange(hidden.shape[1], device=hidden.device))
+        layers = params["layers"]
+        for l in range(cache.k.shape[0]):
+            hidden = self._chunk_layer({k: v[l] for k, v in layers.items()},
+                                       hidden, cos, sin, l, cache, start)
         last = hidden[:, true_len - 1: true_len]
         return self.logits(params, last)[:, 0], cache
+
+    def _chunk_layer(self, layer: Tree, x, cos, sin, l: int, cache: KVCache,
+                     start: int):
+        """One layer of chunked prefill (JAX ``_chunk_layer``): store the
+        fresh block first, then attend over the whole slab with the mask
+        j <= start + i, which covers the history and the block causally.
+        The JAX package computes this with plain einsums, outside any
+        kernel; so does this."""
+        cfg = self.cfg
+        b, p_len, _ = x.shape
+        nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim)
+        residual = x
+        h = rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps)
+        q, k, v = _qkv3(layer, h, nq, nkv, hd)
+        q = rms_norm(q, layer["q_norm_w"], cfg.rms_norm_eps)
+        k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+        cache.store(l, k.transpose(1, 2), v.transpose(1, 2), start)
+        k_use, v_use = cache.layer(l, q.dtype)  # (B, Hkv, S, D)
+        qg = q.reshape(b, p_len, nkv, nq // nkv, hd)
+        sc = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(),
+                          k_use.float()) * hd ** -0.5
+        slot = torch.arange(k_use.shape[2], device=x.device)
+        query = start + torch.arange(p_len, device=x.device)
+        sc = torch.where(slot[None, :] <= query[:, None], sc, -1e9)
+        p = torch.exp(sc - sc.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        out = torch.einsum("bhgqk,bhkd->bqhgd", p.to(v_use.dtype).float(),
+                           v_use.float())
+        out = out.reshape(b, p_len, nq * hd).to(x.dtype)
+        x = residual + _linear(layer, "o_w", out)
+        residual = x
+        h = rms_norm(x, layer["post_ln_w"], cfg.rms_norm_eps)
+        return residual + _mlp(layer, h)
 
     def _run_layers(self, params: Tree, hidden, cos, sin, cache: KVCache,
                     kv_start=None):
@@ -346,15 +425,17 @@ class TextDecoder:
         return self.logits(params, hidden[:, -1:])[:, 0], cache
 
     def _use_fused_step(self, params: Tree, device,
-                        fold_lm: bool = False) -> bool:
+                        fold_lm: bool = False, pos=None) -> bool:
         """The decode kernel runs for a shared write slot at any B, no
         attention biases, head_dim 128 on CUDA, for float, int8, int4 and
         merged int4g weights, and bf16/f32 or int8 slabs
         (ASR_DECODE_IMPL=scan|fused overrides 'auto'). As in JAX's
-        dispatch, unmerged int4g weights run the per-layer path, and a
-        folded step (``fold_lm``) does not take an int4 lm_head."""
+        dispatch, per-row positions (a (B,) ``pos``: serving) and
+        unmerged int4g weights run the per-layer path, and a folded step
+        (``fold_lm``) does not take an int4 lm_head."""
         impl = os.environ.get("ASR_DECODE_IMPL", "auto")
-        if impl == "scan" or (fold_lm and "lm_head_q4" in params):
+        if (impl == "scan" or (fold_lm and "lm_head_q4" in params)
+                or _per_row(pos)):
             return False
         layers = params["layers"]
         eligible = "q_b" not in layers and (
@@ -366,22 +447,34 @@ class TextDecoder:
     @torch.inference_mode()
     def decode_step(self, params: Tree, token_ids, pos, cache: KVCache,
                     *, fold: bool = False):
-        """Single greedy decode step at position ``pos``, shared by every
-        row (slab slots [0, pos) are live): an int, or a 0-d integer
-        device tensor (the engine's captured steps). Returns (logits (B,
-        V) float32 — with ``fold``, token ids (B,) int32 — and the cache
-        updated in place)."""
+        """Single greedy decode step at position ``pos``: shared by every
+        row (slab slots [0, pos) are live), an int or a 0-d integer device
+        tensor (the engine's captured steps); or a (B,) integer tensor,
+        row b at position pos[b] over its slots [0, pos[b]) (JAX's
+        per-example positions, the serving scheduler's slots), which runs
+        the per-layer path and writes each row's K/V at its own slot.
+        Returns (logits (B, V) float32 — with ``fold``, token ids (B,)
+        int32 — and the cache updated in place)."""
+        b = token_ids.shape[0]
+        if _per_row(pos):
+            if pos.shape[0] != b:
+                raise ValueError(
+                    f"decode_step: {pos.shape[0]} positions for {b} rows; "
+                    "per-row positions need one per row")
+            if fold:
+                raise ValueError("decode_step: the folded lm_head takes a "
+                                 "shared position, not per-row positions")
+            cos, sin = self.rotary.lookup_batch(pos.long())  # (B, D)
+            return self._step(params, token_ids, cos, sin, cache, None, pos,
+                              False)
         if isinstance(pos, torch.Tensor) and pos.ndim == 0:
             cos, sin = self.rotary.lookup_at(pos)
         elif isinstance(pos, int):
             cos, sin = self.rotary.lookup_pos(pos)  # (1, D)
         else:
-            raise NotImplementedError(
-                "per-example decode positions (serving's scatter write) are "
-                "not ported yet: pos must be an int or a 0-d tensor; "
-                "right-aligned batches use decode_step_aligned"
-            )
-        b = token_ids.shape[0]
+            raise TypeError(
+                "decode_step: pos must be an int, a 0-d or a (B,) integer "
+                "tensor; right-aligned batches use decode_step_aligned")
         return self._step(params, token_ids, cos.expand(b, -1),
                           sin.expand(b, -1), cache, None, pos, fold)
 
@@ -400,8 +493,8 @@ class TextDecoder:
     def _step(self, params: Tree, token_ids, cos, sin, cache: KVCache,
               start, end, fold: bool):
         """One decode step of every row: cos/sin (B, D), live slab slots
-        [start_b, end) (start None: 0; ``end`` an int or a 0-d device
-        tensor), the fresh K/V written at ``end``.
+        [start_b, end) (start None: 0; ``end`` an int, a 0-d device
+        tensor or per row a (B,) one), the fresh K/V written at ``end``.
         ``fold``: the final RMSNorm, lm_head and argmax run inside the
         decode kernel, which returns token ids in place of the logits."""
         check_params(params)
@@ -413,7 +506,7 @@ class TextDecoder:
                 fold_lm=True, final_ln_w=params["final_ln_w"],
                 lm_head=params["lm_head"] if lm_q is None else lm_q,
                 lm_scales=None if lm_q is None else params["lm_head_s"])
-        if fold or self._use_fused_step(params, hidden.device):
+        if fold or self._use_fused_step(params, hidden.device, pos=end):
             out, ks, vs = decode_layers_fused(
                 hidden, cos.contiguous(), sin.contiguous(), params["layers"],
                 cache.k, cache.v, start, end, eps=self.cfg.rms_norm_eps,
@@ -440,7 +533,7 @@ class TextDecoder:
         on the first index, as jnp.argmax does. Folded (``ASR_FOLD_LM=1``)
         the decode kernel returns them as int32; else ``torch.argmax`` of
         ``decode_step``'s logits gives int64."""
-        fold = self._fold(params, token_ids)
+        fold = self._fold(params, token_ids) and not _per_row(pos)
         out, cache = self.decode_step(params, token_ids, pos, cache, fold=fold)
         return (out if fold else torch.argmax(out, dim=-1)), cache
 
@@ -519,6 +612,7 @@ class TextDecoder:
         qg = q.reshape(b, 1, nkv, groups, hd).float()
         sc = torch.einsum("bqhgd,bhkd->bhgqk", qg, k_lay.float()) * scale
         slot = torch.arange(k_lay.shape[2], device=q.device)[None, :]
+        end = torch.as_tensor(end, device=q.device).reshape(-1, 1)
         live = (slot < end).expand(b, -1)
         if start is not None:
             live = live & (slot >= start[:, None])

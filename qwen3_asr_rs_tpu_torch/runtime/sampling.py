@@ -9,7 +9,8 @@ rows at temperature <= 0 take the argmax inside the same step.
 
 Random draws. torch cannot reproduce JAX's random stream, so the draws
 are counter-based instead: each (seed, counter, row, column) is hashed
-with integer tensor ops (``draw_bits``) into 32 random bits, and a token
+with integer tensor ops (``draw_bits``) into 32 random bits (seed and
+counter may be per row, as a serving scheduler's slots need), and a token
 is drawn by Gumbel-max over the filtered logits, as
 ``jax.random.categorical`` draws. The engine's counter is the token's
 index in the transcript (the prefill's token 0, decode step i's token
@@ -102,13 +103,21 @@ def draw_bits(seed, counter, rows: int, cols: int, device="cpu",
     (seed, counter, stream, row, column). ``seed`` and ``counter`` are
     ints or 0-d integer tensors (a device counter stays on the device);
     ``stream`` separates independent draws at one counter (JAX's
-    ``fold_in(key, stream)``)."""
+    ``fold_in(key, stream)``).
+
+    Per-row keys: either may also be a (rows,) tensor, one seed and
+    counter per row (the serving scheduler's slots). Row r's bits are
+    then a function of (seed[r], counter[r], stream, column) alone, the
+    bits a scalar call with that seed and counter gives its row 0: where
+    a row sits in the batch does not enter them."""
     seed = _as_i64(seed, device)
     counter = _as_i64(counter, device)
     k = _mix32((seed & _M32) ^ _mix32((seed >> 32) & _M32))
     k = _mix32(k ^ _mix32(counter & _M32))
     k = _mix32(k ^ stream)
     row = torch.arange(rows, dtype=torch.int64, device=device)
+    if k.ndim:  # per-row keys: every row draws as row 0
+        row = torch.zeros_like(row)
     k = _mix32(k ^ _mix32(row))[:, None]  # (rows, 1)
     col = torch.arange(cols, dtype=torch.int64, device=device)
     return _mix32(k ^ col[None, :])
@@ -192,7 +201,7 @@ def sample_token(logits, seed, counter, temperature, top_k: int = 0,
     """One decode-step sample: (B, V) or (V,) logits -> int64 ids.
 
     ``seed``/``counter`` key the draw (``draw_bits``; the engine's counter
-    is the token index). ``temperature`` may be a scalar or a per-row
+    is the token index): scalars, or (B,) tensors of per-row keys. ``temperature`` may be a scalar or a per-row
     (B,) tensor; rows with temperature <= 0 take the argmax. As in JAX,
     the top-k filter keeps every logit tied with the k-th, so ``top_k =
     1`` draws among tied largest logits where greedy takes the lowest

@@ -124,3 +124,18 @@ def quantize_lm_head_only(params: Tree) -> Tree:
     out.pop("lm_fold_w", None)
     out.pop("lm_fold_s", None)
     return out
+
+
+def is_quantized(params: Tree) -> bool:
+    """Whether the lm_head is quantized (int8 or int4)."""
+    return "lm_head_q" in params or "lm_head_q4" in params
+
+
+def quant_bits(params: Tree) -> int:
+    """0 (float layers), 8 or 4: the width of a decoder tree's layers."""
+    layers = params.get("layers", {})
+    if "q_w_q4" in layers or "qkv_w_q4" in layers:
+        return 4
+    if "q_w_q" in layers or "qkv_w_q" in layers:
+        return 8
+    return 0

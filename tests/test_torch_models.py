@@ -159,8 +159,9 @@ def test_argmax_ties_break_on_first_index(monkeypatch):
 def test_unported_branches_raise(rng, monkeypatch):
     """Grouped int4 scales (int4g, a 3-D ``*_s``) run and match JAX's
     decode step, merged (K1's plain version) and unmerged (the per-layer
-    path); blocked int4 (a 4-D ``*_q4``), the JAX engine's ``lm_fold_*``
-    copies and per-example positions raise."""
+    path); blocked int4 (a 4-D ``*_q4``) and the JAX engine's
+    ``lm_fold_*`` copies raise, and so do per-row positions that are not
+    one per row."""
     jcfg, jp, tp, cfg = _decoders()
     tdec, jdec = TextDecoder(cfg, 64), JDecoder(jcfg, max_position=64)
     kc = (rng.standard_normal((cfg.num_hidden_layers, 1,
@@ -188,5 +189,6 @@ def test_unported_branches_raise(rng, monkeypatch):
     for tree in (blocked, folded):
         with pytest.raises(NotImplementedError, match="blocked int4"):
             tdec.decode_step(tree, torch.tensor([1]), 3, cache)
-    with pytest.raises(NotImplementedError, match="aligned"):
-        tdec.decode_step(tp, torch.tensor([1, 2]), torch.tensor([3, 4]), cache)
+    with pytest.raises(ValueError, match="one per row"):
+        tdec.decode_step(tp, torch.tensor([1, 2]), torch.tensor([3, 4, 5]),
+                         cache)

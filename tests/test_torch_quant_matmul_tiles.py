@@ -154,11 +154,13 @@ def _case(rng, r, k, n):
                                    (33, 1024, 4096), (48, 2048, 1024),
                                    (40, 1024, 6144), (36, 3072, 1024),
                                    (1, 600, 136), (8, 1000, 1032),
-                                   (32, 1024, 4096), (17, 3072, 1024)])
+                                   (32, 1024, 4096), (17, 3072, 1024),
+                                   (1, 1024, 4096), (8, 2048, 1024),
+                                   (8, 1024, 6144), (1, 3072, 1024)])
 def test_emulation_matches_pallas_and_plain(r, k, n):
     """The emulation with the launch's split (wgmma above 32 rows, GEMV
-    blocks up to 32; ragged R, K and N, and the 0.6B linears with R cut to
-    a few dozen rows) against the Pallas kernel in interpret mode and the
+    blocks up to 32; ragged R, K and N, the 0.6B linears with R cut to
+    a few dozen rows, and at an int8 serving step's 1 and 8 rows) against the Pallas kernel in interpret mode and the
     plain version, float32 results; rounded to bf16 it equals the plain
     bf16 output but for rare flipped roundings."""
     rng = np.random.default_rng(r * 7 + n)
