@@ -125,8 +125,51 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              holds K2 at distinct per-row ends (B = 8, S = 2048, one row
              at end 0, bf16 and int8 slabs) against its plain version,
              with device time and SDPA's over a mask.
+9. streaming — runtime/streaming.py at full 0.6B width, bf16 (max_new
+             128): the 30 s clip fed in 1 s updates (no update after the
+             first encodes more than 2 windows; finalize() equals
+             engine.transcribe_samples on the same buffer; the decode
+             graph captured once, at the first decoding update; K1 once
+             per re-decode step), a 40 s feed through 16 s sessions (at
+             least one rollover, the committed text only grows, no
+             capture at the rollover), each with wall ms p50 / p95 per
+             update, decoded tokens, replays and captures; and a float32
+             session over 11 s in 2 s increments whose final hypothesis
+             equals the float32 offline engine's (a difference fails
+             unless the two tokens' logits tie within SERVING_TIE there,
+             both paths teacher-forced, shown).
+10. speculative — AsrEngine(speculative=..., spec_k=4) at full width,
+             bf16: same-checkpoint drafts bf16 (self), int8, int4 and
+             int4g on the 4 s and 30 s clips, tokens equal to
+             plain greedy's, or each held against the plain K1 step
+             teacher-forced on the run's tokens (its argmax, or a tie:
+             within SERVING_TIE in float32, within twice the target
+             width's SPEC_BF16_SPREAD in bf16, where the verify's logits
+             must also lie within that bound of the step's at every
+             position, as they must along each plain reference; shown
+             with the first difference from plain greedy), graph equal
+             to eager for the self-draft; a
+             DraftBundle of the target's own weights (the cross-model
+             path with its drafts accepted: tokens and counts equal to
+             the self-draft's; then both slabs growing through two
+             stages); an int8 target with the int8 KV slab and an int8
+             draft against its own plain greedy; speculative sampling
+             (T 0.7, top-p 0.9) on the self-draft: the same seed twice
+             equal, graph equal to eager, another seed other tokens,
+             top-k 1 held as greedy is; a float32 self-draft whose
+             sampled drafts are all accepted; a 1.7B target
+             (synthetic_17b_config) with the 0.6B model drafting, bf16
+             and int8, held against the 1.7B plain step, and the 1.7B
+             plain step at B = 1 (wall, GPU elapsed, busy ms). Per run: iterations, tokens, mean accepted
+             drafts, ms per iteration and per emitted token (wall, GPU
+             elapsed) against the plain loop's per token, launches per
+             iteration (K1 k + 1 for the draft steps, K2 in each of the
+             draft's layers, K5 per int8 verify linear and int8 draft
+             lm_head, K4 per int4 draft lm_head; the prefills' taken off,
+             checked exactly), the two slabs' GiB and the peak memory.
 
-Then a {"kernels": [...]} summary line, the nvidia-smi line, and as the
+Then a {"kernels": [...]} summary line (launches also per stream update
+and per speculative iteration), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -2777,6 +2820,769 @@ def serving_http(torch, engine, tmp, clips, card) -> None:
         raise AssertionError(f"serving http: {row}")
 
 
+# ---- phase 9: streaming ---------------------------------------------------
+
+# the 30 s clip fed in 1 s updates; a 40 s feed (the 300 s clip's first 40
+# s) in 1 s updates through sessions of STREAM_ROLL_SESSION seconds (at
+# least one rollover); a float32 session over 11 s of the 15 s clip in 2 s
+# increments against the float32 offline engine (JAX's
+# test_streaming_session_matches_offline_engine at full width)
+STREAM_FEED_S = 30
+STREAM_ROLL_S = 40
+STREAM_ROLL_SESSION = 16.0
+STREAM_F32 = (11, 2)
+
+
+def pct(values, q: float) -> float:
+    """The q-quantile of ``values`` (linear interpolation)."""
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, float), q))
+
+
+def stream_feed(torch, engine, samples, seconds: int, **kw):
+    """``seconds`` of ``samples`` fed in 1 s chunks through a
+    StreamingTranscriber(**kw) (an update per chunk). Returns (the
+    transcriber, a row per update: wall seconds (synchronized), whether it
+    rolled over, the committed text, the session's update stats, and the
+    decode graphs' captures and replays after it)."""
+    from qwen3_asr_rs_tpu_torch.runtime.streaming import StreamingTranscriber
+
+    stream = StreamingTranscriber(engine, update_interval_s=1.0, **kw)
+    rows = []
+    for s in range(seconds):
+        session = stream.session
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = stream.feed(samples[s * 16000:(s + 1) * 16000])
+        torch.cuda.synchronize()
+        g = stream.session.graphs
+        rows.append({"wall_s": time.perf_counter() - t0,
+                     "rolled": stream.session is not session,
+                     "updated": up is not None,
+                     "committed": stream.committed_text,
+                     **stream.session.last_update_stats,
+                     "captures": g.captures, "replays": g.replays})
+    return stream, rows
+
+
+def update_summary(rows) -> dict:
+    walls = [1e3 * r["wall_s"] for r in rows]
+    return {"updates": len(rows), "wall_ms_p50": pct(walls, 50),
+            "wall_ms_p95": pct(walls, 95), "wall_ms_max": max(walls),
+            "first_update_ms": walls[0],
+            "decoded_tokens_mean": statistics.mean(
+                r["decoded_tokens"] for r in rows),
+            "windows_encoded": [r["windows_encoded"] for r in rows],
+            "chunk_positions_max": max(r["chunk_positions"] for r in rows)}
+
+
+def teacher_forced(torch, dec, params, cache, feed, pos0: int):
+    """Logits after feeding the tokens ``feed`` at positions pos0, pos0 +
+    1, ... through decode steps over ``cache`` (the last step's)."""
+    logits = None
+    for i, tok in enumerate(feed):
+        logits, _ = dec.decode_step(params, torch.tensor([tok],
+                                                         device="cuda"),
+                                    pos0 + i, cache)
+    return logits
+
+
+def tie_gap(torch, paths, want, got, tol: float = SERVING_TIE) -> dict:
+    """Where ``got`` first leaves ``want``: each path's top-2 logits there
+    and the largest gap between the two tokens' logits over the paths
+    (``paths``: {name: function of the step t -> that path's logits (1,
+    V) for token t, teacher-forced on want[:t]}); a tie where the gap is
+    at most ``tol``."""
+    t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    pair = [want[t], got[t]]
+    out = {"step": t, "tokens": pair}
+    gap = 0.0
+    with torch.inference_mode():
+        for name, fn in paths.items():
+            lg = fn(t)[0].float()
+            top = torch.topk(lg, 2)
+            out[name] = {"top2_ids": top.indices.tolist(),
+                         "top2_logits": top.values.tolist()}
+            gap = max(gap, abs(float(lg[pair[0]] - lg[pair[1]])))
+    out["gap"] = gap
+    out["tol"] = tol
+    out["tie"] = gap <= tol
+    return out
+
+
+def stream_gap(torch, engine, session, samples, want, got) -> dict:
+    """tie_gap of a session's final hypothesis against the offline
+    engine's: the offline path is the engine's prefill and decode steps;
+    the session's, its own slab after the update (the prompt's K/V at
+    [0, base)) with the prompt's last token fed again at base - 1."""
+    from qwen3_asr_rs_tpu_torch.runtime.prompt import build_prompt
+
+    last = build_prompt(0, None, engine.tokenizer)[-1]
+    slab = session._slab
+    base = int(slab.state.base)
+
+    def offline(t):
+        logits, cache, b = engine.prefill(samples)
+        return logits if t == 0 else teacher_forced(
+            torch, engine.decoder, engine.dec_params, cache, want[:t], b)
+
+    def streamed(t):
+        return teacher_forced(torch, session.graphs.decoder,
+                              engine.dec_params, slab.cache,
+                              [last] + want[:t], base - 1)
+
+    return tie_gap(torch, {"offline": offline, "session": streamed}, want,
+                   got)
+
+
+def stream_breakdown(torch, engine, session, feed, card) -> None:
+    """Where a stream update's time goes, after the 30 s feed: one window
+    encode and one 128-position prefill-only chunk (eager, as an update
+    runs them) and one replay of the lease's decode step, each the median
+    of 10 CUDA-event timings on the session's own slab (its contents no
+    longer matter; the decode state is reset first, so that the replays
+    stay inside the token buffer); the re-decode is the replay times the
+    decoded tokens less one, the rest what the update's p50 wall leaves
+    (``feed``: the feed's row)."""
+    import numpy as np
+
+    from qwen3_asr_rs_tpu_torch.runtime.sampling import SamplingParams
+
+    g = session.graphs
+    st = session._slab.state
+    st.start(np.ones(1, bool), int(st.base), SamplingParams())
+    wave, n_frames = session._cached_wave(0, len(session.buffer))
+    src = torch.zeros((2 * session.window_tokens,
+                       engine.config.audio.output_dim), dtype=engine.dtype,
+                      device="cuda")
+    ids = torch.zeros(128, dtype=torch.long, device="cuda")
+    chunk = g.chunk_step(False, 128)
+    with torch.inference_mode():
+        encode = cuda_ms(torch, lambda: g.window_encode(wave, n_frames,
+                                                        session.session_max))
+        prefill = cuda_ms(torch, lambda: chunk(session._slab, src, ids, 0, 0,
+                                               128, session.kv_len))
+        step = cuda_ms(torch, session._slab.graph.replay)
+    redecode = step * (feed["decoded_tokens_mean"] - 1)
+    windows = statistics.mean(feed["windows_encoded"])
+    emit({"phase": "streaming", "case": "update breakdown",
+          "window_encode_ms": encode, "windows_per_update": windows,
+          "chunk_128_ms": prefill, "decode_step_ms": step,
+          "redecode_ms": redecode,
+          "update_wall_ms_p50": feed["wall_ms_p50"],
+          "rest_ms": feed["wall_ms_p50"] - redecode - prefill
+          - windows * encode, "card": card})
+
+
+def streaming_phase(torch, config, enc32, dec32, audio, card) -> dict:
+    """Phase 9 (see the module docstring). Returns ({run: {kernel:
+    launches}}, {kernel: {run: launches per stream update}})."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.runtime.streaming import StreamingSession
+
+    fns = kernel_wrappers()
+    layers = config.text.num_hidden_layers
+    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                       config=config, params=(enc32, dec32),
+                       tokenizer=StubTokenizer(), device="cuda")
+    engine.transcribe_samples(audio[4])  # warm-up: context, cuBLAS
+    for fn in fns.values():
+        fn.launches = 0
+    stream, rows = stream_feed(torch, engine, audio[30], STREAM_FEED_S)
+    got = {n: fn.launches for n, fn in fns.items()}
+    g = stream.session.graphs
+    final = stream.finalize()
+    offline = engine.transcribe_samples(stream.session.buffer)
+    steps = g.replays + g.captures  # each capture ran one eager step
+    want = {n: 0 for n in fns}
+    want.update(decode_layers_fused=steps, decode_attention_dma=layers * steps)
+    row = {"phase": "streaming", "case": f"{STREAM_FEED_S} s in 1 s updates",
+           **update_summary(rows),
+           "windows_after_first_max": max(r["windows_encoded"]
+                                          for r in rows[1:]),
+           "finalize_equals_offline": final.raw_output == offline.raw_output,
+           "captures": g.captures,
+           "captures_after_first_update": rows[0]["captures"],
+           "replays": g.replays, "leases": g.leases,
+           "launches": got, "card": card}
+    emit(row)
+    check_launches("streaming 30 s", got, want)
+    if (row["windows_after_first_max"] > 2
+            or not row["finalize_equals_offline"]
+            or g.captures != rows[0]["captures"] or g.captures != 1):
+        raise AssertionError(f"streaming 30 s: {row}")
+    launches = {f"stream {STREAM_FEED_S} s": got}
+    per_update = {n: {f"stream {STREAM_FEED_S} s": got[n] / len(rows)}
+                  for n in fns}
+    stream_breakdown(torch, engine, stream.session, row, card)
+    stream.session.close()
+
+    # a rollover: sessions of STREAM_ROLL_SESSION s over a 40 s feed
+    for fn in fns.values():
+        fn.launches = 0
+    stream, rows = stream_feed(torch, engine, audio[300], STREAM_ROLL_S,
+                               max_stream_seconds=STREAM_ROLL_SESSION)
+    got = {n: fn.launches for n, fn in fns.items()}
+    g = stream.session.graphs
+    grows = all(b["committed"].startswith(a["committed"])
+                for a, b in zip(rows, rows[1:]))
+    rolled = [i for i, r in enumerate(rows) if r["rolled"]]
+    row = {"phase": "streaming",
+           "case": f"{STREAM_ROLL_S} s, {STREAM_ROLL_SESSION:g} s sessions",
+           **update_summary(rows), "rollover_updates": rolled,
+           "rollover_update_ms": [1e3 * rows[i]["wall_s"] for i in rolled],
+           "committed_only_grows": grows,
+           "committed_chars": len(stream.committed_text),
+           "captures": g.captures, "leases": g.leases, "replays": g.replays,
+           "launches": got, "card": card}
+    emit(row)
+    if not rolled or not grows or g.captures != 1 or g.leases != 1:
+        raise AssertionError(f"streaming rollover: {row}")
+    launches[f"stream {STREAM_ROLL_S} s rollover"] = got
+    for n in fns:
+        per_update[n][f"stream {STREAM_ROLL_S} s rollover"] = (
+            got[n] / len(rows))
+    stream.session.close()
+    del engine, stream
+    torch.cuda.empty_cache()
+
+    # float32: the session's final hypothesis against the offline engine's
+    engine32 = AsrEngine(None, dtype=torch.float32, max_new_tokens=128,
+                         config=config, params=(enc32, dec32),
+                         tokenizer=StubTokenizer(), device="cuda")
+    seconds, inc = STREAM_F32
+    samples = audio[15][:seconds * 16000]
+    session = StreamingSession(engine32, max_new_tokens=128)
+    walls = []
+    for end in range(inc * 16000, len(samples) + inc * 16000, inc * 16000):
+        session.buffer = samples[:end]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = session.update()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    offline = engine32.transcribe_samples(samples)
+    want = [int(t) for t in offline.raw_output.split()]
+    got_toks = [int(t) for t in result.raw_output.split()]
+    row = {"phase": "streaming", "case": "float32 session vs offline",
+           "seconds": seconds, "increment_s": inc, "update_ms": walls,
+           "tokens": len(got_toks), "tokens_equal": got_toks == want,
+           "card": card}
+    if got_toks != want:
+        row["divergence"] = stream_gap(torch, engine32, session, samples,
+                                       want, got_toks)
+    emit(row)
+    if got_toks != want and not row["divergence"]["tie"]:
+        raise AssertionError(f"streaming float32: {row}")
+    session.close()
+    del engine32, session
+    torch.cuda.empty_cache()
+    return launches, per_update
+
+
+# ---- phase 10: speculative decoding -----------------------------------------
+
+SPEC_K = 4
+SPEC_DRAFTS = ("bf16", "int8", "int4", "int4g")
+# A speculative run's tokens equal the plain loop's, or every token is
+# held against the plain K1 step teacher-forced on that run's tokens: it
+# must be the step's argmax, or lie within a tie of it (spec_agreement).
+# float32: SERVING_TIE. bf16: the verify's plain ops and K1 round at other
+# places, so their logits for one token differ; SPEC_BF16_SPREAD bounds
+# that difference (|verify - K1| at the step's two best tokens and the
+# emitted one, at every position of the plain tokens of each target and
+# clip, and of every run that leaves them: checked, and its distribution
+# shown), and a flip between two tokens is a tie within twice the bound.
+# Each bound is the power of two above the largest difference measured on
+# an H100 at that target width (hidden size) over every position of phase
+# 10's bf16 runs (PERF.md §6): 0.6B 0.0254, 1.7B 0.0717.
+SPEC_BF16_SPREAD = {1024: 2 ** -5, 2048: 2 ** -3}
+SPEC_CLIPS = (4, 30)
+SPEC_SAMPLED = dict(temperature=0.7, top_p=0.9)
+# the float32 self-draft's token cap: a multiple of k + 1, so that a
+# stream whose every draft is accepted ends on an iteration's boundary
+SPEC_F32_MAX_NEW = 25 * (SPEC_K + 1)
+
+
+def spec_expected(target_quant, draft, lt: int, ld: int, k: int):
+    """Launches of one speculative transcription: (the two prefills', each
+    iteration's). An iteration runs K1 once per draft step (k + 1), K2 in
+    each of the draft's layers per step, K5 for an int8 draft lm_head
+    (int8, int4g, lm8 drafts) per step and, with an int8 target, for the
+    verify's 4 merged linears per layer and its lm_head at k + 1 rows; K4
+    for an int4 draft lm_head per step. The prefills: an int8 model's 4
+    linears per layer and the lm_head at the last prompt token (K5), an
+    int4 draft's lm_head there (K4), an int8 lm_head alone (K5)."""
+    names = ("decode_layers_fused", "decode_attention_dma",
+             "flash_attention", "quant_matmul", "quant_matvec_int4",
+             "decode_attention_slab", "decode_attention")
+    pre, per = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
+    per["decode_layers_fused"] = k + 1
+    per["decode_attention_dma"] = ld * (k + 1)
+    if draft in ("int8", "int4g", "lm8"):
+        per["quant_matmul"] += k + 1
+        pre["quant_matmul"] += 4 * ld + 1 if draft == "int8" else 1
+    if draft == "int4":
+        per["quant_matvec_int4"] += k + 1
+        pre["quant_matvec_int4"] += 1
+    if target_quant == "int8":
+        per["quant_matmul"] += 4 * lt + 1
+        pre["quant_matmul"] += 4 * lt + 1
+    return pre, per
+
+
+def spec_run(torch, engine, samples, graphs=True, sampling=None):
+    """One transcription's decode through the engine (speculative at B =
+    1), the launch counters set to 0 just before it and read just after,
+    the peak device memory above what was allocated before it. Returns
+    (tokens, last_stats with last_spec_stats and peak_gib, launches)."""
+    fns = kernel_wrappers()
+    engine.cuda_graphs = graphs
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    toks = engine.generate(samples, sampling=sampling)
+    got = {n: fn.launches for n, fn in fns.items()}
+    engine.cuda_graphs = True
+    st = dict(engine.last_stats)
+    if engine.last_spec_stats is not None:
+        st.update(engine.last_spec_stats)
+    st["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return toks, st, got
+
+
+def slab_gib(text_cfg, n: int, int8: bool) -> float:
+    """GiB of one K and one V slab of n slots (int8: with float32 scales)."""
+    per_slot = text_cfg.num_hidden_layers * text_cfg.num_key_value_heads
+    per_slot *= text_cfg.head_dim + 4 if int8 else 2 * text_cfg.head_dim
+    return 2 * per_slot * n / 2**30
+
+
+def spec_logits(torch, engine, samples, toks) -> tuple:
+    """Logits (len(toks) + 1, V) float32 teacher-forced on ``toks``: row
+    t predicts token t (the last row, what follows the run). The plain
+    path: the target's prefill, then a decode step per token, as the plain
+    loop computes them. The verify: the prefill's row, then
+    ``score_chunk`` of every token in one block."""
+    dec, params = engine.decoder, engine.dec_params
+    ids = torch.tensor([toks], dtype=torch.long, device=engine.device)
+    with torch.inference_mode():
+        logits, cache, b = engine.prefill(samples)
+        plain = [logits.float()]
+        for i in range(len(toks)):
+            lg, _ = dec.decode_step(params, ids[:, i], b + i, cache)
+            plain.append(lg.float())
+        logits, cache, b = engine.prefill(samples)
+        rows = dec.score_chunk(params, ids, b, cache, return_logits=True)[0]
+        verify = torch.cat([logits.float(), rows[0].float()])
+    return torch.cat(plain), verify
+
+
+def spec_agreement(torch, engine, samples, want, got) -> dict:
+    """Every token of a speculative run ``got`` against the plain K1 step
+    teacher-forced on ``got`` (spec_logits): at each position the plain
+    argmax, or a tie, where the two tokens' plain logits lie within
+    ``tol`` (float32: SERVING_TIE; bf16: twice the target width's
+    SPEC_BF16_SPREAD); and the run's end, where it stopped before
+    max_new, an EOS token or a tie with one. bf16 also holds the spread,
+    |verify - plain| at the plain step's two best tokens and the emitted
+    one, within that bound at every position. ``want``: the plain loop's tokens, whose first
+    difference is shown. Returns the row's ``agreement`` (``ok``)."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import EOS_TOKEN_IDS
+
+    plain, verify = spec_logits(torch, engine, samples, got)
+    n = len(got)
+    bound = (SPEC_BF16_SPREAD[engine.config.text.hidden_size]
+             if engine.dtype != torch.float32 else None)
+    tol = SERVING_TIE if bound is None else 2 * bound
+    best, arg = plain.max(-1)
+    rows = torch.arange(n, device=plain.device)
+    emitted = torch.tensor(got, dtype=torch.long, device=plain.device)
+    gap = (best[:n] - plain[rows, emitted]).tolist()
+    if n < engine.max_new_tokens:  # it stopped at an EOS
+        gap.append(float(best[n] - plain[n, list(EOS_TOKEN_IDS)].max()))
+    top = plain.topk(2, dim=-1).indices
+    cand = torch.cat([top[:n], emitted[:, None]], 1)
+    spread = (verify[:n].gather(1, cand) - plain[:n].gather(1, cand)).abs()
+    spread = spread.amax(1).tolist()
+    flips = [{"step": t, "emitted": got[t] if t < n else "EOS",
+              "plain": int(arg[t]), "gap": g,
+              "spread": spread[t] if t < n else None,
+              "top2_logits": plain[t].topk(2).values.tolist()}
+             for t, g in enumerate(gap) if g > 0]
+    first = next((t for t, (a, b) in enumerate(zip(want, got)) if a != b),
+                 None if len(want) == n else min(len(want), n))
+    out = {"tokens_checked": n, "ends_checked": n < engine.max_new_tokens,
+           "first_difference_from_plain": first, "flips": flips[:8],
+           "n_flips": len(flips), "gap_max": max(gap), "tol": tol,
+           "spread_max": max(spread), "spread_p50": pct(spread, 50),
+           "spread_p99": pct(spread, 99), "spread_bound": bound}
+    out["ok"] = out["gap_max"] <= tol and (
+        bound is None or out["spread_max"] <= bound)
+    return out
+
+
+def held_to_plain(torch, engine, samples, want, got) -> dict:
+    """A speculative run's tokens ``got`` against the plain loop's
+    ``want``: equal, or spec_agreement's check of every token."""
+    if got == want:
+        return {"equal_to_plain": True, "ok": True}
+    return spec_agreement(torch, engine, samples, want, got)
+
+
+def plain_run(torch, engine, samples, profiled=False) -> tuple:
+    """Plain greedy tokens of one clip and per step of the loop: wall, GPU
+    elapsed and (``profiled``: a second run under torch.profiler) busy ms
+    (busy_us over the loop's kernels)."""
+    toks = engine.generate(samples)
+    st = dict(engine.last_stats)
+    times = {"tokens": len(toks), "steps": st["decode_steps"],
+             "wall_ms_per_step": 1e3 * st["decode_seconds"]
+             / max(st["decode_steps"], 1),
+             "gpu_ms_per_step": 1e3 * st["decode_gpu_seconds"]
+             / max(st["decode_steps"], 1),
+             "wall_ms_per_token": 1e3 * st["decode_seconds"] / len(toks),
+             "gpu_ms_per_token": 1e3 * st["decode_gpu_seconds"] / len(toks)}
+    if profiled:
+        _, events = loop_events(torch, lambda: engine.generate(samples))
+        times["busy_ms_per_step"] = (busy_us(events) / 1e3
+                                     / engine.last_stats["decode_steps"]
+                                     if events else None)
+        times["device_events"] = len(events)
+    return toks, times
+
+
+def spec_row(label, st, got, pre, per, plain_times, want, toks, engine,
+             card) -> dict:
+    """One speculative run's row: counts, times per iteration and per
+    emitted token against the plain loop's, launches per iteration (the
+    prefills' taken off), slabs, peak memory, tokens against plain."""
+    runs = st["iterations_run"]
+    dec_launch = {n: (got[n] - pre[n]) / runs for n in got}
+    n_slab = st["slab_lens"][-1]
+    d_text = (engine.draft_bundle.config.text if engine.draft_bundle
+              else engine.config.text)
+    return {"phase": "speculative", "run": label, "k": engine.spec_k,
+            "iterations": st["iterations"], "tokens": st["tokens"],
+            "mean_accepted": st["mean_accepted"],
+            "drafts_accepted": st["drafts_accepted"],
+            "iterations_run": runs, "replays": st["replays"],
+            "captures": st["captures"], "slab_lens": st["slab_lens"],
+            "ms_per_iteration": {
+                "wall": 1e3 * st["decode_seconds"] / runs,
+                "gpu": 1e3 * st["decode_gpu_seconds"] / runs},
+            "ms_per_token": {
+                "wall": 1e3 * st["decode_seconds"] / max(st["tokens"], 1),
+                "gpu": 1e3 * st["decode_gpu_seconds"] / max(st["tokens"], 1)},
+            "plain_ms_per_token": {"wall": plain_times["wall_ms_per_token"],
+                                   "gpu": plain_times["gpu_ms_per_token"]},
+            "launches_per_iteration": dec_launch,
+            "launches_expected_per_iteration": per,
+            "slab_gib": {"target": slab_gib(engine.config.text, n_slab,
+                                            engine.kv_quant),
+                         "draft": slab_gib(d_text, n_slab, engine.kv_quant)},
+            "peak_gib": st["peak_gib"],
+            "tokens_equal_plain": toks == want, "card": card}
+
+
+def spec_check(torch, engine, samples, label, want, toks, st, got, pre, per,
+               row) -> None:
+    """Raise unless the launches are the prefills' plus per-iteration
+    counts times the iterations run, and the tokens are held to plain
+    greedy's (``row`` gains held_to_plain's ``agreement``)."""
+    runs = st["iterations_run"]
+    bad = {n: got[n] for n in got if got[n] != pre[n] + per[n] * runs}
+    row["agreement"] = held_to_plain(torch, engine, samples, want, toks)
+    emit(row)
+    if bad:
+        raise AssertionError(f"speculative {label}: launches {bad}, "
+                             f"expected {pre} + {per} x {runs}")
+    if not row["agreement"]["ok"]:
+        raise AssertionError(f"speculative {label}: tokens leave the plain "
+                             f"step's: {row['agreement']}")
+
+
+def spec_breakdown(torch, engine, samples, card) -> None:
+    """Where a speculative iteration's time goes, after a run on
+    ``samples``: one replay of the kept first-stage iteration graph, and
+    the verify (``score_chunk`` of k + 1 tokens) and one draft step (K1)
+    each captured as a graph of its own and replayed (and the verify run
+    eagerly, as a host-bound caller would), each the median of 10
+    CUDA-event timings on the arenas of that run (their contents no
+    longer matter)."""
+    k = engine.spec_k
+    p = engine._prompt_bucket(engine._chunk_bucket([samples]))
+    n = engine._spec_slab_len(p, engine._segment_caps()[0])
+    graph = next(g for key, g in engine._graphs.items()
+                 if key[0] == "spec" and key[1] == n)
+    d_dec, d_params, d_text = engine._spec_draft()
+    cache = engine._slab0(1, n, ("spec", "target"))
+    dcache = engine._slab0(1, n, ("spec", "draft"), d_text)
+    at = torch.tensor(p, device="cuda")
+    block = torch.zeros((1, k + 1), dtype=torch.long, device="cuda")
+    def verify():
+        engine.decoder.score_chunk(engine.dec_params, block, at, cache)
+
+    def draft_step():
+        d_dec.decode_step_token(d_params, block[:, 0], at, dcache)
+
+    with torch.inference_mode():
+        iteration = cuda_ms(torch, graph.replay)
+        verify_ms = cuda_ms(torch, engine._capture(verify).replay)
+        step_ms = cuda_ms(torch, engine._capture(draft_step).replay)
+        verify_eager = cuda_ms(torch, verify)
+    emit({"phase": "speculative", "run": "iteration breakdown",
+          "target": "0.6B bf16", "draft": "bf16 (self)", "slab": n,
+          "iteration_ms": iteration, "verify_ms": verify_ms,
+          "draft_step_ms": step_ms, "draft_steps_ms": (k + 1) * step_ms,
+          "verify_share": verify_ms / iteration,
+          "verify_eager_ms": verify_eager, "card": card})
+
+
+def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
+    """Phase 10 (see the module docstring). Returns ({run: {kernel:
+    launches}}, {kernel: {run: launches per iteration}})."""
+    from qwen3_asr_rs_tpu_torch.config import synthetic_17b_config
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.runtime.sampling import SamplingParams
+    from qwen3_asr_rs_tpu_torch.weights.convert import (
+        init_decoder_params_np, init_encoder_params_np, to_torch)
+
+    ld = config.text.num_hidden_layers  # the 0.6B draft's layers
+    launches, per_iter = {}, {n: {} for n in kernel_wrappers()}
+
+    def engine_for(cfg=config, params=(enc32, dec32), dtype=torch.bfloat16,
+                   max_new=128, **kw):
+        return AsrEngine(None, dtype=dtype, max_new_tokens=max_new,
+                         config=cfg, params=params,
+                         tokenizer=StubTokenizer(), device="cuda", **kw)
+
+    def counted(engine, label, samples, want, plain_times, draft):
+        """A capture run, then the counted run, which replays the kept
+        first-stage graph: it captures nothing and replays every
+        iteration it runs."""
+        spec_run(torch, engine, samples)
+        toks, st, got = spec_run(torch, engine, samples)
+        if (len(st["slab_lens"]) != 1 or st["captures"]
+                or st["replays"] != st["iterations_run"]):
+            raise AssertionError(
+                f"speculative {label}: {st['captures']} captures, "
+                f"{st['replays']} replays of {st['iterations_run']} "
+                f"iterations over {len(st['slab_lens'])} stages")
+        pre, per = spec_expected(engine.quantize, draft,
+                                 engine.config.text.num_hidden_layers, ld,
+                                 engine.spec_k)
+        row = spec_row(label, st, got, pre, per, plain_times, want, toks,
+                       engine, card)
+        spec_check(torch, engine, samples, label, want, toks, st, got, pre,
+                   per, row)
+        launches[f"spec {label}"] = got
+        for n in got:
+            per_iter[n][label] = row["launches_per_iteration"][n]
+        return toks, st
+
+    def reference(engine, clips, label, profiled=False, **extra):
+        """Plain greedy tokens and times per clip (plain_run), each row
+        with the spread of the verify against the plain step along the
+        plain tokens (spec_agreement), which must lie within its bound."""
+        plain_run(torch, engine, audio[clips[0]])  # warm-up
+        ref = {}
+        for c in clips:
+            toks, times = plain_run(torch, engine, audio[c], profiled)
+            agree = spec_agreement(torch, engine, audio[c], toks, toks)
+            emit({"phase": "speculative", "run": f"{label} plain {c} s",
+                  **extra, **times,
+                  **{k: agree[k] for k in agree if k.startswith("spread")},
+                  "card": card})
+            if not agree["ok"]:
+                raise AssertionError(f"speculative {label} plain {c} s: "
+                                     f"{agree}")
+            ref[c] = toks, times
+        return ref
+
+    # plain greedy on the 0.6B target: the reference tokens and times
+    plain = engine_for()
+    ref = reference(plain, SPEC_CLIPS, "0.6B bf16")
+    del plain
+    torch.cuda.empty_cache()
+
+    # same-checkpoint drafts at k = 4 on the 4 s and 30 s clips
+    self_draft = {}  # clip -> the bf16 self-draft's (tokens, stats)
+    for draft in SPEC_DRAFTS:
+        engine = engine_for(speculative=draft, spec_k=SPEC_K)
+        for c in SPEC_CLIPS:
+            toks, st = counted(engine, f"0.6B {draft} draft {c} s", audio[c],
+                               ref[c][0], ref[c][1], draft)
+            if draft == "bf16":
+                self_draft[c] = (toks, st)
+                toks_e, st_e, _ = spec_run(torch, engine, audio[c],
+                                           graphs=False)
+                row = {"phase": "speculative",
+                       "run": f"0.6B bf16 draft {c} s eager",
+                       "graph_equals_eager": toks_e == toks,
+                       "iterations_run": st_e["iterations_run"],
+                       "ms_per_iteration": {
+                           "wall": 1e3 * st_e["decode_seconds"]
+                           / st_e["iterations_run"],
+                           "gpu": 1e3 * st_e["decode_gpu_seconds"]
+                           / st_e["iterations_run"]},
+                       "card": card}
+                emit(row)
+                if toks_e != toks:
+                    raise AssertionError(f"speculative bf16 {c} s: graph "
+                                         "tokens differ from eager")
+        if draft == "bf16":
+            spec_breakdown(torch, engine, audio[SPEC_CLIPS[-1]], card)
+            # speculative sampling on the self-draft
+            sp = SamplingParams(seed=0, **SPEC_SAMPLED)
+            s1, st1, _ = spec_run(torch, engine, audio[4], sampling=sp)
+            s2, _, _ = spec_run(torch, engine, audio[4], sampling=sp)
+            s_e, _, _ = spec_run(torch, engine, audio[4], graphs=False,
+                                 sampling=sp)
+            s_o, _, _ = spec_run(torch, engine, audio[4],
+                                 sampling=SamplingParams(seed=1,
+                                                         **SPEC_SAMPLED))
+            k1, _, _ = spec_run(torch, engine, audio[4],
+                                sampling=SamplingParams(temperature=0.7,
+                                                        top_k=1, seed=0))
+            row = {"phase": "speculative", "run": "0.6B bf16 draft sampled",
+                   "same_seed_equal": s1 == s2, "graph_equals_eager": s1 == s_e,
+                   "other_seed_differs": s1 != s_o,
+                   "top_k1_equals_greedy": k1 == ref[4][0],
+                   "top_k1_agreement": held_to_plain(torch, engine, audio[4],
+                                                     ref[4][0], k1),
+                   "iterations": st1["iterations"], "tokens": st1["tokens"],
+                   "mean_accepted": st1["mean_accepted"],
+                   "ms_per_token": {
+                       "wall": 1e3 * st1["decode_seconds"] / st1["tokens"],
+                       "gpu": 1e3 * st1["decode_gpu_seconds"]
+                       / st1["tokens"]},
+                   "card": card}
+            emit(row)
+            if not (s1 == s2 == s_e and s1 != s_o
+                    and row["top_k1_agreement"]["ok"]):
+                raise AssertionError(f"speculative sampling: {row}")
+        del engine
+        torch.cuda.empty_cache()
+
+    # the cross-model path with its drafts accepted, at full width: a
+    # DraftBundle of the target's own 0.6B weights (its own encoder,
+    # embeddings and slab) computes what the self-draft computes, so that
+    # its tokens, iterations and accepted drafts must equal the
+    # self-draft's; then its two slabs grow together through two stages
+    # (ASR_DECODE_SEGMENT=32), with a multi-token window write per
+    # iteration across the growth
+    engine = engine_for(spec_k=SPEC_K, draft_model=(config, (enc32, dec32)))
+    for c in SPEC_CLIPS:
+        label = f"0.6B target 0.6B bundle draft {c} s"
+        toks, st = counted(engine, label, audio[c], ref[c][0], ref[c][1],
+                           "bf16")
+        same = (toks, st["iterations"], st["drafts_accepted"]) == (
+            self_draft[c][0], self_draft[c][1]["iterations"],
+            self_draft[c][1]["drafts_accepted"])
+        emit({"phase": "speculative", "run": label,
+              "equals_self_draft": same, "card": card})
+        if not same:
+            raise AssertionError(f"speculative {label}: tokens or counts "
+                                 "differ from the bf16 self-draft's")
+    label = f"0.6B target 0.6B bundle draft {SPEC_CLIPS[-1]} s, 2 stages"
+    with Env({"ASR_DECODE_SEGMENT": "32"}):
+        toks, st, got = spec_run(torch, engine, audio[SPEC_CLIPS[-1]])
+    pre, per = spec_expected(None, "bf16", ld, ld, SPEC_K)
+    row = spec_row(label, st, got, pre, per, ref[SPEC_CLIPS[-1]][1],
+                   ref[SPEC_CLIPS[-1]][0], toks, engine, card)
+    spec_check(torch, engine, audio[SPEC_CLIPS[-1]], label,
+               ref[SPEC_CLIPS[-1]][0], toks, st, got, pre, per, row)
+    if len(st["slab_lens"]) != 2 or st["drafts_accepted"] < st["iterations"]:
+        raise AssertionError(f"speculative {label}: {len(st['slab_lens'])} "
+                             f"stages, {st['drafts_accepted']} drafts "
+                             f"accepted in {st['iterations']} iterations")
+    launches[f"spec {label}"] = got
+    for n in got:
+        per_iter[n][label] = row["launches_per_iteration"][n]
+    del engine
+    torch.cuda.empty_cache()
+
+    # an int8 target with the int8 KV slab and an int8 draft against its
+    # own plain greedy, in bf16 and in float32
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        plain8 = engine_for(dtype=dtype, quantize="int8", kv_dtype="int8")
+        ref8 = reference(plain8, (4,), f"0.6B {name} int8 target int8-KV")
+        del plain8
+        engine = engine_for(dtype=dtype, quantize="int8", kv_dtype="int8",
+                            speculative="int8", spec_k=SPEC_K)
+        counted(engine, f"0.6B {name} int8 target int8-KV int8 draft 4 s",
+                audio[4], ref8[4][0], ref8[4][1], "int8")
+        del engine
+        torch.cuda.empty_cache()
+
+    # float32, held to SERVING_TIE: an int8 draft under the float32 target;
+    # and the self-draft, whose q equals p up to summation order, so that
+    # speculative sampling accepts every draft
+    plain32 = engine_for(dtype=torch.float32)
+    ref32 = reference(plain32, (4,), "0.6B f32")
+    del plain32
+    engine = engine_for(dtype=torch.float32, speculative="int8",
+                        spec_k=SPEC_K)
+    counted(engine, "0.6B f32 int8 draft 4 s", audio[4], ref32[4][0],
+            ref32[4][1], "int8")
+    del engine
+    engine = engine_for(dtype=torch.float32, max_new=SPEC_F32_MAX_NEW,
+                        speculative="bf16", spec_k=SPEC_K)
+    toks, st, _ = spec_run(torch, engine, audio[4],
+                           sampling=SamplingParams(seed=0, **SPEC_SAMPLED))
+    full = st["tokens"] == SPEC_F32_MAX_NEW
+    row = {"phase": "speculative", "run": "0.6B f32 self-draft sampled",
+           "iterations": st["iterations"], "tokens": st["tokens"],
+           "mean_accepted": st["mean_accepted"],
+           "drafts_accepted": st["drafts_accepted"],
+           "every_draft_accepted":
+               st["drafts_accepted"] == SPEC_K * st["iterations"],
+           "card": card}
+    emit(row)
+    if not row["every_draft_accepted"] or (
+            full and st["mean_accepted"] != SPEC_K):
+        raise AssertionError(f"speculative float32 self-draft: {row}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # cross-model: a 1.7B target (synthetic_17b_config) with the 0.6B
+    # model drafting, bf16 (bf16 and int8 drafts) and float32 (4 s)
+    cfg17 = synthetic_17b_config()
+    t0 = time.perf_counter()
+    p17 = (to_torch(init_encoder_params_np(cfg17.audio), torch.float32,
+                    "cuda"),
+           to_torch(init_decoder_params_np(cfg17.text), torch.float32,
+                    "cuda"))
+    init_s = time.perf_counter() - t0
+    for dtype, clips, drafts in ((torch.bfloat16, SPEC_CLIPS, (None, "int8")),
+                                 (torch.float32, (4,), (None,))):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        plain17 = engine_for(cfg=cfg17, params=p17, dtype=dtype)
+        # bf16: busy time too, from one profiled run more
+        ref17 = reference(plain17, clips, f"1.7B {name}",
+                          profiled=dtype == torch.bfloat16,
+                          weights_init_s=init_s)
+        del plain17
+        torch.cuda.empty_cache()
+        for draft in drafts:
+            engine = engine_for(cfg=cfg17, params=p17, dtype=dtype,
+                                speculative=draft, spec_k=SPEC_K,
+                                draft_model=(config, (enc32, dec32)))
+            for c in clips:
+                counted(engine, f"1.7B {name} target 0.6B "
+                        f"{draft or 'unquantized'} draft {c} s", audio[c],
+                        ref17[c][0], ref17[c][1], draft or "bf16")
+            del engine
+            torch.cuda.empty_cache()
+    del p17
+    torch.cuda.empty_cache()
+    return launches, per_iter
+
+
 def main() -> int:
     try:
         import torch
@@ -2835,6 +3641,20 @@ def main() -> int:
     del enc_np, dec_np
     emit({"phase": "weights", "seconds": time.perf_counter() - t0})
 
+    # the clips of phases 4-10
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    clips = {}
+    for seconds, seed in ((4, 1), (30, 2), (300, 3), (8, 4), (15, 5),
+                          (22, 6)):
+        path = tmp / f"clip_{seconds}s.wav"
+        write_wav(path, seconds, seed)
+        clips[seconds] = path
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine, load_audio
+
+    audio = {c: load_audio(path, 16000) for c, path in clips.items()}
+    launches = {}  # {path: {kernel: launches in that path's run}}
+    per_30s = {}   # {path: {kernel: launches for its 30 s clip}}
+
     # 3. kernels
     kernel_rows = kernel_checks(torch, dec32)
     yardstick = gemv_yardstick(torch, dec32)
@@ -2846,17 +3666,6 @@ def main() -> int:
                    for n in ("decode_attention_slab", "decode_attention")}
 
     # 4. main path: bf16 weights, then int8 and int4 weights
-    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
-
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    clips = {}
-    for seconds, seed in ((4, 1), (30, 2), (300, 3), (8, 4), (15, 5),
-                          (22, 6)):
-        path = tmp / f"clip_{seconds}s.wav"
-        write_wav(path, seconds, seed)
-        clips[seconds] = path
-    launches = {}  # {path: {kernel: launches in that path's run}}
-    per_30s = {}   # {path: {kernel: launches for its 30 s clip}}
     for label, quantize, env, seconds in MAIN_PATHS:
         with Env(env):  # read when the engine is built and at each step
             engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
@@ -2874,9 +3683,6 @@ def main() -> int:
 
     # 5. batch: bf16 and int8 KV with bf16 weights, then int8 weights with
     # int8 KV and int4 weights with bf16 KV
-    from qwen3_asr_rs_tpu_torch.runtime.engine import load_audio
-
-    audio = {c: load_audio(path, 16000) for c, path in clips.items()}
     for kv_dtype, quantize in dict.fromkeys(r[2:4] for r in BATCH_RUNS):
         engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
                            config=config, params=(enc32, dec32),
@@ -2921,6 +3727,16 @@ def main() -> int:
         torch, config, enc32, dec32, audio, tmp, card)
     launches.update(serving_launches)
 
+    # 9. streaming: sessions over the 30 s clip, a rollover, float32
+    stream_launches, per_update = streaming_phase(torch, config, enc32,
+                                                  dec32, audio, card)
+    launches.update(stream_launches)
+
+    # 10. speculative decoding: drafts on 0.6B, a 1.7B target
+    spec_launches, per_iteration = speculative_phase(torch, config, enc32,
+                                                     dec32, audio, card)
+    launches.update(spec_launches)
+
     summary = []
     for name in SOURCES:
         # K6's row covers its two entries
@@ -2957,6 +3773,11 @@ def main() -> int:
             row.update(k5_summary(rows))
         if name in serving_per_step:
             row["launches_per_serving_step"] = serving_per_step[name]
+        row["launches_per_stream_update"] = {
+            r: sum(per_update[n][r] for n in names) for r in per_update[name]}
+        row["launches_per_spec_iteration"] = {
+            r: sum(per_iteration[n][r] for n in names)
+            for r in per_iteration[name]}
         if name == "decode_attention_slab":
             row["callers"] = K6_CALLERS
             row["launches"] = sum(k6_launches.values())

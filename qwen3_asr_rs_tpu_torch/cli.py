@@ -10,10 +10,9 @@ per file when several are given), or a one-line ``Error: ...`` on
 stderr with exit code 1. Several files are transcribed as one batch
 (``AsrEngine.transcribe_batch``: one prefill and one decode loop), as
 the JAX CLI does. ``--temperature``/``--top-k``/``--top-p``/``--seed``
-sample, ``--timestamps`` prints the segments with their words, and
-``ASR_METRICS=<path>`` dumps the stage timers, as in the JAX CLI; its
-speculative options (``--draft*``) are rejected until that path is
-ported.
+sample, ``--timestamps`` prints the segments with their words,
+``--draft``/``--draft-model``/``--draft-k`` decode speculatively, and
+``ASR_METRICS=<path>`` dumps the stage timers, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -52,6 +51,18 @@ Options:
                     one per stitched chunk, short audio a single span),
                     each followed by indented per-word `[start - end]`
                     lines (length-proportional within the segment).
+  --draft MODE      Speculative decoding: draft with a quantized copy of
+                    the checkpoint (int4 | int4g | int8 | lm8 | bf16)
+                    and verify with the full model: output equal to
+                    plain greedy decoding, only faster when the draft
+                    agrees often. With --temperature, speculative
+                    sampling keeps the target's sampling distribution.
+                    Single-file only.
+  --draft-model DIR Cross-model speculative decoding: draft with a
+                    smaller checkpoint (e.g. 0.6B drafting for a 1.7B
+                    model). Combine with --draft to also quantize the
+                    draft (e.g. --draft-model 0.6B --draft int4).
+  --draft-k N       Draft tokens per verify call (default 4).
 
 Environment variables:
   ASR_LOG / RUST_LOG   Set logging level (e.g., info, debug)
@@ -96,11 +107,32 @@ def main(argv=None) -> int:
     language = None
     sample_opts = {"temperature": 0.0, "top-k": 0, "top-p": 1.0, "seed": 0}
     timestamps = False
+    draft = draft_model = None
+    draft_k = 4
     rest = []
     it = iter(argv[1:])
     for arg in it:
         if arg == "--timestamps":
             timestamps = True
+        elif arg in ("--draft", "--draft-model", "--draft-k") or (
+                arg.startswith(("--draft=", "--draft-model=", "--draft-k="))):
+            name, eq, val = arg.partition("=")
+            if not eq:
+                val = next(it, None)
+            if name == "--draft-k":
+                try:
+                    draft_k = int(val)
+                except (TypeError, ValueError):
+                    print(f"Error: bad --draft-k value {val!r}",
+                          file=sys.stderr)
+                    return 1
+            elif val is None:
+                print(f"Error: {name} needs a value", file=sys.stderr)
+                return 1
+            elif name == "--draft":
+                draft = val
+            else:
+                draft_model = val
         elif arg in ("--language", "-l"):
             language = next(it, None)
             if language is None:
@@ -123,13 +155,6 @@ def main(argv=None) -> int:
             except ValueError:
                 print(f"Error: bad --{name} value {val!r}", file=sys.stderr)
                 return 1
-        elif arg.startswith("--"):
-            print(
-                f"Error: option {arg.split('=', 1)[0]} is not supported by "
-                "the PyTorch port yet",
-                file=sys.stderr,
-            )
-            return 1
         else:
             rest.append(arg)
     if language is None and len(rest) == 2:
@@ -153,6 +178,19 @@ def main(argv=None) -> int:
     if not audio_files:
         print("Error: no audio file given", file=sys.stderr)
         return 1
+    if draft is not None and draft not in (
+            "int4", "int4g", "int8", "lm8", "bf16"):
+        print(f"Error: unknown --draft mode {draft!r} "
+              "(expected int4 | int4g | int8 | lm8 | bf16)", file=sys.stderr)
+        return 1
+    if draft_model is not None and not Path(draft_model).exists():
+        print(f"Error: draft model directory not found: {draft_model}",
+              file=sys.stderr)
+        return 1
+    if (draft is not None or draft_model is not None) and len(audio_files) > 1:
+        logging.getLogger("asr").warning(
+            "--draft/--draft-model apply to single-file decoding only; "
+            "batched requests use the plain decode loop")
 
     import torch
 
@@ -190,7 +228,9 @@ def main(argv=None) -> int:
 
     try:
         engine = AsrEngine(model_path, dtype=dtype, max_new_tokens=max_new,
-                           device=device, quantize=quantize)
+                           device=device, quantize=quantize,
+                           speculative=draft, spec_k=draft_k,
+                           draft_model=draft_model)
         sampling = None
         if sample_opts["temperature"] != 0 or any(
             sample_opts[k] != d
@@ -219,6 +259,13 @@ def main(argv=None) -> int:
             print(f"Text: {result.text}")
             if timestamps:
                 print_segments(result.segments)
+            if engine.last_spec_stats:
+                st = engine.last_spec_stats
+                logger.info(
+                    "speculative decode: %d tokens in %d iterations "
+                    "(mean accepted drafts %.2f of %d)",
+                    st["tokens"], st["iterations"], st["mean_accepted"],
+                    draft_k)
             return finish()
         logger.info("Transcribing %d files as one batch", len(audio_files))
         samples = [load_audio(f, 16000) for f in audio_files]

@@ -48,8 +48,13 @@ end, the fresh K/V scattered to each row's slot; the decode kernel
 needs a shared slot, as JAX's dispatch does), ``prefill`` with per-row
 true lengths, and ``prefill_chunk`` (a block of the prompt at [start,
 start + P) over a cache holding [0, start), in plain torch as JAX's
-einsums). Blocked int4 and speculative calls are not ported yet and
-raise NotImplementedError.
+einsums). Streaming (``runtime/streaming.py``) extends its slab with
+``prefill_chunk``; speculative decoding verifies a drafted block with
+``score_chunk`` (the same chunk layers, an argmax or the float32 logits
+at every position). Both chunk entries take ``start`` as a host int or a
+0-d device tensor (a verify captured in a CUDA graph: the K/V write, the
+rotary rows and the mask are then computed on the device). Blocked int4
+is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -108,16 +113,26 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
-    def store(self, l: int, k, v, start: int = 0) -> None:
+    def store(self, l: int, k, v, start=0) -> None:
         """Write fresh K/V (B, Hkv, S, D) of layer ``l`` at slots [start,
-        start + S), quantized for an int8 slab (JAX ``_store_kv``)."""
-        sl = slice(start, start + k.shape[2])
+        start + S), quantized for an int8 slab (JAX ``_store_kv``).
+        ``start``: a host int, or a 0-d integer device tensor, whose
+        slots are written by ``index_copy_`` (no host read; a slot past
+        the slab fails its bounds check instead of clamping)."""
+        pairs = [(self.k, k), (self.v, v)]
         if self.quantized:
             (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-            self.k_scale[l, :, :, sl] = ks
-            self.v_scale[l, :, :, sl] = vs
-        self.k[l, :, :, sl] = k.to(self.k.dtype)
-        self.v[l, :, :, sl] = v.to(self.v.dtype)
+            pairs = [(self.k, k), (self.v, v), (self.k_scale, ks),
+                     (self.v_scale, vs)]
+        n = k.shape[2]
+        if isinstance(start, torch.Tensor):
+            idx = start.reshape(()).long() + torch.arange(
+                n, device=self.k.device)
+            for dst, src in pairs:
+                dst[l].index_copy_(2, idx, src.to(dst.dtype))
+            return
+        for dst, src in pairs:
+            dst[l, :, :, start:start + n] = src.to(dst.dtype)
 
     @property
     def max_len(self) -> int:
@@ -346,32 +361,74 @@ class TextDecoder:
         return self.logits(params, last)[:, 0], cache
 
     @torch.inference_mode()
-    def prefill_chunk(self, params: Tree, hidden, start: int, cache: KVCache,
+    def prefill_chunk(self, params: Tree, hidden, start, cache: KVCache,
                       true_len: int):
         """Incremental (chunked) prefill of (B, P, H) embeddings at
         positions [start, start + P), extending a cache whose slots [0,
         start) hold the earlier chunks (JAX ``prefill_chunk``): each layer
         writes the block at [start, start + P), then chunk query i attends
         to slab slot j iff j <= start + i, over the slab as stored
-        (dequantized from an int8 slab). Returns (logits at chunk index
-        true_len - 1 (B, V), cache)."""
+        (dequantized from an int8 slab). ``start``: an int or a 0-d
+        device tensor. Returns (logits at chunk index true_len - 1 (B,
+        V), cache)."""
+        hidden = self._chunk_layers(params, hidden, start, cache)
+        last = hidden[:, true_len - 1: true_len]
+        return self.logits(params, last)[:, 0], cache
+
+    @torch.inference_mode()
+    def score_chunk(self, params: Tree, token_ids, start, cache: KVCache,
+                    return_logits: bool = False):
+        """Score a block of already-chosen tokens (B, P) at positions
+        [start, start + P) in one call (JAX ``score_chunk``, the verify of
+        speculative decoding): the block's K/V land in slab slots [start,
+        start + P) through the chunk layers of ``prefill_chunk``, and
+        position i's output is the model's greedy successor of the
+        history and block[:, :i + 1]. Rejected-draft slots are
+        overwritten by the next block before any mask makes them
+        attendable. ``start``: an int or a 0-d device tensor. Returns
+        (argmax tokens (B, P) int32, cache), or with ``return_logits``
+        ((B, P, V) float32 logits, cache): speculative sampling needs the
+        target's distribution at every position.
+
+        On an int8 slab each position attends its own K/V unquantized, as
+        a decode step does, and the block's earlier positions as stored
+        (quantized), as later decode steps would. (JAX's verify attends
+        its own K/V as stored too, so that its speculative output with an
+        int8 slab may leave plain greedy decoding's at a step where int8
+        rounding reorders the two best logits; the port's does not.)"""
+        hidden = self._chunk_layers(params, self.embed(params, token_ids),
+                                    start, cache, exact_self=True)
+        logits = self.logits(params, hidden)
+        if return_logits:
+            return logits, cache
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    def _chunk_layers(self, params: Tree, hidden, start, cache: KVCache,
+                      exact_self: bool = False):
+        """Every layer of a chunk at positions [start, start + P): the
+        rotary rows gathered at ``start + arange(P)`` (on the device when
+        ``start`` is a tensor). ``exact_self``: see ``_chunk_layer``."""
         check_params(params)
         cos, sin = self.rotary.lookup(
             start + torch.arange(hidden.shape[1], device=hidden.device))
         layers = params["layers"]
         for l in range(cache.k.shape[0]):
             hidden = self._chunk_layer({k: v[l] for k, v in layers.items()},
-                                       hidden, cos, sin, l, cache, start)
-        last = hidden[:, true_len - 1: true_len]
-        return self.logits(params, last)[:, 0], cache
+                                       hidden, cos, sin, l, cache, start,
+                                       exact_self)
+        return hidden
 
     def _chunk_layer(self, layer: Tree, x, cos, sin, l: int, cache: KVCache,
-                     start: int):
+                     start, exact_self: bool = False):
         """One layer of chunked prefill (JAX ``_chunk_layer``): store the
         fresh block first, then attend over the whole slab with the mask
         j <= start + i, which covers the history and the block causally.
         The JAX package computes this with plain einsums, outside any
-        kernel; so does this."""
+        kernel; so does this. The mask's query positions ``start +
+        arange(P)`` stay on the device for a tensor ``start``.
+        ``exact_self`` on an int8 slab: query i's score and value at its
+        own slot come from its fresh K/V, not the stored (quantized) copy,
+        as in a decode step's self term."""
         cfg = self.cfg
         b, p_len, _ = x.shape
         nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -390,11 +447,24 @@ class TextDecoder:
                           k_use.float()) * hd ** -0.5
         slot = torch.arange(k_use.shape[2], device=x.device)
         query = start + torch.arange(p_len, device=x.device)
+        own = None
+        if exact_self and cache.quantized:
+            own = slot[None, :] == query[:, None]  # (P, S)
+            s_own = torch.einsum("bqhgd,bqhd->bhgq", qg.float(),
+                                 k.float()) * hd ** -0.5
+            sc = torch.where(own, s_own[..., None], sc)
         sc = torch.where(slot[None, :] <= query[:, None], sc, -1e9)
         p = torch.exp(sc - sc.amax(-1, keepdim=True))
         p = p / p.sum(-1, keepdim=True)
-        out = torch.einsum("bhgqk,bhkd->bqhgd", p.to(v_use.dtype).float(),
-                           v_use.float())
+        if own is None:
+            out = torch.einsum("bhgqk,bhkd->bqhgd",
+                               p.to(v_use.dtype).float(), v_use.float())
+        else:
+            out = torch.einsum("bhgqk,bhkd->bqhgd",
+                               torch.where(own, 0.0, p).to(
+                                   v_use.dtype).float(), v_use.float())
+            out = out + torch.einsum("bhgq,bqhd->bqhgd",
+                                     (p * own).sum(-1), v.float())
         out = out.reshape(b, p_len, nq * hd).to(x.dtype)
         x = residual + _linear(layer, "o_w", out)
         residual = x

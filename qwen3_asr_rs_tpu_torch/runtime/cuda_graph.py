@@ -1,11 +1,12 @@
 """A decode step captured as a CUDA graph, and its kernels' launches.
 
 ``StepGraph`` captures one call of a step function on a side stream
-(``torch.cuda.CUDAGraph``) and replays it. The caller runs the same step
-once eagerly on that stream first, so that every kernel wrapper's
+(``torch.cuda.CUDAGraph``) and replays it. ``capture`` runs the same
+step once eagerly on that stream first, so that every kernel wrapper's
 per-stream scratch exists and every C launcher has set its attributes
 before the capture: nothing is allocated or configured for the first
-time mid-capture. Whatever the step reads and writes must live at fixed
+time mid-capture. The engine, the serving batcher and the streaming
+sessions all capture through it. Whatever the step reads and writes must live at fixed
 addresses (the engine's decode state and slabs), and its positions must
 be device tensors: a host int would be frozen into the graph
 (``_build.check_not_frozen``).
@@ -42,9 +43,12 @@ COUNTED = [decode_layers_fused, decode_attention_dma, decode_attention_slab,
 class StepGraph:
     """One capture of ``fn`` (on ``stream``, allocating from the graph
     memory pool ``pool``, kept as ``.pool``); ``replay()`` enqueues it on
-    the current stream."""
+    the current stream. The graph keeps ``fn``: its kernels read the
+    addresses of the tensors the step's closure holds, which must live as
+    long as the graph."""
 
     def __init__(self, fn, stream, pool):
+        self.fn = fn
         self.pool = pool
         counted = list(COUNTED)
         before = [w.launches for w in counted]
@@ -68,3 +72,17 @@ class StepGraph:
         self.graph.replay()
         for w, n in self.launches:
             w.launches += n
+
+
+def capture(fn, stream, pool) -> StepGraph:
+    """Run ``fn`` once eagerly on ``stream`` (a real step: it creates the
+    wrappers' per-stream scratch), then capture it into the graph memory
+    pool ``pool``; the current stream waits for both. Returns the
+    graph."""
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        fn()
+    graph = StepGraph(fn, stream, pool)
+    main.wait_stream(stream)
+    return graph

@@ -1,7 +1,7 @@
 """AsrEngine — end-to-end transcription in PyTorch.
 
-Port of ``qwen3_asr_rs_tpu/runtime/engine.py`` without speculative
-decoding: log-mel -> audio encoder -> prompt embedding with the audio
+Port of ``qwen3_asr_rs_tpu/runtime/engine.py``: log-mel -> audio
+encoder -> prompt embedding with the audio
 embeddings injected at ``AUDIO_OFFSET`` -> prefill -> decode until an EOS
 token or ``max_new_tokens``, greedy or sampled (``sampling=``: the
 temperature, top-k, top-p and seed of ``runtime/sampling.py``), for one
@@ -38,6 +38,23 @@ dtype) and 'int8' (``ASR_KV``), and ``ASR_FOLD_LM=1`` folds the lm_head
 and argmax into the decode kernel for greedy steps (default off, as in
 JAX). Stage timers (``utils/tracing.py``): ``device_dispatch`` per
 transcription, ``warmup_c{c}_b{b}`` per warmed graph set.
+
+Speculative decoding (``speculative=``, ``spec_k=``, ``draft_model=``,
+as in JAX) runs every B = 1 transcription as draft-and-verify
+(``_spec_generate``): a draft (a quantized copy of this checkpoint, or a
+smaller checkpoint with its own encoder, embeddings and slab) decodes
+k + 1 tokens with ordinary decode steps over its own slab, the target
+scores the block once (``TextDecoder.score_chunk``), and the accepted
+prefix is emitted: greedy output equals plain greedy decoding's, and
+speculative sampling draws from the target's distribution
+(``sampling.speculative_accept``). The state stays on the device, as in
+the plain loop; on CUDA one iteration (the draft steps, the verify, the
+acceptance and the window write) is one CUDA graph replay, masked once
+the stream is done or past its stage's cap. Batches keep the plain loop.
+Differences from JAX's loops, none of which changes a token: the slabs
+carry k + 1 more slots of slack (a masked iteration's writes land past
+the live slots), and on an int8 slab the verify attends its own K/V
+unquantized, as a decode step does (``TextDecoder.score_chunk``).
 """
 
 from __future__ import annotations
@@ -69,10 +86,16 @@ from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
 from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
 from ..utils.tracing import stage_timer
-from .cuda_graph import StepGraph
+from .cuda_graph import StepGraph, capture
 from .longform import Segment, attach_words, transcribe_long
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
-from .sampling import SamplingParams, normalize, sample_token
+from .sampling import (
+    SamplingParams,
+    filtered_probs,
+    normalize,
+    sample_token,
+    speculative_accept,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -84,6 +107,25 @@ DEFAULT_CHUNK_BUCKETS = (1, 2, 4, 8, 15, 30, 60, 120, 240, 360)
 PROMPT_SLACK = 32
 
 EOS_TOKEN_IDS = (ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID)
+
+
+def _group(arena_key):
+    """The group of a kept arena's key: B, or "spec" for ("spec", ...)."""
+    return arena_key[0] if isinstance(arena_key, tuple) else arena_key
+
+
+@dataclasses.dataclass
+class DraftBundle:
+    """A second, smaller model drafting for speculative decoding (JAX
+    ``DraftBundle``): it shares the target's mel features and prompt ids
+    but runs its own audio encoder, embedding table and KV slab (its
+    widths differ from the target's)."""
+
+    config: AsrConfig
+    encoder: AudioEncoder
+    decoder: TextDecoder
+    enc_params: object
+    dec_params: object
 
 
 @dataclasses.dataclass
@@ -111,6 +153,10 @@ class AsrEngine:
         device: str | torch.device = "cuda",
         quantize: Optional[str] = None,
         kv_dtype: Optional[str] = None,
+        mesh=None,
+        speculative: Optional[str] = None,
+        spec_k: int = 4,
+        draft_model=None,
     ):
         """``params``: optional (encoder, decoder) trees (torch tensors or
         numpy arrays in the JAX layouts), cast to ``dtype`` on ``device``.
@@ -122,7 +168,20 @@ class AsrEngine:
         decode kernel does not take raises ValueError here. ``kv_dtype``:
         None (``ASR_KV``, else 'bf16'), 'bf16' (slabs in ``dtype``) or
         'int8' (int8 slabs with per-slot scales: half the slab bytes per
-        decode step)."""
+        decode step). ``mesh``: the JAX engine's device mesh, not ported
+        (NotImplementedError).
+
+        ``speculative``: draft-and-verify decoding of B = 1 transcriptions
+        (greedy: output equal to plain greedy's; sampled: speculative
+        sampling). It names the draft's precision, 'int4' | 'int4g' |
+        'int8' | 'lm8' | 'bf16', a copy of this checkpoint's decoder
+        quantized so ('bf16': the decoder before ``quantize``, a
+        self-draft that accepts everything). ``spec_k``: drafts per
+        verify (>= 1). ``draft_model``: a smaller checkpoint drafting (a
+        directory, or an ``(AsrConfig, (enc, dec))`` tuple), with its own
+        encoder and slab; ``speculative`` then names its quantization
+        (None: as loaded). Its vocabulary and audio-token layout must be
+        the target's."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AsrEngine(device='cuda'): no CUDA device")
@@ -133,6 +192,17 @@ class AsrEngine:
         self.dtype = dtype
         self.max_new_tokens = max_new_tokens
         self.chunk_buckets = tuple(sorted(chunk_buckets))
+        # a cross-model draft: ``speculative`` names its quantization
+        draft_quant = None
+        if draft_model is not None:
+            _check_spec(mesh, spec_k)
+            draft_quant = speculative or "bf16"
+            speculative = None
+        if speculative is not None:
+            _check_spec(mesh, spec_k)
+        if mesh is not None:
+            raise NotImplementedError(
+                "device meshes are not ported to the PyTorch package")
         if params is None:
             logger.info("Loading weights from %s", model_dir)
             params = load_model_params(model_dir, config, dtype, self.device)
@@ -141,18 +211,17 @@ class AsrEngine:
         self.enc_params, self.dec_params = params
         del params  # so the float linears are freed once quantized
         self.quantize = quantize
+        self.spec_k = int(spec_k)
         gsize = int(os.environ.get("ASR_INT4_GROUP", "128"))
-        t = config.text
-        ks = (t.hidden_size, t.num_attention_heads * t.head_dim,
-              t.intermediate_size)
-        if (quantize == "int4g" and self.device.type == "cuda"
-                and not int4g_group_supported(gsize, ks)):
-            raise ValueError(
-                f"ASR_INT4_GROUP={gsize}: the CUDA decode kernel takes int4 "
-                "group sizes 32, 64 and multiples of 128 that divide every "
-                f"projection's input width {ks}")
+        if quantize == "int4g":
+            self._check_group(config, gsize)
+        base_dec = self.dec_params
         self.dec_params = self._quantize_params(self.dec_params, quantize,
                                                 gsize)
+        # same-checkpoint draft weights, from the decoder before quantize
+        self.draft_params = (None if speculative is None else
+                             self._build_draft_params(base_dec, speculative))
+        del base_dec
         if kv_dtype is None:
             kv_dtype = os.environ.get("ASR_KV")
         if kv_dtype not in (None, "bf16", "int8"):
@@ -166,11 +235,19 @@ class AsrEngine:
             create_mel_filterbank(config.audio.num_mel_bins)
         ).to(self.device)
         self.encoder = AudioEncoder(config.audio, device=self.device)
+        spec = speculative is not None or draft_model is not None
         max_pos = 16
         for c in self.chunk_buckets:
-            max_pos = max(max_pos, self._prompt_bucket(c) + max_new_tokens + 8)
+            max_pos = max(max_pos, self._prompt_bucket(c) + max_new_tokens + 8
+                          + (self._spec_slack() if spec else 0))
         self.decoder = TextDecoder(config.text, max_position=max_pos,
                                    device=self.device)
+        self.draft_bundle = (
+            None if draft_model is None else
+            self._build_draft_bundle(draft_model, draft_quant, max_pos))
+        # the last speculative call's iterations, tokens and mean accepted
+        # drafts per iteration (None before the first)
+        self.last_spec_stats = None
         # decode steps per non-blocking read of the done flags
         self.decode_chunk = 4
         # on CUDA, replay each decode step as a captured CUDA graph (False
@@ -180,8 +257,101 @@ class AsrEngine:
         self._arenas: dict = {}   # B -> the first stage's slab storage
         self._graphs: dict = {}   # _graph_key -> the first stage's StepGraph
         self._side = self._pool = None  # capture stream, graph memory pool
+        # (slab length, max_new) -> streaming's slab leases and graphs
+        # (runtime/streaming.py::_StreamGraphs)
+        self._stream_graphs: dict = {}
         # step counts, slab lengths and stage times of the last call
         self.last_stats: dict = {}
+
+    def _check_group(self, config: AsrConfig, gsize: int) -> None:
+        """On CUDA, refuse an int4g group size the decode kernel does not
+        take for ``config``'s projections."""
+        t = config.text
+        ks = (t.hidden_size, t.num_attention_heads * t.head_dim,
+              t.intermediate_size)
+        if self.device.type == "cuda" and not int4g_group_supported(gsize, ks):
+            raise ValueError(
+                f"ASR_INT4_GROUP={gsize}: the CUDA decode kernel takes int4 "
+                "group sizes 32, 64 and multiples of 128 that divide every "
+                f"projection's input width {ks}")
+
+    def _build_draft_params(self, base_dec, mode: str, config=None):
+        """Draft decoder weights for speculative decoding (JAX
+        ``_build_draft_params``): 'bf16' keeps ``base_dec``, the others
+        quantize it with merged projections (int4g at ``ASR_INT4_GROUP``
+        rows per group), 'lm8' the lm_head only. ``config``: the draft's
+        (default the target's), for int4g's group check."""
+        if mode == "bf16":
+            return base_dec
+        if mode == "int4g":
+            gsize = int(os.environ.get("ASR_INT4_GROUP", "128"))
+            self._check_group(config or self.config, gsize)
+            return quantize_decoder_params(base_dec, bits=4, merge=True,
+                                           group_size=gsize)
+        if mode in ("int8", "int4"):
+            return quantize_decoder_params(
+                base_dec, bits=4 if mode == "int4" else 8, merge=True)
+        if mode == "lm8":
+            return quantize_lm_head_only(base_dec)
+        raise ValueError(
+            f"unknown speculative draft mode {mode!r} "
+            "(expected int4 | int4g | int8 | lm8 | bf16)")
+
+    def _build_draft_bundle(self, draft_model, draft_quant: str,
+                            max_pos: int) -> DraftBundle:
+        """Load and validate a cross-model draft (JAX
+        ``_build_draft_bundle``): a model directory, or an ``(AsrConfig,
+        (enc, dec))`` tuple. Its vocabulary and audio-token layout must be
+        the target's: the verify compares token ids, and one prompt with
+        one run of audio tokens serves both models."""
+        if isinstance(draft_model, tuple):
+            dcfg, (denc, ddec) = draft_model
+        else:
+            ddir = Path(draft_model)
+            dcfg = AsrConfig.from_file(ddir / "config.json")
+            denc = ddec = None
+        cfg = self.config
+        if dcfg.text.vocab_size != cfg.text.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {dcfg.text.vocab_size} != target "
+                f"{cfg.text.vocab_size}: speculative tokens would not be "
+                "comparable")
+        for field in ("num_mel_bins", "chunk_frames", "tokens_per_chunk",
+                      "n_window_infer"):
+            dv, tv = getattr(dcfg.audio, field), getattr(cfg.audio, field)
+            if dv != tv:
+                raise ValueError(
+                    f"draft audio {field}={dv} != target {tv}: the models "
+                    "would disagree on the audio-token layout")
+        if denc is None:
+            logger.info("Loading draft weights from %s", ddir)
+            denc, ddec = load_model_params(ddir, dcfg, self.dtype,
+                                           self.device)
+        else:
+            denc, ddec = to_torch((denc, ddec), self.dtype, self.device)
+        if draft_quant not in (None, "bf16"):
+            ddec = self._build_draft_params(ddec, draft_quant, dcfg)
+        return DraftBundle(
+            config=dcfg,
+            encoder=AudioEncoder(dcfg.audio, device=self.device),
+            decoder=TextDecoder(dcfg.text, max_position=max_pos,
+                                device=self.device),
+            enc_params=denc, dec_params=ddec)
+
+    def _spec_active(self, batch: int) -> bool:
+        """Speculative decoding runs single streams (JAX ``_spec_active``):
+        a batch already shares one weight stream among its rows, and
+        per-row acceptance would break the shared write slot, so B > 1
+        keeps the plain loop. Greedy and sampled calls both take it."""
+        return (self.draft_params is not None
+                or self.draft_bundle is not None) and batch == 1
+
+    def _spec_slack(self) -> int:
+        """Slots past a stage's cap that a speculative slab carries: k + 1
+        for an iteration's block (JAX's slack), and k + 1 more for an
+        iteration replayed after the stream stopped (its writes land past
+        the live slots and are masked out of the state)."""
+        return 2 * (self.spec_k + 1)
 
     @staticmethod
     def _quantize_params(dec, quantize: Optional[str], gsize: int = 128):
@@ -262,19 +432,22 @@ class AsrEngine:
 
     @torch.inference_mode()
     def _embed_prompts(self, samples_list: Sequence[np.ndarray],
-                       languages: Sequence[Optional[str]], aligned: bool):
+                       languages: Sequence[Optional[str]], aligned: bool,
+                       draft: Optional[DraftBundle] = None):
         """Mel, encoder and prompt embedding with audio injection for
         utterances that share one chunk bucket (the largest any needs).
         Prompts sit at slots [0, len) or, ``aligned``, end at the prompt
         bucket P; each row's audio goes to its prompt start +
-        ``AUDIO_OFFSET``. Returns (hidden (B, P, H), true prompt lengths)."""
+        ``AUDIO_OFFSET``. Returns (hidden (B, P, H), true prompt lengths,
+        the ``draft`` model's own embeddings of the same ids and mel with
+        its own encoder's audio injected, or None)."""
         cfg = self.config
         cf = cfg.audio.chunk_frames
         tpc = cfg.audio.tokens_per_chunk
         bucket_chunks = self._chunk_bucket(samples_list)
         p_bucket = self._prompt_bucket(bucket_chunks)
         ids = torch.zeros((len(samples_list), p_bucket), dtype=torch.long)
-        audio, true_lens = [], []
+        audio, d_audio, true_lens = [], [], []
         for i, (samples, language) in enumerate(zip(samples_list, languages)):
             wave, n_true = pad_waveform(samples, bucket_frames=bucket_chunks * cf)
             tail = n_true % cf
@@ -291,10 +464,17 @@ class AsrEngine:
                                       n_true, self.mel_filters)
             embeds, _ = self.encoder(self.enc_params, mel, n_true)
             audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
-        hidden = self.decoder.embed(self.dec_params, ids.to(self.device))
-        for i, (at, embeds) in enumerate(audio):
-            hidden[i, at: at + len(embeds)] = embeds.to(hidden.dtype)
-        return hidden, true_lens
+            if draft is not None:
+                embeds, _ = draft.encoder(draft.enc_params, mel, n_true)
+                d_audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
+        ids = ids.to(self.device)
+        out = [(self.decoder.embed(self.dec_params, ids), audio)]
+        if draft is not None:
+            out.append((draft.decoder.embed(draft.dec_params, ids), d_audio))
+        for hidden, runs in out:
+            for i, (at, embeds) in enumerate(runs):
+                hidden[i, at: at + len(embeds)] = embeds.to(hidden.dtype)
+        return out[0][0], true_lens, out[1][0] if draft is not None else None
 
     @torch.inference_mode()
     def prefill(self, samples: np.ndarray, language: Optional[str] = None,
@@ -303,8 +483,8 @@ class AsrEngine:
         into ``cache`` (a slab of at least the prompt bucket's slots;
         default ``_new_cache``). Returns (logits (1, V) at the last prompt
         token, KV cache, true prompt length)."""
-        hidden, (true_len,) = self._embed_prompts([samples], [language],
-                                                  aligned=False)
+        hidden, (true_len,), _ = self._embed_prompts([samples], [language],
+                                                     aligned=False)
         p_bucket = hidden.shape[1]
         if cache is None:
             cache = self._new_cache(1, p_bucket)
@@ -322,8 +502,8 @@ class AsrEngine:
         utterances into ``cache`` (default ``_new_cache``): row b's prompt
         spans slots [kv_start_b, P). Returns (logits (B, V) at slot P - 1,
         KV cache, kv_start (B,) int32, P)."""
-        hidden, true_lens = self._embed_prompts(samples_list, languages,
-                                                aligned=True)
+        hidden, true_lens, _ = self._embed_prompts(samples_list, languages,
+                                                   aligned=True)
         b, p_bucket = hidden.shape[:2]
         kv_start = torch.tensor([p_bucket - n for n in true_lens],
                                 dtype=torch.int32, device=self.device)
@@ -333,18 +513,23 @@ class AsrEngine:
                                                      kv_start, cache)
         return logits, cache, kv_start, p_bucket
 
-    def _slab0(self, b: int, n: int) -> KVCache:
+    def _slab0(self, b: int, n: int, key=None, text=None) -> KVCache:
         """The first stage's ``n``-slot slab for B = ``b``: a view of the
-        first elements of B's arena, so that a captured step keeps its
-        address from call to call. A longer slab than the arena holds
-        replaces the arena (``_release``)."""
-        cfg = self.config.text
+        first elements of the arena kept under ``key`` (default B; the
+        speculative loop's are ("spec", "target") and ("spec", "draft"),
+        at the widths of ``text``, default the target's), so that a
+        captured step keeps its address from call to call. A longer slab
+        than the arena holds replaces the arena and every arena and graph
+        of its group (``_release``)."""
+        key = b if key is None else key
+        cfg = self.config.text if text is None else text
         shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, n,
                  cfg.head_dim)
         numel = math.prod(shape)
-        arena = self._arenas.get(b)
+        arena = self._arenas.get(key)
         if arena is None or arena[0].numel() < numel:
-            self._release(b)
+            if arena is not None:  # replaced: its group's graphs go too
+                self._release(_group(key))
             kw = dict(device=self.device)
             dt = torch.int8 if self.kv_quant else self.dtype
             arena = [torch.zeros(numel, dtype=dt, **kw) for _ in range(2)]
@@ -352,16 +537,20 @@ class AsrEngine:
                 arena += [torch.zeros(numel // cfg.head_dim,
                                       dtype=torch.float32, **kw)
                           for _ in range(2)]
-            self._arenas[b] = arena
+            self._arenas[key] = arena
         views = [t[:numel].view(shape) for t in arena[:2]]
         views += [t[:numel // cfg.head_dim].view(shape[:-1])
                   for t in arena[2:]]
         return KVCache(*views)
 
-    def _release(self, b: int) -> None:
-        """Free B's first-stage arena and the graphs captured on it."""
-        self._arenas.pop(b, None)
-        self._graphs = {k: g for k, g in self._graphs.items() if k[0] != b}
+    def _release(self, group=None) -> None:
+        """Free a group's first-stage arenas and the graphs captured on
+        them: a B's (``group`` = B), the speculative loop's ("spec"), or
+        with None every group's."""
+        self._arenas = {k: a for k, a in self._arenas.items()
+                        if group is not None and _group(k) != group}
+        self._graphs = {k: g for k, g in self._graphs.items()
+                        if group is not None and k[0] != group}
         self._drop_dead_pool()
 
     def _drop_dead_pool(self) -> None:
@@ -412,11 +601,7 @@ class AsrEngine:
         """What a captured first-stage step depends on: B, the slab length,
         the layout, greedy or sampled with its static filters, and the
         environment switches that the step reads while it is captured."""
-        variant = (("sample", sampling.top_k, sampling.top_p)
-                   if not sampling.greedy else ("greedy",))
-        env = tuple(os.environ.get(k) for k in (
-            "ASR_FOLD_LM", "ASR_DECODE_IMPL", "ASR_DECODE_ATTN"))
-        return (b, cache.max_len, aligned, variant, env)
+        return (b, cache.max_len, aligned, _variant(sampling), _env_key())
 
     def _capture(self, fn) -> StepGraph:
         """Run ``fn`` once eagerly on the capture stream (a real decode
@@ -426,13 +611,7 @@ class AsrEngine:
             self._side = torch.cuda.Stream(self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        main = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            fn()
-        graph = StepGraph(fn, self._side, self._pool)
-        main.wait_stream(self._side)
-        return graph
+        return capture(fn, self._side, self._pool)
 
     @torch.inference_mode()
     def _generate(self, samples_list: Sequence[np.ndarray],
@@ -470,9 +649,12 @@ class AsrEngine:
         card's busy time plus any time the host left it idle).
         """
         sampling = normalize(sampling)
-        t0 = time.perf_counter()
         live = np.asarray(live, bool)
         b = len(samples_list)
+        if self._spec_active(b):
+            return [self._spec_generate(samples_list[0], languages[0],
+                                        bool(live[0]), sampling, warmup)]
+        t0 = time.perf_counter()
         p = self._prompt_bucket(self._chunk_bucket(samples_list))
         caps = self._segment_caps()
         st = self._state(b)
@@ -576,6 +758,228 @@ class AsrEngine:
             self.last_stats["decode_gpu_seconds"] = (
                 ev0.elapsed_time(ev1) / 1e3)
         return [out_buf[i, :g].tolist() for i, g in enumerate(n_gen)]
+
+    def _spec_state(self) -> "_SpecState":
+        if "spec" not in self._states:
+            self._states["spec"] = _SpecState.zeros(
+                self.max_new_tokens, self.spec_k, self.device)
+        return self._states["spec"]
+
+    def _spec_draft(self):
+        """(decoder, params, text config) of the draft."""
+        if self.draft_bundle is not None:
+            b = self.draft_bundle
+            return b.decoder, b.dec_params, b.config.text
+        return self.decoder, self.draft_params, self.config.text
+
+    def _spec_iteration(self, st: "_SpecState", cache: KVCache,
+                        dcache: KVCache, sampling: SamplingParams):
+        """One draft-and-verify iteration over the device state (the body
+        of JAX's ``_spec_decode_loop``, ``engine.py:887-1021``, and of
+        ``_spec_sample_loop``, ``:1023-1152``). The pending token ``tok``
+        sits at slot pos = base + step. The draft decodes k + 1 tokens
+        from it over its slab (greedy steps, or sampled from its filtered
+        distributions q_i on streams 2 + i of counter iters + 1); the k + 1
+        steps keep the draft slab's slot pos + k valid when all k drafts
+        are accepted. The target scores [tok, d_1..d_k] at pos
+        (``score_chunk``). Greedy: the longest prefix with d_i equal to
+        the target's argmax t_i is accepted, the candidates [tok,
+        t_1..t_k] are emitted up to the accepted count, truncated before
+        the first EOS and clamped to max_new tokens in all, and t_{acc+1}
+        becomes the pending token. Sampled: ``speculative_accept`` on the
+        target's filtered distributions p_i, candidates [tok, d_1..d_k],
+        its replacement or bonus token pending. The window goes to
+        out_buf at n_gen by one scatter.
+
+        The iteration is masked unless the stream is live (not done) and
+        below the stage's cap: a masked one leaves tok, n_gen, out_buf,
+        step, the counts and done as they were, and its slab writes land
+        at slots past the live ones (``_spec_slack``), so that replays
+        after the stream stopped change nothing. ``stop`` (done or at the
+        cap) is what the host reads."""
+        k = self.spec_k
+        dec, params = self.decoder, self.dec_params
+        d_dec, d_params, _ = self._spec_draft()
+        sample = not sampling.greedy
+        top_k, top_p = sampling.top_k, sampling.top_p
+        idx = torch.arange(k + 1, device=self.device)
+        max_new = self.max_new_tokens
+
+        def iteration():
+            active = ~st.done[0] & (st.step < st.cap)
+            pos = st.base + st.step
+            counter = st.iters + 1
+            tok, drafts, q = st.tok, [], []
+            for i in range(k + 1):
+                if sample:
+                    logits, _ = d_dec.decode_step(d_params, tok, pos + i,
+                                                  dcache)
+                    q.append(filtered_probs(logits[0], st.temp, top_k, top_p))
+                    tok = sample_token(logits, st.seed, counter, st.temp,
+                                       top_k, top_p, stream=2 + i)
+                else:
+                    tok, _ = d_dec.decode_step_token(d_params, tok, pos + i,
+                                                     dcache)
+                drafts.append(tok.long())
+            drafts = torch.cat(drafts[:k])
+            block = torch.cat([st.tok, drafts])
+            if sample:
+                logits, _ = dec.score_chunk(params, block[None], pos, cache,
+                                            return_logits=True)
+                acc, nxt = speculative_accept(
+                    st.seed, counter, drafts, torch.stack(q[:k]),
+                    filtered_probs(logits[0], st.temp, top_k, top_p))
+                cand, nxt = block, nxt.reshape(1)
+            else:
+                t, _ = dec.score_chunk(params, block[None], pos, cache)
+                t = t[0].long()
+                acc = torch.cumprod((drafts == t[:k]).long(), 0).sum()
+                cand = torch.cat([st.tok, t[:k]])
+                nxt = t.gather(0, acc.reshape(1))
+            eos = (cand == EOS_TOKEN_IDS[0]) | (cand == EOS_TOKEN_IDS[1])
+            n_raw = (torch.cumprod((~eos).long(), 0) * (idx <= acc)).sum()
+            n_emit = torch.where(
+                active, torch.minimum(n_raw, max_new - st.step), 0)
+            cols = st.n_gen + idx
+            row = st.out_buf[0]
+            row.scatter_(0, cols, torch.where(active, cand,
+                                              row.gather(0, cols)))
+            st.n_gen.add_(n_emit)
+            st.step.add_(n_emit)
+            st.tok.copy_(torch.where(active, nxt, st.tok))
+            st.done.logical_or_(active & (n_raw < acc + 1))
+            st.iters.add_(active.long())
+            st.accepted.add_(torch.where(active, acc, 0))
+            st.stop.copy_(st.done | (st.step >= st.cap))
+
+        return iteration
+
+    @torch.inference_mode()
+    def _spec_generate(self, samples: np.ndarray, language: Optional[str],
+                       live: bool, sampling: SamplingParams,
+                       warmup: bool = False) -> list[int]:
+        """Token ids (EOS excluded) of one utterance by speculative
+        decoding (see ``_spec_iteration``): the target and the draft each
+        prefill their first-stage slab (views of the arenas ("spec",
+        "target") and ("spec", "draft"), sized by ``_spec_slab_len``),
+        the draft from its own embeddings when it is another model, from
+        the target's otherwise (JAX shares them); the prefill's token is
+        the argmax or draw 0. Stages as in ``_generate``: both slabs grow
+        together (``KVCache.grow``, each at its own widths) once a stage
+        stops at its cap with the stream live. Iterations run in chunks
+        of ``decode_chunk`` with one non-blocking read of ``stop`` per
+        chunk; on CUDA each is a replay of one CUDA graph (the first
+        stage's kept with its arenas under ``("spec", ...)``), with
+        ``cuda_graphs`` False or on the CPU the same function runs
+        eagerly. ``live`` False (warmup): born done; ``warmup`` captures
+        the first stage's graph and replays nothing.
+
+        Fills ``last_spec_stats`` (JAX's: iterations, tokens, mean
+        accepted drafts per iteration = (tokens - iterations) /
+        iterations) and ``last_stats``: ``iterations`` and
+        ``drafts_accepted`` (device counts of live iterations),
+        ``iterations_run`` (eager and replayed, masked ones included),
+        ``replays``, ``captures``, ``slab_lens``, ``n_gen``,
+        ``prefill_seconds``, ``decode_seconds`` and, on CUDA,
+        ``decode_gpu_seconds`` (as ``_generate``)."""
+        t0 = time.perf_counter()
+        p = self._prompt_bucket(self._chunk_bucket([samples]))
+        caps = self._segment_caps()
+        d_dec, d_params, d_text = self._spec_draft()
+        n = self._spec_slab_len(p, caps[0])
+        cache = self._slab0(1, n, ("spec", "target"))
+        dcache = self._slab0(1, n, ("spec", "draft"), d_text)
+        hidden, (true_len,), d_hidden = self._embed_prompts(
+            [samples], [language], aligned=False, draft=self.draft_bundle)
+        slots = torch.arange(p, device=self.device)
+        logits, _ = self.decoder.prefill(self.dec_params, hidden, slots,
+                                         cache, true_len)
+        d_dec.prefill(d_params, hidden if d_hidden is None else d_hidden,
+                      slots, dcache, true_len)
+        st = self._spec_state()
+        st.start(live, true_len, sampling)
+        if sampling.greedy:
+            st.tok.copy_(torch.argmax(logits, dim=-1))
+        else:  # the prefill's token takes draw 0
+            st.tok.copy_(sample_token(logits, st.seed, 0, st.temp,
+                                      sampling.top_k, sampling.top_p))
+        cuda = self.device.type == "cuda"
+        graphs = cuda and self.cuda_graphs
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        t_first = time.perf_counter()
+
+        flags = _DoneFlags(self.device)
+        runs = replays = captures = 0
+        slab_lens = [n]
+        try:
+            for i, cap in enumerate(caps):
+                if i > 0:
+                    if bool(st.done[0]):
+                        break
+                    n = self._spec_slab_len(p, cap)
+                    cache, dcache = cache.grow(n), dcache.grow(n)
+                    if i == 1:
+                        self._release("spec")
+                    slab_lens.append(n)
+                    if int(st.step) >= cap:
+                        continue
+                st.cap.fill_(cap)
+                fn = self._spec_iteration(st, cache, dcache, sampling)
+                graph = None
+                if graphs:  # the first stage's graphs are kept
+                    key = (("spec", n, _variant(sampling), _env_key())
+                           if i == 0 else None)
+                    graph = self._graphs.get(key)
+                    if graph is None:
+                        graph = self._capture(fn)
+                        captures += 1
+                        runs += 1
+                        if key is not None:
+                            self._graphs[key] = graph
+                if warmup:
+                    continue
+                run = fn if graph is None else graph.replay
+                pending = None
+                while True:
+                    for _ in range(self.decode_chunk):
+                        run()
+                    runs += self.decode_chunk
+                    replays += self.decode_chunk if graph is not None else 0
+                    posted = flags.post(st.stop)
+                    if pending is not None and flags.read(pending):
+                        break
+                    pending = posted
+        finally:  # the later stages' graphs go with this call
+            self._drop_dead_pool()
+        if cuda:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+        n_gen = int(st.n_gen[0])
+        out = st.out_buf[0, :n_gen].tolist()
+        iters, accepted = int(st.iters), int(st.accepted)
+        t_end = time.perf_counter()
+        self.last_stats = {
+            "iterations": iters, "drafts_accepted": accepted,
+            "iterations_run": runs, "replays": replays,
+            "captures": captures, "slab_lens": slab_lens,
+            "prefill_seconds": t_first - t0,
+            "decode_seconds": t_end - t_first, "n_gen": [n_gen],
+        }
+        if cuda:
+            self.last_stats["decode_gpu_seconds"] = (
+                ev0.elapsed_time(ev1) / 1e3)
+        self.last_spec_stats = {
+            "iterations": iters, "tokens": n_gen,
+            "mean_accepted": (n_gen - iters) / iters if iters else 0.0}
+        return out
+
+    def _spec_slab_len(self, p_bucket: int, cap: int) -> int:
+        """Slots of a speculative slab for prompt bucket P and a stage of
+        ``cap`` tokens: ``_slab_len``'s with ``_spec_slack`` more."""
+        return -(-(p_bucket + cap + 1 + self._spec_slack()) // 8) * 8
 
     def generate(self, samples: np.ndarray, language: Optional[str] = None,
                  sampling: Optional[SamplingParams] = None) -> list[int]:
@@ -708,6 +1112,75 @@ class AsrEngine:
         return transcribe_long(self, samples, language,
                                segment_seconds=max_seconds,
                                overlap_seconds=overlap_seconds)
+
+
+def _check_spec(mesh, spec_k) -> None:
+    """The JAX engine's checks of a speculative configuration."""
+    if mesh is not None:
+        raise ValueError(
+            "speculative decoding runs the single-stream greedy path; it is "
+            "not supported under a device mesh")
+    if int(spec_k) < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+
+
+def _variant(sampling: SamplingParams) -> tuple:
+    """Greedy, or sampled with its static filters (a graph key part)."""
+    if sampling.greedy:
+        return ("greedy",)
+    return ("sample", sampling.top_k, sampling.top_p)
+
+
+def _env_key() -> tuple:
+    """The environment switches a decode step reads while it is captured."""
+    return tuple(os.environ.get(k) for k in (
+        "ASR_FOLD_LM", "ASR_DECODE_IMPL", "ASR_DECODE_ATTN"))
+
+
+@dataclasses.dataclass
+class _SpecState:
+    """The speculative loop's device state (B = 1), at fixed addresses:
+    the pending token, tokens emitted (n_gen == step), done and stop
+    flags, the token buffer with k + 1 columns of slack for the last
+    window, the live iterations and accepted drafts, and the per-call
+    inputs (the prompt length base, the stage's cap, seed,
+    temperature)."""
+
+    tok: torch.Tensor       # (1,) int64
+    n_gen: torch.Tensor     # (1,) int64
+    done: torch.Tensor      # (1,) bool
+    stop: torch.Tensor      # (1,) bool: done, or at the stage's cap
+    out_buf: torch.Tensor   # (1, max_new + k + 1) int64
+    step: torch.Tensor      # () int64, tokens emitted
+    iters: torch.Tensor     # () int64, live iterations
+    accepted: torch.Tensor  # () int64, accepted drafts
+    base: torch.Tensor      # () int64
+    cap: torch.Tensor       # () int64
+    seed: torch.Tensor      # () int64
+    temp: torch.Tensor      # () float32
+
+    @classmethod
+    def zeros(cls, max_new: int, k: int, device) -> "_SpecState":
+        i64 = dict(dtype=torch.int64, device=device)
+        flag = dict(dtype=torch.bool, device=device)
+        return cls(tok=torch.zeros(1, **i64), n_gen=torch.zeros(1, **i64),
+                   done=torch.zeros(1, **flag), stop=torch.zeros(1, **flag),
+                   out_buf=torch.zeros((1, max_new + k + 1), **i64),
+                   step=torch.zeros((), **i64), iters=torch.zeros((), **i64),
+                   accepted=torch.zeros((), **i64),
+                   base=torch.zeros((), **i64), cap=torch.zeros((), **i64),
+                   seed=torch.zeros((), **i64),
+                   temp=torch.zeros((), dtype=torch.float32, device=device))
+
+    def start(self, live: bool, base: int, sampling: SamplingParams) -> None:
+        """Reset for a call: nothing emitted; born done unless ``live``."""
+        for t in (self.n_gen, self.step, self.iters, self.accepted):
+            t.zero_()
+        self.done.fill_(not live)
+        self.stop.fill_(not live)
+        self.base.fill_(base)
+        self.seed.fill_(sampling.seed)
+        self.temp.fill_(sampling.temperature)
 
 
 @dataclasses.dataclass

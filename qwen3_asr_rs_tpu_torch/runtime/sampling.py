@@ -19,6 +19,16 @@ needs no generator state, so a step captured in a CUDA graph draws
 afresh at every replay from the device counter that the graph advances;
 and it runs on int64 values below 2^63 only (no signed wrap-around), so
 the CPU and the card give the same bits.
+
+Speculative sampling (the engine's ``_spec_generate``) maps JAX's keys
+(``fold_in(base_key, it + 1)`` per iteration, ``fold_in(key_it, 2 + i)``
+per draft step, ``fold_in(key_it, 0)`` for the accept) onto the same
+hash: the prefill's token is counter 0; iteration ``it`` is counter
+``it + 1``, its draft step i draws on stream ``2 + i``, and
+``speculative_accept`` at that counter keeps streams 0 (the acceptance
+uniforms) and 1 (the replacement or bonus token). Iterations, not
+tokens, key the draws: an iteration emits a data-dependent number of
+tokens.
 """
 
 from __future__ import annotations
@@ -197,12 +207,14 @@ def _scaled(logits, temperature, top_k: int, top_p):
 
 
 def sample_token(logits, seed, counter, temperature, top_k: int = 0,
-                 top_p=1.0):
+                 top_p=1.0, stream: int = 0):
     """One decode-step sample: (B, V) or (V,) logits -> int64 ids.
 
     ``seed``/``counter`` key the draw (``draw_bits``; the engine's counter
-    is the token index): scalars, or (B,) tensors of per-row keys. ``temperature`` may be a scalar or a per-row
-    (B,) tensor; rows with temperature <= 0 take the argmax. As in JAX,
+    is the token index, a speculative draft step's its iteration and
+    ``stream`` 2 + i): scalars, or (B,) tensors of per-row keys.
+    ``temperature`` may be a scalar or a per-row (B,) tensor; rows with
+    temperature <= 0 take the argmax. As in JAX,
     the top-k filter keeps every logit tied with the k-th, so ``top_k =
     1`` draws among tied largest logits where greedy takes the lowest
     index. Returns ids with the logits' leading shape.
@@ -212,7 +224,7 @@ def sample_token(logits, seed, counter, temperature, top_k: int = 0,
         logits = logits[None]
     greedy = torch.argmax(logits, dim=-1)
     logits, temp, scaled = _scaled(logits, temperature, top_k, top_p)
-    sampled = _gumbel_argmax(scaled, seed, counter)
+    sampled = _gumbel_argmax(scaled, seed, counter, stream)
     out = torch.where(temp > 0, sampled, greedy)
     return out[0] if squeeze else out
 
@@ -235,7 +247,9 @@ def speculative_accept(seed, counter, drafts, q_probs, p_probs):
     bonus token is drawn from p_{k+1}. Returns (acc, next_token), 0-d
     int64 tensors: next_token is distributed as sequential sampling from
     the target. (seed, counter) key the draws: stream 0 the acceptance
-    uniforms, stream 1 the replacement.
+    uniforms, stream 1 the replacement. ``acc`` selects rows by
+    ``index_select``, never by a 0-d index (which reads it on the host),
+    so that a CUDA graph can capture the step.
     """
     k = drafts.shape[0]
     dev = p_probs.device
@@ -245,9 +259,11 @@ def speculative_accept(seed, counter, drafts, q_probs, p_probs):
     pi, qi = p_probs[ar, d], q_probs[ar, d]
     ok = u * torch.clamp(qi, min=1e-30) < pi  # u < min(1, p/q), sort-free
     acc = torch.cumprod(ok.long(), 0).sum()
-    p_acc = p_probs[acc]
-    q_acc = torch.where(acc < k, q_probs[torch.clamp(acc, max=k - 1)],
-                        torch.zeros_like(p_acc))
+    p_acc = p_probs.index_select(0, acc.reshape(1))[0]
+    q_acc = torch.where(
+        acc < k, q_probs.index_select(0, torch.clamp(acc, max=k - 1)
+                                      .reshape(1))[0],
+        torch.zeros_like(p_acc))
     res = torch.clamp(p_acc - q_acc, min=0.0)
     total = res.sum()
     # at a true rejection the residual has positive mass by construction;

@@ -71,7 +71,7 @@ from ..config import feat_extract_output_length
 from ..features.mel import log_mel_from_padded, num_mel_frames, pad_waveform
 from ..models.text_decoder import KVCache, TextDecoder
 from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID
-from .cuda_graph import StepGraph
+from .cuda_graph import StepGraph, capture
 from .engine import AsrEngine, TranscribeResult
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
 from .sampling import sample_token
@@ -302,9 +302,8 @@ class ContinuousBatcher:
             self.decoder = TextDecoder(cfg.text, max_position=self.s_max,
                                        device=engine.device)
         # the batcher owns its slab: the engine's kept first-stage slabs
-        # and graphs go
-        for b in list(engine._arenas):
-            engine._release(b)
+        # and graphs go, the speculative loop's too
+        engine._release()
         dev = engine.device
         self.device = dev
         self.cache = KVCache.zeros(
@@ -736,13 +735,7 @@ class ContinuousBatcher:
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
-        main = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            fn()
-        graph = StepGraph(fn, self._side, self._pool)
-        main.wait_stream(self._side)
-        return graph
+        return capture(fn, self._side, self._pool)
 
     @torch.inference_mode()
     def _dispatch_segment(self) -> None:

@@ -263,7 +263,7 @@ def test_cli_errors(model_and_wav, capsys, monkeypatch, tmp_path):
         ([model], "Usage"),
         ([model, tmp_path / "missing.wav"], "Error: Audio file not found"),
         ([tmp_path / "nomodel", wav], "Error: Model directory not found"),
-        ([model, wav, "--draft", "int4"], "Error: option --draft"),
+        ([model, wav, "--draft", "fp8"], "Error: unknown --draft mode"),
         ([model, wav, "--language"], "Error: --language needs a value"),
     ]
     for argv, msg in cases:

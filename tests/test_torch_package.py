@@ -27,6 +27,7 @@ MODULES = [
     "qwen3_asr_rs_tpu_torch.runtime.cuda_graph",
     "qwen3_asr_rs_tpu_torch.runtime.sampling",
     "qwen3_asr_rs_tpu_torch.runtime.longform",
+    "qwen3_asr_rs_tpu_torch.runtime.streaming",
     "qwen3_asr_rs_tpu_torch.utils.tracing",
     "qwen3_asr_rs_tpu_torch.weights.loader",
     "qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer",
