@@ -22,6 +22,8 @@ the plain versions and the reference on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import math
 
 import jax.numpy as jnp

@@ -8,6 +8,8 @@ lookup and K1's plain version at B = 3 with per-row starts match JAX
 within 1e-5; the multi-file CLI prints what the JAX CLI prints.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import functools
 
 import jax.numpy as jnp

@@ -4,6 +4,8 @@ against the originals, on the same inputs: equal results, exactly (the
 long-form functions and the error rates are also held in
 ``test_torch_longform.py`` and ``test_torch_tracing.py``)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 import json
 

@@ -8,6 +8,8 @@ element check:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import pytest

@@ -6,6 +6,8 @@ per-row starts, slab lengths that are no multiple of the block. float32,
 atol/rtol 1e-5 (the same float32 math; the two sides add in other
 orders)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

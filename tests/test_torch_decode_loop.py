@@ -12,6 +12,8 @@ size. ``KVCache.grow`` equals the JAX engine's ``grow_cache``; a decode
 step at a device position equals the same step at a host int.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax

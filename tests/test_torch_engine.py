@@ -6,6 +6,8 @@ a stated tolerance. Each engine gets its own package's config, made by
 the same recipe (``_tiny``, ``_real2``).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

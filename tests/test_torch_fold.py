@@ -6,6 +6,8 @@ Pallas megakernel in interpret mode, ``ASR_DECODE_IMPL=fused``) and the
 argmax of the unfolded logits, ties to the lowest index; an int4 lm_head
 is not folded."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

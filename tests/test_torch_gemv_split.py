@@ -25,6 +25,8 @@ card (tests/test_torch_cuda.py, chip_smoke.py), where the C split rule is
 also held to this mirror.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

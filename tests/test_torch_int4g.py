@@ -10,6 +10,8 @@ tokens, alone and in a batch. Tolerances: float32 1e-5 (the same
 products summed in other orders); bf16 as stated per test.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

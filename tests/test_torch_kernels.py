@@ -6,6 +6,8 @@ kernels themselves are compared with these plain versions on the GPU by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ engine with ``kv_dtype='int8'`` gives the JAX engine's greedy tokens
 exactly at B = 1 and B = 4 (B = 2, 3, 4 also in test_torch_batch.py).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,8 @@ JAX engine's text, raw output and segments, batched and with
 the compiled bucket; short audio carries one segment with words.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -1,5 +1,7 @@
 """Port log-mel frontend vs the JAX one (atol 1e-4 on normalized log-mel)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,5 +1,7 @@
 """Port audio encoder and text decoder blocks vs the JAX models (float32)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -1,5 +1,7 @@
 """Port ops (norms, rotary, attention) vs the JAX ops, float32, atol 1e-5."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

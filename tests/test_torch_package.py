@@ -8,6 +8,8 @@ imports the modules one by one, so that whichever module first pulls in
 ``qwen3_asr_rs_tpu`` or ``jax`` is the one that fails.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import ast
 import functools
 import json

@@ -8,6 +8,8 @@ same products in different orders). The bf16 logits are float32 values
 that were never rounded to bf16.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -27,6 +27,8 @@ themselves are held against the plain version on the card
 to this mirror.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,8 @@ tokens, another seed others, pad rows emit nothing and long-form audio
 with sampling raises JAX's error.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

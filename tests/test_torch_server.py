@@ -3,6 +3,8 @@
 answer held against the same request submitted to a batcher directly
 (and so against the JAX and port engines' offline output, float32)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import json
 import threading
 import urllib.error

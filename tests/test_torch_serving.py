@@ -15,6 +15,8 @@ clip to clip). The admission paths are in
 ``test_torch_server.py``.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import functools
 import threading
 

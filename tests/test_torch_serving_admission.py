@@ -8,6 +8,8 @@ the JAX engine's ``transcribe_samples`` and the port engine's on the same
 weights (``test_torch_serving.engines``).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import pytest
 import torch
 

@@ -15,6 +15,8 @@ int and at a device-tensor ``start``, and iterations replayed after the
 stream stopped change nothing.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

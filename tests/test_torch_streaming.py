@@ -12,6 +12,8 @@ sessions alive at once on one engine give the tokens each gives alone;
 a rollover takes the finished session's slab lease back.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -8,6 +8,8 @@ both packages; the summaries of the same timings agree; the engine's
 writes a trace on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import json
 
 import jax.numpy as jnp

@@ -1,5 +1,7 @@
 """Port weights: numpy initialisers and the safetensors loader vs JAX."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import dataclasses
 
 import jax
