@@ -176,3 +176,42 @@ def log_mel_from_padded(wave, n_true_frames: int, mel_filters,
     log_mel = torch.maximum(log_mel, log_max - 8.0)
     log_mel = (log_mel + 4.0) / 4.0
     return torch.where(frame_valid[None, :], log_mel, 0.0)
+
+
+class LogMelFrontend:
+    """Log-mel extractor over bucketed waveforms (JAX ``LogMelFrontend``):
+    the host ``pad_waveform``, then ``log_mel_from_padded`` on ``device``."""
+
+    def __init__(
+        self,
+        n_fft: int = 400,
+        hop_length: int = 160,
+        num_mel_bins: int = 128,
+        sample_rate: int = 16000,
+        device: str | torch.device = "cuda",
+    ):
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.num_mel_bins = num_mel_bins
+        self.sample_rate = sample_rate
+        self.device = torch.device(device)
+        self.mel_filters = torch.from_numpy(
+            create_mel_filterbank(num_mel_bins, n_fft, sample_rate)
+        ).to(self.device)
+
+    def __call__(self, samples: np.ndarray, bucket_frames: int | None = None):
+        """``(mel, n_true_frames)``: ``mel`` (num_mel_bins, bucket_frames)
+        float32 on the frontend's device, frames at index >=
+        ``n_true_frames`` exactly 0.0. ``samples``: 1-D float32 PCM at
+        ``sample_rate``; ``bucket_frames`` defaults to the exact frame
+        count."""
+        n_true = num_mel_frames(len(samples), self.hop_length)
+        if bucket_frames is None:
+            bucket_frames = n_true
+        wave, n_true = pad_waveform(samples, self.n_fft, self.hop_length,
+                                    bucket_frames)
+        mel = log_mel_from_padded(
+            torch.from_numpy(wave).to(self.device), n_true, self.mel_filters,
+            self.n_fft, self.hop_length,
+        )
+        return mel, n_true

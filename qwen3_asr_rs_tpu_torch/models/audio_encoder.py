@@ -6,7 +6,8 @@ conv_out, per-chunk sinusoid positions, windows of ``chunks_per_window``
 chunks run as a batch through the layers with a per-window key-prefix
 validity count, then ln_post -> proj1 -> GELU -> proj2. The flat output
 is chunk-major with all valid tokens a prefix, so callers take
-``out[:n_valid]``. Linear weights are (in, out) as in JAX.
+``out[:n_valid]``. Linear weights are (in, out) as in JAX. ``batch``
+encodes a training batch, each row with its own true frame count.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import AudioEncoderConfig
 from ..ops.attention import attention
@@ -38,12 +40,25 @@ def sinusoid_position_embedding(max_len: int, dim: int) -> np.ndarray:
     return table
 
 
+def conv_stem_output_time(chunk_frames: int) -> int:
+    """Conv output time length for a (zero-padded) full chunk."""
+    n = chunk_frames
+    for _ in range(3):
+        n = (n + 2 * 1 - 3) // 2 + 1  # kernel 3, stride 2, pad 1
+    return n
+
+
 class AudioEncoder:
-    """Stateless encoder; parameters are passed to every call."""
+    """Stateless encoder; parameters are passed to every call.
+
+    ``remat``: with grad enabled, checkpoint each encoder layer (the
+    backward recomputes it from its input; JAX's ``nothing_saveable`` per
+    scanned layer)."""
 
     def __init__(self, cfg: AudioEncoderConfig,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu", remat: bool = False):
         self.cfg = cfg
+        self.remat = remat
         self.pos_table = torch.from_numpy(
             sinusoid_position_embedding(cfg.max_source_positions, cfg.d_model)
         ).to(device)
@@ -57,6 +72,16 @@ class AudioEncoder:
         for _ in range(3):
             tail = (tail - 1) // 2 + 1 if tail > 0 else 0
         return (n_true_frames // cf) * self.cfg.tokens_per_chunk + tail
+
+    def _valid_tokens_rows(self, n_frames):
+        """``valid_tokens`` of a (B,) integer tensor, on its device."""
+        cf = self.cfg.chunk_frames
+        tail = n_frames % cf
+        for _ in range(3):
+            tail = torch.where(tail > 0, torch.div(tail - 1, 2,
+                                                   rounding_mode="floor") + 1,
+                               0)
+        return (n_frames // cf) * self.cfg.tokens_per_chunk + tail
 
     def __call__(self, params: Tree, mel, n_true_frames: int):
         """Encode a bucketed mel spectrogram.
@@ -74,19 +99,8 @@ class AudioEncoder:
         num_chunks = frames // cf
 
         # (C, 1, mel_bins, chunk_frames)
-        x = mel.reshape(n_mels, num_chunks, cf).permute(1, 0, 2)[:, None]
-        x = x.to(params["conv1_w"].dtype)
-        for i in (1, 2, 3):
-            x = F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
-                         stride=2, padding=1)
-            x = F.gelu(x, approximate="none")
-
-        c_chunks, ch, fr, t = x.shape
-        x = x.permute(0, 3, 1, 2).reshape(c_chunks, t, ch * fr)
-        x = x @ params["conv_out_w"] + params["conv_out_b"]
-        if t != tpc:
-            raise ValueError(f"conv stem gave {t} tokens, expected {tpc}")
-        x = x + self.pos_table[:t][None].to(x.dtype)
+        x = self._stem(params, mel.reshape(n_mels, num_chunks, cf)
+                       .permute(1, 0, 2)[:, None])
 
         # windows of chunks as a batch; one window when the audio fits
         cpw = min(cfg.chunks_per_window, num_chunks)
@@ -104,17 +118,84 @@ class AudioEncoder:
             0, win_tokens,
         ).to(torch.int32)
 
-        layers = params["layers"]
-        for i in range(layers["q_w"].shape[0]):
-            xw = self._encoder_layer({k: v[i] for k, v in layers.items()},
-                                     xw, win_counts)
+        h = self._head(params, self._layers(params, xw, win_counts))
+        flat = h.reshape(num_windows * win_tokens, cfg.output_dim)
+        return flat[: num_chunks * tpc], n_valid
 
+    def batch(self, params: Tree, mel, n_frames):
+        """Encode a batch of bucketed mels, each row with its own true
+        frame count (JAX ``jax.vmap(encoder, in_axes=(None, 0, 0))``, the
+        training batch): mel (B, num_mel_bins, F), n_frames (B,) integer
+        tensor. Every row's windows run as one batch through the layers.
+        Returns (flat_tokens (B, num_chunks * tpc, output_dim), n_valid
+        (B,))."""
+        cfg = self.cfg
+        cf = cfg.chunk_frames
+        tpc = cfg.tokens_per_chunk
+        bsz, n_mels, frames = mel.shape
+        if frames % cf:
+            raise ValueError(f"mel frames {frames} not a chunk multiple")
+        num_chunks = frames // cf
+
+        x = self._stem(params, mel.reshape(bsz, n_mels, num_chunks, cf)
+                       .permute(0, 2, 1, 3)
+                       .reshape(bsz * num_chunks, 1, n_mels, cf))
+        cpw = min(cfg.chunks_per_window, num_chunks)
+        num_windows = -(-num_chunks // cpw)
+        x = x.reshape(bsz, num_chunks, tpc, cfg.d_model)
+        pad_chunks = num_windows * cpw - num_chunks
+        if pad_chunks:
+            x = F.pad(x, (0, 0, 0, 0, 0, pad_chunks))
+        win_tokens = cpw * tpc
+        xw = x.reshape(bsz * num_windows, win_tokens, cfg.d_model)
+
+        n_valid = self._valid_tokens_rows(n_frames.to(mel.device).long())
+        win_counts = torch.clamp(
+            n_valid[:, None]
+            - torch.arange(num_windows, device=mel.device) * win_tokens,
+            0, win_tokens,
+        ).reshape(-1).to(torch.int32)
+
+        h = self._head(params, self._layers(params, xw, win_counts))
+        flat = h.reshape(bsz, num_windows * win_tokens, cfg.output_dim)
+        return flat[:, : num_chunks * tpc], n_valid
+
+    def _stem(self, params: Tree, x):
+        """(N, 1, mel_bins, chunk_frames) chunks -> (N, tpc, d_model): the
+        conv stem, conv_out and the per-chunk positions."""
+        x = x.to(params["conv1_w"].dtype)
+        for i in (1, 2, 3):
+            x = F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
+                         stride=2, padding=1)
+            x = F.gelu(x, approximate="none")
+
+        c_chunks, ch, fr, t = x.shape
+        x = x.permute(0, 3, 1, 2).reshape(c_chunks, t, ch * fr)
+        x = x @ params["conv_out_w"] + params["conv_out_b"]
+        if t != self.cfg.tokens_per_chunk:
+            raise ValueError(
+                f"conv stem gave {t} tokens, expected "
+                f"{self.cfg.tokens_per_chunk}")
+        return x + self.pos_table[:t][None].to(x.dtype)
+
+    def _layers(self, params: Tree, xw, win_counts):
+        layers = params["layers"]
+        remat = self.remat and torch.is_grad_enabled()
+        for i in range(layers["q_w"].shape[0]):
+            layer = {k: v[i] for k, v in layers.items()}
+            if remat:
+                xw = checkpoint(self._encoder_layer, layer, xw, win_counts,
+                                use_reentrant=False)
+            else:
+                xw = self._encoder_layer(layer, xw, win_counts)
+        return xw
+
+    def _head(self, params: Tree, xw):
+        """ln_post -> proj1 -> GELU -> proj2."""
         h = layer_norm(xw, params["ln_post_w"], params["ln_post_b"], eps=1e-5)
         h = F.gelu(h @ params["proj1_w"] + params["proj1_b"],
                    approximate="none")
-        h = h @ params["proj2_w"] + params["proj2_b"]
-        flat = h.reshape(num_windows * win_tokens, cfg.output_dim)
-        return flat[: num_chunks * tpc], n_valid
+        return h @ params["proj2_w"] + params["proj2_b"]
 
     def _encoder_layer(self, layer: Tree, x, win_counts):
         """Pre-norm bidirectional MHA + GELU FFN (src/layers.rs:202-243)."""

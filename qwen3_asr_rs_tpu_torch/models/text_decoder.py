@@ -1,4 +1,4 @@
-"""Qwen3 text decoder in PyTorch: the transcription subset.
+"""Qwen3 text decoder in PyTorch: transcription and the training forward.
 
 Port of ``qwen3_asr_rs_tpu/models/text_decoder.py`` for greedy
 transcription of one utterance or of a right-aligned batch: GQA attention
@@ -55,6 +55,10 @@ at every position). Both chunk entries take ``start`` as a host int or a
 0-d device tensor (a verify captured in a CUDA graph: the K/V write, the
 rotary rows and the mask are then computed on the device). Blocked int4
 is not ported yet and raises NotImplementedError.
+
+Training (``training/train_step.py``) runs ``forward_full``: the prefill
+layer's math without a slab, differentiable, each layer optionally
+checkpointed (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -64,9 +68,11 @@ import os
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TextDecoderConfig
 from ..ops.attention import attention
+from ..ops.kernels import forbid_backward
 from ..ops.kernels.decode_attention import decode_attention_dma
 from ..ops.kernels.decode_layer import decode_layers_fused, is_grouped
 from ..ops.kernels.quant_matmul import quant_matmul
@@ -234,6 +240,7 @@ def _linear(tree: Tree, name: str, x):
     scales to the float32 products, then rounds to x.dtype once.
     """
     if f"{name}_q" in tree:
+        forbid_backward("K5 (quant_matmul)", x)
         x2 = x.reshape(-1, x.shape[-1])
         y = quant_matmul(x2.contiguous(), tree[f"{name}_q"], tree[f"{name}_s"])
         return y.reshape(*x.shape[:-1], -1)
@@ -307,6 +314,14 @@ class TextDecoder:
         """One prefill layer: writes the fresh K/V at slots [0, S) of layer
         ``l`` and attends causally over the fresh (unquantized) keys,
         from slot ``kv_start[b]`` on when given (right-aligned rows)."""
+        x, k, v = self._causal_layer(layer, x, cos, sin, kv_start)
+        cache.store(l, k.transpose(1, 2), v.transpose(1, 2))
+        return x
+
+    def _causal_layer(self, layer: Tree, x, cos, sin, kv_start=None):
+        """The layer math of a full sequence, storing nothing: returns
+        (output, fresh K, fresh V), K/V (B, S, Hkv, D) after QK-norm and
+        rotary."""
         cfg = self.cfg
         residual = x
         h = rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps)
@@ -316,14 +331,43 @@ class TextDecoder:
         k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-        cache.store(l, k.transpose(1, 2), v.transpose(1, 2))
 
         attn = attention(q, k, v, causal=True, kv_start=kv_start)
         b, s = attn.shape[:2]
         x = residual + _linear(layer, "o_w", attn.reshape(b, s, -1))
         residual = x
         h = rms_norm(x, layer["post_ln_w"], cfg.rms_norm_eps)
-        return residual + _mlp(layer, h)
+        return residual + _mlp(layer, h), k, v
+
+    def _full_layer(self, layer: Tree, x, cos, sin):
+        return self._causal_layer(layer, x, cos, sin)[0]
+
+    def forward_full(self, params: Tree, hidden, position_ids,
+                     remat: bool = False):
+        """Cache-free full forward of (B, S, H) embeddings at
+        ``position_ids`` (S,): float32 logits (B, S, V) at every position
+        (JAX ``forward_full``: training and tests). No KV slab, no
+        ``inference_mode``: with float parameters that require grad, the
+        result carries the autograd graph.
+
+        ``remat=True`` checkpoints each layer when grad is enabled (the
+        backward recomputes it from its input; JAX's ``nothing_saveable``
+        per scanned layer). Quantized trees run inference: int8 linears
+        and lm_head through K5, an int4 lm_head through K4. Those kernels
+        and K3 have no backward; reached while a gradient is required they
+        raise (``ops/kernels.forbid_backward``)."""
+        check_params(params)
+        cos, sin = self.rotary.lookup(position_ids)
+        layers = params["layers"]
+        n_layers = next(iter(layers.values())).shape[0]
+        for l in range(n_layers):
+            layer = {k: v[l] for k, v in layers.items()}
+            if remat and torch.is_grad_enabled():
+                hidden = checkpoint(self._full_layer, layer, hidden, cos, sin,
+                                    use_reentrant=False)
+            else:
+                hidden = self._full_layer(layer, hidden, cos, sin)
+        return self.logits(params, hidden)
 
     def logits(self, params: Tree, hidden):
         """Final norm + lm head; float32 logits (B, S, V), never rounded
@@ -333,8 +377,10 @@ class TextDecoder:
         b, s, hd = h.shape
         h2 = h.reshape(b * s, hd).contiguous()
         if "lm_head_q4" in params:
+            forbid_backward("K4 (quant_matvec_int4)", h2)
             y = quant_matvec_int4(h2, params["lm_head_q4"], params["lm_head_s"])
         elif "lm_head_q" in params:
+            forbid_backward("K5 (quant_matmul)", h2)
             y = quant_matmul(h2, params["lm_head_q"], params["lm_head_s"],
                              out_dtype=torch.float32)
         else:

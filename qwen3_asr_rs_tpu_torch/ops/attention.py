@@ -79,7 +79,9 @@ def attention(q, k, v, *, causal: bool = False, kv_valid=None,
     causal: query i attends keys j <= i (prefill).
     kv_valid: optional (B,) int tensor: keys >= kv_valid[b] are masked.
     kv_start: optional (B,) int tensor: keys < kv_start[b] are masked.
-    impl: 'dense' | 'flash' | None (auto; ASR_ATTN_IMPL overrides).
+    impl: 'dense' | 'flash' | None (auto; ASR_ATTN_IMPL overrides). The
+    flash kernel has no backward: resolved to it while q, k or v needs a
+    gradient, the call raises instead of detaching.
     """
     if impl is None:
         impl = os.environ.get("ASR_ATTN_IMPL", "auto")
@@ -89,8 +91,10 @@ def attention(q, k, v, *, causal: bool = False, kv_valid=None,
             on_cuda=q.is_cuda,
         )
     if impl == "flash":
+        from .kernels import forbid_backward
         from .kernels.flash_attention import flash_attention
 
+        forbid_backward("K3 (flash_attention)", q, k, v)
         return flash_attention(q, k, v, kv_valid, kv_start, causal=causal,
                                scale=scale)
     if impl != "dense":

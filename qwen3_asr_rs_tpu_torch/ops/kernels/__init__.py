@@ -5,3 +5,17 @@ its launch counter. A wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches the kernel or raises. Nothing is built or
 loaded until a CUDA tensor reaches a wrapper.
 """
+
+import torch
+
+
+def forbid_backward(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``kernel``: a
+    launch returns tensors outside the graph, so differentiating through
+    it would silently detach everything before it. The plain versions
+    raise too, so that the CPU behaves as the card does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: run it under torch.no_grad() or "
+            "train on float weights at a size that takes the dense path"
+        )

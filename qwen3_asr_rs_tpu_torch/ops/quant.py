@@ -86,15 +86,41 @@ def unpack_int4(packed, dtype=torch.float32):
     return torch.cat([lo, hi], dim=-1).to(dtype)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``aten::mm.dtype`` (no derivative in torch) with the gradient JAX
+    gives ``preferred_element_type=float32``: each operand's cotangent is
+    a float32 product of the float32 cotangent and the other operand,
+    cast to that operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a2, b):
+        ctx.save_for_backward(a2, b)
+        return torch.mm(a2, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().T).to(a2.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a2.float().T @ g).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a, b):
     """a (..., K) @ b (K, N) of one dtype as float32: float32 accumulation
     of the products and no rounding to that dtype (JAX's
     ``preferred_element_type=jnp.float32``). On CUDA a bf16 product keeps
-    its float32 result through ``aten::mm.dtype``; elsewhere the operands
-    are upcast (bf16 x bf16 products are exact in float32)."""
+    its float32 result through ``aten::mm.dtype`` (differentiated by
+    ``_MatmulF32`` when an operand needs a gradient); elsewhere the
+    operands are upcast (bf16 x bf16 products are exact in float32)."""
     a2 = a.reshape(-1, a.shape[-1])
     if a.is_cuda and a.dtype != torch.float32:
-        y = torch.mm(a2, b, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            y = _MatmulF32.apply(a2, b)
+        else:
+            y = torch.mm(a2, b, out_dtype=torch.float32)
     else:
         y = a2.float() @ b.float()
     return y.reshape(*a.shape[:-1], b.shape[-1])

@@ -191,3 +191,31 @@ def init_decoder_params(cfg: TextDecoderConfig, seed: int = 0,
                         device: str | torch.device = "cpu") -> Tree:
     """Synthetic decoder weights as torch tensors (== JAX's, cast)."""
     return to_torch(init_decoder_params_np(cfg, seed, scale), dtype, device)
+
+
+def from_torch(tree: Tree) -> Tree:
+    """torch tensors (any device, with or without grad) -> numpy arrays,
+    the inverse of ``to_torch`` for comparing a port tree with a JAX
+    one. The arrays are copies (a training step updates its tensors in
+    place); bf16 leaves become float32 (exact: numpy has no bf16)."""
+
+    def conv(_, x):
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+
+    return tree_map(conv, tree)
+
+
+def train_state_from_numpy(params: Tree, optimizer,
+                           dtype: torch.dtype = torch.float32,
+                           device: str | torch.device = "cuda"):
+    """A ``training.TrainState`` from the JAX package's numpy parameters
+    (``{"encoder": ..., "decoder": ...}``): the leaves cast to ``dtype``
+    on ``device``, each its own trainable tensor (a tied lm_head too),
+    and a fresh optimizer from the factory ``optimizer``
+    (``training.adamw(1e-3)``, ...)."""
+    from ..training.train_step import TrainState
+
+    return TrainState.create(to_torch(params, dtype, device), optimizer)

@@ -1,5 +1,5 @@
-"""The PyTorch port imports nothing of JAX or of the JAX package, and
-builds nothing at import.
+"""The PyTorch port imports nothing of JAX (nor optax or orbax) or of the
+JAX package, and builds nothing at import.
 
 Every module of ``qwen3_asr_rs_tpu_torch`` and ``chip_smoke.py`` is
 checked twice: its source, every import statement in it (function-level
@@ -34,6 +34,11 @@ MODULES = [
     "qwen3_asr_rs_tpu_torch.weights.loader",
     "qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer",
     "qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention",
+    "qwen3_asr_rs_tpu_torch.features",
+    "qwen3_asr_rs_tpu_torch.models",
+    "qwen3_asr_rs_tpu_torch.ops",
+    "qwen3_asr_rs_tpu_torch.training",
+    "qwen3_asr_rs_tpu_torch.weights.export",
 ]
 
 
@@ -46,7 +51,7 @@ def _module_name(path: Path) -> str:
 # worker), but ``__main__``, which runs the CLI when imported
 ALL_MODULES = sorted(_module_name(p) for p in PORT.rglob("*.py")
                      if p.name != "__main__.py")
-FORBIDDEN = ("qwen3_asr_rs_tpu", "jax", "jaxlib")
+FORBIDDEN = ("qwen3_asr_rs_tpu", "jax", "jaxlib", "optax", "orbax")
 
 
 def _forbidden(name: str) -> bool:
@@ -58,7 +63,8 @@ def test_import_does_not_pull_in_jax(module):
     code = (
         "import sys, importlib\n"
         f"importlib.import_module({module!r})\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'optax', 'orbax', 'triton')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         "from qwen3_asr_rs_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs, 'a kernel library was loaded at import'\n"
