@@ -167,6 +167,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              draft's layers, K5 per int8 verify linear and int8 draft
              lm_head, K4 per int4 draft lm_head; the prefills' taken off,
              checked exactly), the two slabs' GiB and the peak memory.
+11. training — fine-tuning at full 0.6B width and depth: AsrDataset over
+             eight ~28 s WAVs (30-chunk bucket, P = 544, a word-level
+             stub tokenizer) through prefetch_to_device, then six
+             float32 AdamW(1e-3) steps with remat at B = 8 on one batch
+             (every loss finite, the last below the first; step time as
+             the median of steps 2-6 by CUDA events, tokens/s, peak
+             memory, the step's FLOPs from the shapes and their share of
+             the float32 peak; no kernel launched); remat against no remat
+             (loss and each leaf's gradient norm, rel 1e-5, B = 2); one
+             bf16 SGD step (finite loss; the lm_head gradient of
+             matmul_f32's CUDA backward against the float32 product of
+             its bf16 operands, rtol 2^-8); save_checkpoint of the trained
+             state, then AsrEngine(<dir>) on the card (tensors equal to
+             the exported ones; one clip transcribed); forward_full on an
+             int8 tree with an int4 lm_head against the plain versions
+             (K5 and K4 launches counted exactly); a 2 + 2 layer model at
+             the real widths, one AdamW step on the card and on the CPU
+             from the same tree (B = 2, 4-chunk bucket; tolerances at
+             CARD_CPU_*); and a checkpoint round trip of that card state
+             (the next step's loss equal with and without it).
 
 Then a {"kernels": [...]} summary line (launches also per stream update
 and per speculative iteration), the nvidia-smi line, and as the
@@ -176,9 +196,12 @@ last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3583,6 +3606,469 @@ def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
     return launches, per_iter
 
 
+# phase 11: training at full 0.6B width (float32, AdamW, remat)
+TRAIN_B = 8
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-3
+TRAIN_SECONDS = (27.0, 27.25, 27.5, 27.75, 28.0, 28.25, 28.5, 28.75)
+# float32 outside the tensor cores, NVIDIA's H100 SXM data sheet (700 W)
+FP32_PEAK_OPS_PER_S = 67e12
+# card against CPU, float32: the loss rel 1e-5; each gradient leaf within
+# 1e-4 of its largest magnitude (cuBLAS and the CPU's BLAS add in other
+# orders), a leaf below 1e-9 everywhere excepted (the encoder's k_b: its
+# exact gradient is 0, softmax ignores a shift shared by every key, so
+# both sides hold rounding noise); parameters after one AdamW step atol
+# 1e-6 / rtol 1e-5 plus, per element, the update that the leaf's
+# measured gradient disagreement d can move: lr * min(2, 4 d / (|g| +
+# eps)) (AdamW's first step is lr * g / (|g| + eps))
+CARD_CPU_LOSS_RTOL = 1e-5
+CARD_CPU_GRAD_REL = 1e-4
+CARD_CPU_PARAM_TOL = (1e-6, 1e-5)
+REMAT_RTOL = 1e-5
+WORDS = ("the a of to and in is it that was for on are with as his they "
+         "be at one have this from or had by word but what some we can out "
+         "other were all there when up use your how said an each she which "
+         "do their time if will way about many then them write would like "
+         "so these her long make thing see him two has look more day "
+         "could go come did number sound no most people my over know "
+         "water than call first who may down side been now find").split()
+
+
+class WordTokenizer:
+    """One id per word (ids 200..5199), so that a transcript's length in
+    tokens is its length in words."""
+
+    def encode(self, text):
+        return [200 + sum(map(ord, w)) % 5000 for w in text.split()]
+
+    def decode(self, ids):
+        return " ".join(map(str, ids))
+
+
+def train_corpus(tmp: Path, seconds, seed: int) -> Path:
+    """A manifest of synthetic WAVs with seeded word transcripts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i, sec in enumerate(seconds):
+        path = tmp / f"train_{seed}_{i}.wav"
+        write_wav(path, sec, seed * 100 + i)
+        text = " ".join(rng.choice(WORDS, size=int(3 * sec) // 2))
+        rows.append({"audio": path.name, "text": text,
+                     **({"language": "english"} if i % 2 else {})})
+    manifest = tmp / f"train_{seed}.jsonl"
+    manifest.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return manifest
+
+
+def train_step_flops(config, batch) -> float:
+    """FLOPs of one remat train step from the shapes: the products and
+    attention contractions of the forward (dense attention computes every
+    score), times 3 (forward and backward) for the whole model and once
+    more for the layers recomputed in the backward."""
+    a, t = config.audio, config.text
+    b, p = batch["token_ids"].shape
+    chunks = batch["mel"].shape[-1] // a.chunk_frames
+    tpc = a.tokens_per_chunk
+    cpw = min(a.chunks_per_window, chunks)
+    windows = -(-chunks // cpw)
+    win = cpw * tpc
+    d, ff = a.d_model, a.encoder_ffn_dim
+    enc_tokens = b * windows * win
+    enc_layers = a.encoder_layers * enc_tokens * (
+        2 * (4 * d * d + 2 * d * ff) + 4 * win * d)
+    # conv stem (3 convs, 3x3, stride 2) and conv_out, per chunk
+    h, w, stem = a.num_mel_bins, a.chunk_frames, 0
+    cin = 1
+    for _ in range(3):
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        stem += 2 * cin * a.downsample_hidden_size * 9 * h * w
+        cin = a.downsample_hidden_size
+    stem = b * chunks * (stem + tpc * 2 * cin * h * d)
+    enc_head = enc_tokens * 2 * (d * d + d * a.output_dim)
+    hd, hq, hkv = t.head_dim, t.num_attention_heads, t.num_key_value_heads
+    hs, inter = t.hidden_size, t.intermediate_size
+    dec_layers = t.num_hidden_layers * b * p * (
+        2 * (hs * hq * hd + 2 * hs * hkv * hd + hq * hd * hs
+             + 3 * hs * inter) + 4 * p * hq * hd)
+    lm_head = b * p * 2 * hs * t.vocab_size
+    layers = enc_layers + dec_layers
+    return float(4 * layers + 3 * (stem + enc_head + lm_head))
+
+
+def flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def grad_norms(torch, params) -> dict:
+    return {k: float(v.grad.double().norm()) for k, v in
+            flat_tree(params).items()}
+
+
+def slice_layers(torch, tree, n: int, device):
+    """The tree with its first n stacked layers, copied to ``device``."""
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            out[k] = {n_: t[:n].to(device, copy=True) for n_, t in v.items()}
+        else:
+            out[k] = v.to(device, copy=True)
+    return out
+
+
+def remat_check(torch, config, state, batch) -> dict:
+    """Loss and gradient norms per leaf with and without remat, float32,
+    the same parameters and the batch's first two rows."""
+    from qwen3_asr_rs_tpu_torch.models.audio_encoder import AudioEncoder
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import TextDecoder
+    from qwen3_asr_rs_tpu_torch.training import asr_loss
+
+    small = {k: v[:2] for k, v in batch.items()}
+    dec = TextDecoder(config.text, device="cuda")
+    out = {}
+    for remat in (False, True):
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        enc = AudioEncoder(config.audio, device="cuda", remat=remat)
+        loss = asr_loss(config, enc, dec, state.params, small, remat=remat)
+        loss.backward()
+        out[remat] = (loss.item(), grad_norms(torch, state.params),
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+    state.optimizer.zero_grad(set_to_none=True)
+    (l0, g0, m0), (l1, g1, m1) = out[False], out[True]
+    rel = max(abs(g1[k] - g0[k]) / max(g0[k], 1e-30) for k in g0)
+    if abs(l1 - l0) > REMAT_RTOL * abs(l0) or rel > REMAT_RTOL:
+        raise AssertionError(f"remat != no remat: loss {l1} vs {l0}, "
+                             f"largest gradient-norm difference {rel}")
+    return {"loss": l0, "loss_remat": l1, "grad_norm_max_rel_diff": rel,
+            "leaves": len(g0), "peak_gib_no_remat": m0,
+            "peak_gib_remat": m1, "rows": 2}
+
+
+def cast_tree(tree, dtype, device=None):
+    """Copies of a tree's tensors, cast to ``dtype`` and moved to
+    ``device`` (None: where they are)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
+    return tree.detach().to(device=device or tree.device, dtype=dtype,
+                            copy=True)
+
+
+def bf16_check(torch, config, state, batch) -> dict:
+    """One bf16 SGD step of the full model (B = 2): a finite loss, and
+    the lm_head gradient from matmul_f32's CUDA backward held against the
+    float32 product of the same bf16 operands (rtol 2^-8: the gradient is
+    rounded once to bf16)."""
+    from qwen3_asr_rs_tpu_torch.ops import quant
+    from qwen3_asr_rs_tpu_torch.training import (
+        TrainState, make_train_step, sgd)
+
+    bf = TrainState.create(cast_tree(state.params, torch.bfloat16),
+                           sgd(TRAIN_LR))
+    seen = []
+    backward = quant._MatmulF32.backward
+
+    def recording(ctx, g):
+        seen.append((g.detach(), ctx.saved_tensors[0]))
+        return backward(ctx, g)
+
+    quant._MatmulF32.backward = staticmethod(recording)
+    try:
+        step = make_train_step(config, sgd(TRAIN_LR), device="cuda")
+        bf, loss = step(bf, {k: v[:2] for k, v in batch.items()})
+    finally:
+        quant._MatmulF32.backward = backward
+    if not torch.isfinite(loss):
+        raise AssertionError(f"bf16 loss not finite: {loss}")
+    if len(seen) != 1:
+        raise AssertionError(f"matmul_f32's backward ran {len(seen)} times, "
+                             "expected once (the lm_head)")
+    g, h2 = seen[0]
+    grad = bf.params["decoder"]["lm_head"].grad
+    if grad.dtype != torch.bfloat16:
+        raise AssertionError(f"lm_head gradient in {grad.dtype}")
+    with torch.no_grad():
+        ref = g.T @ h2.float()  # (V, H) d loss / d lm_head, float32
+        err = (grad.float() - ref).abs()
+    excess = float((err - (2 ** -8 * ref.abs() + 1e-12)).max())
+    if excess > 0:
+        raise AssertionError(f"bf16 lm_head gradient off its float32 "
+                             f"product by {excess} beyond rtol 2^-8")
+    return {"loss": float(loss), "rows": 2, "optimizer": "sgd",
+            "lm_head_grad_max_rel_err": float(err.max() / ref.abs().max()),
+            "tolerance": "rtol 2^-8"}
+
+
+def card_cpu_check(torch, config, enc32, dec32, tmp) -> tuple:
+    """One AdamW step of a 2 + 2 layer model at the real widths (B = 2,
+    the 4-chunk bucket) on the card and on the CPU from the same tree;
+    returns (row, the card's state, its batch, its step)."""
+    from qwen3_asr_rs_tpu_torch.training import (
+        AsrDataset, TrainState, adamw, make_train_step)
+
+    small = dataclasses.replace(config, thinker_config=dataclasses.replace(
+        config.thinker_config,
+        audio_config=dataclasses.replace(config.audio, encoder_layers=2),
+        text_config=dataclasses.replace(config.text, num_hidden_layers=2)))
+    ds = AsrDataset(train_corpus(tmp, (3.5, 3.75), seed=12),
+                    WordTokenizer(), config=small, chunk_buckets=(4,),
+                    batch_size=2)
+    batch = next(ds.batches())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tree = {"encoder": slice_layers(torch, enc32, 2, dev),
+                "decoder": slice_layers(torch, dec32, 2, dev)}
+        st = TrainState.create(tree, adamw(TRAIN_LR))
+        step = make_train_step(small, adamw(TRAIN_LR), device=dev)
+        t0 = time.perf_counter()
+        st, loss = step(st, batch)
+        runs[dev] = (st, float(loss), step, time.perf_counter() - t0)
+    (gpu, lg, step_g, sg), (cpu, lc, _, sc) = runs["cuda"], runs["cpu"]
+    if abs(lg - lc) > CARD_CPU_LOSS_RTOL * abs(lc):
+        raise AssertionError(f"card loss {lg} != CPU loss {lc}")
+    atol, rtol = CARD_CPU_PARAM_TOL
+    worst_grad, worst_param, slack_used, noise_only = 0.0, 0.0, {}, {}
+    fg, fc = flat_tree(gpu.params), flat_tree(cpu.params)
+    for k in fc:
+        gc = fc[k].grad
+        gg = fg[k].grad.cpu()
+        big = float(gc.abs().max())
+        d = float((gg - gc).abs().max())
+        if big > 1e-9:
+            worst_grad = max(worst_grad, d / big)
+            if d > CARD_CPU_GRAD_REL * big:
+                raise AssertionError(f"{k}: card gradient off the CPU's by "
+                                     f"{d / big} of its largest")
+        else:
+            noise_only[k] = big
+        pc, pg = fc[k].detach(), fg[k].detach().cpu()
+        diff = (pg - pc).abs()
+        slack = TRAIN_LR * torch.clamp(4 * d / (gc.abs() + 1e-8), max=2.0)
+        bound = atol + rtol * pc.abs()
+        if bool((diff > bound + slack).any()):
+            raise AssertionError(f"{k}: parameters after the step differ "
+                                 f"by {float(diff.max())}")
+        if bool((diff > bound).any()):
+            slack_used[k] = int((diff > bound).sum())
+        if k not in noise_only:
+            worst_param = max(worst_param, float(diff.max()))
+    n = sum(t.numel() for t in fc.values())
+    del cpu
+    row = {"loss_card": lg, "loss_cpu": lc,
+           "loss_rel_diff": abs(lg - lc) / abs(lc),
+           "grad_max_rel_diff": worst_grad,
+           "noise_only_leaves": noise_only,
+           "param_max_abs_diff": worst_param,
+           "params_beyond_atol_rtol": slack_used, "params": n,
+           "card_step_s": sg, "cpu_step_s": sc,
+           "tokens": list(batch["token_ids"].shape),
+           "tolerance": {"loss_rtol": CARD_CPU_LOSS_RTOL,
+                         "grad_rel": CARD_CPU_GRAD_REL,
+                         "param_atol_rtol": CARD_CPU_PARAM_TOL,
+                         "param_slack": "lr * min(2, 4 d / (|g| + eps))"}}
+    return row, gpu, batch, step_g
+
+
+def checkpoint_check(torch, state, batch, step, tmp) -> dict:
+    """save_train_state, a step (loss A), restore_train_state into the
+    same tensors, the same step again (loss B): A must equal B."""
+    from qwen3_asr_rs_tpu_torch.training import (
+        restore_train_state, save_train_state)
+
+    path = tmp / "train_ckpt"
+    t0 = time.perf_counter()
+    save_train_state(path, state)
+    save_s = time.perf_counter() - t0
+    at = state.step
+    state, loss_a = step(state, batch)
+    t0 = time.perf_counter()
+    state = restore_train_state(path, state)
+    restore_s = time.perf_counter() - t0
+    if state.step != at:
+        raise AssertionError(f"restored step {state.step}, saved {at}")
+    state, loss_b = step(state, batch)
+    if float(loss_a) != float(loss_b):
+        raise AssertionError(f"loss after restore {float(loss_b)} != "
+                             f"{float(loss_a)} without the round trip")
+    size = sum(f.stat().st_size for f in path.iterdir())
+    shutil.rmtree(path)
+    return {"loss": float(loss_a), "loss_after_restore": float(loss_b),
+            "bytes": size, "save_s": save_s, "restore_s": restore_s}
+
+
+def export_check(torch, config, state, clip, tmp) -> dict:
+    """save_checkpoint of the trained state, then AsrEngine(<dir>) on the
+    card: its tensors equal the exported ones (a tied head is not
+    written: the engine's lm_head is the trained embed), and it
+    transcribes a clip."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.weights.export import save_checkpoint
+
+    out = tmp / "export"
+    t0 = time.perf_counter()
+    save_checkpoint(out, state.params["encoder"], state.params["decoder"],
+                    config)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = AsrEngine(out, dtype=torch.float32, max_new_tokens=16,
+                       tokenizer=StubTokenizer(), device="cuda")
+    load_s = time.perf_counter() - t0
+    want = {"encoder": state.params["encoder"],
+            "decoder": dict(state.params["decoder"],
+                            lm_head=state.params["decoder"]["embed"])}
+    got = {"encoder": engine.enc_params, "decoder": engine.dec_params}
+    fw, fg = flat_tree(want), flat_tree(got)
+    if fw.keys() != fg.keys():
+        raise AssertionError(f"engine tree {sorted(fg)} != {sorted(fw)}")
+    bad = [k for k in fw if not torch.equal(fg[k], fw[k].detach())]
+    if bad:
+        raise AssertionError(f"loaded tensors differ from the export: {bad}")
+    result = engine.transcribe(str(clip))
+    size = sum(f.stat().st_size for f in out.iterdir())
+    del engine
+    shutil.rmtree(out)
+    return {"bytes": size, "save_s": save_s, "engine_load_s": load_s,
+            "tensors": len(fw), "text_chars": len(result.text)}
+
+
+def forward_full_check(torch, config, dec32, fns) -> tuple:
+    """forward_full on an int8 tree with an int4 lm_head (float32
+    activations, B = 2, P = 208): the kernels (K5, K4) against the plain
+    versions on the card; the launches counted exactly."""
+    from qwen3_asr_rs_tpu_torch.models import text_decoder as ttd
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul_plain)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
+        quant_matvec_int4_plain)
+    from qwen3_asr_rs_tpu_torch.weights.quantize import (
+        quantize_decoder_params)
+
+    q = quantize_decoder_params(dec32, bits=8, lm_bits=4)
+    dec = ttd.TextDecoder(config.text, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, config.text.vocab_size, (2, 208), device="cuda",
+                        generator=gen)
+    pos = torch.arange(208, device="cuda")
+    with torch.no_grad():
+        hidden = dec.embed(q, ids)
+        for fn in fns.values():
+            fn.launches = 0
+        got = dec.forward_full(q, hidden, pos)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in fns.items()}
+        kernels = ttd.quant_matmul, ttd.quant_matvec_int4
+        ttd.quant_matmul, ttd.quant_matvec_int4 = (quant_matmul_plain,
+                                                   quant_matvec_int4_plain)
+        try:
+            want = dec.forward_full(q, hidden, pos)
+        finally:
+            ttd.quant_matmul, ttd.quant_matvec_int4 = kernels
+    per_layer = sum(n.endswith("_q") for n in q["layers"])
+    expect = {"quant_matmul": config.text.num_hidden_layers * per_layer,
+              "quant_matvec_int4": 1}
+    for n, fn_launches in launches.items():
+        if fn_launches != expect.get(n, 0):
+            raise AssertionError(f"forward_full launched {n} "
+                                 f"{fn_launches} times, expected "
+                                 f"{expect.get(n, 0)}")
+    err = max_err(torch, got, want)
+    if err > PARITY_LOGITS_ATOL:
+        raise AssertionError(f"forward_full int8/int4 logits off the plain "
+                             f"versions by {err}")
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return ({"max_abs_err": err, "tolerance": PARITY_LOGITS_ATOL,
+             "argmax_agreement": agree, "launches": launches,
+             "rows": 2 * 208}, launches)
+
+
+def training_phase(torch, config, enc32, dec32, clip, tmp, card) -> dict:
+    """Phase 11. Returns {path: {kernel: launches}}."""
+    from qwen3_asr_rs_tpu_torch.training import (
+        AsrDataset, TrainState, adamw, make_train_step, prefetch_to_device)
+
+    fns = kernel_wrappers()
+    t0 = time.perf_counter()
+    ds = AsrDataset(train_corpus(tmp, TRAIN_SECONDS, seed=11),
+                    WordTokenizer(), config=config, batch_size=TRAIN_B)
+    batch = next(prefetch_to_device(ds.batches(), device="cuda"))
+    data_s = time.perf_counter() - t0
+    p_len = ds._seq_len(30)
+    if tuple(batch["token_ids"].shape) != (TRAIN_B, p_len) or \
+            batch["mel"].shape[-1] != 30 * config.audio.chunk_frames:
+        raise AssertionError(f"training batch not in the 30-chunk bucket: "
+                             f"{tuple(batch['token_ids'].shape)}, "
+                             f"{tuple(batch['mel'].shape)}")
+
+    state = TrainState.create({"encoder": enc32, "decoder": dec32},
+                              adamw(TRAIN_LR))
+    step = make_train_step(config, adamw(TRAIN_LR), remat=True,
+                           device="cuda")
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        ms.append(e0.elapsed_time(e1))
+    step_launches = {n: fn.launches for n, fn in fns.items()}
+    if any(step_launches.values()):
+        raise AssertionError(f"a kernel ran in the train step: "
+                             f"{step_launches}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    flops = train_step_flops(config, batch)
+    trained = sum(t.numel() for t in flat_tree(state.params).values())
+    emit({"phase": "training", "case": "full width, float32, AdamW(1e-3), "
+          "remat, B = 8, 30-chunk bucket", "nvidia_smi": card,
+          "params_trained": trained, "tokens_per_step": TRAIN_B * p_len,
+          "losses": losses, "step_ms": ms,
+          "step_ms_median_2_6": step_ms,
+          "tokens_per_s": TRAIN_B * p_len / (step_ms / 1e3),
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "step_tflop": flops / 1e12,
+          "fp32_peak_tflops": FP32_PEAK_OPS_PER_S / 1e12,
+          "fp32_peak_share": flops / (step_ms / 1e3) / FP32_PEAK_OPS_PER_S,
+          "data_s": data_s, "launches": step_launches})
+
+    emit({"phase": "training", "case": "remat against no remat",
+          **remat_check(torch, config, state, batch)})
+    emit({"phase": "training", "case": "one bf16 step",
+          **bf16_check(torch, config, state, batch)})
+    state.optimizer = None  # free the moments before the engine loads
+    torch.cuda.empty_cache()
+    emit({"phase": "training", "case": "export, then serve",
+          **export_check(torch, config, state, clip, tmp)})
+    del state
+    torch.cuda.empty_cache()
+    row, launches = forward_full_check(torch, config, dec32, fns)
+    emit({"phase": "training", "case": "forward_full, int8 tree, int4 "
+          "lm_head, float32", **row})
+    row, small_state, small_batch, small_step = card_cpu_check(
+        torch, config, enc32, dec32, tmp)
+    emit({"phase": "training", "case": "card against CPU, 2 + 2 layers, "
+          "B = 2, 4-chunk bucket, one AdamW step", **row})
+    emit({"phase": "training", "case": "checkpoint round trip on the card",
+          **checkpoint_check(torch, small_state, small_batch, small_step,
+                             tmp)})
+    del small_state
+    torch.cuda.empty_cache()
+    return {"training step": step_launches,
+            "forward_full int8 lm4": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -3736,6 +4222,11 @@ def main() -> int:
     spec_launches, per_iteration = speculative_phase(torch, config, enc32,
                                                      dec32, audio, card)
     launches.update(spec_launches)
+
+    # 11. training: full-width steps, remat, card = CPU, bf16, checkpoint,
+    # export then serve, forward_full on a quantized tree
+    launches.update(training_phase(torch, config, enc32, dec32, clips[4],
+                                   tmp, card))
 
     summary = []
     for name in SOURCES:
