@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import AudioEncoderConfig
 from ..ops.attention import attention
 from ..ops.norms import layer_norm
+from ..weights.convert import unstack_layers
 
 Tree = Any
 
@@ -179,10 +180,8 @@ class AudioEncoder:
         return x + self.pos_table[:t][None].to(x.dtype)
 
     def _layers(self, params: Tree, xw, win_counts):
-        layers = params["layers"]
         remat = self.remat and torch.is_grad_enabled()
-        for i in range(layers["q_w"].shape[0]):
-            layer = {k: v[i] for k, v in layers.items()}
+        for layer in unstack_layers(params["layers"]):
             if remat:
                 xw = checkpoint(self._encoder_layer, layer, xw, win_counts,
                                 use_reentrant=False)

@@ -80,6 +80,7 @@ from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
 from ..ops.norms import rms_norm
 from ..ops.quant import int4_grouped_matmul, int4_matmul_plain, matmul_f32
 from ..ops.rotary import RotaryTable, apply_rotary
+from ..weights.convert import unstack_layers
 
 Tree = Any
 
@@ -358,10 +359,7 @@ class TextDecoder:
         raise (``ops/kernels.forbid_backward``)."""
         check_params(params)
         cos, sin = self.rotary.lookup(position_ids)
-        layers = params["layers"]
-        n_layers = next(iter(layers.values())).shape[0]
-        for l in range(n_layers):
-            layer = {k: v[l] for k, v in layers.items()}
+        for layer in unstack_layers(params["layers"]):
             if remat and torch.is_grad_enabled():
                 hidden = checkpoint(self._full_layer, layer, hidden, cos, sin,
                                     use_reentrant=False)

@@ -43,6 +43,16 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
     return go(tree, None)
 
 
+def unstack_layers(layers: Tree) -> list:
+    """The stacked (L, ...) layer tree as L per-layer dicts of views, by
+    one ``unbind`` per leaf: its backward stacks the L gradients in one
+    copy, where indexing ``leaf[l]`` per layer would add a zero-filled
+    full-size gradient per layer (L^2 / 2 times the leaf's bytes)."""
+    names = list(layers)
+    return [dict(zip(names, ts))
+            for ts in zip(*(layers[n].unbind(0) for n in names))]
+
+
 def to_torch(tree: Tree, dtype: torch.dtype | None = None,
              device: str | torch.device = "cpu") -> Tree:
     """numpy arrays (or anything ``np.asarray`` takes, e.g. jax arrays)

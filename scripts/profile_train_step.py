@@ -3,6 +3,7 @@
 
     python3 scripts/profile_train_step.py [--batch 8] [--steps 3]
                                           [--no-remat] [--dtype float32]
+                                          [--port-root DIR]
 
 The step of ``chip_smoke.py``'s phase 11: Qwen3-ASR-0.6B at full width
 and depth, synthetic weights from the JAX package's seeds, AdamW(1e-3),
@@ -13,7 +14,9 @@ power limit: wall ms per step (host clock, synchronized), the device's
 busy ms per step (the union of kernel intervals), the busy share, device
 ms per step by kernel (the largest 15) and by class (products: GEMM
 kernels; the optimizer: multi-tensor kernels; the rest: elementwise,
-reductions, copies), and the peak memory.
+reductions, copies), and the peak memory. With ``--port-root DIR`` (an
+unpacked older commit under the git-ignored ``build/``) it profiles that
+tree's port on the same card.
 """
 
 from __future__ import annotations
@@ -58,13 +61,14 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--port-root", default=str(REPO))
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
+    sys.path[:0] = [str(Path(args.port_root).resolve()), str(REPO)]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke as cs
@@ -106,8 +110,11 @@ def main() -> int:
             state, loss = step(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.steps * 1e3
+    # kernels only: a record_function range (the optimizer's step) also
+    # shows on the device's timeline
     device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     by_kernel, by_class = {}, {}
     for e in device:
         ms = (e.time_range.end - e.time_range.start) / 1e3 / args.steps
@@ -118,6 +125,7 @@ def main() -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "section": "train_step", "nvidia_smi": card,
+        "port_root": args.port_root,
         "batch": list(batch["token_ids"].shape), "dtype": args.dtype,
         "remat": remat, "steps": args.steps, "loss": float(loss),
         "wall_ms_per_step": wall, "busy_ms_per_step": busy,
