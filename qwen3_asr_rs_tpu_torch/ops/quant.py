@@ -112,15 +112,12 @@ def matmul_f32(a, b):
     """a (..., K) @ b (K, N) of one dtype as float32: float32 accumulation
     of the products and no rounding to that dtype (JAX's
     ``preferred_element_type=jnp.float32``). On CUDA a bf16 product keeps
-    its float32 result through ``aten::mm.dtype`` (differentiated by
-    ``_MatmulF32`` when an operand needs a gradient); elsewhere the
-    operands are upcast (bf16 x bf16 products are exact in float32)."""
+    its float32 result through ``aten::mm.dtype`` (``_MatmulF32``, which
+    gives it a gradient); elsewhere the operands are upcast (bf16 x bf16
+    products are exact in float32)."""
     a2 = a.reshape(-1, a.shape[-1])
     if a.is_cuda and a.dtype != torch.float32:
-        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-            y = _MatmulF32.apply(a2, b)
-        else:
-            y = torch.mm(a2, b, out_dtype=torch.float32)
+        y = _MatmulF32.apply(a2, b)
     else:
         y = a2.float() @ b.float()
     return y.reshape(*a.shape[:-1], b.shape[-1])

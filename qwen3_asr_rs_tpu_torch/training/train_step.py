@@ -86,11 +86,6 @@ class TrainState:
         return cls(params=params,
                    optimizer=optimizer(tree_leaves(params)), step=step)
 
-    @property
-    def opt_state(self) -> dict:
-        """The optimizer's state dict (JAX's ``opt_state``)."""
-        return self.optimizer.state_dict()
-
 
 def batch_to_device(batch: dict, device) -> dict:
     """numpy arrays or tensors -> tensors on ``device``."""

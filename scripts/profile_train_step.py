@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of a full-width training step goes, on one CUDA GPU.
 
-    python3 scripts/profile_train_step.py [--batch 8] [--steps 3]
-                                          [--no-remat] [--dtype float32]
+    python3 scripts/profile_train_step.py [--steps 3] [--no-remat]
                                           [--port-root DIR]
 
 The step of ``chip_smoke.py``'s phase 11: Qwen3-ASR-0.6B at full width
 and depth, synthetic weights from the JAX package's seeds, AdamW(1e-3),
-one batch of ``--batch`` ~28 s clips from ``AsrDataset`` (30-chunk
-bucket, 544 tokens). After two unprofiled steps, ``--steps`` steps run
+float32 with TF32 off, one batch of eight ~28 s clips from ``AsrDataset``
+(30-chunk bucket, 544 tokens). After two unprofiled steps, ``--steps`` steps run
 under torch.profiler. Prints one JSON line with nvidia-smi's name and
 power limit: wall ms per step (host clock, synchronized), the device's
 busy ms per step (the union of kernel intervals), the busy share, device
@@ -57,10 +56,8 @@ def busy_ms(events) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--no-remat", action="store_true")
-    ap.add_argument("--dtype", default="float32")
     ap.add_argument("--port-root", default=str(REPO))
     args = ap.parse_args()
 
@@ -83,19 +80,19 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     config = AsrConfig()
-    dtype = getattr(torch, args.dtype)
     tmp = Path(tempfile.mkdtemp(prefix="profile_train_"))
-    ds = AsrDataset(cs.train_corpus(tmp, cs.TRAIN_SECONDS[:args.batch], 11),
+    ds = AsrDataset(cs.train_corpus(tmp, cs.TRAIN_SECONDS, 11),
                     cs.WordTokenizer(), config=config,
-                    batch_size=args.batch)
+                    batch_size=cs.TRAIN_B)
     batch = next(prefetch_to_device(ds.batches(), device="cuda"))
     state = TrainState.create(
-        {"encoder": to_torch(init_encoder_params_np(config.audio), dtype,
-                             "cuda"),
-         "decoder": to_torch(init_decoder_params_np(config.text), dtype,
-                             "cuda")}, adamw(1e-3))
+        {"encoder": to_torch(init_encoder_params_np(config.audio),
+                             torch.float32, "cuda"),
+         "decoder": to_torch(init_decoder_params_np(config.text),
+                             torch.float32, "cuda")}, adamw(cs.TRAIN_LR))
     remat = not args.no_remat
-    step = make_train_step(config, adamw(1e-3), remat=remat, device="cuda")
+    step = make_train_step(config, adamw(cs.TRAIN_LR), remat=remat,
+                           device="cuda")
     for _ in range(2):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
@@ -126,7 +123,7 @@ def main() -> int:
     print(json.dumps({
         "section": "train_step", "nvidia_smi": card,
         "port_root": args.port_root,
-        "batch": list(batch["token_ids"].shape), "dtype": args.dtype,
+        "batch": list(batch["token_ids"].shape),
         "remat": remat, "steps": args.steps, "loss": float(loss),
         "wall_ms_per_step": wall, "busy_ms_per_step": busy,
         "busy_share": busy / wall,

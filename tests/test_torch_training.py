@@ -194,7 +194,8 @@ def test_two_adamw_steps_match_optax(setup, jax_value_and_grad):
     assert not np.array_equal(want[-1][1]["decoder"]["lm_head"],
                               want[-1][1]["decoder"]["embed"])
     assert state.step == 2
-    assert len(state.opt_state["state"]) == len(tts.tree_leaves(state.params))
+    assert len(state.optimizer.state_dict()["state"]) == len(
+        tts.tree_leaves(state.params))
 
 
 def test_remat_matches_no_remat(setup):
