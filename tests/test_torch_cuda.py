@@ -882,3 +882,54 @@ def test_cuda_capture_refuses_a_host_int_end(cuda):
     torch.cuda.synchronize()
     want = decode_attention_dma_plain(q, ks, ks, k_self, k_self, 0, None, end)
     assert (out.float() - want.float()).abs().max() < 3e-2
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_f32_gradient_matches_the_cpu(cuda):
+    """``matmul_f32``'s CUDA bf16 branch (``aten::mm.dtype`` through
+    ``_MatmulF32``) differentiates as the CPU branch's float32 upcast
+    does: the float32 product and the bf16 gradients agree up to the
+    order of float32 sums (a gradient may round to the neighbouring bf16
+    value: rtol 2^-7)."""
+    from qwen3_asr_rs_tpu_torch.ops.quant import matmul_f32
+
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn((64, 1024), generator=g).bfloat16()
+    b = torch.randn((1024, 256), generator=g).bfloat16()
+    w = torch.randn((64, 256), generator=g)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        ad, bd = (t.to(dev, copy=True).requires_grad_() for t in (a, b))
+        y = matmul_f32(ad, bd)
+        assert y.dtype == torch.float32
+        (y * w.to(dev)).sum().backward()
+        out.append((y.detach().cpu(), ad.grad.cpu(), bd.grad.cpu()))
+    (yc, ac, bc), (yg, ag, bg) = out
+    torch.testing.assert_close(yg, yc, atol=1e-4, rtol=1e-5)
+    for got, want in ((ag, ac), (bg, bc)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_full_raises_before_a_kernel_without_backward(cuda):
+    """With a gradient required, ``forward_full`` on an int8 tree raises
+    at the first K5 linear and launches nothing."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import TextDecoder
+    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from qwen3_asr_rs_tpu_torch.weights.quantize import (
+        quantize_decoder_params,
+    )
+
+    cfg = dataclasses.replace(TextDecoderConfig(), num_hidden_layers=1,
+                              vocab_size=64)
+    q = quantize_decoder_params(
+        to_torch(init_decoder_params_np(cfg), torch.float32, cuda))
+    hidden = torch.randn((1, 8, cfg.hidden_size), device=cuda,
+                         requires_grad=True)
+    n = quant_matmul.launches
+    with pytest.raises(RuntimeError, match="K5 .* has no backward"):
+        TextDecoder(cfg, device=cuda).forward_full(
+            q, hidden, torch.arange(8, device=cuda))
+    assert quant_matmul.launches == n
