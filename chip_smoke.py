@@ -187,6 +187,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              from the same tree (B = 2, 4-chunk bucket; tolerances at
              CARD_CPU_*); and a checkpoint round trip of that card state
              (the next step's loss equal with and without it).
+12. parallel — (a) a 1 x 1 mesh over NCCL in this process against no
+             mesh: the 4 s and 30 s clips (bf16; tokens equal, K1 once
+             per decode step, xRT of both), a ContinuousBatcher on 4 x
+             4 s (tokens equal), one float32 train step (loss equal);
+             (b) two ranks on cuda:0 over gloo (spawned; NCCL refuses
+             two ranks on one card, scripts/nccl_two_ranks.py), every
+             run at the full 0.6B width and depth: dp = 2 on the 5-clip
+             batch with bf16 and int8 weights, tp = 2 on the 4 s clip in
+             float32, bf16, int8 and blocked int4 (every token held to
+             the one-device K1 step teacher-forced on the run's tokens:
+             its argmax or within SERVING_TIE (float32) / twice
+             SPEC_BF16_SPREAD (bf16); the bf16 |tp - one device| logit
+             spread at every position of the tp run reported; tp runs
+             decode PARALLEL_TP_TOKENS tokens: their steps run eagerly
+             over gloo), a dp = 2 serving burst of 4 x 4 s, and float32
+             train steps on dp = 2 (B = 2 a rank, unequal loss masks) and
+             tp = 2 against the one-process step on the same 4 rows
+             (CARD_CPU_* tolerances). Launches per rank are checked
+             exactly (K1 once per step under dp, 0 under tp; K2 per layer
+             and step; K5 per int8 linear and lm_head), collectives too:
+             none in a dp rank's decode, 2 all-reduces per layer plus
+             the embedding's and one all-gather per tp decode step, one
+             all-gather per serving segment. The ranks share the card:
+             their times are not scaling numbers. A rank's failure fails
+             the phase.
 
 Then a {"kernels": [...]} summary line (launches also per stream update
 and per speculative iteration), the nvidia-smi line, and as the
@@ -4069,6 +4094,535 @@ def training_phase(torch, config, enc32, dec32, clip, tmp, card) -> dict:
             "forward_full int8 lm4": launches}
 
 
+# ---- phase 12: parallel ---------------------------------------------------
+
+# (b) runs two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on
+# one card), so their times are not scaling numbers
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 420
+# tokens of a tp run: its steps run eagerly, each with 57 gloo all-reduces
+# through the host (~100 ms a step with two ranks on one card), so the tp
+# runs decode 32 tokens where the others decode 128; the bf16 spread is
+# taken over all of them
+PARALLEL_TP_TOKENS = 32
+# timings of the 1 x 1 mesh and of no mesh, interleaved
+PARALLEL_REPEATS = 3
+# bf16 mesh runs: phase 10's rule at the 0.6B width
+PARALLEL_BF16_TOL = 2 * SPEC_BF16_SPREAD[1024]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_batch(config, b: int, seed: int) -> dict:
+    """A synthetic training batch (tests/test_training.py's make_batch):
+    a random two-chunk mel, random token ids, 8 target positions a row."""
+    import numpy as np
+
+    from qwen3_asr_rs_tpu_torch.runtime.prompt import AUDIO_OFFSET
+
+    rng = np.random.default_rng(seed)
+    cf, tpc = config.audio.chunk_frames, config.audio.tokens_per_chunk
+    p_len = AUDIO_OFFSET + 2 * tpc + 16
+    mask = np.zeros((b, p_len), np.float32)
+    mask[:, -9:-1] = 1.0
+    return {"mel": rng.standard_normal((b, config.audio.num_mel_bins, 2 * cf))
+            .astype(np.float32),
+            "n_frames": np.full(b, 2 * cf, np.int32),
+            "n_audio": np.full(b, 2 * tpc, np.int32),
+            "token_ids": rng.integers(0, config.text.vocab_size, (b, p_len))
+            .astype(np.int32),
+            "loss_mask": mask}
+
+
+def ids_of(r) -> list:
+    """Token ids of a result (StubTokenizer's raw output)."""
+    return [int(t) for t in r.raw_output.split()]
+
+
+def forced_logits(torch, engine, samples, toks):
+    """float32 logits (len(toks) + 1, V) of a B = 1 engine teacher-forced
+    on ``toks``: the prefill's, then one decode step per token (one
+    device: K1; a tp mesh: the per-layer path, every rank calling)."""
+    logits, cache, base = engine.prefill(samples)
+    out = [logits[0].float()]
+    for i, tok in enumerate(toks):
+        logits, _ = engine.decoder.decode_step(
+            engine.dec_params, torch.tensor([tok], device=engine.device),
+            base + i, cache)
+        out.append(logits[0].float())
+    return torch.stack(out)
+
+
+def agreement(torch, ref, samples, got, tol) -> dict:
+    """Phase 10's rule for a mesh run's tokens ``got``: the one-device
+    engine ``ref``'s K1 step teacher-forced on them gives, at every
+    position, ``got``'s token as its argmax or within ``tol`` of it; where
+    the run stopped before max_new, an EOS (or a tie with one)."""
+    from qwen3_asr_rs_tpu_torch.runtime.engine import EOS_TOKEN_IDS
+
+    plain = forced_logits(torch, ref, samples, got)
+    n = len(got)
+    best = plain.max(-1).values
+    rows = torch.arange(n, device=plain.device)
+    gap = (best[:n] - plain[rows, torch.tensor(got, device=plain.device)]
+           ).tolist()
+    if n < ref.max_new_tokens:
+        gap.append(float(best[n] - plain[n, list(EOS_TOKEN_IDS)].max()))
+    flips = [t for t, g in enumerate(gap) if g > 0]
+    return {"tokens_checked": n, "n_flips": len(flips),
+            "first_flip": flips[0] if flips else None,
+            "gap_max": max(gap), "tol": tol, "ok": max(gap) <= tol}
+
+
+def zero_counts(fns) -> None:
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def counts_of(fns) -> dict:
+    return {n: fn.launches for n, fn in fns.items()}
+
+
+def timed(torch, fn):
+    """(fn(), host seconds to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_1x1(torch, config, enc32, dec32, audio, card) -> dict:
+    """Phase 12 (a): a 1 x 1 mesh over NCCL in this process, the
+    deployment form on one card, against no mesh: the 4 s and 30 s clips
+    (bf16, tokens equal, K1 once per decode step; xRT of each, the median
+    of PARALLEL_REPEATS runs taken in turns, no mesh, mesh, mesh, no
+    mesh, ...), a ContinuousBatcher on 4 x 4 s (tokens equal), one
+    float32 train step (loss equal). Returns {path: {kernel:
+    launches}}."""
+    import torch.distributed as dist
+
+    from qwen3_asr_rs_tpu_torch.parallel import make_mesh
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.runtime.serving import (
+        ContinuousBatcher, Request)
+    from qwen3_asr_rs_tpu_torch.training import make_train_step, sgd
+
+    fns = kernel_wrappers()
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        mesh = make_mesh(device_type="cuda")
+        if tuple(mesh.shape) != (1, 1):
+            raise AssertionError(f"1 x 1 mesh: shape {tuple(mesh.shape)}")
+        runs, launches = {}, {}
+        engines = {label: AsrEngine(
+            None, dtype=torch.bfloat16, max_new_tokens=128, config=config,
+            params=(enc32, dec32), tokenizer=StubTokenizer(), device="cuda",
+            mesh=m) for label, m in (("no mesh", None), ("1 x 1 mesh", mesh))}
+        for eng in engines.values():
+            eng.transcribe_samples(audio[4])  # warm-up: the graphs
+        for seconds in (4, 30):
+            walls = {label: [] for label in engines}
+            order = list(engines)
+            for i in range(PARALLEL_REPEATS):
+                for label in order if i % 2 == 0 else order[::-1]:
+                    eng = engines[label]
+                    zero_counts(fns)
+                    r, wall = timed(torch, lambda: eng.transcribe_samples(
+                        audio[seconds]))
+                    walls[label].append(wall)
+                    runs[label, seconds] = {
+                        "tokens": ids_of(r),
+                        "decode_steps": eng.last_stats["decode_steps"],
+                        "k1_launches": fns["decode_layers_fused"].launches}
+                    launches[f"parallel {label}"] = counts_of(fns)
+            for label, w in walls.items():
+                runs[label, seconds].update(
+                    wall_s=statistics.median(w), walls_s=w,
+                    xRT=seconds / statistics.median(w))
+        for label, eng in engines.items():
+            b = ContinuousBatcher(eng, n_slots=4)
+            reqs = [Request(audio[4]) for _ in range(4)]
+            _, wall = timed(torch, lambda: b.drive(reqs))
+            runs[label, "batcher"] = {"tokens": [ids_of(q.result)
+                                                 for q in reqs],
+                                      "wall_s": wall, "mesh": b.mesh}
+            del b
+        del engines, eng
+        torch.cuda.empty_cache()
+        for key in ((4,), (30,), ("batcher",)):
+            plain, meshed = runs[("no mesh",) + key], runs[("1 x 1 mesh",)
+                                                           + key]
+            if meshed["tokens"] != plain["tokens"]:
+                raise AssertionError(f"1 x 1 mesh {key}: tokens differ")
+            if "k1_launches" in meshed and \
+                    meshed["k1_launches"] != meshed["decode_steps"]:
+                raise AssertionError(f"1 x 1 mesh {key}: K1 launched "
+                                     f"{meshed['k1_launches']} times in "
+                                     f"{meshed['decode_steps']} steps")
+            emit({"phase": "parallel", "case": f"1 x 1 NCCL mesh {key[0]}",
+                  "tokens_equal": True,
+                  **{f"{k}_mesh": v for k, v in meshed.items()
+                     if k not in ("tokens", "mesh")},
+                  **{f"{k}_no_mesh": v for k, v in plain.items()
+                     if k != "tokens"},
+                  "n_tokens": sum(map(len, meshed["tokens"]))
+                  if key == ("batcher",) else len(meshed["tokens"]),
+                  "card": card})
+        losses = []
+        for m in (None, mesh):
+            step = make_train_step(config, sgd(1e-3), device="cuda", mesh=m)
+            state = step.init({"encoder": enc32, "decoder": dec32})
+            _, loss = step(state, train_batch(config, 2, seed=21))
+            losses.append(float(loss))
+            del state
+            torch.cuda.empty_cache()
+        if losses[0] != losses[1]:
+            raise AssertionError(f"1 x 1 mesh train step: loss {losses[1]} "
+                                 f"against {losses[0]}")
+        emit({"phase": "parallel", "case": "1 x 1 NCCL mesh, float32 train "
+              "step, B = 2", "loss_no_mesh": losses[0],
+              "loss_mesh": losses[1], "card": card})
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_rank(rank: int, port: int, results, clips: dict) -> None:
+    """Phase 12 (b), one of two ranks on cuda:0 over gloo (a spawned
+    process): ``parallel_runs``, its rows and launches put on
+    ``results``, or its traceback."""
+    try:
+        sys.path.insert(0, str(REPO))
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=PARALLEL_RANKS)
+        try:
+            rows, launches = parallel_runs(torch, rank, clips)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", rows, launches))
+    except BaseException:  # noqa: BLE001 — reported by the parent
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc(), None))
+
+
+def parallel_runs(torch, rank: int, clips: dict) -> tuple:
+    """Phase 12 (b) on one rank, every run at the full 0.6B width and
+    depth: dp = 2 (the 5-clip batch, bf16 and int8 weights), tp = 2 (the
+    4 s clip in float32, bf16, int8 and blocked int4, PARALLEL_TP_TOKENS
+    tokens), a dp = 2 serving
+    burst of 4 x 4 s, and float32 train steps on dp = 2 (B = 2 a rank,
+    unequal masks) and tp = 2 against the one-process step. Returns
+    (rows, {path: {kernel: launches}})."""
+    import numpy as np
+
+    from qwen3_asr_rs_tpu_torch import AsrConfig
+    from qwen3_asr_rs_tpu_torch.parallel import make_mesh
+    from qwen3_asr_rs_tpu_torch.parallel.comm import COUNTS
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.weights.convert import (
+        init_decoder_params_np, init_encoder_params_np, to_torch)
+
+    config = AsrConfig()
+    layers = config.text.num_hidden_layers
+    t0 = time.perf_counter()
+    enc32 = to_torch(init_encoder_params_np(config.audio), torch.float32,
+                     "cuda")
+    dec32 = to_torch(init_decoder_params_np(config.text), torch.float32,
+                     "cuda")
+    rows = [{"case": "rank start", "weights_s": time.perf_counter() - t0}]
+    dp2 = make_mesh(dp=2, tp=1, device_type="cuda")
+    tp2 = make_mesh(dp=1, tp=2, device_type="cuda")
+    fns = kernel_wrappers()
+    launches = {}
+
+    def engine(mesh, dtype, env=None, max_new=128, **kw):
+        with Env(env or {}):
+            return AsrEngine(None, dtype=dtype, max_new_tokens=max_new,
+                             config=config, params=(enc32, dec32),
+                             tokenizer=StubTokenizer(), device="cuda",
+                             mesh=mesh, **kw)
+
+    five = [clips[c] for c in FIVE_CLIPS]
+    # dp = 2: each rank's 4 rows through the one-device path
+    for quantize in (None, "int8"):
+        label = f"dp=2 5 clips bf16 {quantize or 'bf16'} weights"
+        ref = engine(None, torch.bfloat16, quantize=quantize)
+        ref.transcribe_batch(five)  # warm-up: the graphs
+        want, ref_wall = timed(torch, lambda: ref.transcribe_batch(five))
+        eng = engine(dp2, torch.bfloat16, quantize=quantize)
+        eng.transcribe_batch(five)  # warm-up: this rank's graphs
+        zero_counts(fns)
+        COUNTS.clear()
+        got, wall = timed(torch, lambda: eng.transcribe_batch(five))
+        steps = eng.last_stats["decode_steps"]
+        runs = counts_of(fns)
+        want_k = expected_launches(quantize, {}, layers, steps, 30)
+        del want_k["lm_head_products"]
+        check_launches(f"{label} rank {rank}", runs, want_k)
+        if COUNTS:
+            raise AssertionError(f"{label}: a dp rank's decode issued "
+                                 f"collectives {dict(COUNTS)}")
+        agree = [agreement(torch, ref, s, ids_of(r), PARALLEL_BF16_TOL)
+                 for s, r in zip(five, got)]
+        rows.append({"case": label, "rows_per_rank": 4,
+                     "tokens_equal": [ids_of(a) == ids_of(b)
+                                      for a, b in zip(got, want)],
+                     "agreement": agree, "decode_steps": steps,
+                     "launches": runs, "wall_s": wall,
+                     "xRT": sum(FIVE_CLIPS) / wall,
+                     "one_device_wall_s": ref_wall,
+                     "one_device_xRT": sum(FIVE_CLIPS) / ref_wall})
+        if not all(a["ok"] for a in agree):
+            raise AssertionError(f"{label}: tokens left the one-device "
+                                 f"step: {agree}")
+        launches[f"parallel {label} rank {rank}"] = runs
+        del ref, eng
+        torch.cuda.empty_cache()
+
+    # tp = 2: the 4 s clip; K1 declined, K2 per layer on local heads
+    for dtype, quantize in ((torch.float32, None), (torch.bfloat16, None),
+                            (torch.bfloat16, "int8"),
+                            (torch.bfloat16, "int4")):
+        label = (f"tp=2 4 s {str(dtype)[6:]} "
+                 f"{quantize + ' weights' if quantize else ''}").strip()
+        env = {"ASR_LM_BITS": "8"} if quantize == "int4" else {}
+        ref = engine(None, dtype, env, PARALLEL_TP_TOKENS, quantize=quantize)
+        want = ids_of(ref.transcribe_samples(clips[4]))
+        eng = engine(tp2, dtype, max_new=PARALLEL_TP_TOKENS,
+                     quantize=quantize)
+        zero_counts(fns)
+        COUNTS.clear()
+        r, wall = timed(torch, lambda: eng.transcribe_samples(clips[4]))
+        got, steps = ids_of(r), eng.last_stats["decode_steps"]
+        runs, collectives = counts_of(fns), dict(COUNTS)
+        k5 = {"int8": 7 * layers * (steps + 1) + steps + 1,
+              "int4": steps + 1}.get(quantize, 0)
+        check_launches(f"{label} rank {rank}", runs, {
+            "decode_layers_fused": 0, "decode_attention_dma": layers * steps,
+            "flash_attention": 0, "quant_matmul": k5,
+            "quant_matvec_int4": 0, "decode_attention_slab": 0,
+            "decode_attention": 0})
+        # one decode step's collectives
+        logits, cache, base = eng.prefill(clips[4])
+        COUNTS.clear()
+        eng.decoder.decode_step(eng.dec_params, logits.argmax(-1), base,
+                                cache)
+        step_coll = dict(COUNTS)
+        if step_coll != {"all_reduce": 2 * layers + 1, "all_gather": 1}:
+            raise AssertionError(f"{label}: a tp decode step issued "
+                                 f"{step_coll}")
+        tol = SERVING_TIE if dtype == torch.float32 else PARALLEL_BF16_TOL
+        agree = agreement(torch, ref, clips[4], got, tol)
+        spread = (forced_logits(torch, eng, clips[4], got)
+                  - forced_logits(torch, ref, clips[4], got)).abs()
+        per_pos = spread.amax(-1).tolist()
+        rows.append({"case": label, "tokens_equal": got == want,
+                     "n_tokens": len(got), "agreement": agree,
+                     "logit_spread_max": max(per_pos),
+                     "logit_spread_p50": pct(per_pos, 50),
+                     "spread_positions": len(per_pos),
+                     "decode_steps": steps, "launches": runs,
+                     "collectives": collectives,
+                     "collectives_per_decode_step": step_coll,
+                     "wall_s": wall, "xRT": 4 / wall,
+                     "decode_ms_per_step": 1e3 * eng.last_stats[
+                         "decode_seconds"] / max(steps, 1)})
+        if not agree["ok"]:
+            raise AssertionError(f"{label}: tokens left the one-device "
+                                 f"step: {agree}")
+        launches[f"parallel {label} rank {rank}"] = runs
+        del ref, eng, cache
+        torch.cuda.empty_cache()
+
+    rows.append(parallel_serving(torch, engine, dp2, rank, clips, fns,
+                                 launches, layers))
+    rows.extend(parallel_training(torch, config, enc32, dec32, dp2, tp2,
+                                  rank, fns))
+    return rows, launches
+
+
+def parallel_serving(torch, engine, mesh, rank, clips, fns, launches,
+                     layers) -> dict:
+    """A dp = 2 ContinuousBatcher (2 slots a rank) on 4 x 4 s, bf16: a
+    warm-up burst (the segment graphs), then a counted burst; the lead
+    rank's tokens held to the one-device step (phase 10's rule)."""
+    from qwen3_asr_rs_tpu_torch.parallel.comm import COUNTS
+    from qwen3_asr_rs_tpu_torch.runtime.serving import (
+        ContinuousBatcher, Request)
+
+    b = ContinuousBatcher(engine(mesh, torch.bfloat16), n_slots=4)
+    b.drive([Request(clips[4]) for _ in range(4)])  # warm-up
+    steps0, segs0 = b.stats["steps"], b.stats["segments"]
+    zero_counts(fns)
+    COUNTS.clear()
+    reqs = [Request(clips[4]) for _ in range(4)]
+    _, wall = timed(torch, lambda: b.drive(reqs))
+    steps = b.stats["steps"] - steps0
+    segs = b.stats["segments"] - segs0
+    runs, collectives = counts_of(fns), dict(COUNTS)
+    check_launches(f"dp=2 serving rank {rank}", runs, {
+        "decode_layers_fused": 0, "decode_attention_dma": layers * steps,
+        "flash_attention": 0, "quant_matmul": 0, "quant_matvec_int4": 0})
+    if collectives.get("all_gather") != segs:
+        raise AssertionError(f"dp=2 serving: {collectives} for {segs} "
+                             "segments (one all-gather each)")
+    row = {"case": "dp=2 serving 4 x 4 s bf16", "n_slots": b.n_slots,
+           "slots_per_rank": b.n_local, "segments": segs,
+           "decode_steps": steps, "launches": runs,
+           "collectives": collectives, "wall_s": wall, "xRT": 16 / wall}
+    if b.lead:
+        ref = engine(None, torch.bfloat16)
+        agree = [agreement(torch, ref, clips[4], ids_of(q.result),
+                           PARALLEL_BF16_TOL) for q in reqs]
+        row["agreement"] = agree
+        row["n_tokens"] = [len(ids_of(q.result)) for q in reqs]
+        if not all(a["ok"] for a in agree):
+            raise AssertionError(f"dp=2 serving: tokens left the one-device "
+                                 f"step: {agree}")
+        del ref
+    launches[f"parallel dp=2 serving rank {rank}"] = runs
+    del b
+    torch.cuda.empty_cache()
+    return row
+
+
+def parallel_training(torch, config, enc32, dec32, dp2, tp2, rank,
+                      fns) -> list:
+    """float32 SGD steps on dp = 2 (B = 2 a rank; the ranks' loss masks
+    differ) and tp = 2 (B = 4), against the one-process step on the same
+    4 rows: the loss within CARD_CPU_LOSS_RTOL, every gradient leaf (tp:
+    this rank's shard of it) within CARD_CPU_GRAD_REL of its largest
+    one-process magnitude; no kernel launched."""
+    from qwen3_asr_rs_tpu_torch.parallel import (
+        decoder_param_specs, encoder_param_specs, match_specs)
+    from qwen3_asr_rs_tpu_torch.training import dp_rows, make_train_step, sgd
+
+    batch = train_batch(config, 4, seed=22)
+    batch["loss_mask"][3, :] = 0.0       # rank 1 of dp = 2: 8 targets
+    batch["loss_mask"][1, -9:-5] = 0.0   # rank 0: 12
+    whole = {"encoder": enc32, "decoder": dec32}
+    step = make_train_step(config, sgd(1e-3), device="cuda")
+    state = step.init(whole)
+    _, ref_loss = step(state, batch)
+    ref = {k: v.grad for k, v in flat_tree(state.params).items()}
+    del state
+    rows = []
+    for label, mesh in (("dp=2, B = 2 a rank, unequal masks", dp2),
+                        ("tp=2, B = 4", tp2)):
+        step = make_train_step(config, sgd(1e-3), device="cuda", mesh=mesh)
+        state = step.init(whole)
+        zero_counts(fns)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        _, loss = step(state, dp_rows(batch, mesh))
+        e1.record()
+        torch.cuda.synchronize()
+        if any(counts_of(fns).values()):
+            raise AssertionError(f"{label}: a kernel ran in the train step")
+        tp = mesh.size(1)
+        specs = flat_tree(match_specs(whole, {
+            "encoder": encoder_param_specs(
+                config.audio.encoder_attention_heads, tp),
+            "decoder": decoder_param_specs()}))
+        worst = (0.0, None)
+        for name, leaf in flat_tree(state.params).items():
+            want = ref[name]
+            scale = float(want.abs().max())
+            if scale < 1e-9:  # an exact 0 (the encoder's k_b): noise
+                continue
+            spec = specs[name]
+            if tp > 1 and "tp" in spec:
+                d = spec.index("tp")
+                n = want.shape[d] // tp
+                want = want.narrow(d, mesh.get_local_rank("tp") * n, n)
+            rel = float((leaf.grad - want).abs().max()) / scale
+            worst = max(worst, (rel, name))
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        rows.append({"case": f"train step {label}, float32",
+                     "loss": float(loss), "one_process_loss": float(ref_loss),
+                     "loss_rel": loss_rel, "grad_rel_max": worst[0],
+                     "grad_rel_max_leaf": worst[1],
+                     "step_ms": e0.elapsed_time(e1)})
+        if loss_rel > CARD_CPU_LOSS_RTOL or worst[0] > CARD_CPU_GRAD_REL:
+            raise AssertionError(f"{label}: {rows[-1]}")
+        del state
+        torch.cuda.empty_cache()
+    return rows
+
+
+def parallel_phase(torch, config, enc32, dec32, audio, card) -> dict:
+    """Phase 12. (a) the 1 x 1 NCCL mesh here; (b) two spawned ranks on
+    cuda:0 over gloo (the parent has initialised CUDA, so fork is
+    unsafe), this process's cached memory freed first. A rank's failure
+    fails the phase. Returns {path: {kernel: launches}}."""
+    import multiprocessing
+
+    launches = mesh_1x1(torch, config, enc32, dec32, audio, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    clips = {c: audio[c] for c in FIVE_CLIPS}
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, results, clips))
+             for r in range(PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    done, errors = {}, []
+    try:
+        while len(done) + len(errors) < PARALLEL_RANKS:
+            if time.perf_counter() - t0 > PARALLEL_TIMEOUT_S:
+                raise AssertionError("parallel: a rank did not finish in "
+                                     f"{PARALLEL_TIMEOUT_S} s")
+            try:
+                rank, status, rows, runs = results.get(timeout=5)
+            except Exception:  # queue.Empty: is every rank alive?
+                dead = [p.exitcode for p in procs if p.exitcode not in
+                        (None, 0)]
+                if dead:
+                    raise AssertionError(f"parallel: a rank exited with "
+                                         f"{dead} and no report")
+                continue
+            if status != "ok":
+                errors.append(f"rank {rank}:\n{rows}")
+                continue
+            done[rank] = rows
+            launches.update(runs)
+        if errors:
+            raise AssertionError("parallel: " + "\n".join(errors))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank in sorted(done):
+        for row in done[rank]:
+            emit({"phase": "parallel", "rank": rank,
+                  "ranks_share": "cuda:0 over gloo (times are not scaling "
+                                 "numbers)", **row, "card": card})
+    emit({"phase": "parallel", "case": "ranks", "seconds":
+          time.perf_counter() - t0, "card": card})
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4227,6 +4781,11 @@ def main() -> int:
     # export then serve, forward_full on a quantized tree
     launches.update(training_phase(torch, config, enc32, dec32, clips[4],
                                    tmp, card))
+
+    # 12. parallel: a 1 x 1 NCCL mesh here, then two ranks sharing the
+    # card over gloo (dp = 2, tp = 2, mesh serving, sharded train steps)
+    launches.update(parallel_phase(torch, config, enc32, dec32, audio,
+                                   card))
 
     summary = []
     for name in SOURCES:

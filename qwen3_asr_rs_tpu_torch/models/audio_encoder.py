@@ -8,6 +8,12 @@ validity count, then ln_post -> proj1 -> GELU -> proj2. The flat output
 is chunk-major with all valid tokens a prefix, so callers take
 ``out[:n_valid]``. Linear weights are (in, out) as in JAX. ``batch``
 encodes a training batch, each row with its own true frame count.
+
+Under tensor parallelism (``tp``, when the head count divides it: the
+spec tree of ``parallel/sharding.encoder_param_specs``) each rank holds
+its heads' q/k/v and fc1 columns with their biases, and its rows of out
+and fc2: the two row-parallel products are all-reduced, and their
+replicated biases are added once, after the sum.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import AudioEncoderConfig
 from ..ops.attention import attention
 from ..ops.norms import layer_norm
+from ..parallel.comm import copy_to_tp, reduce_from_tp
 from ..weights.convert import unstack_layers
 
 Tree = Any
@@ -54,12 +61,19 @@ class AudioEncoder:
 
     ``remat``: with grad enabled, checkpoint each encoder layer (the
     backward recomputes it from its input; JAX's ``nothing_saveable`` per
-    scanned layer)."""
+    scanned layer). ``tp``: this rank's view of the mesh's 'tp' axis
+    (``parallel/comm.mesh_axis``) for tensor-parallel layers; None (also
+    when the heads do not divide over it) runs the whole layer."""
 
     def __init__(self, cfg: AudioEncoderConfig,
-                 device: str | torch.device = "cpu", remat: bool = False):
+                 device: str | torch.device = "cpu", remat: bool = False,
+                 tp=None):
         self.cfg = cfg
         self.remat = remat
+        self.tp = (tp if tp is not None
+                   and cfg.encoder_attention_heads % tp.size == 0 else None)
+        self.heads = cfg.encoder_attention_heads // (
+            1 if self.tp is None else self.tp.size)
         self.pos_table = torch.from_numpy(
             sinusoid_position_embedding(cfg.max_source_positions, cfg.d_model)
         ).to(device)
@@ -198,20 +212,22 @@ class AudioEncoder:
 
     def _encoder_layer(self, layer: Tree, x, win_counts):
         """Pre-norm bidirectional MHA + GELU FFN (src/layers.rs:202-243)."""
-        cfg = self.cfg
-        nh, hd = cfg.encoder_attention_heads, cfg.head_dim
+        nh, hd, tp = self.heads, self.cfg.head_dim, self.tp
         b, s, _ = x.shape
 
         residual = x
-        h = layer_norm(x, layer["attn_ln_w"], layer["attn_ln_b"], eps=1e-5)
+        h = copy_to_tp(layer_norm(x, layer["attn_ln_w"], layer["attn_ln_b"],
+                                  eps=1e-5), tp)
         q = (h @ layer["q_w"] + layer["q_b"]).reshape(b, s, nh, hd)
         k = (h @ layer["k_w"] + layer["k_b"]).reshape(b, s, nh, hd)
         v = (h @ layer["v_w"] + layer["v_b"]).reshape(b, s, nh, hd)
         attn = attention(q, k, v, kv_valid=win_counts).reshape(b, s, nh * hd)
-        x = residual + (attn @ layer["out_w"] + layer["out_b"])
+        x = residual + (reduce_from_tp(attn @ layer["out_w"], tp)
+                        + layer["out_b"])
 
         residual = x
-        h = layer_norm(x, layer["ffn_ln_w"], layer["ffn_ln_b"], eps=1e-5)
+        h = copy_to_tp(layer_norm(x, layer["ffn_ln_w"], layer["ffn_ln_b"],
+                                  eps=1e-5), tp)
         h = F.gelu(h @ layer["fc1_w"] + layer["fc1_b"], approximate="none")
-        h = h @ layer["fc2_w"] + layer["fc2_b"]
+        h = reduce_from_tp(h @ layer["fc2_w"], tp) + layer["fc2_b"]
         return residual + h

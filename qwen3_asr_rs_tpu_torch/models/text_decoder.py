@@ -54,7 +54,20 @@ einsums). Streaming (``runtime/streaming.py``) extends its slab with
 at every position). Both chunk entries take ``start`` as a host int or a
 0-d device tensor (a verify captured in a CUDA graph: the K/V write, the
 rotary rows and the mask are then computed on the device). Blocked int4
-is not ported yet and raises NotImplementedError.
+trees (``tp_blocks``: column weights ``(L, K, blocks, N / (2 blocks))``)
+run ``int4_blocked_matmul``, block by block.
+
+Tensor parallelism (``tp``: the mesh's 'tp' axis, ``parallel/comm.py``):
+the parameters are this rank's Megatron shards (``parallel/sharding.py``)
+and ``self.cfg`` holds the local head counts and MLP width. Each layer
+copies its normed input to the column-parallel products (q/k/v,
+gate/up) and all-reduces the row-parallel ones (o, down): two
+all-reduces per layer, forward. The embedding lookup is vocab-parallel
+(one all-reduce) and the lm_head's logits are gathered (one all-gather).
+Every entry holds this: ``forward_full``, the prefills, the decode steps
+and the chunk layers. The decode kernel holds a whole layer, and the
+all-reduce falls inside it, so it is declined under tp, as JAX's is; K2,
+K3 and K5 run on each rank's local heads and shards.
 
 Training (``training/train_step.py``) runs ``forward_full``: the prefill
 layer's math without a slab, differentiable, each layer optionally
@@ -78,8 +91,19 @@ from ..ops.kernels.decode_layer import decode_layers_fused, is_grouped
 from ..ops.kernels.quant_matmul import quant_matmul
 from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
 from ..ops.norms import rms_norm
-from ..ops.quant import int4_grouped_matmul, int4_matmul_plain, matmul_f32
+from ..ops.quant import (
+    int4_blocked_matmul,
+    int4_grouped_matmul,
+    int4_matmul_plain,
+    matmul_f32,
+)
 from ..ops.rotary import RotaryTable, apply_rotary
+from ..parallel.comm import (
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+    vocab_parallel_embed,
+)
 from ..weights.convert import unstack_layers
 
 Tree = Any
@@ -212,21 +236,26 @@ def dequantize_kv(q, scale, dtype):
 
 def check_params(params: Tree) -> None:
     """Raise NotImplementedError for parameter trees of unported branches:
-    blocked int4 (a 4-D ``*_q4``) and float merged projections; and for
-    the JAX engine's padded lm_head copies (``lm_fold_*``, a TPU layout
-    that ``weights/convert.py`` drops: the fold reads the lm_head)."""
+    float merged projections; and for the JAX engine's padded lm_head
+    copies (``lm_fold_*``, a TPU layout that ``weights/convert.py``
+    drops: the fold reads the lm_head)."""
     layers = params.get("layers", {})
     bad = [n for n in params if n.startswith("lm_fold_")]
     bad += [n for n in ("qkv_w", "gateup_w") if n in layers]
     bad += [n for n, t in layers.items()
             if (n.endswith("_s") and t.ndim not in (2, 3))
-            or (n.endswith("_q4") and t.ndim != 3)]
+            or (n.endswith("_q4") and t.ndim not in (3, 4))]
     if bad:
         raise NotImplementedError(
-            f"decoder parameters {bad} (blocked int4, float merged "
-            "projections or the JAX engine's lm_fold_* copies) are not "
-            "ported to the PyTorch package"
+            f"decoder parameters {bad} (float merged projections or the "
+            "JAX engine's lm_fold_* copies) are not ported to the PyTorch "
+            "package"
         )
+
+
+def is_blocked(layers: Tree) -> bool:
+    """Whether a stacked layer tree holds blocked int4 (tp) weights."""
+    return any(n.endswith("_q4") and t.ndim == 4 for n, t in layers.items())
 
 
 def _linear(tree: Tree, name: str, x):
@@ -236,9 +265,10 @@ def _linear(tree: Tree, name: str, x):
 
     int8 runs K5 (``quant_matmul``; its plain version on the CPU). int4 is
     the JAX package's two half-width products on the sign-extended
-    nibbles (``ops/quant.py::int4_matmul_plain``), int4g its
-    ``int4_grouped_matmul`` in both of its row regimes. Each applies its
-    scales to the float32 products, then rounds to x.dtype once.
+    nibbles (``ops/quant.py::int4_matmul_plain``; per block for the
+    blocked tp layout), int4g its ``int4_grouped_matmul`` in both of its
+    row regimes. Each applies its scales to the float32 products, then
+    rounds to x.dtype once.
     """
     if f"{name}_q" in tree:
         forbid_backward("K5 (quant_matmul)", x)
@@ -246,6 +276,9 @@ def _linear(tree: Tree, name: str, x):
         y = quant_matmul(x2.contiguous(), tree[f"{name}_q"], tree[f"{name}_s"])
         return y.reshape(*x.shape[:-1], -1)
     if f"{name}_q4" in tree:
+        if tree[f"{name}_q4"].ndim == 3:  # blocked (K, blocks, N / 2 blocks)
+            return int4_blocked_matmul(x, tree[f"{name}_q4"],
+                                       tree[f"{name}_s"])
         if tree[f"{name}_s"].ndim == 2:
             return int4_grouped_matmul(x, tree[f"{name}_q4"],
                                        tree[f"{name}_s"]).to(x.dtype)
@@ -291,11 +324,32 @@ def _mlp(layer: Tree, x):
     return _linear(layer, "down_w", _gate_up(layer, x))
 
 
+def tp_local_config(cfg: TextDecoderConfig, tp: int) -> TextDecoderConfig:
+    """The decoder config of one tp shard: heads and MLP width over tp
+    (the vocabulary stays whole: the logits are gathered)."""
+    for name in ("num_attention_heads", "num_key_value_heads",
+                 "intermediate_size", "vocab_size"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"{name}={getattr(cfg, name)} does not divide "
+                             f"over tp = {tp}")
+    return dataclasses.replace(
+        cfg, num_attention_heads=cfg.num_attention_heads // tp,
+        num_key_value_heads=cfg.num_key_value_heads // tp,
+        intermediate_size=cfg.intermediate_size // tp)
+
+
 class TextDecoder:
-    """Stateless decoder; parameters are passed to every call."""
+    """Stateless decoder; parameters are passed to every call. ``tp``:
+    this rank's view of the mesh's 'tp' axis (``parallel/comm.mesh_axis``),
+    None without tensor parallelism; ``self.cfg`` is then the shard's
+    config (``tp_local_config``)."""
 
     def __init__(self, cfg: TextDecoderConfig, max_position: int = 8192,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu", tp=None):
+        self.tp = tp
+        self.vocab_size = cfg.vocab_size
+        if tp is not None:
+            cfg = tp_local_config(cfg, tp.size)
         self.cfg = cfg
         self.rotary = RotaryTable(
             head_dim=cfg.head_dim,
@@ -307,8 +361,12 @@ class TextDecoder:
         )
 
     def embed(self, params: Tree, input_ids):
-        """Token embedding lookup (reference src/text_decoder.rs:90-92)."""
-        return params["embed"][input_ids]
+        """Token embedding lookup (reference src/text_decoder.rs:90-92);
+        vocab-parallel when the table is a tp shard."""
+        table = params["embed"]
+        if table.shape[0] < self.vocab_size:
+            return vocab_parallel_embed(table, input_ids, self.tp)
+        return table[input_ids]
 
     def _layer(self, layer: Tree, x, cos, sin, l: int, cache: KVCache,
                kv_start=None):
@@ -325,20 +383,34 @@ class TextDecoder:
         rotary."""
         cfg = self.cfg
         residual = x
-        h = rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps)
+        h = self._tp_in(rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps))
         q, k, v = _qkv3(layer, h, cfg.num_attention_heads,
                         cfg.num_key_value_heads, cfg.head_dim)
-        q = rms_norm(q, layer["q_norm_w"], cfg.rms_norm_eps)
-        k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
+        # the QK-norm weights are replicated but scale each rank's heads
+        # only: their gradient is summed over tp (copy_to_tp's backward)
+        q = rms_norm(q, self._tp_in(layer["q_norm_w"]), cfg.rms_norm_eps)
+        k = rms_norm(k, self._tp_in(layer["k_norm_w"]), cfg.rms_norm_eps)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
 
         attn = attention(q, k, v, causal=True, kv_start=kv_start)
         b, s = attn.shape[:2]
-        x = residual + _linear(layer, "o_w", attn.reshape(b, s, -1))
-        residual = x
-        h = rms_norm(x, layer["post_ln_w"], cfg.rms_norm_eps)
-        return residual + _mlp(layer, h), k, v
+        x = residual + self._tp_out(_linear(layer, "o_w",
+                                            attn.reshape(b, s, -1)))
+        return self._mlp_block(layer, x), k, v
+
+    def _tp_in(self, h):
+        """The input of the column-parallel products (``copy_to_tp``)."""
+        return copy_to_tp(h, self.tp)
+
+    def _tp_out(self, y):
+        """A row-parallel product's output, summed over tp."""
+        return reduce_from_tp(y, self.tp)
+
+    def _mlp_block(self, layer: Tree, x):
+        """x + MLP(post-norm x), the MLP's down product summed over tp."""
+        h = self._tp_in(rms_norm(x, layer["post_ln_w"], self.cfg.rms_norm_eps))
+        return x + self._tp_out(_mlp(layer, h))
 
     def _full_layer(self, layer: Tree, x, cos, sin):
         return self._causal_layer(layer, x, cos, sin)[0]
@@ -374,6 +446,9 @@ class TextDecoder:
         h = rms_norm(hidden, params["final_ln_w"], self.cfg.rms_norm_eps)
         b, s, hd = h.shape
         h2 = h.reshape(b * s, hd).contiguous()
+        lm = params.get("lm_head")
+        if lm is not None and lm.shape[0] < self.vocab_size:
+            h2 = self._tp_in(h2)  # the vocab-parallel product's input
         if "lm_head_q4" in params:
             forbid_backward("K4 (quant_matvec_int4)", h2)
             y = quant_matvec_int4(h2, params["lm_head_q4"], params["lm_head_s"])
@@ -383,6 +458,8 @@ class TextDecoder:
                              out_dtype=torch.float32)
         else:
             y = matmul_f32(h2, params["lm_head"].T)
+        if y.shape[-1] < self.vocab_size:  # a vocab-parallel shard
+            y = gather_from_tp(y, self.tp)
         return y.reshape(b, s, -1)
 
     @torch.inference_mode()
@@ -478,7 +555,7 @@ class TextDecoder:
         nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        cfg.head_dim)
         residual = x
-        h = rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps)
+        h = self._tp_in(rms_norm(x, layer["input_ln_w"], cfg.rms_norm_eps))
         q, k, v = _qkv3(layer, h, nq, nkv, hd)
         q = rms_norm(q, layer["q_norm_w"], cfg.rms_norm_eps)
         k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
@@ -510,10 +587,8 @@ class TextDecoder:
             out = out + torch.einsum("bhgq,bqhd->bqhgd",
                                      (p * own).sum(-1), v.float())
         out = out.reshape(b, p_len, nq * hd).to(x.dtype)
-        x = residual + _linear(layer, "o_w", out)
-        residual = x
-        h = rms_norm(x, layer["post_ln_w"], cfg.rms_norm_eps)
-        return residual + _mlp(layer, h)
+        x = residual + self._tp_out(_linear(layer, "o_w", out))
+        return self._mlp_block(layer, x)
 
     def _run_layers(self, params: Tree, hidden, cos, sin, cache: KVCache,
                     kv_start=None):
@@ -544,15 +619,16 @@ class TextDecoder:
         attention biases, head_dim 128 on CUDA, for float, int8, int4 and
         merged int4g weights, and bf16/f32 or int8 slabs
         (ASR_DECODE_IMPL=scan|fused overrides 'auto'). As in JAX's
-        dispatch, per-row positions (a (B,) ``pos``: serving) and
-        unmerged int4g weights run the per-layer path, and a folded step
-        (``fold_lm``) does not take an int4 lm_head."""
+        dispatch, per-row positions (a (B,) ``pos``: serving), unmerged
+        int4g weights, blocked int4 and tensor parallelism run the
+        per-layer path, and a folded step (``fold_lm``) does not take an
+        int4 lm_head."""
         impl = os.environ.get("ASR_DECODE_IMPL", "auto")
         if (impl == "scan" or (fold_lm and "lm_head_q4" in params)
-                or _per_row(pos)):
+                or _per_row(pos) or self.tp is not None):
             return False
         layers = params["layers"]
-        eligible = "q_b" not in layers and (
+        eligible = "q_b" not in layers and not is_blocked(layers) and (
             "qkv_w_q4" in layers or not is_grouped(layers))
         if impl == "fused":
             return eligible
@@ -691,7 +767,7 @@ class TextDecoder:
         nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        cfg.head_dim)
         residual = h
-        x = rms_norm(h, layer["input_ln_w"], cfg.rms_norm_eps)
+        x = self._tp_in(rms_norm(h, layer["input_ln_w"], cfg.rms_norm_eps))
         q, k, v = _qkv3(layer, x, nq, nkv, hd)
         q = rms_norm(q, layer["q_norm_w"], cfg.rms_norm_eps)
         k = rms_norm(k, layer["k_norm_w"], cfg.rms_norm_eps)
@@ -709,10 +785,8 @@ class TextDecoder:
             k_lay, v_lay = cache.layer(l, h.dtype)
             out = self._dense_self_attention(q, k, v, k_lay, v_lay, start, end)
         out = out.reshape(b, 1, nq * hd).to(h.dtype)
-        h = residual + _linear(layer, "o_w", out)
-        residual = h
-        x = rms_norm(h, layer["post_ln_w"], cfg.rms_norm_eps)
-        return residual + _mlp(layer, x), k[:, 0], v[:, 0]
+        h = residual + self._tp_out(_linear(layer, "o_w", out))
+        return self._mlp_block(layer, h), k[:, 0], v[:, 0]
 
     def _dense_self_attention(self, q, k, v, k_lay, v_lay, start, end):
         """Masked dense decode attention (JAX ``_decode_layer_masked``):

@@ -3,8 +3,9 @@
 Ports the non-kernel functions of
 ``qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py``: per-output-channel
 symmetric int8 (``quantize_weight``), nibble-packed int4 whose packed
-column j holds columns (j, j + N/2) (``quantize_weight_int4``), the same
-packing with one scale per group of contraction rows and column
+column j holds columns (j, j + N/2) (``quantize_weight_int4``, or with
+``blocks`` within each of the blocks of the tensor-parallel layout,
+``unpack_int4_blocked``), the same packing with one scale per group of contraction rows and column
 (``quantize_weight_int4_grouped``, quantize='int4g'), and the lm_head's
 tile-local int4 packing (``quantize_weight_int4_tiled``), with their
 inverses, and the plain int4 products (``int4_grouped_matmul`` reaches
@@ -55,13 +56,11 @@ def quantize_weight_int4(w, axis: int = 0, blocks: int = 1):
     (..., N)); packed column j holds columns j (low nibble) and j + N/2
     (high nibble). Values are clipped to [-7, 7]. N must be even.
 
-    ``blocks > 1`` (the tensor-parallel block-local packing) is not
-    ported (ROADMAP §1 item 11)."""
-    if blocks != 1:
-        raise NotImplementedError(
-            "blocked int4 packing (tensor parallelism) is not ported to the "
-            "PyTorch package yet (ROADMAP §1 item 11)"
-        )
+    ``blocks > 1`` packs within each of ``blocks`` contiguous column
+    blocks (column j pairs with j + N / (2 blocks) inside its block) into
+    (..., K, blocks, N // (2 blocks)): the tensor-parallel layout, where
+    the block of one tp shard is a ``blocks = 1`` packing of its own
+    columns (``unpack_int4_blocked``)."""
     if axis not in (0, -2) or (axis == 0 and w.ndim != 2):
         raise ValueError("quantize_weight_int4: the contraction axis is -2")
     wf = w.float()
@@ -70,7 +69,14 @@ def quantize_weight_int4(w, axis: int = 0, blocks: int = 1):
     n = q.shape[-1]
     if n % 2:
         raise ValueError(f"int4 packing needs an even output dim, got {n}")
-    return _pack_nibbles(q[..., : n // 2], q[..., n // 2:]), scales
+    if blocks == 1:
+        return _pack_nibbles(q[..., : n // 2], q[..., n // 2:]), scales
+    if n % (2 * blocks):
+        raise ValueError(
+            f"int4 packing needs output dim divisible by 2*blocks "
+            f"({2 * blocks}), got {n}")
+    qb = q.reshape(*q.shape[:-1], blocks, 2, n // (2 * blocks))
+    return _pack_nibbles(qb[..., 0, :], qb[..., 1, :]), scales
 
 
 def unpack_nibbles(packed):
@@ -84,6 +90,14 @@ def unpack_int4(packed, dtype=torch.float32):
     order): (..., K, N // 2) int8 -> (..., K, N) ``dtype``."""
     lo, hi = unpack_nibbles(packed)
     return torch.cat([lo, hi], dim=-1).to(dtype)
+
+
+def unpack_int4_blocked(packed, dtype=torch.float32):
+    """Inverse of the blocked packing: (..., blocks, N // (2 blocks)) int8
+    -> (..., N) ``dtype``, every op local to a block."""
+    lo, hi = unpack_nibbles(packed)
+    w = torch.cat([lo, hi], dim=-1)
+    return w.reshape(*w.shape[:-2], -1).to(dtype)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -133,6 +147,21 @@ def int4_matmul_plain(x, w_q4, scales, out_dtype=None):
     y = torch.cat([matmul_f32(x, lo.to(x.dtype)),
                    matmul_f32(x, hi.to(x.dtype))], -1)
     return (y * scales.float()).to(out_dtype or x.dtype)
+
+
+def int4_blocked_matmul(x, w_q4, scales):
+    """x (..., K) @ a blocked int4 weight (K, blocks, N // (2 blocks))
+    times the per-column ``scales`` (N,) -> (..., N) x.dtype: each block's
+    two half-width float32 products (``int4_matmul_plain``), concatenated,
+    scaled, then rounded once. A tp shard's block (blocks = 1) is a plain
+    packing of its columns."""
+    blocks = w_q4.shape[-2]
+    if blocks == 1:
+        return int4_matmul_plain(x, w_q4[..., 0, :], scales)
+    n_b = scales.shape[-1] // blocks
+    y = [int4_matmul_plain(x, w_q4[..., j, :], scales[j * n_b:(j + 1) * n_b],
+                           torch.float32) for j in range(blocks)]
+    return torch.cat(y, -1).to(x.dtype)
 
 
 def int4_group_size(k: int, group_size: int) -> int:

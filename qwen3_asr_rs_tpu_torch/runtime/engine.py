@@ -55,6 +55,23 @@ Differences from JAX's loops, none of which changes a token: the slabs
 carry k + 1 more slots of slack (a masked iteration's writes land past
 the live slots), and on an int8 slab the verify attends its own K/V
 unquantized, as a decode step does (``TextDecoder.score_chunk``).
+
+Device meshes (``mesh=``, a ('dp', 'tp') ``DeviceMesh`` of
+``parallel/mesh.py``) are SPMD: every rank builds the engine from the
+same full weights and makes the same call. Under dp each rank takes rows
+[r b / dp, (r + 1) b / dp) of the batch (padded to a multiple of dp, a
+lone utterance too) through the whole single-device path, kernels, CUDA
+graphs and every quantization included, with no collective, and the
+results are gathered so that every rank returns the whole list in
+order; a sampled row draws as its row of the whole batch. Under tp the
+weights are Megatron shards (``parallel/sharding.py``) and the decoder
+(and the encoder, where its heads divide) insert their collectives; the
+decode kernel is declined, as in JAX, and the loop runs eagerly (gloo
+collectives cannot be captured in a CUDA graph). The JAX engine's tp
+refusals hold: int8 KV, int4g and lm8 raise; int4 packs block-locally
+per shard (``tp_blocks``) with an int8 lm_head and unmerged projections.
+Speculative decoding raises under any mesh, as in JAX. A mesh whose axes
+are all 1 runs exactly the no-mesh engine.
 """
 
 from __future__ import annotations
@@ -81,6 +98,15 @@ from ..features.mel import (
 from ..models.audio_encoder import AudioEncoder
 from ..models.text_decoder import KVCache, TextDecoder
 from ..ops.kernels.decode_layer import int4g_group_supported
+from ..parallel.comm import mesh_axis
+from ..parallel.mesh import mesh_dims
+from ..parallel.sharding import (
+    decoder_param_specs,
+    encoder_param_specs,
+    int4_decoder_param_specs,
+    quantized_decoder_param_specs,
+    shard_params,
+)
 from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID, AsrTokenizer
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
@@ -168,8 +194,9 @@ class AsrEngine:
         decode kernel does not take raises ValueError here. ``kv_dtype``:
         None (``ASR_KV``, else 'bf16'), 'bf16' (slabs in ``dtype``) or
         'int8' (int8 slabs with per-slot scales: half the slab bytes per
-        decode step). ``mesh``: the JAX engine's device mesh, not ported
-        (NotImplementedError).
+        decode step). ``mesh``: a ('dp', 'tp') ``DeviceMesh``
+        (``parallel.make_mesh``) on whose ranks the engine runs SPMD (see
+        the module docstring); ``device`` is then this rank's.
 
         ``speculative``: draft-and-verify decoding of B = 1 transcriptions
         (greedy: output equal to plain greedy's; sampled: speculative
@@ -200,9 +227,14 @@ class AsrEngine:
             speculative = None
         if speculative is not None:
             _check_spec(mesh, spec_k)
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported to the PyTorch package")
+        tp_size = mesh_dims(mesh)[1]
+        self.mesh = mesh
+        self._dp, self._tp = mesh_axis(mesh, "dp"), mesh_axis(mesh, "tp")
+        if tp_size > 1 and quantize in ("int4g", "lm8"):
+            raise ValueError(
+                f"quantize={quantize!r} is not supported under tensor "
+                "parallelism (works on dp-only meshes)"
+                + ("; use int8" if quantize == "int4g" else ""))
         if params is None:
             logger.info("Loading weights from %s", model_dir)
             params = load_model_params(model_dir, config, dtype, self.device)
@@ -217,7 +249,7 @@ class AsrEngine:
             self._check_group(config, gsize)
         base_dec = self.dec_params
         self.dec_params = self._quantize_params(self.dec_params, quantize,
-                                                gsize)
+                                                gsize, tp_size)
         # same-checkpoint draft weights, from the decoder before quantize
         self.draft_params = (None if speculative is None else
                              self._build_draft_params(base_dec, speculative))
@@ -226,7 +258,21 @@ class AsrEngine:
             kv_dtype = os.environ.get("ASR_KV")
         if kv_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        if kv_dtype == "int8" and tp_size > 1:
+            raise ValueError(
+                "kv_dtype='int8' is not supported under tensor "
+                "parallelism (works on dp-only meshes)")
         self.kv_quant = kv_dtype == "int8"
+        if mesh is not None:
+            self.enc_params = shard_params(
+                self.enc_params, mesh,
+                encoder_param_specs(config.audio.encoder_attention_heads,
+                                    tp_size))
+            self.dec_params = shard_params(
+                self.dec_params, mesh,
+                quantized_decoder_param_specs() if quantize == "int8" else
+                int4_decoder_param_specs() if quantize == "int4" and
+                tp_size > 1 else decoder_param_specs())
         if tokenizer is None:
             tokenizer = AsrTokenizer.from_dir(model_dir)
         self.tokenizer = tokenizer
@@ -234,14 +280,15 @@ class AsrEngine:
         self.mel_filters = torch.from_numpy(
             create_mel_filterbank(config.audio.num_mel_bins)
         ).to(self.device)
-        self.encoder = AudioEncoder(config.audio, device=self.device)
+        self.encoder = AudioEncoder(config.audio, device=self.device,
+                                    tp=self._tp)
         spec = speculative is not None or draft_model is not None
         max_pos = 16
         for c in self.chunk_buckets:
             max_pos = max(max_pos, self._prompt_bucket(c) + max_new_tokens + 8
                           + (self._spec_slack() if spec else 0))
         self.decoder = TextDecoder(config.text, max_position=max_pos,
-                                   device=self.device)
+                                   device=self.device, tp=self._tp)
         self.draft_bundle = (
             None if draft_model is None else
             self._build_draft_bundle(draft_model, draft_quant, max_pos))
@@ -354,17 +401,20 @@ class AsrEngine:
         return 2 * (self.spec_k + 1)
 
     @staticmethod
-    def _quantize_params(dec, quantize: Optional[str], gsize: int = 128):
+    def _quantize_params(dec, quantize: Optional[str], gsize: int = 128,
+                         tp: int = 1):
         """The decoder tree under a weight-quantization mode (the JAX
-        engine's ``_quantize_params`` for one device); ``gsize``: int4g's
-        rows per scale group."""
+        engine's ``_quantize_params``); ``gsize``: int4g's rows per scale
+        group; ``tp`` > 1: the projections stay unmerged (the specs shard
+        them by name) and int4 packs block-locally per tp shard."""
         if quantize is None:
             return dec
         if quantize in ("int8", "int4"):
             logger.info("Quantizing decoder weights to %s", quantize)
-            merge = os.environ.get("ASR_MERGE_QKV", "1") != "0"
+            merge = tp == 1 and os.environ.get("ASR_MERGE_QKV", "1") != "0"
             return quantize_decoder_params(
-                dec, bits=4 if quantize == "int4" else 8, merge=merge)
+                dec, bits=4 if quantize == "int4" else 8, merge=merge,
+                tp_blocks=tp if quantize == "int4" else 1)
         if quantize == "lm8":
             logger.info("Quantizing lm_head to int8 (layers keep their dtype)")
             return quantize_lm_head_only(dec)
@@ -426,7 +476,7 @@ class AsrEngine:
     def _new_cache(self, batch: int, p_bucket: int) -> KVCache:
         """A fresh zero slab of the full length: the slab of ``prefill``
         and ``prefill_batch`` when the caller passes none."""
-        return KVCache.zeros(self.config.text, batch, self._slab_len(p_bucket),
+        return KVCache.zeros(self.decoder.cfg, batch, self._slab_len(p_bucket),
                              dtype=self.dtype, device=self.device,
                              quantized=self.kv_quant)
 
@@ -522,7 +572,7 @@ class AsrEngine:
         than the arena holds replaces the arena and every arena and graph
         of its group (``_release``)."""
         key = b if key is None else key
-        cfg = self.config.text if text is None else text
+        cfg = self.decoder.cfg if text is None else text
         shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, n,
                  cfg.head_dim)
         numel = math.prod(shape)
@@ -567,12 +617,13 @@ class AsrEngine:
         return self._states[b]
 
     def _step_fn(self, st: "_DecodeState", cache: KVCache, aligned: bool,
-                 sampling: SamplingParams):
+                 sampling: SamplingParams, row0: int = 0):
         """One decode step over the device state (the body of the JAX
         engine's loop, ``engine.py:731-771``): step ``st.step`` writes slot
         ``st.base + st.step`` (base: the prompt length, or the prompt
         bucket P of a right-aligned batch), and its token, the greedy one
-        or a draw keyed by the token's index, is appended."""
+        or a draw keyed by the token's index (and by the row's index
+        ``row0`` + b in the whole batch), is appended."""
         dec, params = self.decoder, self.dec_params
         sample = not sampling.greedy
 
@@ -585,7 +636,7 @@ class AsrEngine:
                 else:
                     logits, _ = dec.decode_step(params, st.tok, slot, cache)
                 tok = sample_token(logits, st.seed, st.step + 1, st.temp,
-                                   sampling.top_k, sampling.top_p)
+                                   sampling.top_k, sampling.top_p, row0=row0)
             elif aligned:
                 tok, _ = dec.decode_step_aligned_token(
                     params, st.tok, slot, st.kv_start, cache)
@@ -617,11 +668,14 @@ class AsrEngine:
     def _generate(self, samples_list: Sequence[np.ndarray],
                   languages: Sequence[Optional[str]], live: np.ndarray,
                   sampling: Optional[SamplingParams] = None,
-                  warmup: bool = False) -> list[list[int]]:
+                  warmup: bool = False, aligned: Optional[bool] = None,
+                  row0: int = 0) -> list[list[int]]:
         """Token ids (EOS excluded) for B utterances: one prefill (B = 1
         ``prefill``, else ``prefill_batch``) into the first stage's slab
         and the decode loop on device state. Rows with ``live`` False are
-        born done and emit nothing.
+        born done and emit nothing. ``aligned`` (default B > 1) and
+        ``row0``: a dp rank's rows, right-aligned as rows of the whole
+        batch and drawing as rows [row0, row0 + B) of it.
 
         The loop runs in stages of growing slabs (``_segment_caps``),
         each of up to cap - 1 decode steps (max_new_tokens - 1 in all);
@@ -659,7 +713,7 @@ class AsrEngine:
         caps = self._segment_caps()
         st = self._state(b)
         cache = self._slab0(b, self._slab_len(p, caps[0]))
-        aligned = b > 1
+        aligned = b > 1 if aligned is None else aligned
         if aligned:
             logits, _, kv_start, _ = self.prefill_batch(samples_list,
                                                         languages, cache)
@@ -673,10 +727,11 @@ class AsrEngine:
             tok0 = torch.argmax(logits, dim=-1)
         else:  # the prefill's token takes draw 0
             tok0 = sample_token(logits, st.seed, 0, st.temp, sampling.top_k,
-                                sampling.top_p)
+                                sampling.top_p, row0=row0)
         st.append(tok0)
         cuda = self.device.type == "cuda"
-        graphs = cuda and self.cuda_graphs
+        # tp steps run eagerly: their collectives are not captured
+        graphs = cuda and self.cuda_graphs and self._tp is None
         if cuda:
             torch.cuda.synchronize(self.device)
             ev0 = torch.cuda.Event(enable_timing=True)
@@ -701,7 +756,7 @@ class AsrEngine:
                 stop = min(cap, total)
                 if steps >= stop or (all_done and not warmup):
                     continue
-                fn = self._step_fn(st, cache, aligned, sampling)
+                fn = self._step_fn(st, cache, aligned, sampling, row0)
                 graph = None
                 if graphs:  # the first stage's graphs are kept
                     key = (self._graph_key(b, cache, aligned, sampling)
@@ -1062,15 +1117,46 @@ class AsrEngine:
                 "utterances"
             )
         b = 1 << (n_real - 1).bit_length()
+        dp = self._dp_size()
+        b = -(-b // dp) * dp  # each dp rank takes b / dp rows
         samples_list = list(samples_list) + [samples_list[-1]] * (b - n_real)
         languages = list(languages) + [languages[-1]] * (b - n_real)
         live = (np.arange(b) < n_real) & (not _warmup)
         with stage_timer("device_dispatch"):
-            generated = self._generate(samples_list, languages, live,
-                                       sampling, warmup=_warmup)
+            if dp == 1:
+                generated = self._generate(samples_list, languages, live,
+                                           sampling, warmup=_warmup)
+            else:
+                generated = self._generate_dp(samples_list, languages, live,
+                                              sampling, _warmup)
         logger.info("Generated %s tokens", self.last_stats["n_gen"][:n_real])
         return [self._result(g, lang)
                 for g, lang in zip(generated[:n_real], languages)]
+
+    def _dp_size(self) -> int:
+        """The mesh's dp size: the batch's rows shard over it (1 without
+        a mesh)."""
+        return 1 if self._dp is None else self._dp.size
+
+    def _generate_dp(self, samples_list, languages, live, sampling,
+                     warmup: bool) -> list[list[int]]:
+        """``_generate`` of this dp rank's rows [r n, (r + 1) n) (n = b /
+        dp), right-aligned and drawing as rows of the whole batch, then
+        every rank's tokens gathered in row order: the whole batch's
+        tokens on every rank. ``last_stats["n_gen"]`` holds every row's
+        count; the rest of ``last_stats`` is this rank's."""
+        n = len(samples_list) // self._dp.size
+        lo = self._dp.rank * n
+        rows = slice(lo, lo + n)
+        local = self._generate(samples_list[rows], languages[rows],
+                               live[rows], sampling, warmup,
+                               aligned=len(samples_list) > 1, row0=lo)
+        parts = [None] * self._dp.size
+        torch.distributed.all_gather_object(parts, local,
+                                            group=self._dp.group)
+        generated = [g for part in parts for g in part]
+        self.last_stats["n_gen"] = [len(g) for g in generated]
+        return generated
 
     def transcribe(self, audio_path: str | Path,
                    language: Optional[str] = None,

@@ -108,7 +108,7 @@ def _as_i64(v, device):
 
 
 def draw_bits(seed, counter, rows: int, cols: int, device="cpu",
-              stream: int = 0):
+              stream: int = 0, row0: int = 0):
     """(rows, cols) int64 random 32-bit values, a pure function of
     (seed, counter, stream, row, column). ``seed`` and ``counter`` are
     ints or 0-d integer tensors (a device counter stays on the device);
@@ -119,13 +119,16 @@ def draw_bits(seed, counter, rows: int, cols: int, device="cpu",
     counter per row (the serving scheduler's slots). Row r's bits are
     then a function of (seed[r], counter[r], stream, column) alone, the
     bits a scalar call with that seed and counter gives its row 0: where
-    a row sits in the batch does not enter them."""
+    a row sits in the batch does not enter them.
+
+    ``row0``: the index of the first row (scalar keys): a data-parallel
+    rank's rows draw as rows [row0, row0 + rows) of the whole batch."""
     seed = _as_i64(seed, device)
     counter = _as_i64(counter, device)
     k = _mix32((seed & _M32) ^ _mix32((seed >> 32) & _M32))
     k = _mix32(k ^ _mix32(counter & _M32))
     k = _mix32(k ^ stream)
-    row = torch.arange(rows, dtype=torch.int64, device=device)
+    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
     if k.ndim:  # per-row keys: every row draws as row 0
         row = torch.zeros_like(row)
     k = _mix32(k ^ _mix32(row))[:, None]  # (rows, 1)
@@ -134,10 +137,12 @@ def draw_bits(seed, counter, rows: int, cols: int, device="cpu",
 
 
 def uniforms(seed, counter, rows: int, cols: int, device="cpu",
-             stream: int = 0):
+             stream: int = 0, row0: int = 0):
     """(rows, cols) float32 uniforms in (0, 1) from ``draw_bits``
-    (``unit_from_bits``)."""
-    return unit_from_bits(draw_bits(seed, counter, rows, cols, device, stream))
+    (``unit_from_bits``); ``row0`` is passed on only past row 0."""
+    args = (seed, counter, rows, cols, device, stream) + (
+        (row0,) if row0 else ())
+    return unit_from_bits(draw_bits(*args))
 
 
 def unit_from_bits(bits):
@@ -149,11 +154,11 @@ def unit_from_bits(bits):
     return ((bits >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
 
 
-def _gumbel_argmax(logits, seed, counter, stream: int = 0):
+def _gumbel_argmax(logits, seed, counter, stream: int = 0, row0: int = 0):
     """argmax(logits + Gumbel noise) per row of (B, V) logits: a draw from
     softmax(logits) (-inf entries are never drawn)."""
     b, v = logits.shape
-    u = uniforms(seed, counter, b, v, logits.device, stream)
+    u = uniforms(seed, counter, b, v, logits.device, stream, row0)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -207,7 +212,7 @@ def _scaled(logits, temperature, top_k: int, top_p):
 
 
 def sample_token(logits, seed, counter, temperature, top_k: int = 0,
-                 top_p=1.0, stream: int = 0):
+                 top_p=1.0, stream: int = 0, row0: int = 0):
     """One decode-step sample: (B, V) or (V,) logits -> int64 ids.
 
     ``seed``/``counter`` key the draw (``draw_bits``; the engine's counter
@@ -217,14 +222,15 @@ def sample_token(logits, seed, counter, temperature, top_k: int = 0,
     temperature <= 0 take the argmax. As in JAX,
     the top-k filter keeps every logit tied with the k-th, so ``top_k =
     1`` draws among tied largest logits where greedy takes the lowest
-    index. Returns ids with the logits' leading shape.
+    index. ``row0``: the first row's index in the whole batch
+    (``draw_bits``). Returns ids with the logits' leading shape.
     """
     squeeze = logits.ndim == 1
     if squeeze:
         logits = logits[None]
     greedy = torch.argmax(logits, dim=-1)
     logits, temp, scaled = _scaled(logits, temperature, top_k, top_p)
-    sampled = _gumbel_argmax(scaled, seed, counter, stream)
+    sampled = _gumbel_argmax(scaled, seed, counter, stream, row0)
     out = torch.where(temp > 0, sampled, greedy)
     return out[0] if squeeze else out
 

@@ -1,8 +1,7 @@
 """Continuous batching: the serving scheduler, in PyTorch.
 
-Port of ``qwen3_asr_rs_tpu/runtime/serving.py`` for one device (its mesh
-branches, a slot pool sharded over devices, wait for ``parallel/``). The
-offline engine's batch holds every utterance until the whole batch is
+Port of ``qwen3_asr_rs_tpu/runtime/serving.py``. The offline engine's
+batch holds every utterance until the whole batch is
 done and admits nothing mid-flight; this scheduler keeps a fixed pool of
 decode slots over one shared KV slab instead:
 
@@ -52,6 +51,19 @@ not change its tokens; mel and the encoder loop over a batch's clips;
 admissions run eagerly (once per request: no graph). With a batcher on
 the engine, the engine's kept first-stage slabs and graphs are freed:
 the batcher owns its slab.
+
+On a device mesh (the engine's ``mesh``; one whose axes are all 1 is no
+mesh) the pool is SPMD over the mesh's ranks, each running this
+scheduler on a mirror of the host state. The lead rank (0, 0) owns the
+queue: each scheduler step it takes the requests to admit and broadcasts
+them (and a stop request), so that every rank makes the same admissions,
+retirements and segment choices. Slots shard over dp (the pool rounds up
+to a multiple of dp): a rank holds the slab rows and device state of its
+``n_slots / dp`` slots and does the admission work of those slots only.
+Under tp every rank holds its KV heads of every slot, and the segments
+run eagerly (their collectives are not captured). Each segment's outputs
+reach every rank by one all-gather over dp. Requests are submitted on
+the lead rank; ``drive`` submits and steps SPMD.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ import torch
 from ..config import feat_extract_output_length
 from ..features.mel import log_mel_from_padded, num_mel_frames, pad_waveform
 from ..models.text_decoder import KVCache, TextDecoder
+from ..parallel.comm import all_gather, broadcast_from_lead, is_lead
 from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID
 from .cuda_graph import StepGraph, capture
 from .engine import AsrEngine, TranscribeResult
@@ -218,7 +231,18 @@ class ContinuousBatcher:
         admit_batch_max: int = 8,
     ):
         self.engine = engine
+        # the slot pool's mesh: None unless an axis has more than one rank
+        self.mesh = engine.mesh if (engine._dp or engine._tp) else None
+        self._dp, self._tp = engine._dp, engine._tp
+        if self._dp is not None:
+            n_slots = -(-n_slots // self._dp.size) * self._dp.size
         self.n_slots = n_slots
+        # slots [lo, lo + n_local) are this rank's (every slot without dp)
+        self.n_local = n_slots // (1 if self._dp is None else self._dp.size)
+        self._lo = 0 if self._dp is None else self._dp.rank * self.n_local
+        self.lead = is_lead(self.mesh)
+        self.stopped = False  # a stop request reached this rank
+        self._stop_asked = False
         self.segment_steps = segment_steps
         # prompts longer than this are prefilled in chunks interleaved with
         # decode segments (None: always one monolithic prefill)
@@ -261,6 +285,11 @@ class ContinuousBatcher:
                 self._params_by_precision["int8"] = engine.dec_params
             else:
                 self._params_by_precision["bf16"] = engine.dec_params
+                if serving_precision in ("auto", "int8") and self._tp:
+                    raise ValueError(
+                        "serving_precision's int8 copy is quantized from "
+                        "whole weights; under tensor parallelism build the "
+                        "engine with quantize='int8'")
                 if serving_precision in ("auto", "int8"):
                     # lm_bits pinned to 8: an ambient ASR_LM_BITS=4 must
                     # not leak into the serving copy
@@ -288,6 +317,10 @@ class ContinuousBatcher:
             kv_dtype = "int8" if engine.kv_quant else "bf16"
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        if kv_dtype == "int8" and self._tp is not None:
+            raise ValueError(
+                "kv_dtype='int8' serving is not supported under tensor "
+                "parallelism (works on dp-only meshes)")
         self.kv_quant = kv_dtype == "int8"
         # a slot writes at most up to its prompt bucket + max_new - 1 (the
         # device cap stops it there); the headroom of max(8, segment_steps)
@@ -300,29 +333,31 @@ class ContinuousBatcher:
         self.decoder = engine.decoder
         if self.decoder.rotary.max_position < self.s_max:
             self.decoder = TextDecoder(cfg.text, max_position=self.s_max,
-                                       device=engine.device)
+                                       device=engine.device, tp=self._tp)
         # the batcher owns its slab: the engine's kept first-stage slabs
         # and graphs go, the speculative loop's too
         engine._release()
         dev = engine.device
         self.device = dev
+        n_local = self.n_local
         self.cache = KVCache.zeros(
-            cfg.text, n_slots, self.s_max, dtype=engine.dtype, device=dev,
-            quantized=self.kv_quant,
+            self.decoder.cfg, n_local, self.s_max, dtype=engine.dtype,
+            device=dev, quantized=self.kv_quant,
         )
         self.slots = [_Slot() for _ in range(n_slots)]
-        # device-resident decode state at fixed addresses (the captured
-        # segments read and write it): every slot starts done at 0
+        # device-resident decode state of this rank's slots at fixed
+        # addresses (the captured segments read and write it): every slot
+        # starts done at 0
         i64 = dict(dtype=torch.int64, device=dev)
-        self.d_tok = torch.zeros(n_slots, **i64)
-        self.d_pos = torch.zeros(n_slots, **i64)
-        self.d_done = torch.ones(n_slots, dtype=torch.bool, device=dev)
-        self.d_temp = torch.zeros(n_slots, dtype=torch.float32, device=dev)
-        self.d_topp = torch.ones(n_slots, dtype=torch.float32, device=dev)
-        self.d_seed = torch.zeros(n_slots, **i64)
-        self.d_count = torch.zeros(n_slots, **i64)  # tokens emitted
-        self.d_cap = torch.zeros(n_slots, **i64)    # tokens allowed
-        self.d_out = torch.full((n_slots, segment_steps), PAD_TOKEN, **i64)
+        self.d_tok = torch.zeros(n_local, **i64)
+        self.d_pos = torch.zeros(n_local, **i64)
+        self.d_done = torch.ones(n_local, dtype=torch.bool, device=dev)
+        self.d_temp = torch.zeros(n_local, dtype=torch.float32, device=dev)
+        self.d_topp = torch.ones(n_local, dtype=torch.float32, device=dev)
+        self.d_seed = torch.zeros(n_local, **i64)
+        self.d_count = torch.zeros(n_local, **i64)  # tokens emitted
+        self.d_cap = torch.zeros(n_local, **i64)    # tokens allowed
+        self.d_out = torch.full((n_local, segment_steps), PAD_TOKEN, **i64)
         self._base_seed = int(os.environ.get("ASR_SAMPLING_SEED", "0"))
         self._admit_seq = 0
         # host mirrors for scheduling decisions (lag by one segment)
@@ -337,9 +372,10 @@ class ContinuousBatcher:
         # on CUDA: (variant, precision) -> the segment's captured graph
         self._graphs: dict = {}
         self._side = self._pool = None
-        if self.cuda:  # two pinned host slots for the segments' outputs
+        if self.cuda:  # two pinned host slots for every slot's outputs
             self._ring = [
-                [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                [torch.empty((n_slots,) + t.shape[1:], dtype=t.dtype,
+                             pin_memory=True)
                  for t in (self.d_out, self.d_tok, self.d_pos, self.d_done)]
                 for _ in range(2)
             ]
@@ -415,8 +451,14 @@ class ContinuousBatcher:
             top_p=self._to_device(np.asarray(topps, np.float32))
             if nucleus else 1.0)
 
+    def _local(self, slot_idx: int) -> Optional[int]:
+        """Slot ``slot_idx``'s row in this rank's slab and device state, or
+        None when another dp rank holds it."""
+        i = slot_idx - self._lo
+        return i if 0 <= i < self.n_local else None
+
     def _new_tmp(self, batch: int, length: int) -> KVCache:
-        return KVCache.zeros(self.engine.config.text, batch, length,
+        return KVCache.zeros(self.decoder.cfg, batch, length,
                              dtype=self.engine.dtype, device=self.device,
                              quantized=self.kv_quant)
 
@@ -483,48 +525,59 @@ class ContinuousBatcher:
         The batch pads to the next power of two by repeating row 0 (slot
         included): the duplicate rows write the same data into the same
         slot, and their first tokens are ignored. Row b's slab content and
-        first token are those of its monolithic admission.
+        first token are those of its monolithic admission. On a dp mesh
+        each rank prefills (and pads) the rows of its own slots.
         """
         n = 1 << (len(items) - 1).bit_length()
         self.batch_shapes.add((items[0][2][0], n))
-        self._admit_rows(items + [items[0]] * (n - len(items)))
+        self._admit_rows(items, pad=True)
 
     @torch.inference_mode()
-    def _admit_rows(self, rows) -> None:
-        """Encoder, injection and one left-aligned prefill of the rows
-        (slot_idx, req, prep) (one bucket), each row's cache copied into
-        its slot, and each distinct slot's decode state set."""
-        encoded = {}  # a padding row repeats row 0: encode it once
-        for slot_idx, _, prep in rows:
-            if slot_idx not in encoded:
-                encoded[slot_idx] = self._encode(prep[1], prep[2])
-        first = {}
-        for slot_idx, req, _ in rows:
-            if slot_idx not in first:
-                first[slot_idx] = self._occupy(slot_idx, req)
-        embeds, n_audio = zip(*(encoded[s] for s, _, _ in rows))
-        hidden = self._inject(np.stack([prep[3] for _, _, prep in rows]),
-                              embeds, n_audio)
-        p = hidden.shape[1]
-        tmp = self._new_tmp(len(rows), p)
-        logits, _ = self.decoder.prefill(
-            self.engine.dec_params, hidden,
-            torch.arange(p, device=self.device), tmp,
-            [prep[4] for _, _, prep in rows])
-        _write_slot_rows(self.cache, tmp, [s for s, _, _ in rows])
-        tok0 = self._first_tokens(
-            logits, [first[s].seed for s, _, _ in rows],
-            [r.temperature for _, r, _ in rows],
-            [r.top_p for _, r, _ in rows])
-        for j, (slot_idx, req, prep) in enumerate(rows[:len(first)]):
+    def _admit_rows(self, items, pad: bool = False) -> None:
+        """Every request (slot_idx, req, prep) of ``items`` (one bucket,
+        distinct slots) takes its slot; the rows of this rank's slots
+        (``pad``: padded to a power of two by repeating the first) run
+        the encoder, injection and one left-aligned prefill, each row's
+        cache copied into its slot; then every slot's decode state is
+        set."""
+        for slot_idx, req, _ in items:
+            self._occupy(slot_idx, req)
+        rows = [it for it in items if self._local(it[0]) is not None]
+        tok0 = {}
+        if rows:
+            if pad:
+                rows += [rows[0]] * ((1 << (len(rows) - 1).bit_length())
+                                     - len(rows))
+            encoded = {}  # a padding row repeats row 0: encode it once
+            for slot_idx, _, prep in rows:
+                if slot_idx not in encoded:
+                    encoded[slot_idx] = self._encode(prep[1], prep[2])
+            embeds, n_audio = zip(*(encoded[s] for s, _, _ in rows))
+            hidden = self._inject(np.stack([prep[3] for _, _, prep in rows]),
+                                  embeds, n_audio)
+            p = hidden.shape[1]
+            tmp = self._new_tmp(len(rows), p)
+            logits, _ = self.decoder.prefill(
+                self.engine.dec_params, hidden,
+                torch.arange(p, device=self.device), tmp,
+                [prep[4] for _, _, prep in rows])
+            _write_slot_rows(self.cache, tmp,
+                             [self._local(s) for s, _, _ in rows])
+            first = self._first_tokens(
+                logits, [self.slots[s].seed for s, _, _ in rows],
+                [r.temperature for _, r, _ in rows],
+                [r.top_p for _, r, _ in rows])
+            for j, (slot_idx, _, _) in enumerate(rows):
+                tok0.setdefault(slot_idx, first[j])
+        for slot_idx, req, prep in items:
+            slot = self.slots[slot_idx]
             self._set_slot_state(
-                slot_idx, tok0[j], prep[4], False,
+                slot_idx, tok0.get(slot_idx, 0), prep[4], False,
                 temperature=req.temperature, top_p=req.top_p,
-                seed=first[slot_idx].seed,
-                cap=first[slot_idx].max_new,
+                seed=slot.seed, cap=slot.max_new,
             )
         logger.debug("admitted %d request(s) into slots %s (bucket %d)",
-                     len(first), list(first), rows[0][2][0])
+                     len(items), [i for i, _, _ in items], items[0][2][0])
 
     @torch.inference_mode()
     def _start_chunked(self, slot_idx, req, bucket, wave, n_true, ids,
@@ -540,6 +593,7 @@ class ContinuousBatcher:
         eng = self.engine
         self._occupy(slot_idx, req)
         self._set_slot_state(slot_idx, 0, 0, True)  # out of decode
+        mine = self._local(slot_idx) is not None  # else: host state only
         acfg = eng.config.audio
         gchunks = self._group_chunks(bucket)
         if (
@@ -548,13 +602,17 @@ class ContinuousBatcher:
             and min(acfg.chunks_per_window, bucket) == acfg.chunks_per_window
         ):
             n_groups = -(-bucket // gchunks)
-            mel = log_mel_from_padded(torch.from_numpy(wave).to(self.device),
-                                      n_true, eng.mel_filters)
-            mel = torch.nn.functional.pad(
-                mel, (0, (n_groups * gchunks - bucket) * acfg.chunk_frames))
-            buf = torch.zeros(
-                (n_groups * gchunks * acfg.tokens_per_chunk,
-                 acfg.output_dim), dtype=eng.dtype, device=self.device)
+            mel = buf = None
+            if mine:
+                mel = log_mel_from_padded(
+                    torch.from_numpy(wave).to(self.device), n_true,
+                    eng.mel_filters)
+                mel = torch.nn.functional.pad(
+                    mel,
+                    (0, (n_groups * gchunks - bucket) * acfg.chunk_frames))
+                buf = torch.zeros(
+                    (n_groups * gchunks * acfg.tokens_per_chunk,
+                     acfg.output_dim), dtype=eng.dtype, device=self.device)
             self.encoding[slot_idx] = _EncodeJob(
                 mel=mel, embeds=buf, n_true=n_true, ids=ids,
                 prompt_len=prompt_len, bucket=bucket, n_groups=n_groups,
@@ -563,18 +621,22 @@ class ContinuousBatcher:
                          "(%d groups of %d chunks)", slot_idx, n_groups,
                          gchunks)
             return
-        embeds, n_audio = self._encode(wave, n_true)
-        hidden = self._inject(ids[None], [embeds], [n_audio],
-                              self._p_pad(bucket))
+        hidden = None
+        if mine:
+            embeds, n_audio = self._encode(wave, n_true)
+            hidden = self._inject(ids[None], [embeds], [n_audio],
+                                  self._p_pad(bucket))
         self._begin_prefill(slot_idx, bucket, hidden, prompt_len)
         logger.debug("slot %d chunked admission started (prompt %d, "
                      "chunk %d)", slot_idx, prompt_len,
                      self.prefill_chunk_tokens)
 
     def _begin_prefill(self, slot_idx, bucket, hidden, prompt_len) -> None:
+        """A chunked prefill job; ``hidden`` None: another dp rank's slot
+        (its job advances on the host only)."""
         self.prefilling[slot_idx] = _PrefillJob(
-            hidden=hidden, tmp=self._new_tmp(1, hidden.shape[1]),
-            prompt_len=prompt_len, bucket=bucket,
+            hidden=hidden, prompt_len=prompt_len, bucket=bucket,
+            tmp=None if hidden is None else self._new_tmp(1, hidden.shape[1]),
         )
 
     @torch.inference_mode()
@@ -590,16 +652,19 @@ class ContinuousBatcher:
         gframes = gchunks * acfg.chunk_frames
         g = job.cursor
         n_true_g = min(max(job.n_true - g * gframes, 0), gframes)
-        embeds, _ = eng.encoder(eng.enc_params,
-                                job.mel[:, g * gframes:(g + 1) * gframes],
-                                n_true_g)
-        at = g * gchunks * acfg.tokens_per_chunk
-        job.embeds[at: at + embeds.shape[0]] = embeds.to(job.embeds.dtype)
+        if job.mel is not None:  # this rank's slot
+            embeds, _ = eng.encoder(
+                eng.enc_params, job.mel[:, g * gframes:(g + 1) * gframes],
+                n_true_g)
+            at = g * gchunks * acfg.tokens_per_chunk
+            job.embeds[at: at + embeds.shape[0]] = embeds.to(
+                job.embeds.dtype)
         job.cursor += 1
         if job.cursor >= job.n_groups:
-            hidden = self._inject(job.ids[None], [job.embeds],
-                                  [eng.encoder.valid_tokens(job.n_true)],
-                                  self._p_pad(job.bucket))
+            hidden = None if job.mel is None else self._inject(
+                job.ids[None], [job.embeds],
+                [eng.encoder.valid_tokens(job.n_true)],
+                self._p_pad(job.bucket))
             del self.encoding[slot_idx]
             self._begin_prefill(slot_idx, job.bucket, hidden,
                                 job.prompt_len)
@@ -614,18 +679,22 @@ class ContinuousBatcher:
         req = slot.request
         c = self.prefill_chunk_tokens
         true_in = min(c, job.prompt_len - job.cursor)
-        logits, _ = self.decoder.prefill_chunk(
-            self.engine.dec_params,
-            job.hidden[:, job.cursor: job.cursor + c], job.cursor, job.tmp,
-            true_in,
-        )
+        if job.hidden is not None:  # this rank's slot
+            logits, _ = self.decoder.prefill_chunk(
+                self.engine.dec_params,
+                job.hidden[:, job.cursor: job.cursor + c], job.cursor,
+                job.tmp, true_in,
+            )
         job.cursor += c
         if job.cursor >= job.prompt_len:
-            tok0 = self._first_tokens(logits, [slot.seed],
-                                      [req.temperature], [req.top_p])
-            _write_slot_rows(self.cache, job.tmp, [slot_idx])
+            tok0 = 0
+            if job.hidden is not None:
+                tok0 = self._first_tokens(logits, [slot.seed],
+                                          [req.temperature], [req.top_p])[0]
+                _write_slot_rows(self.cache, job.tmp,
+                                 [self._local(slot_idx)])
             self._set_slot_state(
-                slot_idx, tok0[0], job.prompt_len, False,
+                slot_idx, tok0, job.prompt_len, False,
                 temperature=req.temperature, top_p=req.top_p,
                 seed=slot.seed, cap=slot.max_new,
             )
@@ -636,21 +705,24 @@ class ContinuousBatcher:
     def _set_slot_state(self, i, tok0, pos0, done, temperature: float = 0.0,
                         top_p: float = 1.0, seed: int = 0,
                         cap: int = 0) -> None:
-        """Write one slot's decode state into the device tensors, in place
-        and on the stream, before the next segment is enqueued.
+        """Write one slot's decode state into the device tensors (where
+        this rank holds the slot), in place and on the stream, before the
+        next segment is enqueued, and into the host mirror.
 
         ``tok0`` may be a device scalar (no host sync — the host tok
         mirror is not used for scheduling). Bumps the slot version so an
         already-inflight segment cannot clobber this slot at drain.
         """
-        self.d_tok[i] = tok0
-        self.d_pos[i] = pos0
-        self.d_done[i] = bool(done)
-        self.d_temp[i] = temperature
-        self.d_topp[i] = top_p
-        self.d_seed[i] = seed
-        self.d_count[i] = 0
-        self.d_cap[i] = cap
+        j = self._local(i)
+        if j is not None:
+            self.d_tok[j] = tok0
+            self.d_pos[j] = pos0
+            self.d_done[j] = bool(done)
+            self.d_temp[j] = temperature
+            self.d_topp[j] = top_p
+            self.d_seed[j] = seed
+            self.d_count[j] = 0
+            self.d_cap[j] = cap
         self.tok[i] = 0
         self.pos[i] = pos0
         self.done[i] = bool(done)
@@ -754,7 +826,7 @@ class ContinuousBatcher:
         prec, params = self._segment_params()
         self.variants_run.add((variant, prec))
         fn = self._segment_fn(variant, params)
-        if self.cuda:
+        if self.cuda and self._tp is None:
             graph = self._graphs.get((variant, prec))
             if graph is None:
                 self._graphs[(variant, prec)] = self._capture(fn)
@@ -767,6 +839,8 @@ class ContinuousBatcher:
         self.stats["segments"] += 1
         self.stats["steps"] += self.segment_steps
         state = (self.d_out, self.d_tok, self.d_pos, self.d_done)
+        if self._dp is not None:  # every slot's outputs, on every rank
+            state = self._gather_state(state)
         event = None
         if self.cuda:
             host = self._ring[self._ring_i]
@@ -779,6 +853,16 @@ class ContinuousBatcher:
             host = [t.clone() for t in state]
         self._inflight = _Inflight(*host, event=event,
                                    versions=self._slot_version.copy())
+
+    def _gather_state(self, state):
+        """The (out, tok, pos, done) of every slot: this rank's packed in
+        one int64 tensor and all-gathered over dp, in slot order."""
+        out, tok, pos, done = state
+        packed = torch.cat([out, tok[:, None], pos[:, None],
+                            done[:, None].long()], 1)
+        full = torch.cat(all_gather(packed, self._dp), 0)
+        n = self.segment_steps
+        return full[:, :n], full[:, n], full[:, n + 1], full[:, n + 2].bool()
 
     def _drain(self) -> None:
         """Read + apply the previously dispatched segment's results.
@@ -810,24 +894,66 @@ class ContinuousBatcher:
             if done[i] or len(slot.tokens) >= slot.max_new:
                 self._finish(i)
 
-    def _admit_queued(self, first: Optional[Request] = None) -> bool:
-        """Admit queued requests (``first`` ahead of the queue) into the
-        free slots: prompts over the chunk size start chunked admission,
-        the rest coalesce by bucket into batched prefills of at most
-        ``admit_batch_max``. Returns whether any request was admitted."""
+    def _take(self, block_timeout: Optional[float]) -> list:
+        """The queued requests to admit now: one per free slot, in queue
+        order; with ``block_timeout`` (an idle pool) wait that long for the
+        first. On a mesh the lead rank takes them and broadcasts them
+        (with a stop request, ``request_stop``) to every rank, whose
+        copies stand in for them."""
+        stop, self._stop_asked = self._stop_asked, False
+        reqs = []
+        if self.lead and not stop:
+            free = sum(not s.active for s in self.slots)
+            try:
+                while len(reqs) < free:
+                    if block_timeout is not None and not reqs:
+                        reqs.append(self.queue.get(timeout=block_timeout))
+                    else:
+                        reqs.append(self.queue.get_nowait())
+            except queue.Empty:
+                pass
+        if self.mesh is None:
+            self.stopped = stop
+            return reqs
+        msg = [(stop, [
+            (r.samples, r.language, r.max_new_tokens, r.temperature,
+             r.top_p) for r in reqs])]
+        (stop, shared), = broadcast_from_lead(msg, self.mesh)
+        self.stopped = stop
+        return reqs if self.lead else [Request(*args) for args in shared]
+
+    def request_stop(self) -> None:
+        """Make the next step take nothing and set ``stopped``, on every
+        rank of a mesh (asked on the lead rank: the others learn it from
+        its broadcast)."""
+        self._stop_asked = True
+
+    def _from_lead(self, value):
+        """The lead rank's ``value`` on every rank of the mesh."""
+        if self.mesh is None:
+            return value
+        return broadcast_from_lead([value], self.mesh)[0]
+
+    def drive(self, requests, block_timeout: float = 0.001) -> None:
+        """Submit ``requests`` (on the lead rank; the others' are ignored)
+        and step until the lead rank's have finished. SPMD: every rank of
+        a mesh calls it, with requests of the same count and order."""
+        if self.lead:
+            for r in requests:
+                self.submit(r)
+        while not self._from_lead(all(r.event.is_set() for r in requests)):
+            self.step(block_timeout=block_timeout)
+
+    def _admit(self, reqs: list) -> bool:
+        """Admit ``reqs`` into the free slots, in slot order: prompts over
+        the chunk size start chunked admission, the rest coalesce by
+        bucket into batched prefills of at most ``admit_batch_max``.
+        Returns whether any request was admitted."""
         admitted = False
         batchable: dict[int, list] = {}
         c = self.prefill_chunk_tokens
-        for i, slot in enumerate(self.slots):
-            if slot.active:
-                continue
-            if first is not None:
-                req, first = first, None
-            else:
-                try:
-                    req = self.queue.get_nowait()
-                except queue.Empty:
-                    break
+        free = (i for i, slot in enumerate(self.slots) if not slot.active)
+        for i, req in zip(free, reqs):
             try:
                 prep = self._prepare(req)
                 bucket, prompt_len = prep[0], prep[4]
@@ -865,15 +991,15 @@ class ContinuousBatcher:
         is the previous segment DRAINED — decode never waits on the host
         round trip (segment pipelining).
         """
-        admitted = self._admit_queued()
-        if not any(s.active for s in self.slots) and self._inflight is None:
-            if not admitted:
-                # idle: block briefly for the next request
-                try:
-                    req = self.queue.get(timeout=block_timeout)
-                except queue.Empty:
-                    return False
-                self._admit_queued(first=req)
+        # idle: block briefly for the next request
+        idle = not any(s.active for s in self.slots) and self._inflight is None
+        reqs = self._take(block_timeout if idle else None)
+        if self.stopped:
+            return False
+        self._admit(reqs)
+        if idle:
+            if not reqs:
+                return False
             if not any(s.active for s in self.slots):
                 return True  # the admission failed
 
@@ -928,11 +1054,7 @@ class ContinuousBatcher:
         # one decode segment per synthetic request runs every path
         max_new = max(1, self.segment_steps)
 
-        def run(reqs):
-            for r in reqs:
-                self.submit(r)
-            while not all(r.event.is_set() for r in reqs):
-                self.step(block_timeout=0.001)
+        run = self.drive
 
         for c in buckets:
             clip = np.zeros(int(c * cf * 160), np.float32)
@@ -971,7 +1093,10 @@ class ServingLoop(threading.Thread):
         self._stop_event.set()
 
     def run(self):
-        while not self._stop_event.is_set():
+        self.batcher.stopped = False
+        while not self.batcher.stopped:
+            if self._stop_event.is_set():
+                self.batcher.request_stop()
             try:
                 self.batcher.step()
             except Exception:  # noqa: BLE001 — the loop must keep serving

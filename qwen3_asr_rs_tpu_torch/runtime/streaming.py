@@ -46,6 +46,9 @@ nothing. Two sessions alive at once hold two leases, each with its own
 slab, state and graph: neither sees the other's tokens. A new lease's
 slab is not cleared: a session writes slots [0, n) before any mask makes
 them attendable.
+
+On an engine's device mesh every rank runs the same session (SPMD); under
+tp the decoder and slab are the rank's shard and the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -117,7 +120,7 @@ class _StreamGraphs:
         self.max_new = max_new
         self.decoder = TextDecoder(engine.config.text,
                                    max_position=s_stream + 8,
-                                   device=engine.device)
+                                   device=engine.device, tp=engine._tp)
         self._free: list[_StreamSlab] = []
         self.leases = 0   # leases made (each with its own slab)
         self.captures = self.replays = 0
@@ -145,7 +148,7 @@ class _StreamGraphs:
         eng = self.engine
         self.leases += 1
         return _StreamSlab(
-            cache=KVCache.zeros(eng.config.text, 1, self.s_stream,
+            cache=KVCache.zeros(self.decoder.cfg, 1, self.s_stream,
                                 dtype=eng.dtype, device=eng.device),
             state=_DecodeState.zeros(1, self.max_new, eng.device))
 
@@ -212,7 +215,8 @@ class _StreamGraphs:
         total = self.max_new - 1
         steps = 0
         run = step
-        if eng.device.type == "cuda" and eng.cuda_graphs:
+        # a tp step runs eagerly: its collectives are not captured
+        if eng.device.type == "cuda" and eng.cuda_graphs and eng._tp is None:
             if slab.graph is None:
                 slab.graph = self._capture(step)
                 self.captures += 1

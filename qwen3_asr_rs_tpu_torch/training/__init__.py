@@ -5,7 +5,13 @@ from .checkpoint import (
     restore_train_state,
     save_train_state,
 )
-from .data import AsrDataset, Utterance, prefetch_to_device, read_manifest
+from .data import (
+    AsrDataset,
+    Utterance,
+    dp_rows,
+    prefetch_to_device,
+    read_manifest,
+)
 from .train_step import TrainState, adamw, asr_loss, make_train_step, sgd
 
 __all__ = [
@@ -15,6 +21,7 @@ __all__ = [
     "Utterance",
     "adamw",
     "asr_loss",
+    "dp_rows",
     "make_train_step",
     "prefetch_to_device",
     "read_manifest",

@@ -49,6 +49,7 @@ from ..features.mel import (
     num_mel_frames,
     pad_waveform,
 )
+from ..parallel.comm import mesh_axis
 from ..runtime.prompt import (
     AUDIO_OFFSET,
     build_prompt,
@@ -445,17 +446,35 @@ class AsrDataset:
         }
 
 
+def dp_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a batch on a mesh: rows [r n, (r + 1) n) of
+    every array, n = B / dp, r the rank's dp index (the whole batch
+    without a mesh or with dp = 1)."""
+    dp = mesh_axis(mesh, "dp")
+    if dp is None:
+        return batch
+    rows = len(next(iter(batch.values())))
+    if rows % dp.size:
+        raise ValueError(f"a batch of {rows} rows does not divide over "
+                         f"dp = {dp.size}")
+    n = rows // dp.size
+    return {k: v[dp.rank * n:(dp.rank + 1) * n] for k, v in batch.items()}
+
+
 def prefetch_to_device(
     batches: Iterator[dict],
     size: int = 2,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> Iterator[dict]:
     """Stage host batches on ``device`` ahead of the consumer.
 
     A background thread converts up to ``size`` batches ahead into
     tensors on ``device``: for a CUDA device, from pinned host memory with
     ``non_blocking=True`` copies on the thread's current stream. An
-    exception in the producer is raised to the consumer.
+    exception in the producer is raised to the consumer. ``mesh``: each
+    batch is cut to this rank's dp rows first (``dp_rows``; JAX's
+    ``sharding=``), as a mesh train step takes them.
     """
     device = torch.device(device)
     pin = device.type == "cuda"
@@ -463,6 +482,7 @@ def prefetch_to_device(
     END = object()
 
     def put(batch):
+        batch = dp_rows(batch, mesh)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))

@@ -19,6 +19,18 @@ Tied embeddings: JAX's tree holds the same array as ``embed`` and
 updates the two apart, so the head unties after the first step (and
 JAX's export then writes ``embed`` only). ``TrainState.create`` copies
 the behaviour: ``lm_head`` becomes its own tensor.
+
+On a ('dp', 'tp') mesh (``make_train_step(mesh=)``, SPMD: every rank
+runs the step) the state holds this rank's shards (``step.init`` cuts
+them, ``parallel/sharding.py``: the decoder Megatron-sharded over tp, the
+encoder too where its heads divide) and each rank takes its dp rows of
+the batch (``data.dp_rows``, ``prefetch_to_device(mesh=)``). The loss is
+JAX's masked mean over the whole batch, Σ(nll·mask) / max(Σmask, 1): the
+mask's sum is all-reduced over dp before the division and the gradients
+after the backward (each rank's mean, as DDP averages, would weigh the
+ranks' tokens unequally whenever their masks differ). The tp collectives
+are the models' autograd operators (``parallel/comm.py``). The optimizer
+then takes the same gradients on every dp rank.
 """
 
 from __future__ import annotations
@@ -34,6 +46,13 @@ import torch.nn.functional as F
 from ..config import AsrConfig
 from ..models.audio_encoder import AudioEncoder
 from ..models.text_decoder import TextDecoder
+from ..parallel.comm import all_reduce, mesh_axis
+from ..parallel.mesh import mesh_dims
+from ..parallel.sharding import (
+    decoder_param_specs,
+    encoder_param_specs,
+    shard_params,
+)
 from ..runtime.prompt import AUDIO_OFFSET
 
 Tree = Any
@@ -112,6 +131,15 @@ def asr_loss(
       loss_mask:  (B, P) float, 1.0 on positions whose NEXT token is a
                   transcript target
     """
+    nll, count = masked_nll(config, encoder, decoder, params, batch, remat)
+    return nll / torch.clamp(count, min=1.0)
+
+
+def masked_nll(config: AsrConfig, encoder: AudioEncoder,
+               decoder: TextDecoder, params: Tree, batch: dict,
+               remat: bool = True):
+    """(Σ nll · mask, Σ mask) of a batch: ``asr_loss``'s numerator and
+    denominator, which a dp step sums over its ranks."""
     enc_p, dec_p = params["encoder"], params["decoder"]
     token_ids = batch["token_ids"].long()
     b, p = token_ids.shape
@@ -134,7 +162,7 @@ def asr_loss(
     mask = batch["loss_mask"].float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum(), mask.sum()
 
 
 def make_train_step(
@@ -143,6 +171,7 @@ def make_train_step(
     max_position: int = 8192,
     remat: bool = True,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> Callable:
     """The train step ``step(state, batch) -> (state, loss)``: the loss
     and its gradient at ``state.params``, then one update by
@@ -155,22 +184,45 @@ def make_train_step(
     ``remat`` (default on) checkpoints each decoder and encoder layer:
     the backward recomputes layer activations instead of keeping every
     layer's.
+
+    ``mesh``: a ('dp', 'tp') DeviceMesh (see the module docstring);
+    ``step.init`` then takes the whole parameter tree and keeps this
+    rank's shards, and a step takes this rank's dp rows and returns the
+    whole batch's loss.
     """
     device = torch.device(device)
-    encoder = AudioEncoder(config.audio, device=device, remat=remat)
+    dp, tp = mesh_axis(mesh, "dp"), mesh_axis(mesh, "tp")
+    encoder = AudioEncoder(config.audio, device=device, remat=remat, tp=tp)
     decoder = TextDecoder(config.text, max_position=max_position,
-                          device=device)
+                          device=device, tp=tp)
 
     def train_step(state: TrainState, batch: dict):
         batch = batch_to_device(batch, device)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = asr_loss(config, encoder, decoder, state.params, batch,
-                        remat=remat)
+        nll, count = masked_nll(config, encoder, decoder, state.params,
+                                batch, remat=remat)
+        if dp is not None:
+            count = all_reduce(count.detach().clone(), dp)
+        loss = nll / torch.clamp(count, min=1.0)
         loss.backward()
+        loss = loss.detach()
+        if dp is not None:
+            for leaf in tree_leaves(state.params):
+                if leaf.grad is not None:
+                    all_reduce(leaf.grad, dp)
+            loss = all_reduce(loss.clone(), dp)
         state.optimizer.step()
         return (TrainState(params=state.params, optimizer=state.optimizer,
                            step=state.step + 1),
-                loss.detach())
+                loss)
 
-    train_step.init = lambda params: TrainState.create(params, optimizer)
+    def init(params: Tree) -> TrainState:
+        if mesh is not None:
+            params = shard_params(params, mesh, {
+                "encoder": encoder_param_specs(
+                    config.audio.encoder_attention_heads, mesh_dims(mesh)[1]),
+                "decoder": decoder_param_specs()})
+        return TrainState.create(params, optimizer)
+
+    train_step.init = init
     return train_step

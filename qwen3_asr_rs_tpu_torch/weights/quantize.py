@@ -13,8 +13,10 @@ before quantizing into ``qkv_w_*`` / ``gateup_w_*``; merging is skipped
 when projection biases exist. Per-column scales make the merged
 quantization equal to the separate one, column by column.
 
-Not ported yet (ROADMAP §1): the tensor-parallel blocked int4 packing
-(``tp_blocks > 1``), which raises NotImplementedError.
+With ``tp_blocks > 1`` (int4 under tensor parallelism, unmerged) the
+column-parallel linears are packed block-locally per tp shard
+(``quantize_weight_int4(blocks=)``, ``(L, K, blocks, N // (2 blocks))``)
+and the lm_head is int8.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ from ..ops.quant import (
 Tree = Any
 
 QUANT_LAYER_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+# output (column)-parallel linears under tensor parallelism: their int4
+# packing is block-local per tp shard (``tp_blocks``)
+COL_PARALLEL = ("q_w", "k_w", "v_w", "gate_w", "up_w")
 
 MERGED_GROUPS = {
     "qkv_w": ("q_w", "k_w", "v_w"),
@@ -64,9 +70,15 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
     else ``bits`` (8 under ``group_size``): 8 stores int8 (``lm_head_q``),
     4 the tile-local int4 packing of the int4 matvec (``lm_head_q4``),
     under either layer width.
+
+    ``tp_blocks > 1`` (bits=4, merge=False: the tensor-parallel layout)
+    packs the column-parallel linears block-locally per tp shard and
+    forces an int8 lm_head, as JAX does.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if tp_blocks > 1 and (bits != 4 or merge):
+        raise ValueError("tp_blocks > 1 requires bits=4 and merge=False")
     if group_size is not None:
         if bits != 4:
             raise ValueError("group_size applies to bits=4 only")
@@ -75,11 +87,6 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
                 "group-wise int4 is not supported under tensor parallelism "
                 "(blocked tp packing is per-channel)"
             )
-    if tp_blocks > 1:
-        raise NotImplementedError(
-            "blocked int4 packing for tensor parallelism (tp_blocks > 1) is "
-            "not ported to the PyTorch package yet (ROADMAP §1 item 11)"
-        )
     layers = dict(params["layers"])
     merge = merge and not any(
         f"{n[:-2]}_b" in layers for n in QUANT_LAYER_WEIGHTS
@@ -98,7 +105,9 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
         if bits == 4 and group_size is not None:
             layers[f"{name}_q4"], s = quantize_weight_int4_grouped(w, group_size)
         elif bits == 4:
-            layers[f"{name}_q4"], s = quantize_weight_int4(w, axis=-2)
+            blocks = tp_blocks if name in COL_PARALLEL else 1
+            layers[f"{name}_q4"], s = quantize_weight_int4(w, axis=-2,
+                                                           blocks=blocks)
         else:
             layers[f"{name}_q"], s = quantize_weight(w, axis=-2)
         layers[f"{name}_s"] = s
@@ -109,6 +118,8 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
     if lm_bits is None:
         default_lm = 8 if group_size is not None else bits
         lm_bits = int(os.environ.get("ASR_LM_BITS", default_lm))
+    if tp_blocks > 1:
+        lm_bits = 8  # the int4 lm_head's tiles do not shard over tp
     if lm_bits not in (4, 8):
         raise ValueError(f"lm_bits must be 4 or 8, got {lm_bits}")
     _quantize_lm_head(params["lm_head"], lm_bits, out)

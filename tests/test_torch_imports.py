@@ -1,6 +1,5 @@
 """The port's import surface: every name in a JAX subpackage's
-``__all__`` imports from the port's counterpart. ``parallel/`` (the
-device mesh and sharding) is not ported yet and is left out."""
+``__all__`` imports from the port's counterpart."""
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 
@@ -8,8 +7,8 @@ import importlib
 
 import pytest
 
-SUBPACKAGES = ["", ".audio", ".features", ".models", ".ops", ".runtime",
-               ".training", ".utils", ".weights"]
+SUBPACKAGES = ["", ".audio", ".features", ".models", ".ops", ".parallel",
+               ".runtime", ".training", ".utils", ".weights"]
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

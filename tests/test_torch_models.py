@@ -161,7 +161,8 @@ def test_argmax_ties_break_on_first_index(monkeypatch):
 def test_unported_branches_raise(rng, monkeypatch):
     """Grouped int4 scales (int4g, a 3-D ``*_s``) run and match JAX's
     decode step, merged (K1's plain version) and unmerged (the per-layer
-    path); blocked int4 (a 4-D ``*_q4``) and the JAX engine's
+    path); blocked int4 (a 4-D ``*_q4``, the tensor-parallel layout) runs
+    the per-layer path and matches JAX's decode step; the JAX engine's
     ``lm_fold_*`` copies raise, and so do per-row positions that are not
     one per row."""
     jcfg, jp, tp, cfg = _decoders()
@@ -184,13 +185,21 @@ def test_unported_branches_raise(rng, monkeypatch):
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5,
                                    rtol=1e-5)
     cache = KVCache.zeros(cfg, 1, 16, dtype=torch.float32)
-    blocked = dict(tp, layers=dict(tp["layers"],
-                                   q_w_q4=torch.zeros(2, 64, 2, 16, dtype=torch.int8),
-                                   q_w_s=torch.ones(2, 64)))
+    q4 = rng.integers(-128, 128, (2, 64, 2, 16)).astype(np.int8)
+    blocked = dict(tp, layers=dict(tp["layers"], q_w_q4=torch.from_numpy(q4),
+                                   q_w_s=torch.full((2, 64), 0.01)))
+    jblocked = dict(jp, layers=dict(jp["layers"], q_w_q4=jnp.asarray(q4),
+                                    q_w_s=jnp.full((2, 64), 0.01)))
+    jlog, _ = jdec.decode_step(jblocked, jnp.asarray([1], jnp.int32),
+                               jnp.int32(3), JCache(k=jnp.asarray(kc),
+                                                    v=jnp.asarray(kc)))
+    tlog, _ = tdec.decode_step(blocked, torch.tensor([1]), 3,
+                               KVCache(k=T(kc.copy()), v=T(kc.copy())))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5,
+                               rtol=1e-5)
     folded = dict(tp, lm_fold_w=tp["lm_head"])
-    for tree in (blocked, folded):
-        with pytest.raises(NotImplementedError, match="blocked int4"):
-            tdec.decode_step(tree, torch.tensor([1]), 3, cache)
+    with pytest.raises(NotImplementedError, match="lm_fold"):
+        tdec.decode_step(folded, torch.tensor([1]), 3, cache)
     with pytest.raises(ValueError, match="one per row"):
         tdec.decode_step(tp, torch.tensor([1, 2]), torch.tensor([3, 4, 5]),
                          cache)

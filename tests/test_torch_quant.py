@@ -124,8 +124,13 @@ def test_unpack_stacked_and_blocked_raises(rng):
         ref = jq.quantize_weight_int4(jnp.asarray(stacked[i]))
         assert _bits(packed[i]) == _bits(ref[0])
         assert _bits(s[i]) == _bits(ref[1])
-    with pytest.raises(NotImplementedError, match="blocked"):
-        tq.quantize_weight_int4(T(w), blocks=2)
+    # blocked (the tensor-parallel layout): JAX's bytes, each block the
+    # plain packing of its columns
+    packed, s = tq.quantize_weight_int4(T(w), blocks=2)
+    ref = jq.quantize_weight_int4(jnp.asarray(w), blocks=2)
+    assert _bits(packed) == _bits(ref[0]) and _bits(s) == _bits(ref[1])
+    assert _bits(packed[:, 1]) == _bits(
+        tq.quantize_weight_int4(T(w[:, 16:]))[0])
 
 
 def _cfgs(**changes):
@@ -182,7 +187,7 @@ def test_lm_bits_env_and_biases_skip_merge(monkeypatch):
 
 def test_unported_quant_modes_raise():
     """int4g (``group_size``) gives JAX's tree bit for bit, with JAX's
-    ValueErrors; blocked int4 (``tp_blocks``) is not ported and raises."""
+    ValueErrors; so does blocked int4 (``tp_blocks``, ported since)."""
     jp, tp = _dec_params(_cfgs())
     ref = _flat(jquant.quantize_decoder_params(jp, bits=4, group_size=128))
     got = _flat(tquant.quantize_decoder_params(tp, bits=4, group_size=128))
@@ -194,8 +199,15 @@ def test_unported_quant_modes_raise():
     with pytest.raises(ValueError, match="tensor parallelism"):
         tquant.quantize_decoder_params(tp, bits=4, merge=False, tp_blocks=2,
                                        group_size=64)
-    with pytest.raises(NotImplementedError, match="tp_blocks"):
-        tquant.quantize_decoder_params(tp, bits=4, merge=False, tp_blocks=2)
+    ref = _flat(jquant.quantize_decoder_params(jp, bits=4, merge=False,
+                                               tp_blocks=2))
+    got = _flat(tquant.quantize_decoder_params(tp, bits=4, merge=False,
+                                               tp_blocks=2))
+    assert ref.keys() == got.keys() and "lm_head_q" in got
+    for k in ref:
+        assert _bits(got[k]) == _bits(ref[k]), k
+    with pytest.raises(ValueError, match="tp_blocks"):
+        tquant.quantize_decoder_params(tp, bits=4, tp_blocks=2)
     with pytest.raises(ValueError, match="bits"):
         tquant.quantize_decoder_params(tp, bits=2)
 

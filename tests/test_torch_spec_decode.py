@@ -284,7 +284,7 @@ def test_cross_model_draft_validation():
 def test_spec_rejects_mesh():
     with pytest.raises(ValueError, match="mesh"):
         _engine(speculative="int8", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         _engine(mesh=object())
 
 
