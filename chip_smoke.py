@@ -4198,10 +4198,11 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def mesh_1x1(torch, config, enc32, dec32, audio, card) -> dict:
+def mesh_1x1(torch, config, enc32, dec32, audio, clips, card) -> dict:
     """Phase 12 (a): a 1 x 1 mesh over NCCL in this process, the
-    deployment form on one card, against no mesh: the 4 s and 30 s clips
-    (bf16, tokens equal, K1 once per decode step; xRT of each, the median
+    deployment form on one card, against no mesh: ``transcribe`` of the
+    4 s and 30 s clips (bf16, tokens equal, K1 once per decode step; xRT
+    of each, the median
     of PARALLEL_REPEATS runs taken in turns, no mesh, mesh, mesh, no
     mesh, ...), a ContinuousBatcher on 4 x 4 s (tokens equal), one
     float32 train step (loss equal). Returns {path: {kernel:
@@ -4235,8 +4236,8 @@ def mesh_1x1(torch, config, enc32, dec32, audio, card) -> dict:
                 for label in order if i % 2 == 0 else order[::-1]:
                     eng = engines[label]
                     zero_counts(fns)
-                    r, wall = timed(torch, lambda: eng.transcribe_samples(
-                        audio[seconds]))
+                    r, wall = timed(torch, lambda: eng.transcribe(
+                        clips[seconds]))
                     walls[label].append(wall)
                     runs[label, seconds] = {
                         "tokens": ids_of(r),
@@ -4251,7 +4252,7 @@ def mesh_1x1(torch, config, enc32, dec32, audio, card) -> dict:
             b = ContinuousBatcher(eng, n_slots=4)
             reqs = [Request(audio[4]) for _ in range(4)]
             _, wall = timed(torch, lambda: b.drive(reqs))
-            runs[label, "batcher"] = {"tokens": [ids_of(q.result)
+            runs[label, "batcher"] = {"tokens": [served_tokens(q)
                                                  for q in reqs],
                                       "wall_s": wall, "mesh": b.mesh}
             del b
@@ -4315,7 +4316,7 @@ def parallel_rank(rank: int, port: int, results, clips: dict) -> None:
         finally:
             dist.destroy_process_group()
         results.put((rank, "ok", rows, launches))
-    except BaseException:  # noqa: BLE001 — reported by the parent
+    except Exception:  # noqa: BLE001 — reported by the parent
         import traceback
 
         results.put((rank, "error", traceback.format_exc(), None))
@@ -4488,10 +4489,10 @@ def parallel_serving(torch, engine, mesh, rank, clips, fns, launches,
            "collectives": collectives, "wall_s": wall, "xRT": 16 / wall}
     if b.lead:
         ref = engine(None, torch.bfloat16)
-        agree = [agreement(torch, ref, clips[4], ids_of(q.result),
+        agree = [agreement(torch, ref, clips[4], served_tokens(q),
                            PARALLEL_BF16_TOL) for q in reqs]
         row["agreement"] = agree
-        row["n_tokens"] = [len(ids_of(q.result)) for q in reqs]
+        row["n_tokens"] = [len(served_tokens(q)) for q in reqs]
         if not all(a["ok"] for a in agree):
             raise AssertionError(f"dp=2 serving: tokens left the one-device "
                                  f"step: {agree}")
@@ -4566,14 +4567,15 @@ def parallel_training(torch, config, enc32, dec32, dp2, tp2, rank,
     return rows
 
 
-def parallel_phase(torch, config, enc32, dec32, audio, card) -> dict:
+def parallel_phase(torch, config, enc32, dec32, audio, paths, card) -> dict:
     """Phase 12. (a) the 1 x 1 NCCL mesh here; (b) two spawned ranks on
     cuda:0 over gloo (the parent has initialised CUDA, so fork is
     unsafe), this process's cached memory freed first. A rank's failure
     fails the phase. Returns {path: {kernel: launches}}."""
     import multiprocessing
+    import queue
 
-    launches = mesh_1x1(torch, config, enc32, dec32, audio, card)
+    launches = mesh_1x1(torch, config, enc32, dec32, audio, paths, card)
     gc.collect()
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
@@ -4593,7 +4595,7 @@ def parallel_phase(torch, config, enc32, dec32, audio, card) -> dict:
                                      f"{PARALLEL_TIMEOUT_S} s")
             try:
                 rank, status, rows, runs = results.get(timeout=5)
-            except Exception:  # queue.Empty: is every rank alive?
+            except queue.Empty:  # is every rank alive?
                 dead = [p.exitcode for p in procs if p.exitcode not in
                         (None, 0)]
                 if dead:
@@ -4785,7 +4787,7 @@ def main() -> int:
     # 12. parallel: a 1 x 1 NCCL mesh here, then two ranks sharing the
     # card over gloo (dp = 2, tp = 2, mesh serving, sharded train steps)
     launches.update(parallel_phase(torch, config, enc32, dec32, audio,
-                                   card))
+                                   clips, card))
 
     summary = []
     for name in SOURCES:

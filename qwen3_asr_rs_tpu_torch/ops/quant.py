@@ -5,10 +5,11 @@ Ports the non-kernel functions of
 symmetric int8 (``quantize_weight``), nibble-packed int4 whose packed
 column j holds columns (j, j + N/2) (``quantize_weight_int4``, or with
 ``blocks`` within each of the blocks of the tensor-parallel layout,
-``unpack_int4_blocked``), the same packing with one scale per group of contraction rows and column
-(``quantize_weight_int4_grouped``, quantize='int4g'), and the lm_head's
-tile-local int4 packing (``quantize_weight_int4_tiled``), with their
-inverses, and the plain int4 products (``int4_grouped_matmul`` reaches
+``unpack_int4_blocked``), the same packing with one scale per group of
+contraction rows and column (``quantize_weight_int4_grouped``,
+quantize='int4g'), and the lm_head's tile-local int4 packing
+(``quantize_weight_int4_tiled``), with their inverses, and the plain
+int4 products (``int4_grouped_matmul`` reaches
 no Pallas kernel in JAX either). Outputs are contiguous whatever the
 input's strides (the lm_head is quantized through a transposed view).
 The kernels that read these layouts are ``ops/kernels/quant_matmul.py``

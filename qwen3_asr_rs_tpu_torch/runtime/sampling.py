@@ -139,10 +139,9 @@ def draw_bits(seed, counter, rows: int, cols: int, device="cpu",
 def uniforms(seed, counter, rows: int, cols: int, device="cpu",
              stream: int = 0, row0: int = 0):
     """(rows, cols) float32 uniforms in (0, 1) from ``draw_bits``
-    (``unit_from_bits``); ``row0`` is passed on only past row 0."""
-    args = (seed, counter, rows, cols, device, stream) + (
-        (row0,) if row0 else ())
-    return unit_from_bits(draw_bits(*args))
+    (``unit_from_bits``)."""
+    return unit_from_bits(draw_bits(seed, counter, rows, cols, device, stream,
+                                    row0))
 
 
 def unit_from_bits(bits):

@@ -14,6 +14,7 @@ on one card therefore use gloo for two ranks (``chip_smoke.py`` phase
 import argparse
 import json
 import multiprocessing
+import queue
 import socket
 import subprocess
 
@@ -57,7 +58,7 @@ def main() -> int:
         try:
             r = out.get(timeout=args.timeout)
             reports[r["rank"]] = r
-        except Exception:  # noqa: BLE001 — queue.Empty: a rank hangs
+        except queue.Empty:  # a rank hangs
             break
     for p in procs:
         p.join(timeout=5)

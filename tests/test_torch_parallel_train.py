@@ -130,29 +130,21 @@ def test_blocked_int4_packing_matches_jax(blocks):
 
 
 def test_blocked_decoder_tree_matches_jax():
-    """``tp_blocks = 2``: the same tree byte for byte (column weights
-    blocked, row weights plain, the lm_head int8), JAX's errors, and the
-    blocked product equal to JAX's unpack-and-dot."""
+    """``tp_blocks = 2`` (its tree is JAX's byte for byte:
+    ``test_torch_quant.py``): column weights blocked, row weights plain,
+    the lm_head int8; JAX's errors; the blocked product equal to JAX's
+    unpack-and-dot; a tp shard's block a plain packing of its columns."""
     cfg = tconfig.tiny_test_config().text
-    dec = init_decoder_params_np(cfg, scale=0.1)
-    want = jquant.quantize_decoder_params(
-        jax.tree_util.tree_map(jnp.asarray, dec), bits=4, merge=False,
-        tp_blocks=2)
-    got = tquant.quantize_decoder_params(to_torch(dec, torch.float32),
-                                         bits=4, merge=False, tp_blocks=2)
-    flat_w = jax.tree_util.tree_leaves_with_path(want)
-    assert got.keys() == want.keys() and "lm_head_q" in got
-    assert got["layers"].keys() == want["layers"].keys()
-    for path, leaf in flat_w:
-        node = got
-        for p in path:
-            node = node[p.key]
-        assert _bits(node) == _bits(leaf), path
+    dec = to_torch(init_decoder_params_np(cfg, scale=0.1), torch.float32)
+    got = tquant.quantize_decoder_params(dec, bits=4, merge=False,
+                                         tp_blocks=2)
+    assert "lm_head_q" in got and "lm_head_q4" not in got
     assert got["layers"]["q_w_q4"].ndim == 4
     assert got["layers"]["o_w_q4"].ndim == 3
+    jtree = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), got)
     for kw in (dict(bits=8, merge=False), dict(bits=4, merge=True)):
         with pytest.raises(ValueError) as e:
-            jquant.quantize_decoder_params(want, tp_blocks=2, **kw)
+            jquant.quantize_decoder_params(jtree, tp_blocks=2, **kw)
         with pytest.raises(ValueError) as t:
             tquant.quantize_decoder_params(got, tp_blocks=2, **kw)
         assert str(t.value) == str(e.value)
@@ -160,9 +152,15 @@ def test_blocked_decoder_tree_matches_jax():
     lay = {k: v[0] for k, v in got["layers"].items()}
     y = tq.int4_blocked_matmul(torch.from_numpy(x), lay["q_w_q4"],
                                lay["q_w_s"])
-    ref = (x @ np.asarray(jqm.unpack_int4_blocked(want["layers"]["q_w_q4"][0]))
-           * np.asarray(want["layers"]["q_w_s"][0]))
+    jlay = {k: np.asarray(v[0]) for k, v in jtree["layers"].items()}
+    ref = (x @ np.asarray(jqm.unpack_int4_blocked(jlay["q_w_q4"]))
+           * jlay["q_w_s"])
     np.testing.assert_allclose(y.numpy(), ref, atol=1e-5, rtol=1e-5)
+    half = lay["q_w_s"].shape[0] // 2
+    shard = tq.int4_matmul_plain(torch.from_numpy(x), lay["q_w_q4"][:, 1],
+                                 lay["q_w_s"][half:])
+    np.testing.assert_allclose(shard.numpy(), ref[:, half:], atol=1e-5,
+                               rtol=1e-5)
 
 
 def test_blocked_tree_decodes_on_one_device():
@@ -174,17 +172,15 @@ def test_blocked_tree_decodes_on_one_device():
 
     cfg = tconfig.tiny_test_config().text
     jcfg = jconfig.tiny_test_config().text
-    dec = init_decoder_params_np(cfg, scale=0.1)
-    want_tree = jquant.quantize_decoder_params(
-        jax.tree_util.tree_map(jnp.asarray, dec), bits=4, merge=False,
-        tp_blocks=2)
-    tree = tquant.quantize_decoder_params(to_torch(dec, torch.float32),
-                                          bits=4, merge=False, tp_blocks=2)
+    tree = tquant.quantize_decoder_params(
+        to_torch(init_decoder_params_np(cfg, scale=0.1), torch.float32),
+        bits=4, merge=False, tp_blocks=2)
+    jtree = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
     kc = (np.random.default_rng(2).standard_normal(
         (cfg.num_hidden_layers, 1, cfg.num_key_value_heads, 16,
          cfg.head_dim)) * 0.3).astype(np.float32)
     jlog, _ = JDecoder(jcfg, max_position=64).decode_step(
-        want_tree, jnp.asarray([7], jnp.int32), jnp.int32(9),
+        jtree, jnp.asarray([7], jnp.int32), jnp.int32(9),
         JCache(k=jnp.asarray(kc), v=jnp.asarray(kc)))
     tdec = TextDecoder(cfg, max_position=64)
     assert not tdec._use_fused_step(tree, torch.device("cuda"))

@@ -102,7 +102,7 @@ def test_filtered_tokens_never_drawn_at_extreme_bits(bits, monkeypatch):
     from qwen3_asr_rs_tpu_torch.runtime import sampling
 
     monkeypatch.setattr(sampling, "draw_bits", lambda seed, counter, rows,
-                        cols, device, stream: torch.full(
+                        cols, device, stream, row0: torch.full(
                             (rows, cols), bits, dtype=torch.int64))
     logits = T(np.random.default_rng(5).standard_normal((4, 300)).astype(
         np.float32))
