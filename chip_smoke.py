@@ -593,27 +593,32 @@ def busy_us(events) -> float:
 # ("events_missing" in all; their time is divided by the calls they
 # hold), "retaken" held less than half or exceeded the CUDA-event time
 PROFILER_WINDOWS = {"short": 0, "events_missing": 0, "retaken": 0}
-# slack of the busy time over the CUDA-event time: the event median and
-# the window's mean are taken over different calls
+# slack of a window's busy time over the CUDA-event time of its own calls
+# (the events are recorded around them while the profiler runs)
 EVENT_SLACK = (1.05, 0.001)
 # idle seconds at each end of a profiler window
 WINDOW_MARGIN_S = 0.005
 
 
-def device_events(torch, fn, reps: int) -> list:
-    """The device events (kernels, copies, sets) torch.profiler records
-    in a window of reps fn() calls between two idle margins."""
+def device_events(torch, fn, reps: int) -> tuple:
+    """(the device events (kernels, copies, sets) torch.profiler records
+    in a window of reps fn() calls between two idle margins, the
+    CUDA-event milliseconds of those reps calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(WINDOW_MARGIN_S)
+        start.record()
         for _ in range(reps):
             fn()
+        end.record()
         torch.cuda.synchronize()
         time.sleep(WINDOW_MARGIN_S)
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return ([e for e in prof.events() if e.device_type == DeviceType.CUDA],
+            start.elapsed_time(end))
 
 
 def device_ms(torch, fn, reps: int = 10, windows: int = 3,
@@ -628,30 +633,30 @@ def device_ms(torch, fn, reps: int = 10, windows: int = 3,
     events of one call, is the largest count of the windows taken over
     reps, rounded up; a window counts when it holds at least half of its
     reps p events, its busy time is divided by its events / p calls, and
-    that time per call is at most the CUDA-event time of a call (cuda_ms,
-    within EVENT_SLACK). Up to ``tries`` more windows are taken in place
-    of those that do not count, then it raises. PROFILER_WINDOWS, which
-    the run reports, counts both kinds."""
+    that time per call is at most the CUDA-event time per call of the
+    window's own calls (within EVENT_SLACK: busy time cannot exceed the
+    elapsed time it lies in). Up to ``tries`` more windows are taken in
+    place of those that do not count, then it raises. PROFILER_WINDOWS,
+    which the run reports, counts both kinds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ratio, extra = EVENT_SLACK
-    limit = ratio * cuda_ms(torch, fn, warmup=0) + extra
-    seen = []  # (events, busy ms) per window
+    seen = []  # (events, busy ms, CUDA-event ms) per window
     for _ in range(windows + tries):
-        events = device_events(torch, fn, reps)
-        seen.append((len(events), busy_us(events) / 1e3))
-        per_fn = -(-max(n for n, _ in seen) // reps)
-        kept = [(n, busy * per_fn / n) for n, busy in seen
+        events, elapsed = device_events(torch, fn, reps)
+        seen.append((len(events), busy_us(events) / 1e3, elapsed))
+        per_fn = -(-max(n for n, _, _ in seen) // reps)
+        kept = [(n, busy * per_fn / n) for n, busy, el in seen
                 if n and 2 * n >= reps * per_fn
-                and busy * per_fn / n <= limit]
+                and busy * per_fn / n <= ratio * el / reps + extra]
         if len(kept) >= windows:
             break
     else:
         raise AssertionError(
             f"profiler: {len(seen)} windows of {reps} calls, (device events, "
-            f"busy ms) {seen}, {len(kept)} of them within half of "
-            f"{reps * per_fn} events and the event time limit {limit} ms")
+            f"busy ms, event ms) {seen}, {len(kept)} of them within half of "
+            f"{reps * per_fn} events and their event time")
     PROFILER_WINDOWS["retaken"] += len(seen) - len(kept)
     for n, _ in kept:
         if n < reps * per_fn:
@@ -2523,7 +2528,7 @@ def serving_admission(torch, batcher, samples) -> dict:
         admit()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    events = device_events(torch, admit, 1)
+    events, _ = device_events(torch, admit, 1)
     return {"host_wall_ms": statistics.median(walls),
             "device_kernels": len(events),
             "busy_ms": busy_us(events) / 1e3}
