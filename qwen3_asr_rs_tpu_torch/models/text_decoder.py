@@ -511,45 +511,39 @@ class TextDecoder:
         ((B, P, V) float32 logits, cache): speculative sampling needs the
         target's distribution at every position.
 
-        On an int8 slab each position attends its own K/V unquantized, as
-        a decode step does, and the block's earlier positions as stored
-        (quantized), as later decode steps would. (JAX's verify attends
-        its own K/V as stored too, so that its speculative output with an
-        int8 slab may leave plain greedy decoding's at a step where int8
-        rounding reorders the two best logits; the port's does not.)"""
+        On an int8 slab every position attends the block's K/V as stored
+        (quantized), its own included, as JAX's verify does; a decode
+        step attends its own K/V unquantized, so an int8-KV speculative
+        run may leave plain greedy decoding where int8 rounding reorders
+        the two best logits."""
         hidden = self._chunk_layers(params, self.embed(params, token_ids),
-                                    start, cache, exact_self=True)
+                                    start, cache)
         logits = self.logits(params, hidden)
         if return_logits:
             return logits, cache
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    def _chunk_layers(self, params: Tree, hidden, start, cache: KVCache,
-                      exact_self: bool = False):
+    def _chunk_layers(self, params: Tree, hidden, start, cache: KVCache):
         """Every layer of a chunk at positions [start, start + P): the
         rotary rows gathered at ``start + arange(P)`` (on the device when
-        ``start`` is a tensor). ``exact_self``: see ``_chunk_layer``."""
+        ``start`` is a tensor)."""
         check_params(params)
         cos, sin = self.rotary.lookup(
             start + torch.arange(hidden.shape[1], device=hidden.device))
         layers = params["layers"]
         for l in range(cache.k.shape[0]):
             hidden = self._chunk_layer({k: v[l] for k, v in layers.items()},
-                                       hidden, cos, sin, l, cache, start,
-                                       exact_self)
+                                       hidden, cos, sin, l, cache, start)
         return hidden
 
     def _chunk_layer(self, layer: Tree, x, cos, sin, l: int, cache: KVCache,
-                     start, exact_self: bool = False):
+                     start):
         """One layer of chunked prefill (JAX ``_chunk_layer``): store the
-        fresh block first, then attend over the whole slab with the mask
-        j <= start + i, which covers the history and the block causally.
-        The JAX package computes this with plain einsums, outside any
-        kernel; so does this. The mask's query positions ``start +
-        arange(P)`` stay on the device for a tensor ``start``.
-        ``exact_self`` on an int8 slab: query i's score and value at its
-        own slot come from its fresh K/V, not the stored (quantized) copy,
-        as in a decode step's self term."""
+        fresh block first, then attend over the whole slab as stored with
+        the mask j <= start + i, which covers the history and the block
+        causally. The JAX package computes this with plain einsums,
+        outside any kernel; so does this. The mask's query positions
+        ``start + arange(P)`` stay on the device for a tensor ``start``."""
         cfg = self.cfg
         b, p_len, _ = x.shape
         nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -568,24 +562,11 @@ class TextDecoder:
                           k_use.float()) * hd ** -0.5
         slot = torch.arange(k_use.shape[2], device=x.device)
         query = start + torch.arange(p_len, device=x.device)
-        own = None
-        if exact_self and cache.quantized:
-            own = slot[None, :] == query[:, None]  # (P, S)
-            s_own = torch.einsum("bqhgd,bqhd->bhgq", qg.float(),
-                                 k.float()) * hd ** -0.5
-            sc = torch.where(own, s_own[..., None], sc)
         sc = torch.where(slot[None, :] <= query[:, None], sc, -1e9)
         p = torch.exp(sc - sc.amax(-1, keepdim=True))
         p = p / p.sum(-1, keepdim=True)
-        if own is None:
-            out = torch.einsum("bhgqk,bhkd->bqhgd",
-                               p.to(v_use.dtype).float(), v_use.float())
-        else:
-            out = torch.einsum("bhgqk,bhkd->bqhgd",
-                               torch.where(own, 0.0, p).to(
-                                   v_use.dtype).float(), v_use.float())
-            out = out + torch.einsum("bhgq,bqhd->bqhgd",
-                                     (p * own).sum(-1), v.float())
+        out = torch.einsum("bhgqk,bhkd->bqhgd",
+                           p.to(v_use.dtype).float(), v_use.float())
         out = out.reshape(b, p_len, nq * hd).to(x.dtype)
         x = residual + self._tp_out(_linear(layer, "o_w", out))
         return self._mlp_block(layer, x)

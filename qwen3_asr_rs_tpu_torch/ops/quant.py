@@ -31,15 +31,19 @@ import torch
 MATVEC_TILE = 8192
 
 
-def quantize_weight(w, axis: int = 0):
+def quantize_weight(w, axis: int = 0, amax=None):
     """Per-output-channel symmetric int8 quantization of (K, N) weights
     (or (L, K, N) stacks with ``axis=-2``).
 
     Returns (w_q int8, scales float32 with ``axis`` removed). ``axis`` is
-    the contraction axis.
+    the contraction axis. ``amax``: each column's absolute maximum, when
+    ``w`` is a piece of a weight whose contraction axis is split (by
+    default ``w``'s own).
     """
     wf = w.float()
-    scales = torch.clamp(wf.abs().amax(dim=axis), min=1e-8) / 127.0
+    if amax is None:
+        amax = wf.abs().amax(dim=axis)
+    scales = torch.clamp(amax, min=1e-8) / 127.0
     w_q = torch.clamp(torch.round(wf / scales.unsqueeze(axis)), -127, 127)
     return w_q.to(torch.int8).contiguous(), scales
 

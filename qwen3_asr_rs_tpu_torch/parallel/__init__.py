@@ -7,8 +7,10 @@ from .sharding import (
     P,
     decoder_param_specs,
     encoder_param_specs,
+    gather_params,
     int4_decoder_param_specs,
     match_specs,
+    model_param_specs,
     named_shardings,
     quantized_decoder_param_specs,
     shard_params,
@@ -25,4 +27,6 @@ __all__ = [
     "mesh_shape",
     "named_shardings",
     "quantized_decoder_param_specs",
+    "gather_params",
+    "model_param_specs",
 ]

@@ -34,7 +34,7 @@ import torch.distributed as dist
 from .mesh import mesh_dims
 
 # collectives this process issued, by kind ("all_reduce", "all_gather",
-# "broadcast")
+# "broadcast", "barrier")
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -58,10 +58,12 @@ def mesh_axis(mesh, name: str) -> Optional[Axis]:
                 rank=mesh.get_local_rank(name))
 
 
-def all_reduce(t: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """Sum ``t`` over the axis's ranks, in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, axis: Axis,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over the axis's ranks (a sum unless ``op`` says
+    otherwise), in place; returns ``t``."""
     COUNTS["all_reduce"] += 1
-    dist.all_reduce(t, group=axis.group)
+    dist.all_reduce(t, op=op, group=axis.group)
     return t
 
 
@@ -78,6 +80,18 @@ def is_lead(mesh) -> bool:
     mesh): the rank that owns a server's queue and its decisions."""
     return mesh is None or all(mesh.get_local_rank(n) == 0
                                for n in ("dp", "tp"))
+
+
+def barrier(mesh) -> None:
+    """Return once every rank of the mesh has reached this call: a
+    barrier over tp, then over dp (a rank leaves the second only after
+    every rank of its dp group has left the first, and the lead's tp
+    group left that only once the lead had reached it)."""
+    for name in ("tp", "dp"):
+        axis = mesh_axis(mesh, name)
+        if axis is not None:
+            COUNTS["barrier"] += 1
+            dist.barrier(group=axis.group)
 
 
 def broadcast_from_lead(objs: list, mesh) -> list:

@@ -17,7 +17,8 @@ otherwise replicated. Every leaf a spec tree does not list is replicated.
 None), one per leading tensor dim. ``shard_params`` cuts every leaf down
 to this rank's piece (plain local tensors, not DTensors): the models run
 on those pieces with their local head counts and call the collectives of
-``parallel/comm.py`` themselves.
+``parallel/comm.py`` themselves. ``gather_params`` is its inverse: the
+whole tensors back from every rank's pieces (what a checkpoint holds).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any
 import torch
 
 from ..weights.quantize import COL_PARALLEL, QUANT_LAYER_WEIGHTS
+from .comm import all_gather, mesh_axis
 from .mesh import MESH_DIMS
 
 PyTree = Any
@@ -149,6 +151,13 @@ def encoder_param_specs(num_heads: int, tp_size: int) -> dict:
     }
 
 
+def model_param_specs(encoder_heads: int, tp_size: int) -> dict:
+    """The spec tree of a float ``{"encoder", "decoder"}`` tree: the cut
+    of ``make_train_step(mesh=).init`` and of a float engine's weights."""
+    return {"encoder": encoder_param_specs(encoder_heads, tp_size),
+            "decoder": decoder_param_specs()}
+
+
 def match_specs(params: PyTree, specs: PyTree) -> PyTree:
     """Align a spec tree to a param tree, defaulting missing keys to P()."""
     if isinstance(params, dict):
@@ -196,6 +205,33 @@ def shard_params(params: PyTree, mesh, specs: PyTree) -> PyTree:
                 for k, v in p.items()
             }
         return _local_piece(p, mesh, s if not isinstance(s, dict) else P())
+
+    return walk(params, specs)
+
+
+def _whole(t, mesh, spec):
+    """``_local_piece``'s inverse: ``t`` all-gathered along each dim whose
+    axis has more than one rank, the pieces joined in rank order."""
+    for d, axis in enumerate(spec):
+        group = None if axis is None else mesh_axis(mesh, axis)
+        if group is not None:
+            t = torch.cat(all_gather(t, group), dim=d)
+    return t
+
+
+def gather_params(params: PyTree, mesh, specs: PyTree) -> PyTree:
+    """The whole tree back from this rank's pieces (``shard_params``'
+    inverse, ``match_specs``' defaults): every leaf sharded over an axis
+    of more than one rank is all-gathered over it. A collective: every
+    rank of the mesh calls it on the same tree."""
+
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {
+                k: walk(v, s.get(k, P()) if isinstance(s, dict) else P())
+                for k, v in p.items()
+            }
+        return _whole(p, mesh, s if not isinstance(s, dict) else P())
 
     return walk(params, specs)
 

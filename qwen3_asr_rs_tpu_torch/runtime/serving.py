@@ -21,7 +21,10 @@ decode slots over one shared KV slab instead:
     one group per step;
   * ``serving_precision`` picks the decode weights per segment: the
     engine's, bf16, an int8 copy (``lm_bits=8``), or "auto" (int8 up to
-    ``ASR_SERVING_INT8_MAX_OCC`` live slots, bf16 above);
+    ``ASR_SERVING_INT8_MAX_OCC`` live slots, bf16 above). The copy works
+    under tp too: JAX's unmerged copy, each rank quantizing its own
+    pieces (``quantize_decoder_params(tp=)``), bit-equal to the whole
+    weights quantized, then sharded;
   * greedy, sampled (temperature) and nucleus (per-request top_p)
     requests share the segments: a segment runs the variant the live
     requests need.
@@ -254,8 +257,8 @@ class ContinuousBatcher:
             max_new_tokens = min(engine.max_new_tokens, 512)
         self.max_new = max_new_tokens
         # per-segment decode weights: "engine" (the engine's own), "bf16"
-        # (the engine's unquantized tree), "int8" (an int8 copy, or an
-        # int8 engine's tree) or "auto": int8 while at most
+        # (the engine's unquantized tree), "int8" (an int8 copy, on any
+        # mesh, or an int8 engine's tree) or "auto": int8 while at most
         # int8_max_occupancy slots are live, bf16 above
         if serving_precision not in ("engine", "auto", "bf16", "int8"):
             raise ValueError(
@@ -285,17 +288,15 @@ class ContinuousBatcher:
                 self._params_by_precision["int8"] = engine.dec_params
             else:
                 self._params_by_precision["bf16"] = engine.dec_params
-                if serving_precision in ("auto", "int8") and self._tp:
-                    raise ValueError(
-                        "serving_precision's int8 copy is quantized from "
-                        "whole weights; under tensor parallelism build the "
-                        "engine with quantize='int8'")
                 if serving_precision in ("auto", "int8"):
                     # lm_bits pinned to 8: an ambient ASR_LM_BITS=4 must
-                    # not leak into the serving copy
+                    # not leak into the serving copy. Under tp the copy is
+                    # JAX's unmerged one, built from this rank's pieces:
+                    # equal to the whole tree quantized, then sharded
                     self._params_by_precision["int8"] = (
-                        quantize_decoder_params(engine.dec_params, lm_bits=8)
-                    )
+                        quantize_decoder_params(
+                            engine.dec_params, merge=self._tp is None,
+                            lm_bits=8, tp=self._tp))
         if max_chunks is None:
             # default: cap serving admission at 2 min of audio, but never
             # below the smallest bucket (long-form-only engines)

@@ -18,18 +18,19 @@ session keeps a running max over the audio seen (``raw_log_mel_max``)
 and encodes every window with it; a max that rises past the max the
 cached windows were encoded with by more than ``MAX_TOLERANCE``
 re-encodes them. ``StreamingTranscriber`` commits text by LocalAgreement
-(the common prefix of the last hypotheses; committed text never
-changes), rolls over to a fresh session with ~2 s of overlap audio before
-an update would outgrow the slab (stitched with ``longform.stitch``), and
-``finalize()`` runs the offline engine over the current session's audio.
+(the common prefix of the last hypotheses), rolls over to a fresh
+session with ~2 s of overlap audio before an update would outgrow the
+slab (stitched with ``longform.stitch``), and ``finalize()`` runs the
+offline engine over the current session's audio.
 
-One difference from the JAX transcriber: JAX commits an agreed prefix,
-and at a rollover the finished session's final hypothesis, even where it
-does not extend the committed text, which then changes. The port commits
-only extensions of the committed text: an agreed prefix that contradicts
-it waits, and a final hypothesis that contradicts it yields to it (the
-session's uncommitted words are dropped; the next session hears the
-overlap again). Where JAX's committed text only grows, the two agree.
+Committed text follows JAX's rule. An agreed prefix longer than the
+committed text is committed, and at a rollover the finished session's
+final hypothesis (stitched to the rolled text) is committed, even where
+either does not extend the committed text, which then changes. The
+``StreamUpdate.committed`` deltas are formed as JAX forms them (the
+rolled text past the old committed length, then the agreed prefix past
+it), so where the committed text is rewritten they no longer add up to
+``committed_text``; between rewrites they do.
 
 Who owns the slab and the graph. The re-decode after each chunk is the
 greedy B = 1 loop (K1 per step); on CUDA each step replays a captured
@@ -616,8 +617,6 @@ class StreamingTranscriber:
                         self.rollover_overlap / self.sample_rate)
             final = self.session.update()
             hyp = self._join(final.text)
-            if not hyp.startswith(self._committed):
-                hyp = self._committed  # committed text never changes
             self._rolled = hyp
             self._committed = hyp
             self._hypotheses = []
@@ -648,8 +647,7 @@ class StreamingTranscriber:
         if len(self._hypotheses) >= self.agreement:
             window = self._hypotheses[-self.agreement:]
             stable = common_prefix_len(window)
-            if (stable > len(self._committed)
-                    and hyp.startswith(self._committed)):
+            if stable > len(self._committed):
                 newly += self._hypotheses[-1][len(self._committed):stable]
                 self._committed = self._hypotheses[-1][:stable]
         logger.debug("stream update: %.1fs audio, hyp %r, committed %r",

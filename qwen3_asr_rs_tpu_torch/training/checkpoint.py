@@ -6,12 +6,25 @@ dict and step) round-trips through one ``state.pt`` per checkpoint
 directory, and inference-format safetensors can be exported from a
 state at any point with ``weights/export.py``.
 
+On a mesh (a state from ``make_train_step(mesh=).init``, which keeps the
+mesh and its spec tree) a checkpoint holds whole tensors, as orbax
+writes global arrays: every rank gathers each tp-sharded leaf along its
+spec's dim, and the optimizer's per-parameter tensors of that leaf's
+shape (AdamW's moments) the same way, on the calling thread (a
+collective); then the mesh's lead rank alone writes, and a barrier over
+the mesh follows the write. dp ranks hold equal replicas, so the lead's
+is the one written. A restore loads the whole tensors on every rank and
+cuts this rank's pieces by the template's mesh and specs
+(``shard_params``), so a checkpoint written at one mesh shape restores
+at another, or on one device, and back.
+
 Files are written by this module and read back with ``torch.load(...,
 weights_only=True)``, which unpickles tensors and plain containers only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -23,6 +36,8 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.comm import barrier, is_lead
+from ..parallel.sharding import gather_params, match_specs, shard_params
 from .train_step import TrainState, tree_leaves
 
 logger = logging.getLogger(__name__)
@@ -42,12 +57,36 @@ def _to_host(obj):
     return obj
 
 
-def _snapshot(state: TrainState) -> dict:
-    return {
-        "params": _to_host(state.params),
-        "opt_state": _to_host(state.optimizer.state_dict()),
-        "step": int(state.step),
-    }
+def _per_leaf(opt_state: dict, params, specs, fn) -> dict:
+    """``opt_state`` with ``fn(tensor, spec)`` applied to every
+    per-parameter tensor of its parameter's shape (``params``: the
+    leaves whose shapes the tensors have, in the optimizer's order);
+    scalars such as AdamW's step count stay as they are."""
+    leaves = tree_leaves(params)
+    spec_leaves = tree_leaves(match_specs(params, specs))
+    state = {}
+    for i, per in opt_state["state"].items():
+        state[i] = {
+            k: fn(v, spec_leaves[i])
+            if isinstance(v, torch.Tensor) and v.ndim
+            and v.shape == leaves[i].shape else v
+            for k, v in per.items()}
+    return {**opt_state, "state": state}
+
+
+def _snapshot(state: TrainState) -> dict | None:
+    """The state as whole tensors on the host, or None on a mesh rank
+    other than the lead (which writes). On a mesh every rank takes part
+    in the gathers."""
+    params, opt = state.params, state.optimizer.state_dict()
+    if state.mesh is not None:
+        opt = _per_leaf(opt, params, state.specs,
+                        lambda t, spec: gather_params(t, state.mesh, spec))
+        params = gather_params(params, state.mesh, state.specs)
+        if not is_lead(state.mesh):
+            return None
+    return {"params": _to_host(params), "opt_state": _to_host(opt),
+            "step": int(state.step)}
 
 
 def _write(path: Path, snapshot: dict) -> None:
@@ -62,22 +101,38 @@ def _write(path: Path, snapshot: dict) -> None:
 
 
 def save_train_state(path: str | Path, state: TrainState) -> None:
+    """Write ``state`` to the directory ``path``; on a mesh every rank
+    calls it and returns once the lead's write is done."""
     path = Path(path).absolute()
-    path.parent.mkdir(parents=True, exist_ok=True)
-    _write(path, _snapshot(state))
-    logger.info("Saved training checkpoint at step %s to %s",
-                int(state.step), path)
+    snapshot = _snapshot(state)
+    try:
+        if snapshot is not None:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            _write(path, snapshot)
+            logger.info("Saved training checkpoint at step %s to %s",
+                        int(state.step), path)
+    finally:
+        if state.mesh is not None:
+            barrier(state.mesh)
 
 
 def restore_train_state(path: str | Path, template: TrainState) -> TrainState:
     """Restore a checkpoint into ``template``: its parameter tensors take
     the saved values in place (keeping their devices and dtypes), its
-    optimizer loads the saved state dict. Returns a state over the
-    template's tensors and optimizer at the saved step."""
+    optimizer loads the saved state dict. On a mesh each rank takes its
+    pieces of the saved whole tensors, cut by the template's mesh and
+    specs. Returns a state over the template's tensors and optimizer at
+    the saved step."""
     path = Path(path).absolute()
     saved = torch.load(path / STATE_FILE, map_location="cpu",
                        weights_only=True)
-    dst, src = tree_leaves(template.params), tree_leaves(saved["params"])
+    params, opt = saved["params"], saved["opt_state"]
+    if template.mesh is not None:
+        mesh, specs = template.mesh, template.specs
+        opt = _per_leaf(opt, params, specs,
+                        lambda t, spec: shard_params(t, mesh, spec))
+        params = shard_params(params, mesh, specs)
+    dst, src = tree_leaves(template.params), tree_leaves(params)
     if len(dst) != len(src):
         raise ValueError(
             f"{path}: {len(src)} parameter leaves, template has {len(dst)}")
@@ -88,11 +143,10 @@ def restore_train_state(path: str | Path, template: TrainState) -> TrainState:
                     f"{path}: leaf of shape {tuple(s.shape)}, template has "
                     f"{tuple(d.shape)}")
             d.copy_(s)
-    template.optimizer.load_state_dict(saved["opt_state"])
+    template.optimizer.load_state_dict(opt)
     logger.info("Restored training checkpoint from %s (step %s)", path,
                 saved["step"])
-    return TrainState(params=template.params, optimizer=template.optimizer,
-                      step=saved["step"])
+    return dataclasses.replace(template, step=saved["step"])
 
 
 class _AsyncWriter:
@@ -140,12 +194,21 @@ class AsyncTrainCheckpointer:
     with serialization; a save first waits for the previous write.
     ``wait()`` joins the outstanding write; call it before reading files
     back or exiting. Keeps the newest ``max_to_keep`` step directories.
+
+    ``mesh``: the mesh of the states it saves (states from
+    ``make_train_step(mesh=).init``). Every rank of the mesh makes the
+    same calls; ``save()`` gathers on every rank and only the mesh's lead
+    rank writes, prunes and journals (the other ranks keep the save order
+    and the metrics in memory); ``wait()`` ends with a barrier over the mesh,
+    so no rank reads a directory the lead is still writing.
     """
 
     def __init__(self, root: str | Path, max_to_keep: int = 3,
-                 keep_best: int = 0, best_mode: str = "min"):
+                 keep_best: int = 0, best_mode: str = "min", mesh=None):
         self.root = Path(root).absolute()
         self.root.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self._lead = is_lead(mesh)
         self.max_to_keep = max_to_keep
         # best-k retention: checkpoints whose metric ranks in the top
         # ``keep_best`` (per ``best_mode``: "min" for losses, "max" for
@@ -195,6 +258,10 @@ class AsyncTrainCheckpointer:
         )
 
     def save(self, state: TrainState, metric: float | None = None) -> Path:
+        if state.mesh is not self.mesh:
+            raise ValueError(
+                "the state's mesh is not the checkpointer's: build the "
+                "AsyncTrainCheckpointer with mesh=<the train step's mesh>")
         step = int(state.step)
         path = self.step_path(step)
         if step in self._save_order:
@@ -203,19 +270,27 @@ class AsyncTrainCheckpointer:
         if metric is not None:
             self._metrics[str(step)] = float(metric)
             self._write_metrics()
+        # the snapshot first: on a mesh its gathers are collectives, made
+        # on this thread by every rank
+        snapshot = _snapshot(state)
         # One write in flight: the previous one finishes first (as
         # orbax's save does), which bounds host memory to two snapshots.
         # Then prune BEFORE dispatching, so the victim set never holds
         # the write about to start and _gc never joins the writer.
         self._ckptr.wait_until_finished()
-        self._gc()
-        self._ckptr.save(path, _snapshot(state))
+        if self._lead:
+            self._gc()
+        if snapshot is not None:
+            self._ckptr.save(path, snapshot)
         logger.info("Async checkpoint started for step %d at %s", step, path)
         return path
 
     def _write_metrics(self) -> None:
         """Atomic journal write (a crash mid-write must not leave
-        truncated JSON that poisons the next session's constructor)."""
+        truncated JSON that poisons the next session's constructor); the
+        lead rank's alone on a mesh."""
+        if not self._lead:
+            return
         tmp = self._metrics_path.with_suffix(".json.tmp")
         tmp.write_text(json.dumps(self._metrics))
         os.replace(tmp, self._metrics_path)
@@ -272,7 +347,11 @@ class AsyncTrainCheckpointer:
         return restore_train_state(path, template)
 
     def wait(self) -> None:
-        self._ckptr.wait_until_finished()
+        try:
+            self._ckptr.wait_until_finished()
+        finally:
+            if self.mesh is not None:
+                barrier(self.mesh)
 
     def latest(self) -> Path | None:
         self.wait()
@@ -286,4 +365,8 @@ class AsyncTrainCheckpointer:
         return restore_train_state(path, template)
 
     def close(self) -> None:
-        self._ckptr.close()
+        try:
+            self._ckptr.close()
+        finally:
+            if self.mesh is not None:
+                barrier(self.mesh)

@@ -48,11 +48,7 @@ from ..models.audio_encoder import AudioEncoder
 from ..models.text_decoder import TextDecoder
 from ..parallel.comm import all_reduce, mesh_axis
 from ..parallel.mesh import mesh_dims
-from ..parallel.sharding import (
-    decoder_param_specs,
-    encoder_param_specs,
-    shard_params,
-)
+from ..parallel.sharding import model_param_specs, shard_params
 from ..runtime.prompt import AUDIO_OFFSET
 
 Tree = Any
@@ -94,16 +90,21 @@ class TrainState:
     params: Tree                      # {"encoder": ..., "decoder": ...}
     optimizer: torch.optim.Optimizer  # bound to tree_leaves(params)
     step: int
+    # on a mesh: the mesh and the spec tree that cut ``params`` into this
+    # rank's pieces (checkpoints gather and cut by them)
+    mesh: Any = None
+    specs: Tree = None
 
     @classmethod
     def create(cls, params: Tree, optimizer: OptimizerFactory,
-               step: int = 0) -> "TrainState":
+               step: int = 0, mesh=None, specs: Tree = None) -> "TrainState":
         """A state over copies of ``params`` (each leaf its own tensor,
         so a tied lm_head trains apart from embed, as in JAX) and a fresh
         optimizer from the factory."""
         params = _trainable_copy(params)
         return cls(params=params,
-                   optimizer=optimizer(tree_leaves(params)), step=step)
+                   optimizer=optimizer(tree_leaves(params)), step=step,
+                   mesh=mesh, specs=specs)
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -187,7 +188,8 @@ def make_train_step(
 
     ``mesh``: a ('dp', 'tp') DeviceMesh (see the module docstring);
     ``step.init`` then takes the whole parameter tree and keeps this
-    rank's shards, and a step takes this rank's dp rows and returns the
+    rank's shards (the state keeps the mesh and the spec tree), and a
+    step takes this rank's dp rows and returns the
     whole batch's loss.
     """
     device = torch.device(device)
@@ -212,17 +214,15 @@ def make_train_step(
                     all_reduce(leaf.grad, dp)
             loss = all_reduce(loss.clone(), dp)
         state.optimizer.step()
-        return (TrainState(params=state.params, optimizer=state.optimizer,
-                           step=state.step + 1),
-                loss)
+        return dataclasses.replace(state, step=state.step + 1), loss
 
     def init(params: Tree) -> TrainState:
-        if mesh is not None:
-            params = shard_params(params, mesh, {
-                "encoder": encoder_param_specs(
-                    config.audio.encoder_attention_heads, mesh_dims(mesh)[1]),
-                "decoder": decoder_param_specs()})
-        return TrainState.create(params, optimizer)
+        if mesh is None:
+            return TrainState.create(params, optimizer)
+        specs = model_param_specs(config.audio.encoder_attention_heads,
+                                  mesh_dims(mesh)[1])
+        return TrainState.create(shard_params(params, mesh, specs),
+                                 optimizer, mesh=mesh, specs=specs)
 
     train_step.init = init
     return train_step

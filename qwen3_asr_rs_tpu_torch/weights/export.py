@@ -12,6 +12,11 @@ Files are written by ``write_safetensors``, a writer of the format that
 ``loader.read_safetensors`` reads (an 8-byte little-endian header
 length, a space-padded JSON header, then the raw bytes of each tensor
 in header order), so that the port needs no ``safetensors`` package.
+
+On a mesh (``mesh=``: the trees are this rank's pieces, cut by
+``parallel.model_param_specs`` as ``make_train_step(mesh=).init`` and a
+float engine cut them) every rank gathers the whole tensors, the mesh's
+lead rank alone writes the files, and a barrier over the mesh follows.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ from typing import Any, Dict
 import torch
 
 from ..config import AsrConfig
+from ..parallel.comm import barrier, is_lead
+from ..parallel.mesh import mesh_dims
+from ..parallel.sharding import gather_params, model_param_specs
 from .loader import _DTYPES, DECODER_PREFIX, ENCODER_PREFIX, LM_HEAD_KEY
 
 Tree = Any
@@ -138,8 +146,28 @@ def save_checkpoint(
     dec_params: Tree,
     config: AsrConfig,
     max_shard_bytes: int | None = None,
+    mesh=None,
 ) -> None:
-    """Write config.json + model.safetensors[.index.json] in HF layout."""
+    """Write config.json + model.safetensors[.index.json] in HF layout.
+    ``mesh``: the trees are this rank's pieces on it (see the module
+    docstring); every rank of the mesh calls this."""
+    if mesh is None:
+        _save(model_dir, enc_params, dec_params, config, max_shard_bytes)
+        return
+    specs = model_param_specs(config.audio.encoder_attention_heads,
+                              mesh_dims(mesh)[1])
+    enc_params = gather_params(enc_params, mesh, specs["encoder"])
+    dec_params = gather_params(dec_params, mesh, specs["decoder"])
+    try:
+        if is_lead(mesh):
+            _save(model_dir, enc_params, dec_params, config,
+                  max_shard_bytes)
+    finally:
+        barrier(mesh)
+
+
+def _save(model_dir, enc_params: Tree, dec_params: Tree, config: AsrConfig,
+          max_shard_bytes: int | None) -> None:
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
 

@@ -17,6 +17,16 @@ With ``tp_blocks > 1`` (int4 under tensor parallelism, unmerged) the
 column-parallel linears are packed block-locally per tp shard
 (``quantize_weight_int4(blocks=)``, ``(L, K, blocks, N // (2 blocks))``)
 and the lm_head is int8.
+
+With ``tp`` (int8, unmerged) the tree is one rank's pieces of a
+tensor-parallel decoder, cut by ``parallel.decoder_param_specs``, and
+the result is that rank's pieces of the whole tree quantized, cut by
+``parallel.quantized_decoder_param_specs``, bit for bit: the
+column-parallel linears and the vocab-parallel lm_head hold whole
+columns and quantize locally; the row-parallel o and down hold a slice
+of each column's contraction dim, so each column's absolute maximum is
+reduced over tp (one MAX all-reduce per weight) before the local
+quantize.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ def _quantize_lm_head(lm, bits: int, out: dict) -> None:
 
 def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
                             lm_bits: int | None = None, tp_blocks: int = 1,
-                            group_size: int | None = None) -> Tree:
+                            group_size: int | None = None, tp=None) -> Tree:
     """A new decoder tree with int8 (``bits=8``) or int4 (``bits=4``)
     linears; ``params`` is left as it was.
 
@@ -74,9 +84,17 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
     ``tp_blocks > 1`` (bits=4, merge=False: the tensor-parallel layout)
     packs the column-parallel linears block-locally per tp shard and
     forces an int8 lm_head, as JAX does.
+
+    ``tp`` (a ``parallel.comm.Axis``; bits=8, merge=False, an int8
+    lm_head): ``params`` holds this rank's tensor-parallel pieces (see
+    the module docstring). Every rank of the axis calls it.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if tp is not None and (bits != 8 or merge or lm_bits != 8):
+        raise ValueError(
+            "quantizing tensor-parallel pieces requires bits=8, "
+            "merge=False and lm_bits=8")
     if tp_blocks > 1 and (bits != 4 or merge):
         raise ValueError("tp_blocks > 1 requires bits=4 and merge=False")
     if group_size is not None:
@@ -109,7 +127,13 @@ def quantize_decoder_params(params: Tree, bits: int = 8, merge: bool = True,
             layers[f"{name}_q4"], s = quantize_weight_int4(w, axis=-2,
                                                            blocks=blocks)
         else:
-            layers[f"{name}_q"], s = quantize_weight(w, axis=-2)
+            amax = None
+            if tp is not None and name not in COL_PARALLEL:
+                from ..parallel.comm import all_reduce
+
+                amax = all_reduce(w.float().abs().amax(-2), tp,
+                                  torch.distributed.ReduceOp.MAX)
+            layers[f"{name}_q"], s = quantize_weight(w, axis=-2, amax=amax)
         layers[f"{name}_s"] = s
     del plan
 

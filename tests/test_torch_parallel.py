@@ -12,7 +12,10 @@ and tp = 2; against the rows of JAX's batch, each row's tokens its
 utterance's alone). The collective structure is pinned: 2 all-reduces per layer
 in a tp decode step plus the embedding's, one all-gather of the logits,
 and none in a dp rank's decode. JAX's tp refusals raise with JAX's
-messages.
+messages. Under tp = 2 a float engine's batcher builds its int8 serving
+copy bit-equal to the whole decoder quantized, then sharded, and
+``serving_precision="auto"`` gives the one-device port's tokens and JAX's
+tp batcher's.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -239,3 +242,69 @@ def test_streaming_on_tp_mesh(pool, clips):
     assert len(want[0]) >= 2
     res = pool.run("stream_texts", 2, 1, 2, clips[0][:32000])
     assert res[0] == res[1] == want
+
+
+# ---- the batcher's int8 copy under tp -------------------------------------
+
+
+@pytest.mark.parametrize("precision", ["auto", "int8"])
+def test_tp2_serving_int8_copy_is_whole_weight_quantized_then_sharded(
+        pool, precision):
+    """A float engine's batcher builds its int8 copy under tp = 2, bit
+    for bit the whole decoder quantized (unmerged, int8 lm_head), then
+    cut by ``quantized_decoder_param_specs``: the row-parallel o and down
+    take each column's absmax over tp (one MAX all-reduce each, the
+    construction's only collectives), where a rank quantizing its pieces
+    alone would give other scales."""
+    res = pool.run("serving_int8_copy", 2, 1, 2, precision)
+    assert res[2] is None and res[3] is None
+    alone_differs = set()
+    for got, want, alone, counts in res[:2]:
+        assert got.keys() == want.keys()
+        assert "/layers/o_w_q" in got and "/lm_head_q" in got
+        for name, w in want.items():
+            assert got[name].dtype == w.dtype, name
+            np.testing.assert_array_equal(got[name], w, name)
+        assert counts == {"all_reduce": 2}
+        for name in want:
+            if not np.array_equal(alone[name], want[name]):
+                alone_differs.add(name.split("/")[-1])
+    assert alone_differs == {"o_w_q", "o_w_s", "down_w_q", "down_w_s"}
+
+
+def _jax_tp_auto_serving(params, clips):
+    """JAX's batcher on a tp = 2 CPU mesh with ``serving_precision=
+    "auto"`` (3 slots, 2-step segments): the requests' raw outputs."""
+    from qwen3_asr_rs_tpu.runtime.serving import (
+        ContinuousBatcher as JaxBatcher,
+    )
+    from qwen3_asr_rs_tpu.runtime.serving import Request as JaxRequest
+
+    mesh = jax_make_mesh(n_devices=2, tp_divisor_of=2)
+    batcher = JaxBatcher(_jax_engine(params, mesh=mesh), n_slots=3,
+                         segment_steps=2, serving_precision="auto")
+    reqs = [JaxRequest(c) for c in clips]
+    for r in reqs:
+        batcher.submit(r)
+    for _ in range(400):
+        if all(r.event.is_set() for r in reqs):
+            break
+        batcher.step()
+    return [r.result.raw_output for r in reqs]
+
+
+def test_tp2_auto_serving_tokens_match_one_device(pool, clips, jax_params):
+    """``serving_precision="auto"`` at tp = 2 (float32; four requests in
+    three slots: float segments while more than two are live, int8
+    segments after) gives the one-device port's auto run's tokens and
+    JAX's tp = 2 auto batcher's."""
+    kw = dict(n_slots=3, segment_steps=2, serving_precision="auto",
+              with_variants=True)
+    one = pool.run("serving_tokens", 1, 1, 1, clips, **kw)[0]
+    res = pool.run("serving_tokens", 2, 1, 2, clips, **kw)
+    want = one[0]
+    _varied(want)
+    assert res[0][0] == want and res[1][0] is None
+    assert res[0][4] == res[1][4] == one[4] == [("greedy", "bf16"),
+                                                ("greedy", "int8")]
+    assert _jax_tp_auto_serving(jax_params, clips) == want

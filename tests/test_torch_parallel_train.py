@@ -10,7 +10,12 @@ tp = 2 and 2 x 2 meshes gives ``jax.value_and_grad(asr_loss)``'s loss
 (rel 1e-5) and every gradient leaf (within 1e-5 of the leaf's largest
 JAX magnitude plus 1e-9, the tolerances of ``test_torch_training.py``) on
 the whole batch, whose rows carry unequal loss masks: the loss is the
-global masked mean, not a mean of the ranks' means.
+global masked mean, not a mean of the ranks' means. Checkpoints of an
+AdamW state on dp = 2, tp = 2 and 2 x 2 meshes hold whole tensors (the
+one-device save of the same state), are written by the lead rank alone,
+restore across mesh shapes with each rank its own pieces, and the next
+step's loss equals the uninterrupted run's; ``save_checkpoint(mesh=)``
+writes the one-device export.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -34,6 +39,7 @@ from qwen3_asr_rs_tpu_torch import parallel as tparallel
 from qwen3_asr_rs_tpu_torch.models.text_decoder import TextDecoder
 from qwen3_asr_rs_tpu_torch.ops import quant as tq
 from qwen3_asr_rs_tpu_torch.parallel import sharding as tsharding
+from qwen3_asr_rs_tpu_torch.training.train_step import tree_leaves
 from qwen3_asr_rs_tpu_torch.weights import quantize as tquant
 from qwen3_asr_rs_tpu_torch.weights.convert import (
     init_decoder_params_np,
@@ -316,3 +322,189 @@ def test_mean_of_rank_means_would_differ(train_setup):
                 {k: v[i:i + 2] for k, v in batch.items()}, "cpu"),
             remat=False)) for i in (0, 2)]
     assert abs(np.mean(halves) - jloss) > 10 * 1e-5 * jloss
+
+
+# ---- checkpoints of a sharded state (ranks) -------------------------------
+
+CKPT_MESHES = [(2, 1), (1, 2), (2, 2)]
+
+
+def _one_device_step():
+    from qwen3_asr_rs_tpu_torch.training import adamw
+    from qwen3_asr_rs_tpu_torch.training import train_step as tts
+
+    return tts.make_train_step(tconfig.tiny_test_config(), adamw(1e-3),
+                               max_position=256, remat=False, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ckpt_runs(pool, train_setup, tmp_path_factory):
+    """One AdamW step on one device, saved to ``<root>/one`` (and
+    exported to ``<root>/one_export``), with the loss of the step after
+    it; then ``checkpoint_cases`` on each mesh of ``CKPT_MESHES``."""
+    from qwen3_asr_rs_tpu_torch.training import save_train_state
+    from qwen3_asr_rs_tpu_torch.weights.export import save_checkpoint
+
+    params, batch, _, _ = train_setup
+    root = tmp_path_factory.mktemp("ckpt")
+    step = _one_device_step()
+    state, _ = step(step.init(to_torch(params, torch.float32)), batch)
+    save_train_state(root / "one", state)
+    save_checkpoint(root / "one_export", state.params["encoder"],
+                    state.params["decoder"], tconfig.tiny_test_config())
+    _, one_next = step(state, batch)
+    runs = {(dp, tp): [r for r in pool.run("checkpoint_cases", dp * tp, dp,
+                                           tp, params, batch, str(root))
+                       if r is not None]
+            for dp, tp in CKPT_MESHES}
+    return root, float(one_next), runs
+
+
+def _load(path):
+    return torch.load(path / "state.pt", map_location="cpu",
+                      weights_only=True)
+
+
+def _assert_states_equal(got, want):
+    assert got["step"] == want["step"]
+    g, w = _flat(got["params"]), _flat(want["params"])
+    assert g.keys() == w.keys()
+    for name in w:
+        assert g[name].shape == w[name].shape, name
+        np.testing.assert_allclose(g[name].numpy(), w[name].numpy(),
+                                   atol=1e-6, rtol=0, err_msg=name)
+    go, wo = got["opt_state"], want["opt_state"]
+    assert go["param_groups"] == wo["param_groups"]
+    assert go["state"].keys() == wo["state"].keys()
+    for i, per in wo["state"].items():
+        for k, v in per.items():
+            assert go["state"][i][k].shape == v.shape, (i, k)
+            np.testing.assert_allclose(go["state"][i][k].numpy(), v.numpy(),
+                                       atol=1e-6, rtol=0, err_msg=(i, k))
+
+
+def _names(tree, prefix=""):
+    """``tree`` with each leaf replaced by its ``_flat`` name."""
+    if isinstance(tree, dict):
+        return {k: _names(v, f"{prefix}/{k}") for k, v in tree.items()}
+    return prefix
+
+
+def _piece(whole, spec, coord, tp):
+    """The rank at ``coord`` (dp, tp)'s piece of a whole numpy leaf."""
+    if "tp" not in spec or tp == 1:
+        return whole
+    return np.split(whole, tp, axis=spec.index("tp"))[coord[1]]
+
+
+@pytest.mark.parametrize("dp,tp", CKPT_MESHES)
+def test_mesh_checkpoint_equals_one_device_save(ckpt_runs, dp, tp):
+    """A state saved on the mesh (synchronously and by the async
+    checkpointer) holds whole tensors: the one-device save of the same
+    state, parameters and AdamW moments, within float32 1e-6."""
+    root, _, _ = ckpt_runs
+    want = _load(root / "one")
+    _assert_states_equal(_load(root / f"dp{dp}tp{tp}" / "sync"), want)
+    _assert_states_equal(
+        _load(root / f"dp{dp}tp{tp}" / "async" / "step_00000001"), want)
+
+
+@pytest.mark.parametrize("dp,tp", CKPT_MESHES)
+def test_mesh_checkpoint_restores_give_each_rank_its_pieces(ckpt_runs, dp,
+                                                            tp):
+    """One device -> mesh: each rank holds its own pieces of the saved
+    parameters and moments (no rank another's shard). Mesh -> one
+    device: a fresh one-device state restored from the mesh's save holds
+    the whole saved tensors."""
+    from qwen3_asr_rs_tpu_torch.training import restore_train_state
+
+    root, _, runs = ckpt_runs
+    saved = _load(root / "one")
+    whole = {k: v.numpy() for k, v in _flat(saved["params"]).items()}
+    cfg = tconfig.tiny_test_config()
+    specs = _flat(tsharding.match_specs(saved["params"], tsharding
+                                        .model_param_specs(
+                                            cfg.audio.encoder_attention_heads,
+                                            tp)))
+    state = _one_device_step().init(to_torch(
+        {"encoder": init_encoder_params_np(cfg.audio),
+         "decoder": init_decoder_params_np(cfg.text)}, torch.float32))
+    moments = {  # the optimizer indexes its leaves in tree_leaves order
+        name: saved["opt_state"]["state"][i]["exp_avg"].numpy()
+        for i, name in enumerate(tree_leaves(_names(saved["params"])))}
+    coords = set()
+    for r in runs[(dp, tp)]:
+        coords.add(tuple(r["coord"]))
+        assert r["step"] == 1
+        for name, w in whole.items():
+            want = _piece(w, specs[name], r["coord"], tp)
+            np.testing.assert_array_equal(r["pieces"][name], want, name)
+            np.testing.assert_array_equal(
+                r["moments"][name],
+                _piece(moments[name], specs[name], r["coord"], tp), name)
+        if tp > 1:  # some leaf is cut
+            assert r["pieces"]["/decoder/layers/q_w"].shape != whole[
+                "/decoder/layers/q_w"].shape
+    assert len(coords) == dp * tp
+    back = restore_train_state(root / f"dp{dp}tp{tp}" / "sync", state)
+    assert back.step == 1
+    for name, t in _flat(back.params).items():
+        np.testing.assert_array_equal(t.detach().numpy(), whole[name], name)
+
+
+@pytest.mark.parametrize("dp,tp", CKPT_MESHES)
+def test_mesh_checkpoint_next_loss_equals_uninterrupted(ckpt_runs,
+                                                        train_setup, dp, tp):
+    """The step after a restore gives the uninterrupted run's loss: on
+    the mesh, exactly; the mesh's run from the one-device checkpoint,
+    the one-device run's (rel 1e-5, the sharded step's tolerance); and a
+    one-device state restored from a state trained on the mesh, the
+    mesh's next loss (rel 1e-5)."""
+    from qwen3_asr_rs_tpu_torch.training import restore_train_state
+
+    root, one_next, runs = ckpt_runs
+    params, batch, _, _ = train_setup
+    for r in runs[(dp, tp)]:
+        assert r["restored_loss"] == r["next_loss"]
+        assert r["next_loss"] == pytest.approx(one_next, rel=1e-5)
+    step = _one_device_step()
+    state = restore_train_state(root / f"dp{dp}tp{tp}" / "trained",
+                                step.init(to_torch(params, torch.float32)))
+    assert state.step == 2
+    _, loss = step(state, batch)
+    for r in runs[(dp, tp)]:
+        assert float(loss) == pytest.approx(r["trained_next"], rel=1e-5)
+
+
+@pytest.mark.parametrize("dp,tp", CKPT_MESHES)
+def test_mesh_checkpoint_one_rank_writes(ckpt_runs, dp, tp):
+    """The mesh's lead rank (0, 0) alone renames checkpoint directories
+    into place (the synchronous save, the async one and its metric
+    journal) and writes the export's safetensors, once each."""
+    _, _, runs = ckpt_runs
+    for r in runs[(dp, tp)]:
+        if tuple(r["coord"]) == (0, 0):
+            assert r["writes"] == {"sync": 1, "step_00000001": 1,
+                                   "metrics.json": 1,
+                                   "model.safetensors": 1}
+        else:
+            assert r["writes"] == {}
+
+
+@pytest.mark.parametrize("dp,tp", CKPT_MESHES)
+def test_mesh_save_checkpoint_equals_one_device_export(ckpt_runs, dp, tp):
+    """``save_checkpoint(mesh=)`` of the mesh's pieces writes the
+    one-device export of the same weights: equal tensors, equal
+    config."""
+    from qwen3_asr_rs_tpu_torch.weights.loader import read_safetensors
+
+    root, _, _ = ckpt_runs
+    got_dir, want_dir = root / f"dp{dp}tp{tp}" / "export", root / "one_export"
+    got = read_safetensors(got_dir / "model.safetensors")
+    want = read_safetensors(want_dir / "model.safetensors")
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=1e-6,
+                                   rtol=0, err_msg=name)
+    assert ((got_dir / "config.json").read_text()
+            == (want_dir / "config.json").read_text())

@@ -10,9 +10,10 @@ deterministic, a self-draft accepting everything), cross-model drafts
 (quantized, with slab growth, under a quantized target), the draft checks
 and the CLI's ``--draft*`` flags against the JAX CLI. Beside them: the
 port's ``raw_output`` and ``last_spec_stats`` equal the JAX engine's
-(self-draft, int8 draft, cross-model), ``score_chunk`` equals JAX's at an
-int and at a device-tensor ``start``, and iterations replayed after the
-stream stopped change nothing.
+(self-draft, int8 draft, cross-model, an int8 target with an int8 KV
+slab), ``score_chunk`` equals JAX's at an int and at a device-tensor
+``start`` and on an int8 slab, and iterations replayed after the stream
+stopped change nothing.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -491,11 +492,12 @@ def test_cli_draft_flag(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_score_chunk_equals_sequential_decode_steps(kv):
-    """The verify's logits at every block position equal those of decode
-    steps fed the same tokens one by one, on a float slab and on an int8
-    slab (where each position attends its own K/V unquantized, as a
-    decode step does, and the earlier ones as stored), and both leave the
-    same slab behind."""
+    """On a float slab the verify's logits at every block position equal
+    those of decode steps fed the same tokens one by one, and both leave
+    the same slab behind. On an int8 slab every position attends the
+    block's K/V as stored (quantized), its own included, as JAX's verify
+    does: the logits and the slab equal JAX's ``score_chunk`` on the same
+    inputs (float32 within 1e-5)."""
     from qwen3_asr_rs_tpu_torch.models.text_decoder import (
         KVCache,
         TextDecoder,
@@ -517,6 +519,12 @@ def test_score_chunk_equals_sequential_decode_steps(kv):
         caches.append(c)
     got, _ = dec.score_chunk(params, block, torch.tensor(9), caches[0],
                              return_logits=True)
+    if kv == "int8":
+        want, slab = _jax_int8_verify(prompt.numpy(), block.numpy())
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+        for name, a in caches[0].__dict__.items():
+            np.testing.assert_allclose(a.numpy(), slab[name], atol=1e-5)
+        return
     want = torch.stack([dec.decode_step(params, block[:, i], 9 + i,
                                         caches[1])[0]
                         for i in range(5)], 1)
@@ -527,25 +535,11 @@ def test_score_chunk_equals_sequential_decode_steps(kv):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
 
 
-def test_spec_with_int8_kv_matches_plain_greedy(rng):
-    """Speculative output with an int8 KV slab (int8 target, int8 draft)
-    equals the plain loop's over the same int8 slab."""
-    clip = _clip(rng)
-    plain = _engine(scale=VARIED, quantize="int8", kv_dtype="int8")
-    spec = _engine(scale=VARIED, quantize="int8", kv_dtype="int8",
-                   speculative="int8", spec_k=4)
-    want = plain.transcribe_samples(clip).raw_output
-    assert spec.transcribe_samples(clip).raw_output == want
-    assert len(set(want.split())) > 2
-
-
-def test_jax_verify_on_int8_slab_leaves_its_decode_steps():
-    """The one deliberate difference from JAX's verify: on an int8 slab
-    JAX's ``score_chunk`` attends each position's own K/V as stored
-    (quantized), so its logits leave those of JAX's own decode steps fed
-    the same tokens (which attend their own K/V unquantized) by far more
-    than float32 rounding; the port's equal its decode steps'
-    (``test_score_chunk_equals_sequential_decode_steps``)."""
+def _jax_int8_verify(prompt, block, steps=False):
+    """JAX's ``score_chunk`` logits (1, P, V) over an int8 slab that holds
+    the prompt's prefill, and the slab it leaves (as numpy, by field);
+    with ``steps`` also JAX's decode steps' logits fed the block one
+    token at a time."""
     from qwen3_asr_rs_tpu.models.text_decoder import KVCache as JCache
     from qwen3_asr_rs_tpu.models.text_decoder import TextDecoder as JDecoder
     from qwen3_asr_rs_tpu.models.text_decoder import init_decoder_params
@@ -553,16 +547,70 @@ def test_jax_verify_on_int8_slab_leaves_its_decode_steps():
     cfg = _cfg(jconfig).text
     params = init_decoder_params(cfg, dtype=jnp.float32, scale=VARIED)
     dec = JDecoder(cfg, max_position=64)
-    g = np.random.default_rng(5)
-    prompt = jnp.asarray(g.integers(0, 151936, (1, 9)), jnp.int32)
-    block = jnp.asarray(g.integers(0, 151936, (1, 5)), jnp.int32)
+    p_len = prompt.shape[1]
+    prompt, block = jnp.asarray(prompt, jnp.int32), jnp.asarray(block,
+                                                                 jnp.int32)
     cache = JCache.zeros(cfg, 1, 24, dtype=jnp.float32, quantized=True)
-    _, cache = dec.prefill(params, dec.embed(params, prompt), jnp.arange(9),
-                           cache, jnp.int32(9))
-    got, _ = dec.score_chunk(params, block, jnp.int32(9), cache,
-                             return_logits=True)
+    _, cache = dec.prefill(params, dec.embed(params, prompt),
+                           jnp.arange(p_len), cache, jnp.int32(p_len))
+    got, slab = dec.score_chunk(params, block, jnp.int32(p_len), cache,
+                                return_logits=True)
+    got = np.asarray(got)
+    slab = {f: np.asarray(getattr(slab, f))
+            for f in ("k", "v", "k_scale", "v_scale")}
+    if not steps:
+        return got, slab
     want, c = [], cache
-    for i in range(5):
-        logits, c = dec.decode_step(params, block[:, i], jnp.int32(9 + i), c)
+    for i in range(block.shape[1]):
+        logits, c = dec.decode_step(params, block[:, i],
+                                    jnp.int32(p_len + i), c)
         want.append(np.asarray(logits))
-    assert np.abs(np.asarray(got)[0] - np.stack(want)[:, 0]).max() > 1e-3
+    return got, np.stack(want, 1)
+
+
+def test_spec_with_int8_kv_matches_plain_greedy(rng):
+    """Speculative output with an int8 KV slab (int8 target, int8 draft)
+    equals the JAX engine's speculative output, tokens and stats, on the
+    same weights and clip: the verify attends its block's K/V as stored,
+    as JAX's does. (Where int8 rounding reorders the two best logits,
+    both may leave their plain greedy output.)"""
+    clip = _clip(rng)
+    kw = dict(quantize="int8", kv_dtype="int8", speculative="int8",
+              spec_k=4)
+    spec = _engine(scale=VARIED, **kw)
+    jeng = _jax_engine(16, VARIED, **kw)
+    want = jeng.transcribe_samples(clip).raw_output
+    assert spec.transcribe_samples(clip).raw_output == want
+    assert spec.last_spec_stats == jeng.last_spec_stats
+    assert len(set(want.split())) > 2
+
+
+def test_jax_verify_on_int8_slab_leaves_its_decode_steps():
+    """A defect of the JAX package that the port copies: on an int8 slab
+    JAX's ``score_chunk`` attends each position's own K/V as stored
+    (quantized), so its logits leave those of decode steps fed the same
+    tokens (which attend their own K/V unquantized) by far more than
+    float32 rounding; the port's verify and decode steps leave each other
+    the same way."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import (
+        KVCache,
+        TextDecoder,
+    )
+    from qwen3_asr_rs_tpu_torch.weights.convert import to_torch
+
+    g = np.random.default_rng(5)
+    prompt = g.integers(0, 151936, (1, 9))
+    block = g.integers(0, 151936, (1, 5))
+    jgot, jwant = _jax_int8_verify(prompt, block, steps=True)
+    assert np.abs(jgot[0] - jwant[0]).max() > 1e-3
+    cfg = _cfg().text
+    params = to_torch(init_decoder_params_np(cfg, scale=VARIED),
+                      torch.float32, "cpu")
+    dec = TextDecoder(cfg, 64)
+    c = KVCache.zeros(cfg, 1, 24, dtype=torch.float32, quantized=True)
+    dec.prefill(params, dec.embed(params, torch.from_numpy(prompt)),
+                torch.arange(9), c, 9)
+    want = [dec.decode_step(params, torch.from_numpy(block[:, i]), 9 + i,
+                            c)[0].numpy() for i in range(5)]
+    np.testing.assert_allclose(np.stack(want, 1), jwant, atol=1e-5,
+                               rtol=1e-5)

@@ -200,9 +200,12 @@ def stream_texts(n, dp, tp, clip):
 
 
 def serving_tokens(n, dp, tp, clips, n_slots, segment_steps,
-                   prefill_chunk_tokens=None, **kw):
+                   prefill_chunk_tokens=None, serving_precision="engine",
+                   with_variants=False, **kw):
     """Raw outputs of a ContinuousBatcher on the mesh (lead rank: the
-    served requests'), its slot count and the mesh's rank count."""
+    served requests'), its slot count and the mesh's rank count, its
+    segments (``with_variants``: and the (variant, precision) pairs they
+    ran)."""
     mesh = _mesh(n, dp, tp)
     if mesh is None:
         return None
@@ -214,11 +217,59 @@ def serving_tokens(n, dp, tp, clips, n_slots, segment_steps,
     b = ContinuousBatcher(port_engine(mesh, **kw), n_slots=n_slots,
                           segment_steps=segment_steps,
                           prefill_chunk_tokens=prefill_chunk_tokens,
-                          encode_window_groups=None)
+                          encode_window_groups=None,
+                          serving_precision=serving_precision)
     reqs = [Request(c) for c in clips]
     b.drive(reqs)
     outs = [r.result.raw_output for r in reqs] if b.lead else None
-    return outs, b.n_slots, b.n_local, b.stats["segments"]
+    out = (outs, b.n_slots, b.n_local, b.stats["segments"])
+    return out + (sorted(b.variants_run),) if with_variants else out
+
+
+def serving_int8_copy(n, dp, tp, precision):
+    """A float engine's batcher with ``serving_precision=precision`` on
+    the mesh: its int8 copy, the same whole tree quantized (merge=False,
+    lm_bits=8) and cut by ``quantized_decoder_param_specs``, and this
+    rank's pieces quantized alone, each as {name: numpy}; and the
+    collectives the batcher's construction issued."""
+    mesh = _mesh(n, dp, tp)
+    if mesh is None:
+        return None
+    from qwen3_asr_rs_tpu_torch.parallel import (
+        quantized_decoder_param_specs,
+        shard_params,
+    )
+    from qwen3_asr_rs_tpu_torch.runtime.serving import ContinuousBatcher
+    from qwen3_asr_rs_tpu_torch.weights.convert import to_torch
+    from qwen3_asr_rs_tpu_torch.weights.quantize import (
+        quantize_decoder_params,
+    )
+
+    eng = port_engine(mesh)
+    b, counts = _counted(lambda: ContinuousBatcher(
+        eng, n_slots=2, segment_steps=2, serving_precision=precision))
+    whole = to_torch(engine_params()[1], torch.float32, "cpu")
+    want = shard_params(
+        quantize_decoder_params(whole, merge=False, lm_bits=8), mesh,
+        quantized_decoder_param_specs())
+    alone = quantize_decoder_params(eng.dec_params, merge=False, lm_bits=8)
+    return (_numpy_flat(b._params_by_precision["int8"]), _numpy_flat(want),
+            _numpy_flat(alone), counts)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _numpy_flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_numpy_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree.detach().numpy().copy()}
 
 
 # ---- cases: training -----------------------------------------------------
@@ -246,6 +297,80 @@ def train_step(n, dp, tp, params, batch, steps=1):
         if i == 0:
             grads = _numpy_grads(state.params)
     return losses, grads, mesh.get_coordinate()
+
+
+def checkpoint_cases(n, dp, tp, params, batch, root):
+    """Mesh checkpoints of an AdamW state: restore the one-device
+    checkpoint ``<root>/one`` into a fresh mesh state (this rank's
+    pieces of the parameters and moments, as {name: numpy}); save that
+    state with ``save_train_state`` (``<root>/dp{dp}tp{tp}/sync``),
+    ``AsyncTrainCheckpointer`` (``.../async``, with a metric) and
+    ``save_checkpoint`` (``.../export``), counting this rank's file
+    renames and safetensors writes; then the next step's loss
+    uninterrupted and after restoring ``.../sync`` into another fresh
+    state; then one more step of the uninterrupted state saved to
+    ``.../trained`` and the loss of the step after it."""
+    mesh = _mesh(n, dp, tp)
+    if mesh is None:
+        return None
+    import collections
+    from pathlib import Path
+
+    from qwen3_asr_rs_tpu_torch import config as tconfig
+    from qwen3_asr_rs_tpu_torch.training import (
+        AsyncTrainCheckpointer,
+        adamw,
+        dp_rows,
+        restore_train_state,
+        save_train_state,
+    )
+    from qwen3_asr_rs_tpu_torch.training import checkpoint as ckpt_mod
+    from qwen3_asr_rs_tpu_torch.training import train_step as tts
+    from qwen3_asr_rs_tpu_torch.weights import export
+    from qwen3_asr_rs_tpu_torch.weights.convert import to_torch
+
+    cfg = tconfig.tiny_test_config()
+    step = tts.make_train_step(cfg, adamw(1e-3), max_position=256,
+                               remat=False, device="cpu", mesh=mesh)
+    whole = to_torch(params, torch.float32, "cpu")
+    rows = dp_rows(batch, mesh)
+    root = Path(root)
+    out = root / f"dp{dp}tp{tp}"
+    writes = collections.Counter()
+    replace, write_st = os.replace, export.write_safetensors
+
+    def counted_replace(src, dst):
+        writes[Path(dst).name] += 1
+        return replace(src, dst)
+
+    def counted_write(path, tensors):
+        writes[Path(path).name] += 1
+        return write_st(path, tensors)
+
+    os.replace, export.write_safetensors = counted_replace, counted_write
+    try:
+        state = restore_train_state(root / "one", step.init(whole))
+        pieces = _numpy_flat(state.params)
+        moments = _numpy_flat(_map(
+            lambda p: state.optimizer.state[p]["exp_avg"], state.params))
+        save_train_state(out / "sync", state)
+        ck = AsyncTrainCheckpointer(out / "async", mesh=mesh)
+        ck.save(state, metric=0.5)
+        ck.close()
+        export.save_checkpoint(out / "export", state.params["encoder"],
+                               state.params["decoder"], cfg, mesh=mesh)
+    finally:
+        os.replace, export.write_safetensors = replace, write_st
+    state, next_loss = step(state, rows)
+    again = restore_train_state(out / "sync", step.init(whole))
+    _, restored_loss = step(again, rows)
+    save_train_state(out / "trained", state)
+    _, trained_next = step(state, rows)
+    return dict(coord=mesh.get_coordinate(), writes=dict(writes),
+                pieces=pieces, moments=moments, step=again.step,
+                next_loss=float(next_loss),
+                restored_loss=float(restored_loss),
+                trained_next=float(trained_next))
 
 
 def _numpy_grads(tree):
