@@ -45,7 +45,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              them. The build phase counts the tensor-core instructions
              (HMMA, HGMMA) in the SASS of K3, K1, K4 and K5 and fails if a
              library has none (K5: no HGMMA), and fails if a tensor-core
-             kernel spills.
+             kernel spills. Last, the draw kernel (gumbel_argmax: JAX's
+             threefry categorical, not a TPU kernel) against its plain
+             version at B = 1, 8 and 32 x 151,936 and on half a 32-slot
+             pool at its row offset (and at picked rows), three seeds and
+             the engine's fold_in chains: bits and uniforms bit-equal,
+             Gumbel noise within GUMBEL_ULPS, tokens equal but at stated
+             near-ties (DRAW_TIE), a split chain's key and draw; times
+             (CUDA events, device, plain) against the bytes bound.
 4. main    — AsrEngine at full Qwen3-ASR-0.6B width (28 decoder + 18
              encoder layers, bf16, seeded synthetic weights) transcribes
              synthetic 4 s, 30 s and 300 s WAV files; then AsrEngine with
@@ -86,8 +93,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              B = 1 and 8, the same seed twice equal, graph equal to
              eager, another seed other tokens, top-k 1 equal to greedy up
              to a tie of the scaled logits (shown), with the sampled
-             step's times; the draw hash on the card equal to the CPU's
-             bit for bit; the segmented slab at B = 1 and 8
+             step's times, one draw per sampled step and at the prefill
+             and none in a greedy run; the draw's bits on the card (the
+             kernel) equal to the CPU's (the plain version) bit for bit;
+             the segmented slab at B = 1 and 8
              (max_new_tokens 300: caps [256, 300], one grow copy, the
              second stage captured in the call, the first stage's slab
              released, tokens equal to one 300-token segment); and a 400
@@ -109,7 +118,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              warmup: a burst of 4 / 8 / 15 / 30 / 4 / 8 / 120 s clips
              (batched, chunked and segmented-encode admission) with a
              sampled request (T 0.7, top-p 0.9) submitted mid-flight,
-             no capture during it; 16 and 32 slots of 4 s clips; an
+             no capture during it, one draw per sampled step and one at
+             the sampled admission; the 8-slot pool's steady step with
+             every slot sampled; 16 and 32 slots of 4 s clips; an
              int8 KV pool; serving_precision="auto" (int8 segments with
              K5 at low occupancy); per run: latency p50/p95, aggregate
              xRT, tokens/s, ms per decode step (wall, GPU elapsed from
@@ -165,7 +176,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              sampling
              (T 0.7, top-p 0.9) on the self-draft: the same seed twice
              equal, graph equal to eager, another seed other tokens,
-             top-k 1 held as greedy is; a float32 self-draft whose
+             top-k 1 held as greedy is, k + 2 draws and one set of
+             acceptance uniforms per iteration; a float32 self-draft whose
              sampled drafts are all accepted; a 1.7B target
              (synthetic_17b_config) with the 0.6B model drafting, bf16
              and int8, held against the 1.7B plain step, and the 1.7B
@@ -338,6 +350,8 @@ REPLACES = {
     "flash_attention": "qwen3_asr_rs_tpu/ops/pallas/flash_attention.py:152",
     "quant_matmul": "qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py:66",
     "quant_matvec_int4": "qwen3_asr_rs_tpu/ops/pallas/quant_matmul.py:351",
+    "gumbel_argmax": "jax.random.categorical (XLA, no Pallas): "
+                     "qwen3_asr_rs_tpu/runtime/sampling.py:141",
 }
 SOURCES = {
     "decode_layers_fused": "qwen3_asr_rs_tpu_torch/csrc/decode_layer.cu",
@@ -346,6 +360,7 @@ SOURCES = {
     "flash_attention": "qwen3_asr_rs_tpu_torch/csrc/flash_attention.cu",
     "quant_matmul": "qwen3_asr_rs_tpu_torch/csrc/quant_matmul.cu",
     "quant_matvec_int4": "qwen3_asr_rs_tpu_torch/csrc/quant_matvec_int4.cu",
+    "gumbel_argmax": "qwen3_asr_rs_tpu_torch/csrc/gumbel_argmax.cu",
 }
 K1_COVERS = ("B=1..32 with per-row starts; bf16/f32 activations; bf16/f32, "
              "int8 and int4 weights, merged qkv|gate-up and per projection; "
@@ -384,7 +399,21 @@ LIBRARY = {
                          "group, K4's per-column scale repeated over the "
                          "groups, zero 0, bf16 out (the repacking into "
                          "tinygemm's layout untimed)",
+    "gumbel_argmax": "none: no single PyTorch call computes a threefry "
+                     "Gumbel-max draw (torch.multinomial draws from its own "
+                     "Philox stream, not JAX's)",
 }
+# the draw kernel's checks: batch sizes at the full vocabulary, a pool of
+# POOL_SLOTS slots of which a dp rank holds the second half, the fold_in
+# chains (the engine's step, a speculative draft step, the accept's
+# replacement draw); Gumbel noise within GUMBEL_ULPS units in the last
+# place of max(1, |g|) of the plain version's (both take IEEE logf), tokens
+# equal but where the two best values of logit + noise lie within
+# DRAW_TIE * max(1, |best|)
+DRAW_ROWS = (1, 8, 32)
+POOL_SLOTS = 32
+GUMBEL_ULPS = 4
+DRAW_TIE = 1e-5
 # K1 int4g checks: group sizes, (B, S, end, int8 slab)
 K1_INT4G_GROUPS = (128, 64, 32)
 K1_INT4G_CASES = ((1, 360, 217, False), (1, 4992, 4737, False),
@@ -946,7 +975,120 @@ def kernel_checks(torch, dec_params_f32):
     k2_row_end_checks(torch, gen, results)
     gemv_kernel_checks(torch, gen, results)
     k1_layout_launches(torch, dec_params_f32, gen, results)
+    draw_kernel_checks(torch, gen, results)
     return results
+
+
+def draw_ties(torch, noisy, rows) -> list:
+    """The rows of ``noisy`` (logit + noise) whose two best values lie
+    within DRAW_TIE * max(1, |best|) of each other."""
+    top = torch.topk(noisy[rows], 2, dim=-1).values
+    gap = top[:, 0] - top[:, 1]
+    return (gap <= DRAW_TIE * top[:, 0].abs().clamp(min=1)).tolist()
+
+
+def draw_kernel_checks(torch, gen, results):
+    """The draw kernel (csrc/gumbel_argmax.cu) against its plain version
+    (ops/prng.py on the card) at the full vocabulary: B = 1, 8 and 32 rows
+    of scaled logits (every 7th column filtered to -inf), three seeds, the
+    engine's fold_in chains; and a pool of POOL_SLOTS slots of which a dp
+    rank holds the second half (row_offset) or picked rows (a row-index
+    tensor). Bits and both uniforms bit-equal (threefry_noise), Gumbel
+    noise within GUMBEL_ULPS, tokens equal but at near-ties (counted, shown);
+    a split chain draws with fold_in(key, 1) and leaves fold_in(key, 0).
+    Times: the kernel (CUDA events and device time), the plain version,
+    the bound (the logits read once over 3.35 TB/s)."""
+    from qwen3_asr_rs_tpu_torch.ops import prng
+    from qwen3_asr_rs_tpu_torch.ops.kernels.gumbel_argmax import (
+        gumbel_argmax, gumbel_argmax_plain, threefry_noise,
+        threefry_noise_plain)
+
+    dev = torch.device("cuda")
+    v = V
+    counter = torch.tensor(41, dtype=torch.int64, device=dev)
+    chains = (("fold_in(key, step + 1)", ((counter, 1),)),
+              ("draft step: fold_in(fold_in(key, it + 1), 2 + i)",
+               ((counter, 1), 4)),
+              ("accept: fold_in(fold_in(fold_in(key, it + 1), 0), 1)",
+               ((counter, 1), 0, 1)))
+    cases = [(b, 0, None) for b in DRAW_ROWS] + [
+        (POOL_SLOTS // 2, POOL_SLOTS // 2, None),
+        (4, 0, torch.tensor([3, 17, 30, 8], dtype=torch.int64, device=dev))]
+    for b, offset, rows in cases:
+        x = torch.randn((b, v), generator=gen, device=dev) * 3
+        x[:, ::7] = -torch.inf
+        at = rows if rows is not None else offset
+        ties = differ = gumbel_bits_equal = 0
+        worst = worst_abs = 0.0
+        for seed in (0, 7, 2**33 + 5):
+            base = prng.prng_key(seed, dev)
+            for _, data in chains:
+                chain = prng.KeyChain(base, data)
+                for mode in ("bits", "uniform", "uniform_tiny"):
+                    got = threefry_noise(chain, (b, v), mode, at)
+                    want = threefry_noise_plain(chain, (b, v), mode, at)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"draw kernel: {mode} differ from the plain "
+                            f"version's (B={b}, seed={seed}, {data})")
+                g = threefry_noise(chain, (b, v), "gumbel", at)
+                gp = threefry_noise_plain(chain, (b, v), "gumbel", at)
+                err = ((g - gp).abs() / gp.abs().clamp(min=1)).max()
+                worst = max(worst, float(err) / 2.0**-23)
+                worst_abs = max(worst_abs, max_err(torch, g, gp))
+                gumbel_bits_equal += int(torch.equal(g, gp))
+                tok = gumbel_argmax(x, chain, at)
+                ref = gumbel_argmax_plain(x, chain, at)
+                bad = (tok != ref).nonzero().flatten()
+                if len(bad):
+                    near = draw_ties(torch, x + gp, bad)
+                    if not all(near):
+                        raise AssertionError(
+                            f"draw kernel: tokens {tok[bad].tolist()} != "
+                            f"{ref[bad].tolist()} away from a tie (B={b}, "
+                            f"seed={seed}, {data})")
+                    differ += len(bad)
+                ties += sum(draw_ties(torch, x + gp, slice(None)))
+        if worst > GUMBEL_ULPS:
+            raise AssertionError(f"draw kernel: Gumbel noise {worst} ulps "
+                                 "from the plain version's")
+        # a split chain (serving's key, sub = split(key)): the draw takes
+        # fold_in(key, 1), the key becomes fold_in(key, 0)
+        key = prng.prng_key(11, dev)
+        want_tok = gumbel_argmax_plain(x, prng.fold_in(key, 1), at)
+        want_key = prng.fold_in(key, 0)
+        tok = gumbel_argmax(x, prng.KeyChain(key, then_split=True), at)
+        split_ok = torch.equal(key, want_key) and (
+            torch.equal(tok, want_tok)
+            or all(draw_ties(torch, x + threefry_noise_plain(
+                prng.fold_in(prng.prng_key(11, dev), 1), (b, v), "gumbel",
+                at), (tok != want_tok).nonzero().flatten())))
+        if not split_ok:
+            raise AssertionError(f"draw kernel: split chain (B={b})")
+        head_key = prng.KeyChain(base, chains[0][1])
+        case = (f"B={b} V={v}" + (f" row_offset={offset}" if offset else "")
+                + (" row indices" if rows is not None else ""))
+        row = {"phase": "kernel", "kernel": "gumbel_argmax",
+               "dtype": "float32", "case": case,
+               "max_abs_err": worst_abs, "bits_equal": True,
+               "uniforms_equal": True,
+               "gumbel_ulps_max": worst, "gumbel_bit_equal_draws":
+                   gumbel_bits_equal, "draws": 9,
+               "tokens_differ": differ, "near_ties": ties,
+               "split_ok": split_ok,
+               "ms": cuda_ms(torch, lambda: gumbel_argmax(x, head_key, at),
+                             reps=50, warmup=5),
+               "device_ms": device_ms(torch, lambda: gumbel_argmax(
+                   x, head_key, at)),
+               "plain_ms": cuda_ms(torch, lambda: gumbel_argmax_plain(
+                   x, head_key, at), reps=3, warmup=1),
+               **bound_of(b * v * 4 + b * 8, 0),
+               "library_ms": None, "headline": b == 8 and not offset,
+               "tie": DRAW_TIE, "gumbel_ulps": GUMBEL_ULPS}
+        emit(row)
+        results.append(row)
+        del x
+    torch.cuda.empty_cache()
 
 
 def quant_kernel_checks(torch, dec_params_f32, gen, results):
@@ -1700,6 +1842,8 @@ def kernel_wrappers():
         decode_layers_fused)
     from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
         flash_attention)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.gumbel_argmax import (
+        gumbel_argmax, threefry_noise)
     from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import quant_matmul
     from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
         quant_matvec_int4)
@@ -1710,7 +1854,9 @@ def kernel_wrappers():
             "quant_matmul": quant_matmul,
             "quant_matvec_int4": quant_matvec_int4,
             "decode_attention_slab": decode_attention_slab,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "gumbel_argmax": gumbel_argmax,
+            "threefry_noise": threefry_noise}
 
 
 # (label, quantize, environment, clips) of the main paths; the
@@ -1750,14 +1896,15 @@ class Env:
 
 
 def expected_launches(quantize, env, layers: int, steps: int, seconds: int):
-    """Launches each kernel must show for one clip, and the lm_head
+    """Launches each kernel must show for one greedy clip, and the lm_head
     products outside K1: K1 once per decode step, K2 once per layer and
     step (counted by K1's C entry), K3 in the 300 s prefill; int8 layers:
     K5 for the 4 merged prefill linears of each layer; an int8 lm_head:
     K5 at the last prompt token and each step; an int4 lm_head: K4
     likewise. Folded (ASR_FOLD_LM=1, not with an int4 lm_head), the steps
     take the lm_head inside K1: only the prefill's lm_head runs outside
-    it. K6 has no main-path caller. None: must be above 0."""
+    it. K6 has no main-path caller; greedy decoding draws nothing. None:
+    must be above 0."""
     lm = int(env.get("ASR_LM_BITS", 0)) or {
         "int8": 8, "int4": 4, "int4g": 8, "lm8": 8}.get(quantize, 0)
     per_step = 0 if env.get("ASR_FOLD_LM") == "1" and lm != 4 else steps
@@ -1770,6 +1917,8 @@ def expected_launches(quantize, env, layers: int, steps: int, seconds: int):
         "quant_matvec_int4": per_step + 1 if lm == 4 else 0,
         "decode_attention_slab": 0,
         "decode_attention": 0,
+        "gumbel_argmax": 0,
+        "threefry_noise": 0,
         "lm_head_products": per_step + 1,
     }
 
@@ -2194,8 +2343,10 @@ def graph_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     """Phase 7 (see the module docstring). Returns {run: {kernel:
     launches}} of the counted graph runs."""
     from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
-    from qwen3_asr_rs_tpu_torch.runtime.sampling import (
-        SamplingParams, draw_bits)
+    from qwen3_asr_rs_tpu_torch.ops import prng
+    from qwen3_asr_rs_tpu_torch.ops.kernels.gumbel_argmax import (
+        threefry_noise, threefry_noise_plain)
+    from qwen3_asr_rs_tpu_torch.runtime.sampling import SamplingParams
 
     layers = config.text.num_hidden_layers
     launches = {}
@@ -2223,8 +2374,10 @@ def graph_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
                 f"{st['captures']} captures in {st['decode_steps']} steps "
                 f"over {len(st['slab_lens'])} stages")
         want = expected_launches(quantize, env, layers, st["decode_steps"], 4)
-        if sampling is not None:  # the logits variant, never the fold
+        if sampling is not None:  # the logits variant, never the fold;
+            # one draw at the prefill and one per step
             want["lm_head_products"] = st["decode_steps"] + 1
+            want["gumbel_argmax"] = st["decode_steps"] + 1
         check_launches(f"graphs {label}", got, want)
         launches[f"graphs {label}"] = got
         return toks, st
@@ -2287,17 +2440,20 @@ def graph_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
             del engine
             torch.cuda.empty_cache()
 
-    # the draw hash on the card against the CPU's, bit for bit
+    # the draw's bits on the card (the kernel) against the CPU's (the
+    # plain version), bit for bit, at the engine's keys
     grid = [(seed, step) for seed in (0, 1, 2**33 + 5) for step in (0, 1, 299)]
-    same = all(torch.equal(draw_bits(seed, step, 32, config.text.vocab_size,
-                                     device="cuda").cpu(),
-                           draw_bits(seed, step, 32, config.text.vocab_size))
-               for seed, step in grid)
-    emit({"phase": "graphs", "case": "draw hash, card vs CPU",
-          "grid": len(grid), "rows": 32, "cols": config.text.vocab_size,
-          "equal": same})
+    v = config.text.vocab_size
+    same = all(torch.equal(
+        threefry_noise(prng.KeyChain(prng.prng_key(seed, "cuda"), (step,)),
+                       (4, v), "bits").cpu(),
+        threefry_noise_plain(prng.KeyChain(prng.prng_key(seed), (step,)),
+                             (4, v), "bits"))
+        for seed, step in grid)
+    emit({"phase": "graphs", "case": "draw bits, card vs CPU",
+          "grid": len(grid), "rows": 4, "cols": v, "equal": same})
     if not same:
-        raise AssertionError("the draw hash differs between card and CPU")
+        raise AssertionError("the draw's bits differ between card and CPU")
 
     # the segmented slab: 300 tokens, default segment -> caps [256, 300];
     # a call that leaves the first stage frees its slab and graphs
@@ -2450,7 +2606,7 @@ def serving_burst(torch, batcher, clock, reqs, mid=None, after_steps=2):
     for fn in fns.values():
         fn.launches = 0
     clock.reset()
-    for k in ("segments", "steps", "replays", "captures"):
+    for k in batcher.stats:
         batcher.stats[k] = 0
     t0 = time.perf_counter()
     for r in reqs:
@@ -2473,7 +2629,7 @@ def serving_burst(torch, batcher, clock, reqs, mid=None, after_steps=2):
     return wall, {k: fn.launches for k, fn in kernel_wrappers().items()}, allr
 
 
-def serving_steady(torch, batcher, clock, clips) -> dict:
+def serving_steady(torch, batcher, clock, clips, sampling=None) -> dict:
     """A pool's decode step with every slot decoding and nothing to
     admit: a burst of ``clips`` admitted, two segments enqueued, then
     SERVING_STEADY_STEPS scheduler steps timed (wall on the host clock:
@@ -2490,7 +2646,7 @@ def serving_steady(torch, batcher, clock, clips) -> dict:
 
     from qwen3_asr_rs_tpu_torch.runtime.serving import Request
 
-    reqs = [Request(c) for c in clips]
+    reqs = [Request(c, **(sampling or {})) for c in clips]
     for r in reqs:
         batcher.submit(r)
     batcher.step(block_timeout=0.001)
@@ -2637,11 +2793,12 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     write_wav(tmp / "clip_120s.wav", 120, 8)
     clips[120] = load_audio(tmp / "clip_120s.wav", 16000)
 
-    def check(label, got, steps, k5_steps=0):
+    def check(label, got, steps, k5_steps=0, draws=0):
         want = {"decode_layers_fused": 0, "decode_attention_dma": L * steps,
                 "flash_attention": 0, "quant_matvec_int4": 0,
                 "quant_matmul": (4 * L + 1) * k5_steps,
-                "decode_attention_slab": 0, "decode_attention": 0}
+                "decode_attention_slab": 0, "decode_attention": 0,
+                "gumbel_argmax": draws, "threefry_noise": 0}
         check_launches(f"serving {label}", got, want)
         launches[f"serving {label}"] = got
         for k in SERVING_KERNELS:
@@ -2753,7 +2910,10 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     burst = [Request(clips[c]) for c in SERVING_BURST]
     sampled = Request(clips[4], **SERVING_SAMPLED)
     wall, got, reqs = serving_burst(torch, b, clock, burst, mid=sampled)
-    check("bf16 8 slots burst", got, b.stats["steps"])
+    # a draw per step of the sampled segments, and the sampled request's
+    # admission draw
+    check("bf16 8 slots burst", got, b.stats["steps"],
+          draws=b.stats["sampled_steps"] + 1)
     row = row_of("bf16 8 slots burst", b, clock, wall, got, reqs, base,
                  {**warm, "clip_seconds": list(SERVING_BURST) + [4],
                   "sampled": SERVING_SAMPLED,
@@ -2776,6 +2936,11 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     emit({"phase": "serving", "case": "bf16 8 slots steady",
           **serving_steady(torch, b, clock, [clips[4]] * 8),
           "admission_4s": serving_admission(torch, b, clips[4]),
+          "card": card})
+    emit({"phase": "serving", "case": "bf16 8 slots sampled steady",
+          "sampled": SERVING_SAMPLED,
+          **serving_steady(torch, b, clock, [clips[4]] * 8,
+                           SERVING_SAMPLED),
           "card": card})
 
     # 3. the HTTP server on this pool's engine: healthz, /transcribe and
@@ -3222,7 +3387,8 @@ def spec_expected(target_quant, draft, lt: int, ld: int, k: int):
     int4 draft's lm_head there (K4), an int8 lm_head alone (K5)."""
     names = ("decode_layers_fused", "decode_attention_dma",
              "flash_attention", "quant_matmul", "quant_matvec_int4",
-             "decode_attention_slab", "decode_attention")
+             "decode_attention_slab", "decode_attention", "gumbel_argmax",
+             "threefry_noise")
     pre, per = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
     per["decode_layers_fused"] = k + 1
     per["decode_attention_dma"] = ld * (k + 1)
@@ -3561,7 +3727,17 @@ def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
             spec_breakdown(torch, engine, audio[SPEC_CLIPS[-1]], card)
             # speculative sampling on the self-draft
             sp = SamplingParams(seed=0, **SPEC_SAMPLED)
-            s1, st1, _ = spec_run(torch, engine, audio[4], sampling=sp)
+            s1, st1, got1 = spec_run(torch, engine, audio[4], sampling=sp)
+            # draws: the prefill's, then per iteration k + 1 draft steps
+            # and the accept's replacement (the draw kernel) and its
+            # acceptance uniforms (threefry_noise)
+            runs = st1["iterations_run"]
+            draws = {"gumbel_argmax": 1 + runs * (SPEC_K + 2),
+                     "threefry_noise": runs}
+            if {n: got1[n] for n in draws} != draws:
+                raise AssertionError(f"speculative sampling: draws "
+                                     f"{got1}, expected {draws}")
+            launches["spec 0.6B bf16 draft sampled"] = got1
             s2, _, _ = spec_run(torch, engine, audio[4], sampling=sp)
             s_e, _, _ = spec_run(torch, engine, audio[4], graphs=False,
                                  sampling=sp)
@@ -5000,11 +5176,12 @@ def main() -> int:
 
     summary = []
     for name in SOURCES:
-        # K6's row covers its two entries
-        names = ((name, "decode_attention") if name == "decode_attention_slab"
-                 else (name,))
+        # K6's row covers its two entries, the draw kernel's its noise entry
+        names = {"decode_attention_slab": (name, "decode_attention"),
+                 "gumbel_argmax": (name, "threefry_noise")}.get(name, (name,))
         rows = [r for r in kernel_rows if r["kernel"] in names
-                and r["dtype"].startswith("bfloat16")]
+                and (r["dtype"].startswith("bfloat16")
+                     or name == "gumbel_argmax")]
         head = next((r for r in rows if r.get("headline")), rows[0])
         by_path = {p: sum(c[n] for n in names) for p, c in launches.items()
                    if any(c[n] for n in names)}
@@ -5032,6 +5209,12 @@ def main() -> int:
                                        if r["kernel"] == "k1_launches"}
         if name == "quant_matmul":
             row.update(k5_summary(rows))
+        if name == "gumbel_argmax":  # float32 logits on every path
+            row["launches_by_entry"] = {
+                n: sum(c[n] for c in launches.values()) for n in names}
+            row["ms_by_case"] = {r["case"]: {
+                k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+                for r in rows}
         if name in serving_per_step:
             row["launches_per_serving_step"] = serving_per_step[name]
         row["launches_per_stream_update"] = {

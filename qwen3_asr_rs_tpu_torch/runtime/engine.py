@@ -29,8 +29,10 @@ tokens: mel and the encoder loop over the batch's clips instead of
 ``vmap``; slabs round up to 8 slots, not the JAX engine's 8/128 (masks
 make the output independent of the slab length); the loop stops one
 decode step earlier at the cap (the JAX loop's last step makes a token
-it discards); sampled draws come from a counter-based hash, not JAX's
-random stream. Weight quantization follows the JAX engine's
+it discards). Sampled draws are JAX's: ``prng_key(seed)``, the prefill's
+token at ``fold_in(key, 0)``, step i's at ``fold_in(key, step + 1)``
+(``ops/prng.py``), so a seed gives the JAX engine's tokens. Weight
+quantization follows the JAX engine's
 ``quantize=`` modes 'int8', 'int4', 'int4g' (group-wise int4,
 ``ASR_INT4_GROUP``) and 'lm8' (with ``ASR_MERGE_QKV`` and
 ``ASR_LM_BITS``), the KV slab its ``kv_dtype=`` 'bf16' (the compute
@@ -63,7 +65,8 @@ same full weights and makes the same call. Under dp each rank takes rows
 lone utterance too) through the whole single-device path, kernels, CUDA
 graphs and every quantization included, with no collective, and the
 results are gathered so that every rank returns the whole list in
-order; a sampled row draws as its row of the whole batch. Under tp the
+order; a sampled rank draws with ``fold_in(key, dp rank)`` over its own
+rows, as JAX's shard_map does. Under tp the
 weights are Megatron shards (``parallel/sharding.py``) and the decoder
 (and the encoder, where its heads divide) insert their collectives; the
 decode kernel is declined, as in JAX, and the loop runs eagerly (gloo
@@ -98,6 +101,7 @@ from ..features.mel import (
 from ..models.audio_encoder import AudioEncoder
 from ..models.text_decoder import KVCache, TextDecoder
 from ..ops.kernels.decode_layer import int4g_group_supported
+from ..ops.prng import KeyChain, fold_in, prng_key
 from ..parallel.comm import mesh_axis
 from ..parallel.mesh import mesh_dims
 from ..parallel.sharding import (
@@ -617,13 +621,12 @@ class AsrEngine:
         return self._states[b]
 
     def _step_fn(self, st: "_DecodeState", cache: KVCache, aligned: bool,
-                 sampling: SamplingParams, row0: int = 0):
+                 sampling: SamplingParams):
         """One decode step over the device state (the body of the JAX
         engine's loop, ``engine.py:731-771``): step ``st.step`` writes slot
         ``st.base + st.step`` (base: the prompt length, or the prompt
         bucket P of a right-aligned batch), and its token, the greedy one
-        or a draw keyed by the token's index (and by the row's index
-        ``row0`` + b in the whole batch), is appended."""
+        or JAX's draw at ``fold_in(st.key, step + 1)``, is appended."""
         dec, params = self.decoder, self.dec_params
         sample = not sampling.greedy
 
@@ -635,8 +638,8 @@ class AsrEngine:
                         params, st.tok, slot, st.kv_start, cache)
                 else:
                     logits, _ = dec.decode_step(params, st.tok, slot, cache)
-                tok = sample_token(logits, st.seed, st.step + 1, st.temp,
-                                   sampling.top_k, sampling.top_p, row0=row0)
+                tok = sample_token(logits, KeyChain(st.key, ((st.step, 1),)),
+                                   st.temp, sampling.top_k, sampling.top_p)
             elif aligned:
                 tok, _ = dec.decode_step_aligned_token(
                     params, st.tok, slot, st.kv_start, cache)
@@ -669,13 +672,13 @@ class AsrEngine:
                   languages: Sequence[Optional[str]], live: np.ndarray,
                   sampling: Optional[SamplingParams] = None,
                   warmup: bool = False, aligned: Optional[bool] = None,
-                  row0: int = 0) -> list[list[int]]:
+                  dp_rank: Optional[int] = None) -> list[list[int]]:
         """Token ids (EOS excluded) for B utterances: one prefill (B = 1
         ``prefill``, else ``prefill_batch``) into the first stage's slab
         and the decode loop on device state. Rows with ``live`` False are
         born done and emit nothing. ``aligned`` (default B > 1) and
-        ``row0``: a dp rank's rows, right-aligned as rows of the whole
-        batch and drawing as rows [row0, row0 + B) of it.
+        ``dp_rank``: a dp rank's rows, right-aligned as rows of the whole
+        batch, drawing with ``fold_in(key, dp_rank)`` (JAX's shard_map).
 
         The loop runs in stages of growing slabs (``_segment_caps``),
         each of up to cap - 1 decode steps (max_new_tokens - 1 in all);
@@ -722,12 +725,12 @@ class AsrEngine:
         else:
             logits, _, base = self.prefill(samples_list[0], languages[0],
                                            cache)
-        st.start(live, base, sampling)
+        st.start(live, base, sampling, dp_rank)
         if sampling.greedy:
             tok0 = torch.argmax(logits, dim=-1)
-        else:  # the prefill's token takes draw 0
-            tok0 = sample_token(logits, st.seed, 0, st.temp, sampling.top_k,
-                                sampling.top_p, row0=row0)
+        else:  # the prefill's token: fold_in(key, 0)
+            tok0 = sample_token(logits, KeyChain(st.key, (0,)), st.temp,
+                                sampling.top_k, sampling.top_p)
         st.append(tok0)
         cuda = self.device.type == "cuda"
         # tp steps run eagerly: their collectives are not captured
@@ -756,7 +759,7 @@ class AsrEngine:
                 stop = min(cap, total)
                 if steps >= stop or (all_done and not warmup):
                     continue
-                fn = self._step_fn(st, cache, aligned, sampling, row0)
+                fn = self._step_fn(st, cache, aligned, sampling)
                 graph = None
                 if graphs:  # the first stage's graphs are kept
                     key = (self._graph_key(b, cache, aligned, sampling)
@@ -834,7 +837,8 @@ class AsrEngine:
         ``_spec_sample_loop``, ``:1023-1152``). The pending token ``tok``
         sits at slot pos = base + step. The draft decodes k + 1 tokens
         from it over its slab (greedy steps, or sampled from its filtered
-        distributions q_i on streams 2 + i of counter iters + 1); the k + 1
+        distributions q_i, step i at JAX's ``fold_in(key_it, 2 + i)``, key_it
+        = ``fold_in(key, iters + 1)``); the k + 1
         steps keep the draft slab's slot pos + k valid when all k drafts
         are accepted. The target scores [tok, d_1..d_k] at pos
         (``score_chunk``). Greedy: the longest prefix with d_i equal to
@@ -863,15 +867,16 @@ class AsrEngine:
         def iteration():
             active = ~st.done[0] & (st.step < st.cap)
             pos = st.base + st.step
-            counter = st.iters + 1
+            key_it = (st.iters, 1)  # fold_in(key, iters + 1)
             tok, drafts, q = st.tok, [], []
             for i in range(k + 1):
                 if sample:
                     logits, _ = d_dec.decode_step(d_params, tok, pos + i,
                                                   dcache)
                     q.append(filtered_probs(logits[0], st.temp, top_k, top_p))
-                    tok = sample_token(logits, st.seed, counter, st.temp,
-                                       top_k, top_p, stream=2 + i)
+                    tok = sample_token(
+                        logits, KeyChain(st.key, (key_it, 2 + i)), st.temp,
+                        top_k, top_p)
                 else:
                     tok, _ = d_dec.decode_step_token(d_params, tok, pos + i,
                                                      dcache)
@@ -882,7 +887,7 @@ class AsrEngine:
                 logits, _ = dec.score_chunk(params, block[None], pos, cache,
                                             return_logits=True)
                 acc, nxt = speculative_accept(
-                    st.seed, counter, drafts, torch.stack(q[:k]),
+                    KeyChain(st.key, (key_it, 0)), drafts, torch.stack(q[:k]),
                     filtered_probs(logits[0], st.temp, top_k, top_p))
                 cand, nxt = block, nxt.reshape(1)
             else:
@@ -955,9 +960,10 @@ class AsrEngine:
         st.start(live, true_len, sampling)
         if sampling.greedy:
             st.tok.copy_(torch.argmax(logits, dim=-1))
-        else:  # the prefill's token takes draw 0
-            st.tok.copy_(sample_token(logits, st.seed, 0, st.temp,
-                                      sampling.top_k, sampling.top_p))
+        else:  # the prefill's token: fold_in(key, 0)
+            st.tok.copy_(sample_token(logits, KeyChain(st.key, (0,)),
+                                      st.temp, sampling.top_k,
+                                      sampling.top_p))
         cuda = self.device.type == "cuda"
         graphs = cuda and self.cuda_graphs
         if cuda:
@@ -1141,7 +1147,8 @@ class AsrEngine:
     def _generate_dp(self, samples_list, languages, live, sampling,
                      warmup: bool) -> list[list[int]]:
         """``_generate`` of this dp rank's rows [r n, (r + 1) n) (n = b /
-        dp), right-aligned and drawing as rows of the whole batch, then
+        dp), right-aligned as rows of the whole batch, sampled rows drawing
+        with ``fold_in(key, r)`` over the rank's own rows, then
         every rank's tokens gathered in row order: the whole batch's
         tokens on every rank. ``last_stats["n_gen"]`` holds every row's
         count; the rest of ``last_stats`` is this rank's."""
@@ -1150,7 +1157,8 @@ class AsrEngine:
         rows = slice(lo, lo + n)
         local = self._generate(samples_list[rows], languages[rows],
                                live[rows], sampling, warmup,
-                               aligned=len(samples_list) > 1, row0=lo)
+                               aligned=len(samples_list) > 1,
+                               dp_rank=self._dp.rank)
         parts = [None] * self._dp.size
         torch.distributed.all_gather_object(parts, local,
                                             group=self._dp.group)
@@ -1223,13 +1231,24 @@ def _env_key() -> tuple:
         "ASR_FOLD_LM", "ASR_DECODE_IMPL", "ASR_DECODE_ATTN"))
 
 
+def _start_key(key: torch.Tensor, sampling: SamplingParams,
+               dp_rank: Optional[int] = None) -> None:
+    """A sampled call's base key into the device state: JAX's
+    ``PRNGKey(seed)``, under dp ``fold_in`` of the rank (greedy calls draw
+    nothing and leave it)."""
+    if sampling.greedy:
+        return
+    k = prng_key(sampling.seed)
+    key.copy_(k if dp_rank is None else fold_in(k, dp_rank))
+
+
 @dataclasses.dataclass
 class _SpecState:
     """The speculative loop's device state (B = 1), at fixed addresses:
     the pending token, tokens emitted (n_gen == step), done and stop
     flags, the token buffer with k + 1 columns of slack for the last
     window, the live iterations and accepted drafts, and the per-call
-    inputs (the prompt length base, the stage's cap, seed,
+    inputs (the prompt length base, the stage's cap, the sampling key and
     temperature)."""
 
     tok: torch.Tensor       # (1,) int64
@@ -1242,7 +1261,7 @@ class _SpecState:
     accepted: torch.Tensor  # () int64, accepted drafts
     base: torch.Tensor      # () int64
     cap: torch.Tensor       # () int64
-    seed: torch.Tensor      # () int64
+    key: torch.Tensor       # (2,) int64, prng_key(seed)
     temp: torch.Tensor      # () float32
 
     @classmethod
@@ -1255,7 +1274,7 @@ class _SpecState:
                    step=torch.zeros((), **i64), iters=torch.zeros((), **i64),
                    accepted=torch.zeros((), **i64),
                    base=torch.zeros((), **i64), cap=torch.zeros((), **i64),
-                   seed=torch.zeros((), **i64),
+                   key=torch.zeros(2, **i64),
                    temp=torch.zeros((), dtype=torch.float32, device=device))
 
     def start(self, live: bool, base: int, sampling: SamplingParams) -> None:
@@ -1265,7 +1284,7 @@ class _SpecState:
         self.done.fill_(not live)
         self.stop.fill_(not live)
         self.base.fill_(base)
-        self.seed.fill_(sampling.seed)
+        _start_key(self.key, sampling)
         self.temp.fill_(sampling.temperature)
 
 
@@ -1275,7 +1294,7 @@ class _DecodeState:
     captured steps read and write it): the pending token, tokens emitted
     and done flag per row, the token buffer, the step counter, and the
     per-call inputs the steps read (the slot base, right-aligned rows'
-    first slots, the sampling seed and temperature)."""
+    first slots, the sampling key and temperature)."""
 
     tok: torch.Tensor       # (B,) int64
     n_gen: torch.Tensor     # (B,) int64
@@ -1284,7 +1303,8 @@ class _DecodeState:
     step: torch.Tensor      # () int64, decode steps run
     base: torch.Tensor      # () int64
     kv_start: torch.Tensor  # (B,) int32
-    seed: torch.Tensor      # () int64
+    key: torch.Tensor       # (2,) int64: prng_key(seed), a dp rank's
+    #                         fold_in(prng_key(seed), rank)
     temp: torch.Tensor      # () float32
 
     @classmethod
@@ -1295,17 +1315,17 @@ class _DecodeState:
                    out_buf=torch.zeros((b, max_new), **i64),
                    step=torch.zeros((), **i64), base=torch.zeros((), **i64),
                    kv_start=torch.zeros(b, dtype=torch.int32, device=device),
-                   seed=torch.zeros((), **i64),
+                   key=torch.zeros(2, **i64),
                    temp=torch.zeros((), dtype=torch.float32, device=device))
 
-    def start(self, live: np.ndarray, base: int,
-              sampling: SamplingParams) -> None:
+    def start(self, live: np.ndarray, base: int, sampling: SamplingParams,
+              dp_rank: Optional[int] = None) -> None:
         """Reset for a call: no token emitted, rows not ``live`` done."""
         self.n_gen.zero_()
         self.step.zero_()
         self.done.copy_(torch.from_numpy(~live))
         self.base.fill_(base)
-        self.seed.fill_(sampling.seed)
+        _start_key(self.key, sampling, dp_rank)
         self.temp.fill_(sampling.temperature)
 
     def append(self, tok) -> None:

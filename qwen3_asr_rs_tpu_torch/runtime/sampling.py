@@ -7,28 +7,15 @@ disabled filter adds no work: a nucleus filter is a full-vocabulary
 sort per step), ``temperature`` a scalar or a per-row (B,) tensor, and
 rows at temperature <= 0 take the argmax inside the same step.
 
-Random draws. torch cannot reproduce JAX's random stream, so the draws
-are counter-based instead: each (seed, counter, row, column) is hashed
-with integer tensor ops (``draw_bits``) into 32 random bits (seed and
-counter may be per row, as a serving scheduler's slots need), and a token
-is drawn by Gumbel-max over the filtered logits, as
-``jax.random.categorical`` draws. The engine's counter is the token's
-index in the transcript (the prefill's token 0, decode step i's token
-i + 1), the counter of JAX's ``fold_in(base_key, step + 1)``. The hash
-needs no generator state, so a step captured in a CUDA graph draws
-afresh at every replay from the device counter that the graph advances;
-and it runs on int64 values below 2^63 only (no signed wrap-around), so
-the CPU and the card give the same bits.
-
-Speculative sampling (the engine's ``_spec_generate``) maps JAX's keys
-(``fold_in(base_key, it + 1)`` per iteration, ``fold_in(key_it, 2 + i)``
-per draft step, ``fold_in(key_it, 0)`` for the accept) onto the same
-hash: the prefill's token is counter 0; iteration ``it`` is counter
-``it + 1``, its draft step i draws on stream ``2 + i``, and
-``speculative_accept`` at that counter keeps streams 0 (the acceptance
-uniforms) and 1 (the replacement or bonus token). Iterations, not
-tokens, key the draws: an iteration emits a data-dependent number of
-tokens.
+Random draws come from JAX's own threefry stream (``ops/prng.py``), so a
+seed gives the JAX package's tokens: ``sample_token(logits, key, ...)``
+and ``speculative_accept(key, ...)`` take JAX's keys and draw as JAX's
+functions do. A key is a (2,) key tensor or a ``prng.KeyChain`` (a base
+key on the device and the ``fold_in`` data to apply), whose key the
+draw kernel derives itself: a step captured in a CUDA graph draws with
+the key of the step counter it advances. On CUDA every draw runs the
+threefry Gumbel-max kernel (``ops/kernels/gumbel_argmax.py``); on the
+CPU its plain version, ``prng.categorical``.
 """
 
 from __future__ import annotations
@@ -37,6 +24,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from ..ops.kernels.gumbel_argmax import gumbel_argmax, threefry_noise
+from ..ops.prng import KeyChain, as_chain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,89 +66,6 @@ def normalize(params: Optional[SamplingParams]) -> SamplingParams:
     if params is None:
         return SamplingParams()
     return params.validate()
-
-
-# ---- counter-based random bits ---------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """(x * c) mod 2^32 for int64 x in [0, 2^32): the constant split in
-    16-bit halves keeps every product below 2^48."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _mix32(x):
-    """A 32-bit finalizer (lowbias32: xorshift-multiply, 2 rounds) on
-    int64 values in [0, 2^32)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _as_i64(v, device):
-    if isinstance(v, torch.Tensor):
-        return v.to(device=device, dtype=torch.int64)
-    return torch.tensor(int(v), dtype=torch.int64, device=device)
-
-
-def draw_bits(seed, counter, rows: int, cols: int, device="cpu",
-              stream: int = 0, row0: int = 0):
-    """(rows, cols) int64 random 32-bit values, a pure function of
-    (seed, counter, stream, row, column). ``seed`` and ``counter`` are
-    ints or 0-d integer tensors (a device counter stays on the device);
-    ``stream`` separates independent draws at one counter (JAX's
-    ``fold_in(key, stream)``).
-
-    Per-row keys: either may also be a (rows,) tensor, one seed and
-    counter per row (the serving scheduler's slots). Row r's bits are
-    then a function of (seed[r], counter[r], stream, column) alone, the
-    bits a scalar call with that seed and counter gives its row 0: where
-    a row sits in the batch does not enter them.
-
-    ``row0``: the index of the first row (scalar keys): a data-parallel
-    rank's rows draw as rows [row0, row0 + rows) of the whole batch."""
-    seed = _as_i64(seed, device)
-    counter = _as_i64(counter, device)
-    k = _mix32((seed & _M32) ^ _mix32((seed >> 32) & _M32))
-    k = _mix32(k ^ _mix32(counter & _M32))
-    k = _mix32(k ^ stream)
-    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
-    if k.ndim:  # per-row keys: every row draws as row 0
-        row = torch.zeros_like(row)
-    k = _mix32(k ^ _mix32(row))[:, None]  # (rows, 1)
-    col = torch.arange(cols, dtype=torch.int64, device=device)
-    return _mix32(k ^ col[None, :])
-
-
-def uniforms(seed, counter, rows: int, cols: int, device="cpu",
-             stream: int = 0, row0: int = 0):
-    """(rows, cols) float32 uniforms in (0, 1) from ``draw_bits``
-    (``unit_from_bits``)."""
-    return unit_from_bits(draw_bits(seed, counter, rows, cols, device, stream,
-                                    row0))
-
-
-def unit_from_bits(bits):
-    """float32 values strictly inside (0, 1) from 32-bit ints: the top 23
-    bits, centred in their interval. Each value is exact in float32; 24
-    bits would round the largest to 1.0, whose Gumbel noise
-    -log(-log(u)) is +inf (and NaN at a filtered -inf logit), so that
-    ``argmax`` would take a token the filters removed."""
-    return ((bits >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
-
-
-def _gumbel_argmax(logits, seed, counter, stream: int = 0, row0: int = 0):
-    """argmax(logits + Gumbel noise) per row of (B, V) logits: a draw from
-    softmax(logits) (-inf entries are never drawn)."""
-    b, v = logits.shape
-    u = uniforms(seed, counter, b, v, logits.device, stream, row0)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 # ---- filters ---------------------------------------------------------
@@ -210,26 +117,27 @@ def _scaled(logits, temperature, top_k: int, top_p):
     return logits, temp, apply_top_p(scaled, top_p)
 
 
-def sample_token(logits, seed, counter, temperature, top_k: int = 0,
-                 top_p=1.0, stream: int = 0, row0: int = 0):
-    """One decode-step sample: (B, V) or (V,) logits -> int64 ids.
+def sample_token(logits, key, temperature, top_k: int = 0, top_p=1.0,
+                 row_offset=0):
+    """One decode-step sample: (B, V) or (V,) logits -> int64 ids, JAX's
+    ``sample_token``: ``categorical(key, top_p(top_k(logits / T)))``.
 
-    ``seed``/``counter`` key the draw (``draw_bits``; the engine's counter
-    is the token index, a speculative draft step's its iteration and
-    ``stream`` 2 + i): scalars, or (B,) tensors of per-row keys.
-    ``temperature`` may be a scalar or a per-row (B,) tensor; rows with
-    temperature <= 0 take the argmax. As in JAX,
-    the top-k filter keeps every logit tied with the k-th, so ``top_k =
-    1`` draws among tied largest logits where greedy takes the lowest
-    index. ``row0``: the first row's index in the whole batch
-    (``draw_bits``). Returns ids with the logits' leading shape.
+    ``key``: a key tensor or a ``prng.KeyChain`` (JAX's key for the step,
+    e.g. ``fold_in(base, step + 1)``). ``temperature`` may be a scalar or
+    a per-row (B,) tensor; rows with temperature <= 0 take the argmax. As
+    in JAX, the top-k filter keeps every logit tied with the k-th, so
+    ``top_k = 1`` draws among tied largest logits where greedy takes the
+    lowest index. ``row_offset``: the rows draw as rows ``row_offset +
+    r`` of a wider array (or as rows ``row_offset[r]``, a (B,) int64
+    tensor), the rows a rank holds of JAX's whole (B, V) draw. Returns
+    ids with the logits' leading shape.
     """
     squeeze = logits.ndim == 1
     if squeeze:
         logits = logits[None]
     greedy = torch.argmax(logits, dim=-1)
     logits, temp, scaled = _scaled(logits, temperature, top_k, top_p)
-    sampled = _gumbel_argmax(scaled, seed, counter, stream, row0)
+    sampled = gumbel_argmax(scaled, key, row_offset)
     out = torch.where(temp > 0, sampled, greedy)
     return out[0] if squeeze else out
 
@@ -240,7 +148,7 @@ def filtered_probs(logits, temperature, top_k: int = 0, top_p=1.0):
     return torch.softmax(_scaled(logits, temperature, top_k, top_p)[2], -1)
 
 
-def speculative_accept(seed, counter, drafts, q_probs, p_probs):
+def speculative_accept(key, drafts, q_probs, p_probs):
     """Rejection step of speculative sampling (Leviathan/Chen et al.).
 
     ``drafts``: (k,) proposals d_1..d_k drawn from the draft
@@ -251,14 +159,17 @@ def speculative_accept(seed, counter, drafts, q_probs, p_probs):
     residual norm(max(p_r - q_r, 0)), and when all k are accepted the
     bonus token is drawn from p_{k+1}. Returns (acc, next_token), 0-d
     int64 tensors: next_token is distributed as sequential sampling from
-    the target. (seed, counter) key the draws: stream 0 the acceptance
-    uniforms, stream 1 the replacement. ``acc`` selects rows by
-    ``index_select``, never by a 0-d index (which reads it on the host),
-    so that a CUDA graph can capture the step.
+    the target. ``key`` (a key tensor or ``prng.KeyChain``) keys the
+    draws as JAX's: ``uniform(fold_in(key, 0), (k,))`` for the
+    acceptance, ``categorical(fold_in(key, 1), ...)`` for the
+    replacement. ``acc`` selects rows by ``index_select``, never by a 0-d
+    index (which reads it on the host), so that a CUDA graph can capture
+    the step.
     """
     k = drafts.shape[0]
     dev = p_probs.device
-    u = uniforms(seed, counter, 1, k, dev, stream=0)[0]
+    chain = as_chain(key)
+    u = threefry_noise(_fold(chain, 0), (1, k), "uniform", device=dev)[0]
     ar = torch.arange(k, device=dev)
     d = drafts.long()
     pi, qi = p_probs[ar, d], q_probs[ar, d]
@@ -276,4 +187,9 @@ def speculative_accept(seed, counter, drafts, q_probs, p_probs):
     probs = torch.where(total > 1e-12, res / torch.clamp(total, min=1e-30),
                         p_acc)
     logp = torch.log(torch.clamp(probs, min=1e-30))[None]
-    return acc, _gumbel_argmax(logp, seed, counter, stream=1)[0]
+    return acc, gumbel_argmax(logp, _fold(chain, 1))[0]
+
+
+def _fold(chain: KeyChain, data) -> KeyChain:
+    """``fold_in(chain, data)``, still as a chain."""
+    return KeyChain(chain.base, chain.data + (data,))

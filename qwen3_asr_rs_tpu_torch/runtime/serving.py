@@ -30,8 +30,8 @@ decode slots over one shared KV slab instead:
     requests need.
 
 The decode state lives on the device at fixed addresses: pending token,
-position, done flag, temperature, top_p, sampling seed, tokens emitted
-and token cap per slot, and the segment's (slots, steps) token buffer.
+position, done flag, temperature, top_p, tokens emitted and token cap per
+slot, the pool's PRNG key and the segment's (slots, steps) token buffer.
 Admissions, ``_set_slot_state`` and ``_finish`` write into these tensors
 in place, on the stream, before the next segment is enqueued. On CUDA
 each (variant, precision) segment is one CUDA graph of ``segment_steps``
@@ -42,16 +42,23 @@ k's outputs are read. Each segment's outputs are copied into a ring of
 two pinned host buffers with an event, and the host drains from that
 ring (a replay overwrites the graph's own buffers).
 
+Sampled draws are JAX's (``ops/prng.py``): the pool keeps one key chain
+from ``prng_key(ASR_SAMPLING_SEED)``; each step of a sampled or nucleus
+segment splits it (``key, sub = split(key)``, inside the draw kernel)
+and draws over the whole (slots, V) logits with ``sub``, each slot at its
+row; greedy segments leave it alone. Each admission (a monolithic or
+batched prefill, and each chunk of a chunked one) takes ``fold_in(base,
+n)`` for its n-th key, a batched admission's rows drawing at their rows
+of the padded batch. So, as in JAX, a sampled request's tokens depend on
+its slot and on the sampled steps the pool ran before it.
+
 Differences from the JAX scheduler, none of which changes a transcript:
 each slot also carries its token cap on the device and stops at it (JAX
 decodes past the cap until the host's next drain and drops the extra
 tokens), so no slot ever writes past ``prompt bucket + max_new`` and the
-slab needs no 8/128 alignment (a Mosaic artifact); sampled draws are
-keyed per request by (``ASR_SAMPLING_SEED``, the request's admission
-number, the token's index in its transcript), JAX's ``fold_in(base_key,
-admit_seq)``, so that the slot a request lands in and its neighbours do
-not change its tokens; mel and the encoder loop over a batch's clips;
-admissions run eagerly (once per request: no graph). With a batcher on
+slab needs no 8/128 alignment (a Mosaic artifact); mel and the encoder
+loop over a batch's clips; admissions run eagerly (once per request: no
+graph). With a batcher on
 the engine, the engine's kept first-stage slabs and graphs are freed:
 the batcher owns its slab.
 
@@ -88,6 +95,7 @@ from ..models.text_decoder import KVCache, TextDecoder
 from ..parallel.comm import all_gather, broadcast_from_lead, is_lead
 from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID
 from .cuda_graph import StepGraph, capture
+from ..ops.prng import KeyChain, prng_key
 from .engine import AsrEngine, TranscribeResult
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
 from .sampling import sample_token
@@ -95,15 +103,6 @@ from .sampling import sample_token
 logger = logging.getLogger(__name__)
 
 PAD_TOKEN = -1  # out-buffer filler (never a valid token id)
-_M31 = 0x7FFFFFFF
-_M32 = 0xFFFFFFFF
-
-
-def request_seed(base: int, admit_seq: int) -> int:
-    """The sampling seed of a request: the pool's base seed (its low 31
-    bits) and the request's admission number (low 32 bits) in one
-    non-negative int64, as JAX's ``fold_in(base_key, admit_seq)``."""
-    return ((base & _M31) << 32) | (admit_seq & _M32)
 
 
 def _write_slot_rows(slab: KVCache, tmp: KVCache, slots) -> None:
@@ -168,7 +167,6 @@ class _Slot:
     request: Optional[Request] = None
     tokens: list = dataclasses.field(default_factory=list)
     max_new: int = 0
-    seed: int = 0  # request_seed of the admitted request
 
     @property
     def active(self) -> bool:
@@ -355,11 +353,14 @@ class ContinuousBatcher:
         self.d_done = torch.ones(n_local, dtype=torch.bool, device=dev)
         self.d_temp = torch.zeros(n_local, dtype=torch.float32, device=dev)
         self.d_topp = torch.ones(n_local, dtype=torch.float32, device=dev)
-        self.d_seed = torch.zeros(n_local, **i64)
         self.d_count = torch.zeros(n_local, **i64)  # tokens emitted
         self.d_cap = torch.zeros(n_local, **i64)    # tokens allowed
         self.d_out = torch.full((n_local, segment_steps), PAD_TOKEN, **i64)
-        self._base_seed = int(os.environ.get("ASR_SAMPLING_SEED", "0"))
+        # the pool's PRNG key chain (JAX's): the base key, whose fold_ins
+        # key the admissions, and the chain head the sampled segments split
+        self.d_base = prng_key(
+            int(os.environ.get("ASR_SAMPLING_SEED", "0"))).to(dev)
+        self.d_key = self.d_base.clone()
         self._admit_seq = 0
         # host mirrors for scheduling decisions (lag by one segment)
         self.tok = np.zeros(n_slots, np.int64)
@@ -381,9 +382,10 @@ class ContinuousBatcher:
                 for _ in range(2)
             ]
             self._ring_i = 0
-        # what ran: decode segments and steps, graph replays and captures
-        self.stats = {"segments": 0, "steps": 0, "replays": 0,
-                      "captures": 0}
+        # what ran: decode segments and steps (those of sampled or nucleus
+        # segments, one draw each, apart), graph replays and captures
+        self.stats = {"segments": 0, "steps": 0, "sampled_steps": 0,
+                      "replays": 0, "captures": 0}
         # the segment variants run, and the (bucket, padded size) pairs of
         # batched admission (warmup covers every one live traffic needs)
         self.variants_run: set = set()
@@ -439,18 +441,17 @@ class ContinuousBatcher:
                 hidden, (0, 0, 0, p_len - hidden.shape[1]))
         return hidden
 
-    def _first_tokens(self, logits, seeds, temps, topps):
-        """Each admitted row's first token (token index 0): the argmax,
-        or a draw keyed by its request's seed."""
+    def _first_tokens(self, logits, key: KeyChain, temps, topps, rows):
+        """Each admitted row's first token: the argmax, or JAX's draw with
+        the admission's ``key`` under the per-row top_p filter (applied
+        whenever a row samples, as JAX's admission graphs do), row j
+        drawing as row ``rows[j]`` of the admitted batch."""
         if not any(t > 0 for t in temps):
             return torch.argmax(logits, dim=-1)
-        nucleus = any(t > 0 and p < 1 for t, p in zip(temps, topps))
         return sample_token(
-            logits, self._to_device(np.asarray(seeds, np.int64)),
-            torch.zeros(len(seeds), dtype=torch.int64, device=logits.device),
-            self._to_device(np.asarray(temps, np.float32)),
-            top_p=self._to_device(np.asarray(topps, np.float32))
-            if nucleus else 1.0)
+            logits, key, self._to_device(np.asarray(temps, np.float32)),
+            top_p=self._to_device(np.asarray(topps, np.float32)),
+            row_offset=self._to_device(np.asarray(rows, np.int64)))
 
     def _local(self, slot_idx: int) -> Optional[int]:
         """Slot ``slot_idx``'s row in this rank's slab and device state, or
@@ -499,18 +500,18 @@ class ContinuousBatcher:
         ids[: len(prompt)] = prompt
         return bucket, wave, n_true, ids, len(prompt)
 
-    def _next_seed(self) -> int:
-        """A fresh admission number's sampling seed."""
+    def _next_admit_key(self) -> KeyChain:
+        """The key of the next admission prefill: JAX's ``fold_in(base,
+        n)`` for the n-th (every rank counts every admission)."""
         self._admit_seq += 1
-        return request_seed(self._base_seed, self._admit_seq)
+        return KeyChain(self.d_base, (self._admit_seq,))
 
     def _occupy(self, slot_idx: int, req: Request) -> _Slot:
-        """Hand slot ``slot_idx`` to ``req`` with a fresh seed."""
+        """Hand slot ``slot_idx`` to ``req``."""
         slot = self.slots[slot_idx]
         slot.request = req
         slot.tokens = []
         slot.max_new = min(req.max_new_tokens or self.max_new, self.max_new)
-        slot.seed = self._next_seed()
         return slot
 
     def _admit_monolithic(self, slot_idx, req, bucket, wave, n_true, ids,
@@ -540,9 +541,11 @@ class ContinuousBatcher:
         (``pad``: padded to a power of two by repeating the first) run
         the encoder, injection and one left-aligned prefill, each row's
         cache copied into its slot; then every slot's decode state is
-        set."""
+        set. The admission takes one key; row j draws as row j of the
+        padded batch."""
         for slot_idx, req, _ in items:
             self._occupy(slot_idx, req)
+        key = self._next_admit_key()
         rows = [it for it in items if self._local(it[0]) is not None]
         tok0 = {}
         if rows:
@@ -565,9 +568,9 @@ class ContinuousBatcher:
             _write_slot_rows(self.cache, tmp,
                              [self._local(s) for s, _, _ in rows])
             first = self._first_tokens(
-                logits, [self.slots[s].seed for s, _, _ in rows],
-                [r.temperature for _, r, _ in rows],
-                [r.top_p for _, r, _ in rows])
+                logits, key, [r.temperature for _, r, _ in rows],
+                [r.top_p for _, r, _ in rows],
+                [items.index(it) for it in rows])
             for j, (slot_idx, _, _) in enumerate(rows):
                 tok0.setdefault(slot_idx, first[j])
         for slot_idx, req, prep in items:
@@ -575,7 +578,7 @@ class ContinuousBatcher:
             self._set_slot_state(
                 slot_idx, tok0.get(slot_idx, 0), prep[4], False,
                 temperature=req.temperature, top_p=req.top_p,
-                seed=slot.seed, cap=slot.max_new,
+                cap=slot.max_new,
             )
         logger.debug("admitted %d request(s) into slots %s (bucket %d)",
                      len(items), [i for i, _, _ in items], items[0][2][0])
@@ -674,10 +677,13 @@ class ContinuousBatcher:
 
     @torch.inference_mode()
     def _advance_prefill(self, slot_idx: int) -> None:
-        """Run ONE bounded prefill chunk; commit to the slab when done."""
+        """Run ONE bounded prefill chunk; commit to the slab when done.
+        Every chunk takes an admission key, as JAX's chunk graph does; the
+        last one's draws the first token."""
         job = self.prefilling[slot_idx]
         slot = self.slots[slot_idx]
         req = slot.request
+        key = self._next_admit_key()
         c = self.prefill_chunk_tokens
         true_in = min(c, job.prompt_len - job.cursor)
         if job.hidden is not None:  # this rank's slot
@@ -690,22 +696,21 @@ class ContinuousBatcher:
         if job.cursor >= job.prompt_len:
             tok0 = 0
             if job.hidden is not None:
-                tok0 = self._first_tokens(logits, [slot.seed],
-                                          [req.temperature], [req.top_p])[0]
+                tok0 = self._first_tokens(logits, key, [req.temperature],
+                                          [req.top_p], [0])[0]
                 _write_slot_rows(self.cache, job.tmp,
                                  [self._local(slot_idx)])
             self._set_slot_state(
                 slot_idx, tok0, job.prompt_len, False,
                 temperature=req.temperature, top_p=req.top_p,
-                seed=slot.seed, cap=slot.max_new,
+                cap=slot.max_new,
             )
             del self.prefilling[slot_idx]
             logger.debug("slot %d prefill committed (%d prompt tokens)",
                          slot_idx, job.prompt_len)
 
     def _set_slot_state(self, i, tok0, pos0, done, temperature: float = 0.0,
-                        top_p: float = 1.0, seed: int = 0,
-                        cap: int = 0) -> None:
+                        top_p: float = 1.0, cap: int = 0) -> None:
         """Write one slot's decode state into the device tensors (where
         this rank holds the slot), in place and on the stream, before the
         next segment is enqueued, and into the host mirror.
@@ -721,7 +726,6 @@ class ContinuousBatcher:
             self.d_done[j] = bool(done)
             self.d_temp[j] = temperature
             self.d_topp[j] = top_p
-            self.d_seed[j] = seed
             self.d_count[j] = 0
             self.d_cap[j] = cap
         self.tok[i] = 0
@@ -777,7 +781,8 @@ class ContinuousBatcher:
 
         ``variant``: "greedy" (argmax), "sample" (per-row temperature; 0
         takes the argmax) or "nucleus" (also the per-row top_p filter).
-        Draws are keyed by each slot's seed and its token index."""
+        A sampled step splits the pool's key chain and draws with the
+        subkey over every slot, this rank's at their rows of the pool."""
         dec = self.decoder
         eos0, eos1 = ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID
         tok, pos, done, count = (self.d_tok, self.d_pos, self.d_done,
@@ -794,8 +799,10 @@ class ContinuousBatcher:
                     ntok = torch.argmax(logits, dim=-1)
                 else:
                     ntok = sample_token(
-                        logits, self.d_seed, count, self.d_temp,
-                        top_p=self.d_topp if variant == "nucleus" else 1.0)
+                        logits, KeyChain(self.d_key, then_split=True),
+                        self.d_temp,
+                        top_p=self.d_topp if variant == "nucleus" else 1.0,
+                        row_offset=self._lo)
                 tok.copy_(torch.where(stop, tok, ntok))
                 pos.add_((~stop).to(torch.int64))
                 done.copy_(stop)
@@ -839,6 +846,8 @@ class ContinuousBatcher:
             fn()
         self.stats["segments"] += 1
         self.stats["steps"] += self.segment_steps
+        if variant != "greedy":
+            self.stats["sampled_steps"] += self.segment_steps
         state = (self.d_out, self.d_tok, self.d_pos, self.d_done)
         if self._dp is not None:  # every slot's outputs, on every rank
             state = self._gather_state(state)
@@ -897,22 +906,24 @@ class ContinuousBatcher:
 
     def _take(self, block_timeout: Optional[float]) -> list:
         """The queued requests to admit now: one per free slot, in queue
-        order; with ``block_timeout`` (an idle pool) wait that long for the
-        first. On a mesh the lead rank takes them and broadcasts them
-        (with a stop request, ``request_stop``) to every rank, whose
-        copies stand in for them."""
+        order; with ``block_timeout`` (an idle pool) and an empty queue,
+        the one request that arrives within that time (JAX's scheduler
+        admits it alone). On a mesh the lead rank takes them and
+        broadcasts them (with a stop request, ``request_stop``) to every
+        rank, whose copies stand in for them."""
         stop, self._stop_asked = self._stop_asked, False
         reqs = []
         if self.lead and not stop:
             free = sum(not s.active for s in self.slots)
             try:
                 while len(reqs) < free:
-                    if block_timeout is not None and not reqs:
-                        reqs.append(self.queue.get(timeout=block_timeout))
-                    else:
-                        reqs.append(self.queue.get_nowait())
+                    reqs.append(self.queue.get_nowait())
             except queue.Empty:
-                pass
+                if block_timeout is not None and not reqs:
+                    try:
+                        reqs.append(self.queue.get(timeout=block_timeout))
+                    except queue.Empty:
+                        pass
         if self.mesh is None:
             self.stopped = stop
             return reqs

@@ -79,6 +79,17 @@ def to_torch(tree: Tree, dtype: torch.dtype | None = None,
     return _drop_lm_fold(tree_map(conv, tree))
 
 
+def key_to_torch(data, device: str | torch.device = "cpu") -> torch.Tensor:
+    """A JAX threefry key's data (``jax.random.key_data``, or a raw
+    ``PRNGKey``: a ``uint32 (..., 2)`` array) as the port's key tensor
+    (``ops/prng.py``): the same two words, int64."""
+    a = np.asarray(data)
+    if a.dtype != np.uint32 or a.shape[-1:] != (2,):
+        raise ValueError(f"a threefry key is uint32 (..., 2), got "
+                         f"{a.dtype} {a.shape}")
+    return torch.from_numpy(a.astype(np.int64)).to(device)
+
+
 def _drop_lm_fold(tree: Tree) -> Tree:
     """The tree without the JAX engine's ``lm_fold_w``/``lm_fold_s``: a
     padded, transposed lm_head copy for the TPU fold, derived from the

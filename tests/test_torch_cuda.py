@@ -933,3 +933,38 @@ def test_cuda_forward_full_raises_before_a_kernel_without_backward(cuda):
         TextDecoder(cfg, device=cuda).forward_full(
             q, hidden, torch.arange(8, device=cuda))
     assert quant_matmul.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,offset", [(1, 0), (8, 0), (16, 16)])
+def test_cuda_draw_matches_plain(cuda, b, offset):
+    """The draw kernel against its plain version on the card at the full
+    vocabulary: bits and uniforms bit-equal, tokens equal but at a
+    near-tie (chip_smoke's DRAW_TIE), a device step counter and a split
+    chain (the key moves to fold_in(key, 0) after the draw)."""
+    from qwen3_asr_rs_tpu_torch.ops import prng
+    from qwen3_asr_rs_tpu_torch.ops.kernels.gumbel_argmax import (
+        gumbel_argmax,
+        gumbel_argmax_plain,
+        threefry_noise,
+        threefry_noise_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((b, 151936), generator=g, device=cuda) * 3
+    step = torch.tensor(5, device=cuda)
+    chain = prng.KeyChain(prng.prng_key(3, cuda), ((step, 1), 2))
+    for mode in ("bits", "uniform", "uniform_tiny"):
+        assert torch.equal(threefry_noise(chain, x.shape, mode, offset),
+                           threefry_noise_plain(chain, x.shape, mode, offset))
+    tok = gumbel_argmax(x, chain, offset)
+    ref = gumbel_argmax_plain(x, chain, offset)
+    noisy = x + threefry_noise_plain(chain, x.shape, "gumbel", offset)
+    for r in (tok != ref).nonzero().flatten().tolist():
+        top = torch.topk(noisy[r], 2).values
+        assert top[0] - top[1] <= smoke.DRAW_TIE * max(1.0, abs(float(top[0])))
+    key = prng.prng_key(9, cuda)
+    want = gumbel_argmax_plain(x, prng.fold_in(key, 1), offset)
+    got = gumbel_argmax(x, prng.KeyChain(key, then_split=True), offset)
+    assert torch.equal(key, prng.fold_in(prng.prng_key(9, cuda), 0))
+    assert torch.equal(got, want)

@@ -154,17 +154,56 @@ def test_dp_lone_utterance_matches_jax(pool, clips, jax_params, dp):
         assert len(n_gen) == dp and n_gen[1:] == [0] * (dp - 1)
 
 
-def test_dp_sampled_rows_draw_as_rows_of_the_whole_batch(pool, clips):
-    """Sampled dp rows draw by their row of the whole batch: the dp = 2
-    run's tokens are the one-device run's (the draws are counter-based),
-    and its rows do not share noise."""
-    sampling = dict(temperature=1.5, seed=3)
-    eng = ranks.port_engine(None)
-    want = [r.raw_output for r in eng.transcribe_batch(
-        clips, sampling=SamplingParams(**sampling))]
-    assert want != [r.raw_output for r in eng.transcribe_batch(clips)]
-    res = pool.run("engine_tokens", 2, 2, 1, clips, sampling=sampling)
-    assert res[0][0] == res[1][0] == want
+def test_dp_sampled_batch_matches_jax_dp(pool, clips, jax_params):
+    """A sampled batch on dp = 2 gives JAX's dp = 2 tokens: each rank draws
+    with ``fold_in(PRNGKey(seed), rank)`` over its own rows, as JAX's
+    shard_map does (so not the one-device run's tokens)."""
+    from qwen3_asr_rs_tpu.runtime.sampling import (
+        SamplingParams as JSamplingParams,
+    )
+
+    mesh = jax_make_mesh(n_devices=2, dp=2)
+    assert dict(mesh.shape) == {"dp": 2, "tp": 1}
+    jeng = _jax_engine(jax_params, mesh=mesh)
+    for sampling in (dict(temperature=0.8, top_k=50, top_p=0.9, seed=3),
+                     dict(temperature=1.0, seed=2**33 + 1)):
+        want = [r.raw_output for r in jeng.transcribe_batch(
+            clips, sampling=JSamplingParams(**sampling))]
+        one = [r.raw_output for r in _jax_engine(jax_params).transcribe_batch(
+            clips, sampling=JSamplingParams(**sampling))]
+        assert want != one
+        res = pool.run("engine_tokens", 2, 2, 1, clips, sampling=sampling)
+        assert res[0][0] == res[1][0] == want
+
+
+def test_dp_sampled_serving_matches_jax_mesh_batcher(pool, clips,
+                                                     jax_params):
+    """A sampled burst on a dp = 2 pool (4 slots, 2 per rank): each rank's
+    slots draw at their rows of the whole pool, as JAX's GSPMD batcher on
+    a dp = 2 mesh draws, so every request's tokens are JAX's."""
+    from qwen3_asr_rs_tpu.runtime.serving import (
+        ContinuousBatcher as JaxBatcher,
+    )
+    from qwen3_asr_rs_tpu.runtime.serving import Request as JaxRequest
+
+    request_kw = [dict(temperature=0.9), {}, dict(temperature=0.8,
+                                                  top_p=0.9),
+                  dict(temperature=1.0)]
+    batcher = JaxBatcher(_jax_engine(jax_params,
+                                     mesh=jax_make_mesh(n_devices=2, dp=2)),
+                         n_slots=4, segment_steps=2,
+                         prefill_chunk_tokens=None, encode_window_groups=None)
+    reqs = [JaxRequest(c, **kw) for c, kw in zip(clips, request_kw)]
+    for r in reqs:
+        batcher.submit(r)
+    for _ in range(400):
+        if all(r.event.is_set() for r in reqs):
+            break
+        batcher.step()
+    want = [r.result.raw_output for r in reqs]
+    res = pool.run("serving_tokens", 2, 2, 1, clips, n_slots=4,
+                   segment_steps=2, request_kw=request_kw)
+    assert res[0][0] == want and res[1][0] is None
 
 
 def test_tp_decode_collective_structure(pool):

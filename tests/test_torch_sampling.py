@@ -4,9 +4,9 @@ The filters give JAX's masks on the same logits and ``filtered_probs``
 JAX's probabilities within 1e-6; top-k 1, temperature 0 and a vanishing
 top-p are the argmax bit for bit; draws follow ``filtered_probs`` (a chi^2
 test), and so does the first token of ``speculative_accept`` (the
-speculative-sampling theorem); the counter-based hash is a pure function
-of (seed, counter, stream, row, column), equal to a plain-integer
-transcription of it. Through the engine: the same seed gives the same
+speculative-sampling theorem); the extreme random words still draw inside
+the filters. The draws themselves are held to JAX's in
+``test_torch_prng.py``. Through the engine: the same seed gives the same
 tokens, another seed others, pad rows emit nothing and long-form audio
 with sampling raises JAX's error.
 """
@@ -20,21 +20,24 @@ import torch
 from scipy.stats import chi2
 
 from qwen3_asr_rs_tpu.runtime import sampling as jsampling
+from qwen3_asr_rs_tpu_torch.ops import prng
 from qwen3_asr_rs_tpu_torch.runtime.sampling import (
     SamplingParams,
     apply_top_k,
     apply_top_p,
-    draw_bits,
     filtered_probs,
     normalize,
     sample_token,
     speculative_accept,
-    uniforms,
-    unit_from_bits,
 )
 
 T = torch.from_numpy
 J = jnp.asarray
+
+
+def _key(seed: int, counter: int):
+    """``fold_in(PRNGKey(seed), counter)``."""
+    return prng.fold_in(prng.prng_key(seed), counter)
 
 
 def _finite(x):
@@ -89,26 +92,27 @@ def test_greedy_limits_are_the_argmax_bit_for_bit(rng, counter):
     greedy = torch.argmax(logits, -1)
     for kw in (dict(temperature=0.0), dict(temperature=2.5, top_k=1),
                dict(temperature=3.0, top_p=1e-9)):
-        ids = sample_token(logits, 5, counter, kw.pop("temperature"), **kw)
+        ids = sample_token(logits, _key(5, counter), kw.pop("temperature"),
+                           **kw)
         assert torch.equal(ids, greedy)
     # a (V,) row gives a 0-d id
-    assert int(sample_token(logits[0], 5, counter, 0.0)) == int(greedy[0])
+    assert int(sample_token(logits[0], _key(5, counter), 0.0)) == int(
+        greedy[0])
 
 
 @pytest.mark.parametrize("bits", [0, 2**32 - 1])
 def test_filtered_tokens_never_drawn_at_extreme_bits(bits, monkeypatch):
-    """Every draw at the extreme bits still lies inside the filters: top-k
-    1 is the argmax, top-k 5 one of the five largest."""
-    from qwen3_asr_rs_tpu_torch.runtime import sampling
-
-    monkeypatch.setattr(sampling, "draw_bits", lambda seed, counter, rows,
-                        cols, device, stream, row0: torch.full(
-                            (rows, cols), bits, dtype=torch.int64))
+    """Every draw at the extreme words still lies inside the filters (JAX's
+    uniform maps 0 and all-ones to tiny and 1 - 2^-23, both finite
+    Gumbel noise): top-k 1 is the argmax, top-k 5 one of the five
+    largest."""
+    monkeypatch.setattr(prng, "random_bits", lambda key, shape, offset=0:
+                        torch.full(tuple(shape), bits, dtype=torch.int64))
     logits = T(np.random.default_rng(5).standard_normal((4, 300)).astype(
         np.float32))
-    assert torch.equal(sample_token(logits, 0, 1, 0.7, top_k=1),
+    assert torch.equal(sample_token(logits, _key(0, 1), 0.7, top_k=1),
                        torch.argmax(logits, -1))
-    ids = sample_token(logits, 0, 1, 0.7, top_k=5)
+    ids = sample_token(logits, _key(0, 1), 0.7, top_k=5)
     assert (torch.topk(logits, 5).indices == ids[:, None]).any(-1).all()
 
 
@@ -120,7 +124,7 @@ def test_top_k_keeps_ties_as_jax(k):
     got = apply_top_k(T(logits), k).numpy()
     want = np.asarray(jsampling.apply_top_k(J(logits), k))
     np.testing.assert_array_equal(got, want)
-    drawn = {int(sample_token(T(logits), 9, c, 1.0, top_k=k)[0])
+    drawn = {int(sample_token(T(logits), _key(9, c), 1.0, top_k=k)[0])
              for c in range(64)}
     assert drawn == {1, 3, 5}
 
@@ -129,20 +133,8 @@ def test_sampled_ids_respect_filters(rng):
     logits = T(rng.standard_normal((8, 64)).astype(np.float32))
     top5 = torch.topk(logits, 5).indices
     for counter in range(20):
-        ids = sample_token(logits, 3, counter, 5.0, top_k=5)
+        ids = sample_token(logits, _key(3, counter), 5.0, top_k=5)
         assert (top5 == ids[:, None]).any(-1).all()
-
-
-def test_deterministic_per_key_stochastic_across_keys(rng):
-    logits = T(rng.standard_normal((4, 256)).astype(np.float32))
-    a = sample_token(logits, 3, 1, 1.0)
-    assert torch.equal(a, sample_token(logits, 3, 1, 1.0))
-    draws = {tuple(sample_token(logits, s, 1, 2.0).tolist())
-             for s in range(16)}
-    assert len(draws) > 1
-    draws = {tuple(sample_token(logits, 3, c, 2.0).tolist())
-             for c in range(16)}
-    assert len(draws) > 1
 
 
 def test_per_row_temperature_vector(rng):
@@ -151,7 +143,7 @@ def test_per_row_temperature_vector(rng):
     greedy = torch.argmax(logits, -1)
     differ = False
     for counter in range(16):
-        ids = sample_token(logits, 0, counter, temp)
+        ids = sample_token(logits, _key(0, counter), temp)
         assert torch.equal(ids[:2], greedy[:2])
         differ |= bool((ids[2:] != greedy[2:]).any())
     assert differ
@@ -176,7 +168,7 @@ def test_sample_token_follows_filtered_probs(temp, k, p):
     rows = logits.expand(20, -1)
     counts = np.zeros(7)
     for counter in range(400):
-        ids = sample_token(rows, 11, counter, temp, top_k=k, top_p=p)
+        ids = sample_token(rows, _key(11, counter), temp, top_k=k, top_p=p)
         counts += np.bincount(ids.numpy(), minlength=7)
     probs = filtered_probs(logits, temp, top_k=k, top_p=p).numpy()
     assert _chi2_pvalue(counts, probs.astype(np.float64)) > 1e-3
@@ -191,9 +183,10 @@ def test_speculative_accept_first_token_distribution():
     counts = np.zeros(4)
     n = 4000
     for i in range(n):
-        drafts = torch.stack([sample_token(torch.log(q[j]), 1000 + j, i, 1.0)
+        drafts = torch.stack([sample_token(torch.log(q[j]),
+                                           _key(1000 + j, i), 1.0)
                               for j in range(2)])
-        acc, nxt = speculative_accept(7, i, drafts, q, p)
+        acc, nxt = speculative_accept(_key(7, i), drafts, q, p)
         counts[int(drafts[0]) if int(acc) >= 1 else int(nxt)] += 1
     assert _chi2_pvalue(counts, p[0].double().numpy()) > 1e-3
 
@@ -203,7 +196,7 @@ def test_speculative_accept_edge_cases():
                       [0.25, 0.25, 0.25, 0.25]])
     for i in range(64):
         drafts = torch.tensor([i % 4, (i // 4) % 4])
-        acc, _ = speculative_accept(0, i, drafts, p[:2], p)
+        acc, _ = speculative_accept(_key(0, i), drafts, p[:2], p)
         assert int(acc) == 2  # q == p: every draft accepted
     # a one-hot draft on a token the target gives no mass: always
     # rejected at position 0, the resample follows p[0]
@@ -212,7 +205,8 @@ def test_speculative_accept_edge_cases():
                        [0.25, 0.25, 0.25, 0.25]])
     counts = np.zeros(4)
     for i in range(3000):
-        acc, nxt = speculative_accept(1, i, torch.tensor([0, 0]), q0, p0)
+        acc, nxt = speculative_accept(_key(1, i), torch.tensor([0, 0]), q0,
+                                      p0)
         assert int(acc) == 0
         counts[int(nxt)] += 1
     assert _chi2_pvalue(counts, p0[0].double().numpy()) > 1e-3
@@ -228,51 +222,6 @@ def test_params_validation_messages_match_jax():
         assert str(got.value) == str(want.value)
     assert normalize(None).greedy
     assert not normalize(SamplingParams(temperature=0.9)).greedy
-
-
-# ---- the counter-based hash ----------------------------------------------
-
-M32 = 0xFFFFFFFF
-
-
-def _mix32_int(x):
-    x ^= x >> 16
-    x = (x * 0x7FEB352D) & M32
-    x ^= x >> 15
-    x = (x * 0x846CA68B) & M32
-    return x ^ (x >> 16)
-
-
-def _draw_bits_int(seed, counter, row, col, stream=0):
-    """``draw_bits`` in plain Python integers (unbounded, no wrap)."""
-    k = _mix32_int((seed & M32) ^ _mix32_int((seed >> 32) & M32))
-    k = _mix32_int(k ^ _mix32_int(counter & M32))
-    k = _mix32_int(k ^ stream)
-    k = _mix32_int(k ^ _mix32_int(row))
-    return _mix32_int(k ^ col)
-
-
-@pytest.mark.parametrize("seed", [0, 1, 12345, 2**31 + 7, 2**40 + 3, -5])
-def test_draw_bits_equal_integer_transcription(seed):
-    got = draw_bits(seed, 9, 3, 50).tolist()
-    for r in range(3):
-        assert got[r] == [_draw_bits_int(seed, 9, r, c) for c in range(50)]
-    assert draw_bits(seed, 9, 2, 4, stream=1).tolist()[1][3] == (
-        _draw_bits_int(seed, 9, 1, 3, stream=1))
-    # tensor arguments (the engine's device state) give the same bits
-    assert torch.equal(draw_bits(torch.tensor(seed), torch.tensor(9), 3, 50),
-                       draw_bits(seed, 9, 3, 50))
-
-
-def test_uniforms_in_open_interval_and_flat():
-    u = uniforms(0, 0, 64, 4096)
-    assert 0 < float(u.min()) and float(u.max()) < 1
-    # the extreme bits too: finite Gumbel noise at both ends
-    ends = unit_from_bits(torch.tensor([0, 2**32 - 1], dtype=torch.int64))
-    assert 0 < float(ends[0]) and float(ends[1]) < 1
-    assert torch.isfinite(torch.log(-torch.log(ends))).all()
-    hist = np.histogram(u.numpy(), bins=16, range=(0, 1))[0]
-    assert _chi2_pvalue(hist.astype(float), np.full(16, 1 / 16)) > 1e-3
 
 
 # ---- through the engine --------------------------------------------------

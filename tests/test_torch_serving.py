@@ -43,7 +43,6 @@ from qwen3_asr_rs_tpu_torch.runtime.serving import (
     ContinuousBatcher,
     Request,
     ServingLoop,
-    request_seed,
 )
 
 from test_torch_engine import _Tok, _tiny
@@ -242,45 +241,98 @@ def test_prefill_chunk_matches_jax(rng, quantized):
 
 
 # ---------------------------------------------------------------------
-# sampling keys
+# sampled serving against JAX's batcher
 
 
-def test_scalar_draw_bits_unchanged():
-    """The scalar keys' bits are the engine's (pinned; per-row keys must
-    not change them: the engine's sampled tokens and the card's hash
-    check rest on them)."""
-    assert sampling.draw_bits(123456789012, 7, 3, 5).tolist() == [
-        [453167354, 2397277561, 2914796286, 504884172, 2125977794],
-        [2507770786, 3299440926, 2804162494, 2357517436, 3515602882],
-        [409042913, 1676555076, 4163694059, 1138195236, 1225394884]]
-    assert sampling.draw_bits(0, torch.tensor(3), 2, 4, stream=1).tolist() == [
-        [2274360411, 1979193229, 491196705, 3465410597],
-        [1748333199, 4292334419, 4086209299, 296192030]]
+def jax_batcher(pair, **kw):
+    from qwen3_asr_rs_tpu.runtime.serving import ContinuousBatcher as JB
+
+    return JB(pair.jax, **kw)
 
 
-def test_per_row_draws_do_not_depend_on_the_row(rng):
-    """Per-row (seed, counter) keys: row r's bits are the scalar draw's row
-    0 at (seed[r], counter[r]); permuting the rows permutes the draws,
-    and sample_token's per-row draws follow their keys."""
-    seeds = torch.tensor([request_seed(0, 1), request_seed(0, 2),
-                          request_seed(5, 1)])
-    counters = torch.tensor([0, 3, 9])
-    bits = sampling.draw_bits(seeds, counters, 3, 6)
-    for r in range(3):
-        assert torch.equal(bits[r], sampling.draw_bits(
-            int(seeds[r]), int(counters[r]), 1, 6)[0])
-    perm = torch.tensor([2, 0, 1])
-    assert torch.equal(sampling.draw_bits(seeds[perm], counters[perm], 3, 6),
-                       bits[perm])
-    logits = T(rng.standard_normal((3, 50)).astype(np.float32))
-    temp = torch.tensor([0.8, 0.0, 1.5])
-    out = sampling.sample_token(logits, seeds, counters, temp, top_p=0.9)
-    out_p = sampling.sample_token(logits[perm], seeds[perm], counters[perm],
-                                  temp[perm], top_p=0.9)
-    assert torch.equal(out_p, out[perm])
-    assert int(out[1]) == int(torch.argmax(logits[1]))  # temperature 0
-    assert len({request_seed(0, i) for i in range(1, 100)}
-               | {request_seed(1, i) for i in range(1, 100)}) == 198
+def run_plan(batcher, plan, request, probe=None, max_iters=400):
+    """Submit each (scheduler step, clip, request keywords) of ``plan`` at
+    its step and drive the batcher until every request is done; returns
+    the raw outputs and ``probe(batcher)`` after every step."""
+    pending, reqs, seen = list(plan), [], []
+    for it in range(max_iters):
+        while pending and pending[0][0] <= it:
+            _, c, kw = pending.pop(0)
+            reqs.append(request(c, **kw))
+            batcher.submit(reqs[-1])
+        if not pending and all(r.event.is_set() for r in reqs):
+            return [r.result.raw_output for r in reqs], seen
+        batcher.step(block_timeout=0.001)
+        if probe is not None:
+            seen.append(probe(batcher))
+    raise AssertionError("batcher did not converge")
+
+
+# greedy, sampled and nucleus requests: a batched admission (bucket 2), a
+# chunked one mid-flight (64000 samples: a prompt over 16 tokens), a
+# capped one; one pool of 4 slots
+BURST = [(0, clip(100, 20000), dict(temperature=0.9)),
+         (0, clip(101, 9000), {}),
+         (0, clip(102, 16000), dict(temperature=0.8, top_p=0.9)),
+         (3, clip(103, 30000), dict(temperature=1.0)),
+         (3, clip(104, 12000), {}),
+         (5, clip(105, 64000), dict(temperature=0.7, top_p=0.8)),
+         (9, clip(106, 8000), dict(temperature=1.0, max_new_tokens=5))]
+
+
+@pytest.mark.parametrize("seed", ["0", "7", "12345"])
+def test_mixed_burst_matches_jax_batcher(monkeypatch, seed):
+    """ASR_SAMPLING_SEED, the same burst through JAX's ContinuousBatcher
+    and the port's: every request's raw output equal, and the pool's key
+    chain and admission count equal after every scheduler step (a
+    departure of the schedule would show here first)."""
+    from qwen3_asr_rs_tpu.runtime.serving import Request as JRequest
+
+    monkeypatch.setenv("ASR_SAMPLING_SEED", seed)
+    pair = engines(max_new=12)
+    kw = dict(n_slots=4, segment_steps=2, prefill_chunk_tokens=16)
+    want, jseen = run_plan(jax_batcher(pair, **kw), BURST, JRequest,
+                           lambda b: (np.asarray(b.d_key).tolist(),
+                                      b._admit_seq))
+    got, tseen = run_plan(ContinuousBatcher(pair.port, **kw), BURST,
+                          Request, lambda b: (b.d_key.tolist(),
+                                              b._admit_seq))
+    assert got == want
+    assert tseen == jseen
+    assert len({tuple(k) for k, _ in tseen}) > 4  # the chain moved
+
+
+def test_pool_key_chain_follows_jax(monkeypatch):
+    """JAX's pool chain, pinned: greedy segments leave the key alone; each
+    step of a sampled segment splits it once (key <- fold_in(key, 0));
+    every admission prefill, each chunk of a chunked one included, takes
+    the next fold_in(base, n). So a sampled request's tokens depend on the
+    sampled steps run before it (a JAX behaviour the port keeps)."""
+    from qwen3_asr_rs_tpu_torch.ops import prng
+
+    monkeypatch.setenv("ASR_SAMPLING_SEED", "5")
+    pair = engines(max_new=6)
+    b = ContinuousBatcher(pair.port, n_slots=2, segment_steps=3,
+                          prefill_chunk_tokens=24)
+    base = prng.prng_key(5)
+    assert torch.equal(b.d_key, base) and torch.equal(b.d_base, base)
+    run_all(b, [Request(clip(110, 9000))])  # greedy: no split
+    assert torch.equal(b.d_key, base) and b._admit_seq == 1
+    steps = b.stats["steps"]
+    run_all(b, [Request(clip(111, 9000), temperature=0.8)])
+    want = base
+    for _ in range(b.stats["steps"] - steps):
+        want = prng.split(want)[0]
+    assert torch.equal(b.d_key, want) and b._admit_seq == 2
+    seq = b._admit_seq
+    long_req = Request(clip(112, 64000))  # chunked: a key per chunk
+    prompt_len = b._prepare(long_req)[4]
+    assert prompt_len > 24
+    run_all(b, [long_req])
+    assert b._admit_seq - seq == -(-prompt_len // 24)
+    # the same request later in the chain draws other tokens
+    a = run_all(b, [Request(clip(111, 9000), temperature=0.8)])
+    assert a != run_all(b, [Request(clip(111, 9000), temperature=0.8)])
 
 
 # ---------------------------------------------------------------------

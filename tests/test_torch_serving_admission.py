@@ -244,20 +244,18 @@ def test_nucleus_only_when_requested():
     assert ("nucleus", "engine") not in b.variants_run
 
 
-def _sampled_in(slot: int, seed_env, monkeypatch):
-    """A sampled request admitted second (admission number 2) into slot
-    ``slot``: slot 0 after a one-token request has finished, or slot 1
-    beside a greedy request still decoding."""
-    monkeypatch.setenv("ASR_SAMPLING_SEED", seed_env)
-    pair = engines(max_new=16)
-    b = ContinuousBatcher(pair.port, n_slots=2, segment_steps=2)
-    first = Request(clip(77, 16000), max_new_tokens=1 if slot == 0 else None)
+def _sampled_in(pair, slot: int, batcher, request):
+    """A sampled request admitted second into slot ``slot``: slot 0 after
+    a one-token request has finished, or slot 1 beside a greedy request
+    still decoding. Returns its raw output."""
+    b = batcher(pair, n_slots=2, segment_steps=2)
+    first = request(clip(77, 16000), max_new_tokens=1 if slot == 0 else None)
     b.submit(first)
     if slot == 0:
         drive(b, lambda: first.event.is_set())
     else:
         b.step()
-    sampled = Request(clip(78, 20000), temperature=1.0)
+    sampled = request(clip(78, 20000), temperature=1.0)
     b.submit(sampled)
     b.step()
     assert b.slots[slot].request is sampled
@@ -266,17 +264,25 @@ def _sampled_in(slot: int, seed_env, monkeypatch):
     return sampled.result.raw_output
 
 
-def test_sampled_tokens_do_not_depend_on_slot_or_neighbours(monkeypatch):
-    """A sampled request's draws are keyed by (ASR_SAMPLING_SEED, its
-    admission number, its token index): the same in slot 0 alone and in
-    slot 1 beside a decoding neighbour; another base seed draws other
-    tokens, and neither is the greedy output."""
-    alone = _sampled_in(0, "0", monkeypatch)
-    beside = _sampled_in(1, "0", monkeypatch)
-    other = _sampled_in(1, "12345", monkeypatch)
-    assert alone == beside
-    assert other != alone
-    assert alone != engines(max_new=16).offline(clip(78, 20000))
+@pytest.mark.parametrize("seed_env", ["0", "12345"])
+def test_sampled_tokens_follow_slot_and_pool_as_jax(monkeypatch, seed_env):
+    """JAX's batcher draws a sampled request with the pool's key chain at
+    its slot's row, so its tokens depend on the slot it lands in and on
+    the sampled steps before it: in slot 0 alone and in slot 1 beside a
+    decoding neighbour, the port's tokens are JAX's (and not greedy)."""
+    from qwen3_asr_rs_tpu.runtime.serving import ContinuousBatcher as JB
+    from qwen3_asr_rs_tpu.runtime.serving import Request as JRequest
+
+    monkeypatch.setenv("ASR_SAMPLING_SEED", seed_env)
+    pair = engines(max_new=16)
+    for slot in (0, 1):
+        want = _sampled_in(pair, slot, lambda p, **kw: JB(p.jax, **kw),
+                           JRequest)
+        got = _sampled_in(pair, slot,
+                          lambda p, **kw: ContinuousBatcher(p.port, **kw),
+                          Request)
+        assert got == want
+        assert got != pair.offline(clip(78, 20000))
 
 
 def test_int8_segments_equal_offline_steps_on_the_int8_tree(monkeypatch):

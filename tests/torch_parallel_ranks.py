@@ -201,11 +201,11 @@ def stream_texts(n, dp, tp, clip):
 
 def serving_tokens(n, dp, tp, clips, n_slots, segment_steps,
                    prefill_chunk_tokens=None, serving_precision="engine",
-                   with_variants=False, **kw):
+                   with_variants=False, request_kw=None, **kw):
     """Raw outputs of a ContinuousBatcher on the mesh (lead rank: the
     served requests'), its slot count and the mesh's rank count, its
     segments (``with_variants``: and the (variant, precision) pairs they
-    ran)."""
+    ran). ``request_kw``: each request's keywords (temperature, top_p)."""
     mesh = _mesh(n, dp, tp)
     if mesh is None:
         return None
@@ -219,7 +219,8 @@ def serving_tokens(n, dp, tp, clips, n_slots, segment_steps,
                           prefill_chunk_tokens=prefill_chunk_tokens,
                           encode_window_groups=None,
                           serving_precision=serving_precision)
-    reqs = [Request(c) for c in clips]
+    reqs = [Request(c, **kw) for c, kw in zip(
+        clips, request_kw or [{}] * len(clips))]
     b.drive(reqs)
     outs = [r.result.raw_output for r in reqs] if b.lead else None
     out = (outs, b.n_slots, b.n_local, b.stats["segments"])
