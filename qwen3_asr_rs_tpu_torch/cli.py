@@ -12,7 +12,8 @@ stderr with exit code 1. Several files are transcribed as one batch
 the JAX CLI does. ``--temperature``/``--top-k``/``--top-p``/``--seed``
 sample, ``--timestamps`` prints the segments with their words,
 ``--draft``/``--draft-model``/``--draft-k`` decode speculatively, and
-``ASR_METRICS=<path>`` dumps the stage timers, as in the JAX CLI.
+``ASR_METRICS=<path>`` dumps the stage timers, as in the JAX CLI
+(with ``ASR_TRACE=1`` the engine's spans too).
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ Environment variables:
   ASR_DECODE_SEGMENT   Tokens of the first KV slab segment (default 256;
                        the slab grows 4x per stage)
   ASR_METRICS          Write the stage timers as JSON to this path
+  ASR_TRACE            1 records the engine's spans (prefill parts, host
+                       waits); with ASR_METRICS they are written beside
+                       the timers
 """
 
 

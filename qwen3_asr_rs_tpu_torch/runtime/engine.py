@@ -39,7 +39,17 @@ quantization follows the JAX engine's
 dtype) and 'int8' (``ASR_KV``), and ``ASR_FOLD_LM=1`` folds the lm_head
 and argmax into the decode kernel for greedy steps (default off, as in
 JAX). Stage timers (``utils/tracing.py``): ``device_dispatch`` per
-transcription, ``warmup_c{c}_b{b}`` per warmed graph set.
+transcription, ``warmup_c{c}_b{b}`` per warmed graph set. Spans, recorded
+while the tracer is on (``ASR_TRACE=1``, or while a torch profiler
+records): ``prefill.encode`` (``_embed_prompts``: the clip loop, token
+embedding and audio injection), inside it per clip ``prefill.mel``
+(padding, the copy to the device, log-mel) and ``prefill.encoder`` (the
+encoder, and the draft's), ``prefill.decoder`` (the text decoder's
+prefill), ``wait.prefill`` (the state's reset, where ``_generate``'s
+blocking copy of the live rows from the host waits for the prefill on
+the card, and on CUDA the synchronize after the first token),
+``wait.done_flags`` (each wait for the done flags) and
+``wait.read_out`` (the loop's final reads of its state).
 
 Speculative decoding (``speculative=``, ``spec_k=``, ``draft_model=``,
 as in JAX) runs every B = 1 transcription as draft-and-verify
@@ -115,7 +125,7 @@ from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID, AsrTokenizer
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
 from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
-from ..utils.tracing import stage_timer
+from ..utils.tracing import span, stage_timer
 from .cuda_graph import StepGraph, capture
 from .longform import Segment, attach_words, transcribe_long
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
@@ -495,40 +505,51 @@ class AsrEngine:
         ``AUDIO_OFFSET``. Returns (hidden (B, P, H), true prompt lengths,
         the ``draft`` model's own embeddings of the same ids and mel with
         its own encoder's audio injected, or None)."""
-        cfg = self.config
-        cf = cfg.audio.chunk_frames
-        tpc = cfg.audio.tokens_per_chunk
-        bucket_chunks = self._chunk_bucket(samples_list)
-        p_bucket = self._prompt_bucket(bucket_chunks)
-        ids = torch.zeros((len(samples_list), p_bucket), dtype=torch.long)
-        audio, d_audio, true_lens = [], [], []
-        for i, (samples, language) in enumerate(zip(samples_list, languages)):
-            wave, n_true = pad_waveform(samples, bucket_frames=bucket_chunks * cf)
-            tail = n_true % cf
-            n_audio = (n_true // cf) * tpc + (
-                feat_extract_output_length(tail) if tail else 0
-            )
-            prompt = build_prompt(n_audio, language, self.tokenizer)
-            if len(prompt) > p_bucket:
-                raise ValueError("prompt exceeds bucket; language string too long")
-            start = p_bucket - len(prompt) if aligned else 0
-            ids[i, start: start + len(prompt)] = torch.tensor(prompt)
-            true_lens.append(len(prompt))
-            mel = log_mel_from_padded(torch.from_numpy(wave).to(self.device),
-                                      n_true, self.mel_filters)
-            embeds, _ = self.encoder(self.enc_params, mel, n_true)
-            audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
+        with span("prefill.encode"):
+            cfg = self.config
+            cf = cfg.audio.chunk_frames
+            tpc = cfg.audio.tokens_per_chunk
+            bucket_chunks = self._chunk_bucket(samples_list)
+            p_bucket = self._prompt_bucket(bucket_chunks)
+            ids = torch.zeros((len(samples_list), p_bucket), dtype=torch.long)
+            audio, d_audio, true_lens = [], [], []
+            for i, (samples, language) in enumerate(zip(samples_list,
+                                                        languages)):
+                with span("prefill.mel"):
+                    wave, n_true = pad_waveform(
+                        samples, bucket_frames=bucket_chunks * cf)
+                    mel = log_mel_from_padded(
+                        torch.from_numpy(wave).to(self.device), n_true,
+                        self.mel_filters)
+                tail = n_true % cf
+                n_audio = (n_true // cf) * tpc + (
+                    feat_extract_output_length(tail) if tail else 0
+                )
+                prompt = build_prompt(n_audio, language, self.tokenizer)
+                if len(prompt) > p_bucket:
+                    raise ValueError(
+                        "prompt exceeds bucket; language string too long")
+                start = p_bucket - len(prompt) if aligned else 0
+                ids[i, start: start + len(prompt)] = torch.tensor(prompt)
+                true_lens.append(len(prompt))
+                with span("prefill.encoder"):
+                    embeds, _ = self.encoder(self.enc_params, mel, n_true)
+                    audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
+                    if draft is not None:
+                        embeds, _ = draft.encoder(draft.enc_params, mel,
+                                                  n_true)
+                        d_audio.append((start + AUDIO_OFFSET,
+                                        embeds[:n_audio]))
+            ids = ids.to(self.device)
+            out = [(self.decoder.embed(self.dec_params, ids), audio)]
             if draft is not None:
-                embeds, _ = draft.encoder(draft.enc_params, mel, n_true)
-                d_audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
-        ids = ids.to(self.device)
-        out = [(self.decoder.embed(self.dec_params, ids), audio)]
-        if draft is not None:
-            out.append((draft.decoder.embed(draft.dec_params, ids), d_audio))
-        for hidden, runs in out:
-            for i, (at, embeds) in enumerate(runs):
-                hidden[i, at: at + len(embeds)] = embeds.to(hidden.dtype)
-        return out[0][0], true_lens, out[1][0] if draft is not None else None
+                out.append((draft.decoder.embed(draft.dec_params, ids),
+                            d_audio))
+            for hidden, runs in out:
+                for i, (at, embeds) in enumerate(runs):
+                    hidden[i, at: at + len(embeds)] = embeds.to(hidden.dtype)
+            return (out[0][0], true_lens,
+                    out[1][0] if draft is not None else None)
 
     @torch.inference_mode()
     def prefill(self, samples: np.ndarray, language: Optional[str] = None,
@@ -542,10 +563,10 @@ class AsrEngine:
         p_bucket = hidden.shape[1]
         if cache is None:
             cache = self._new_cache(1, p_bucket)
-        logits, cache = self.decoder.prefill(
-            self.dec_params, hidden, torch.arange(p_bucket, device=self.device),
-            cache, true_len,
-        )
+        with span("prefill.decoder"):
+            logits, cache = self.decoder.prefill(
+                self.dec_params, hidden,
+                torch.arange(p_bucket, device=self.device), cache, true_len)
         return logits, cache, true_len
 
     @torch.inference_mode()
@@ -563,8 +584,9 @@ class AsrEngine:
                                 dtype=torch.int32, device=self.device)
         if cache is None:
             cache = self._new_cache(b, p_bucket)
-        logits, cache = self.decoder.prefill_aligned(self.dec_params, hidden,
-                                                     kv_start, cache)
+        with span("prefill.decoder"):
+            logits, cache = self.decoder.prefill_aligned(
+                self.dec_params, hidden, kv_start, cache)
         return logits, cache, kv_start, p_bucket
 
     def _slab0(self, b: int, n: int, key=None, text=None) -> KVCache:
@@ -725,7 +747,10 @@ class AsrEngine:
         else:
             logits, _, base = self.prefill(samples_list[0], languages[0],
                                            cache)
-        st.start(live, base, sampling, dp_rank)
+        # the reset copies ``live`` from the host with a blocking copy,
+        # which waits for the prefill on the card
+        with span("wait.prefill"):
+            st.start(live, base, sampling, dp_rank)
         if sampling.greedy:
             tok0 = torch.argmax(logits, dim=-1)
         else:  # the prefill's token: fold_in(key, 0)
@@ -736,7 +761,8 @@ class AsrEngine:
         # tp steps run eagerly: their collectives are not captured
         graphs = cuda and self.cuda_graphs and self._tp is None
         if cuda:
-            torch.cuda.synchronize(self.device)
+            with span("wait.prefill"):
+                torch.cuda.synchronize(self.device)
             ev0 = torch.cuda.Event(enable_timing=True)
             ev0.record()
         t_first = time.perf_counter()
@@ -794,9 +820,10 @@ class AsrEngine:
         if cuda:
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
-        n_gen = st.n_gen.tolist()
-        out_buf = st.out_buf.cpu()
-        done = st.done.tolist()
+        with span("wait.read_out"):
+            n_gen = st.n_gen.tolist()
+            out_buf = st.out_buf.cpu()
+            done = st.done.tolist()
         t_end = time.perf_counter()
         # decode steps each row needed: its EOS is token n_gen (the step
         # n_gen - 1 made it); a row without one needed every step
@@ -952,12 +979,14 @@ class AsrEngine:
         hidden, (true_len,), d_hidden = self._embed_prompts(
             [samples], [language], aligned=False, draft=self.draft_bundle)
         slots = torch.arange(p, device=self.device)
-        logits, _ = self.decoder.prefill(self.dec_params, hidden, slots,
-                                         cache, true_len)
-        d_dec.prefill(d_params, hidden if d_hidden is None else d_hidden,
-                      slots, dcache, true_len)
+        with span("prefill.decoder"):
+            logits, _ = self.decoder.prefill(self.dec_params, hidden, slots,
+                                             cache, true_len)
+            d_dec.prefill(d_params, hidden if d_hidden is None else d_hidden,
+                          slots, dcache, true_len)
         st = self._spec_state()
-        st.start(live, true_len, sampling)
+        with span("wait.prefill"):
+            st.start(live, true_len, sampling)
         if sampling.greedy:
             st.tok.copy_(torch.argmax(logits, dim=-1))
         else:  # the prefill's token: fold_in(key, 0)
@@ -967,7 +996,8 @@ class AsrEngine:
         cuda = self.device.type == "cuda"
         graphs = cuda and self.cuda_graphs
         if cuda:
-            torch.cuda.synchronize(self.device)
+            with span("wait.prefill"):
+                torch.cuda.synchronize(self.device)
             ev0 = torch.cuda.Event(enable_timing=True)
             ev0.record()
         t_first = time.perf_counter()
@@ -1018,9 +1048,10 @@ class AsrEngine:
         if cuda:
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
-        n_gen = int(st.n_gen[0])
-        out = st.out_buf[0, :n_gen].tolist()
-        iters, accepted = int(st.iters), int(st.accepted)
+        with span("wait.read_out"):
+            n_gen = int(st.n_gen[0])
+            out = st.out_buf[0, :n_gen].tolist()
+            iters, accepted = int(st.iters), int(st.accepted)
         t_end = time.perf_counter()
         self.last_stats = {
             "iterations": iters, "drafts_accepted": accepted,
@@ -1371,5 +1402,6 @@ class _DoneFlags:
         if not self.cuda:
             return posted
         slot, event = posted
-        event.synchronize()
+        with span("wait.done_flags"):
+            event.synchronize()
         return bool(slot)
