@@ -6,6 +6,7 @@ multiple, reflect-pad ``n_fft // 2`` at the TRUE boundary (host numpy,
 against f64-built constants, ``|X|^2``, Slaney mel projection,
 ``log10(max(., 1e-10))``, floor at ``max - 8`` over the true frames only,
 ``(x + 4) / 4``, and padded frames forced to exactly 0.0.
+``log_mel_from_padded`` takes one padded waveform or a batch of them.
 
 The host constants (filterbank, Hann window, DFT matrices) and
 ``pad_waveform`` are numpy copies of the JAX module's.
@@ -130,21 +131,25 @@ def _windowed_dft(n_fft: int, device) -> tuple[torch.Tensor, torch.Tensor]:
             torch.from_numpy(sin_m * window).to(device))
 
 
-def _raw_log_mel(wave, n_true_frames: int, mel_filters,
+def _raw_log_mel(wave, n_true_frames, mel_filters,
                  n_fft: int, hop_length: int):
-    """log10 mel power before normalization; returns (log_mel, frame_valid).
+    """log10 mel power before normalization; returns (log_mel (..., mels,
+    frames), frame_valid (..., frames)).
 
-    ``wave`` (1-D f32 tensor) already carries the reflect padding from
-    ``pad_waveform``; its length sets the frame count.
+    ``wave`` ((L,) or (B, L) f32 tensor) already carries the reflect
+    padding from ``pad_waveform``; its length sets the frame count.
+    ``n_true_frames``: an int, or a (B,) integer tensor for a (B, L) wave.
     """
     pad = n_fft // 2
-    num_frames = (wave.shape[0] - 2 * pad) // hop_length
-    frames = wave.float().unfold(0, n_fft, hop_length)[:num_frames]
+    num_frames = (wave.shape[-1] - 2 * pad) // hop_length
+    frames = wave.float().unfold(-1, n_fft, hop_length)[..., :num_frames, :]
     wcos, wsin = _windowed_dft(n_fft, wave.device)
     re = frames @ wcos
     im = frames @ wsin
-    power = re * re + im * im  # (num_frames, n_freqs)
-    mel = mel_filters @ power.T  # (mels, frames)
+    power = re * re + im * im  # (..., num_frames, n_freqs)
+    mel = mel_filters @ power.transpose(-1, -2)  # (..., mels, frames)
+    if isinstance(n_true_frames, torch.Tensor):
+        n_true_frames = n_true_frames[..., None]
     frame_valid = torch.arange(num_frames, device=wave.device) < n_true_frames
     log_mel = torch.log10(torch.clamp(mel, min=1e-10))
     return log_mel, frame_valid
@@ -159,23 +164,28 @@ def raw_log_mel_max(wave, n_true_frames: int, mel_filters,
     return torch.where(frame_valid[None, :], log_mel, -torch.inf).max()
 
 
-def log_mel_from_padded(wave, n_true_frames: int, mel_filters,
+def log_mel_from_padded(wave, n_true_frames, mel_filters,
                         n_fft: int = 400, hop_length: int = 160,
                         log_max=None):
-    """Normalized log-mel (mels, frames) from a ``pad_waveform`` output.
+    """Normalized log-mel (mels, frames) from a ``pad_waveform`` output,
+    or (B, mels, frames) from B of them stacked into a (B, L) ``wave``
+    with a (B,) integer tensor of true frame counts (JAX's ``vmap`` of
+    the 1-D form: each row as the 1-D form gives it).
 
-    With ``log_max`` None the Whisper floor uses the max over this
-    waveform's true frames (src/mel.rs:88-92); a caller may pass a
+    With ``log_max`` None the Whisper floor uses the max over each
+    waveform's own true frames (src/mel.rs:88-92); a caller may pass a
     running max instead.
     """
     log_mel, frame_valid = _raw_log_mel(
         wave, n_true_frames, mel_filters, n_fft, hop_length
     )
+    frame_valid = frame_valid[..., None, :]
     if log_max is None:
-        log_max = torch.where(frame_valid[None, :], log_mel, -torch.inf).max()
+        log_max = torch.where(frame_valid, log_mel, -torch.inf).amax(
+            (-2, -1), keepdim=True)
     log_mel = torch.maximum(log_mel, log_max - 8.0)
     log_mel = (log_mel + 4.0) / 4.0
-    return torch.where(frame_valid[None, :], log_mel, 0.0)
+    return torch.where(frame_valid, log_mel, 0.0)
 
 
 class LogMelFrontend:

@@ -7,7 +7,8 @@ chunks run as a batch through the layers with a per-window key-prefix
 validity count, then ln_post -> proj1 -> GELU -> proj2. The flat output
 is chunk-major with all valid tokens a prefix, so callers take
 ``out[:n_valid]``. Linear weights are (in, out) as in JAX. ``batch``
-encodes a training batch, each row with its own true frame count.
+encodes a batch of bucketed mels (an offline call's clips, a training
+batch), each row with its own true frame count.
 
 Under tensor parallelism (``tp``, when the head count divides it: the
 spec tree of ``parallel/sharding.encoder_param_specs``) each rank holds
@@ -139,9 +140,10 @@ class AudioEncoder:
 
     def batch(self, params: Tree, mel, n_frames):
         """Encode a batch of bucketed mels, each row with its own true
-        frame count (JAX ``jax.vmap(encoder, in_axes=(None, 0, 0))``, the
-        training batch): mel (B, num_mel_bins, F), n_frames (B,) integer
-        tensor. Every row's windows run as one batch through the layers.
+        frame count (JAX ``jax.vmap(encoder, in_axes=(None, 0, 0))``: the
+        engine's clips, the training batch): mel (B, num_mel_bins, F),
+        n_frames (B,) integer tensor. Every row's windows run as one batch
+        through the layers, with ``__call__``'s per-window key counts.
         Returns (flat_tokens (B, num_chunks * tpc, output_dim), n_valid
         (B,))."""
         cfg = self.cfg
@@ -177,8 +179,16 @@ class AudioEncoder:
 
     def _stem(self, params: Tree, x):
         """(N, 1, mel_bins, chunk_frames) chunks -> (N, tpc, d_model): the
-        conv stem, conv_out and the per-chunk positions."""
+        conv stem, conv_out and the per-chunk positions, in groups of at
+        most ``conv_chunksize`` chunks (the conv activations of a whole
+        batch's chunks at once would be gigabytes; chunks are
+        independent, so the grouping changes no value)."""
         x = x.to(params["conv1_w"].dtype)
+        parts = [self._stem_group(params, g)
+                 for g in x.split(self.cfg.conv_chunksize)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _stem_group(self, params: Tree, x):
         for i in (1, 2, 3):
             x = F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
                          stride=2, padding=1)

@@ -25,8 +25,7 @@ that decodes past the first stage frees them and allocates and captures
 its later stages itself, which it frees at its end.
 
 Differences from the JAX engine, none of which changes the greedy
-tokens: mel and the encoder loop over the batch's clips instead of
-``vmap``; slabs round up to 8 slots, not the JAX engine's 8/128 (masks
+tokens: slabs round up to 8 slots, not the JAX engine's 8/128 (masks
 make the output independent of the slab length); the loop stops one
 decode step earlier at the cap (the JAX loop's last step makes a token
 it discards). Sampled draws are JAX's: ``prng_key(seed)``, the prefill's
@@ -41,9 +40,10 @@ and argmax into the decode kernel for greedy steps (default off, as in
 JAX). Stage timers (``utils/tracing.py``): ``device_dispatch`` per
 transcription, ``warmup_c{c}_b{b}`` per warmed graph set. Spans, recorded
 while the tracer is on (``ASR_TRACE=1``, or while a torch profiler
-records): ``prefill.encode`` (``_embed_prompts``: the clip loop, token
-embedding and audio injection), inside it per clip ``prefill.mel``
-(padding, the copy to the device, log-mel) and ``prefill.encoder`` (the
+records): ``prefill.encode`` (``_embed_prompts``, whole: mel, encoder,
+token embedding and audio injection), inside it once per call
+``prefill.mel`` (the host loop's padding and prompt ids, the copies to
+the device, the batched log-mel) and ``prefill.encoder`` (the batched
 encoder, and the draft's), ``prefill.decoder`` (the text decoder's
 prefill), ``wait.prefill`` (the state's reset, where ``_generate``'s
 blocking copy of the live rows from the host waits for the prefill on
@@ -499,7 +499,10 @@ class AsrEngine:
                        languages: Sequence[Optional[str]], aligned: bool,
                        draft: Optional[DraftBundle] = None):
         """Mel, encoder and prompt embedding with audio injection for
-        utterances that share one chunk bucket (the largest any needs).
+        utterances that share one chunk bucket (the largest any needs),
+        as the JAX engine's ``vmap``: one host loop (padding, prompt ids),
+        one copy to the device, one batched log-mel and one batched
+        encoder call over every row (the draft's encoder once more).
         Prompts sit at slots [0, len) or, ``aligned``, end at the prompt
         bucket P; each row's audio goes to its prompt start +
         ``AUDIO_OFFSET``. Returns (hidden (B, P, H), true prompt lengths,
@@ -511,45 +514,58 @@ class AsrEngine:
             tpc = cfg.audio.tokens_per_chunk
             bucket_chunks = self._chunk_bucket(samples_list)
             p_bucket = self._prompt_bucket(bucket_chunks)
-            ids = torch.zeros((len(samples_list), p_bucket), dtype=torch.long)
-            audio, d_audio, true_lens = [], [], []
-            for i, (samples, language) in enumerate(zip(samples_list,
-                                                        languages)):
-                with span("prefill.mel"):
-                    wave, n_true = pad_waveform(
-                        samples, bucket_frames=bucket_chunks * cf)
-                    mel = log_mel_from_padded(
-                        torch.from_numpy(wave).to(self.device), n_true,
-                        self.mel_filters)
-                tail = n_true % cf
-                n_audio = (n_true // cf) * tpc + (
-                    feat_extract_output_length(tail) if tail else 0
-                )
-                prompt = build_prompt(n_audio, language, self.tokenizer)
-                if len(prompt) > p_bucket:
-                    raise ValueError(
-                        "prompt exceeds bucket; language string too long")
-                start = p_bucket - len(prompt) if aligned else 0
-                ids[i, start: start + len(prompt)] = torch.tensor(prompt)
-                true_lens.append(len(prompt))
-                with span("prefill.encoder"):
-                    embeds, _ = self.encoder(self.enc_params, mel, n_true)
-                    audio.append((start + AUDIO_OFFSET, embeds[:n_audio]))
-                    if draft is not None:
-                        embeds, _ = draft.encoder(draft.enc_params, mel,
-                                                  n_true)
-                        d_audio.append((start + AUDIO_OFFSET,
-                                        embeds[:n_audio]))
-            ids = ids.to(self.device)
-            out = [(self.decoder.embed(self.dec_params, ids), audio)]
+            b = len(samples_list)
+            ids = torch.zeros((b, p_bucket), dtype=torch.long)
+            n_true = np.zeros(b, np.int64)
+            runs, true_lens = [], []
+            # pad_waveform's output at the bucket: each row padded at its
+            # true length, then zeros (a third of the host's copies);
+            # pinned on CUDA, so that its copy does not hold the host
+            waves = torch.empty((b, bucket_chunks * cf * 160 + 400),
+                                pin_memory=self.device.type == "cuda")
+            host = waves.numpy()
+            # the blocking copies precede the call's device work: each
+            # waits for the card
+            with span("prefill.mel"):
+                for i, (samples, language) in enumerate(zip(samples_list,
+                                                            languages)):
+                    wave, n = pad_waveform(samples)
+                    host[i, :len(wave)] = wave
+                    host[i, len(wave):] = 0.0
+                    n_true[i] = n
+                    tail = n % cf
+                    n_audio = (n // cf) * tpc + (
+                        feat_extract_output_length(tail) if tail else 0
+                    )
+                    prompt = build_prompt(n_audio, language, self.tokenizer)
+                    if len(prompt) > p_bucket:
+                        raise ValueError(
+                            "prompt exceeds bucket; language string too long")
+                    start = p_bucket - len(prompt) if aligned else 0
+                    ids[i, start: start + len(prompt)] = torch.tensor(prompt)
+                    true_lens.append(len(prompt))
+                    runs.append((start + AUDIO_OFFSET, n_audio))
+                ids = ids.to(self.device)
+                n_true = torch.from_numpy(n_true).to(self.device)
+                mel = log_mel_from_padded(
+                    waves.to(self.device, non_blocking=True), n_true,
+                    self.mel_filters)
+            models = [(self.encoder, self.enc_params, self.decoder,
+                       self.dec_params)]
             if draft is not None:
-                out.append((draft.decoder.embed(draft.dec_params, ids),
-                            d_audio))
-            for hidden, runs in out:
-                for i, (at, embeds) in enumerate(runs):
-                    hidden[i, at: at + len(embeds)] = embeds.to(hidden.dtype)
-            return (out[0][0], true_lens,
-                    out[1][0] if draft is not None else None)
+                models.append((draft.encoder, draft.enc_params,
+                               draft.decoder, draft.dec_params))
+            with span("prefill.encoder"):
+                audio = [enc.batch(enc_params, mel, n_true)[0]
+                         for enc, enc_params, _, _ in models]
+            hidden = []
+            for (_, _, dec, dec_params), embeds in zip(models, audio):
+                h = dec.embed(dec_params, ids)
+                for i, (at, n_audio) in enumerate(runs):
+                    h[i, at: at + n_audio] = embeds[i, :n_audio].to(h.dtype)
+                hidden.append(h)
+            return (hidden[0], true_lens,
+                    hidden[1] if draft is not None else None)
 
     @torch.inference_mode()
     def prefill(self, samples: np.ndarray, language: Optional[str] = None,
@@ -580,8 +596,10 @@ class AsrEngine:
         hidden, true_lens, _ = self._embed_prompts(samples_list, languages,
                                                    aligned=True)
         b, p_bucket = hidden.shape[:2]
+        # a blocking copy would wait for the encoder on the card
         kv_start = torch.tensor([p_bucket - n for n in true_lens],
-                                dtype=torch.int32, device=self.device)
+                                dtype=torch.int32).to(self.device,
+                                                      non_blocking=True)
         if cache is None:
             cache = self._new_cache(b, p_bucket)
         with span("prefill.decoder"):

@@ -28,14 +28,21 @@ from qwen3_asr_rs_tpu.ops.pallas.decode_layer import (
 from qwen3_asr_rs_tpu.ops.rotary import RotaryTable as JRotary
 from qwen3_asr_rs_tpu.runtime.engine import AsrEngine as JaxEngine
 from qwen3_asr_rs_tpu_torch import config as tconfig
+from qwen3_asr_rs_tpu_torch.config import feat_extract_output_length
+from qwen3_asr_rs_tpu_torch.features.mel import (
+    log_mel_from_padded,
+    pad_waveform,
+)
 from qwen3_asr_rs_tpu_torch.models.text_decoder import KVCache, TextDecoder
 from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
     decode_layers_fused,
 )
 from qwen3_asr_rs_tpu_torch.ops.rotary import RotaryTable
 from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+from qwen3_asr_rs_tpu_torch.runtime.prompt import AUDIO_OFFSET, build_prompt
 from qwen3_asr_rs_tpu_torch.weights import convert
 from test_torch_engine import _Tok, _tiny
+from test_torch_spec_decode import _draft_cfg, _draft_tuple
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 T = torch.from_numpy
@@ -103,6 +110,87 @@ def test_batch_languages_and_edge_cases():
     assert teng.transcribe_batch([]) == []
     forced = teng.transcribe_batch(CLIPS[:2], ["english", None])
     assert forced[0].language == "forced" and forced[1].language != "forced"
+
+
+def _per_clip_embed(eng, clips, aligned, draft):
+    """The per-clip loop the batched ``_embed_prompts`` replaced: each
+    clip's own log-mel and ``encoder.__call__``, injected row by row."""
+    cf = eng.config.audio.chunk_frames
+    tpc = eng.config.audio.tokens_per_chunk
+    bucket = eng._chunk_bucket(clips)
+    p = eng._prompt_bucket(bucket)
+    ids = torch.zeros((len(clips), p), dtype=torch.long)
+    mels, runs, true_lens = [], [], []
+    for i, clip in enumerate(clips):
+        wave, n = pad_waveform(clip, bucket_frames=bucket * cf)
+        mels.append((log_mel_from_padded(torch.from_numpy(wave), n,
+                                         eng.mel_filters), n))
+        tail = n % cf
+        n_audio = (n // cf) * tpc + (feat_extract_output_length(tail)
+                                     if tail else 0)
+        prompt = build_prompt(n_audio, None, eng.tokenizer)
+        start = p - len(prompt) if aligned else 0
+        ids[i, start: start + len(prompt)] = torch.tensor(prompt)
+        runs.append((start + AUDIO_OFFSET, n_audio))
+        true_lens.append(len(prompt))
+    models = [(eng.encoder, eng.enc_params, eng.decoder, eng.dec_params)]
+    if draft is not None:
+        models.append((draft.encoder, draft.enc_params, draft.decoder,
+                       draft.dec_params))
+    hidden = []
+    for enc, enc_params, dec, dec_params in models:
+        h = dec.embed(dec_params, ids)
+        for i, ((mel, n), (at, n_audio)) in enumerate(zip(mels, runs)):
+            embeds, _ = enc(enc_params, mel, n)
+            h[i, at: at + n_audio] = embeds[:n_audio]
+        hidden.append(h)
+    return hidden, true_lens
+
+
+@functools.lru_cache(maxsize=None)
+def _draft_engine():
+    """The tiny port engine with a smaller cross-model draft (its own
+    encoder, embeddings and widths), on 1- and 4-chunk buckets."""
+    cfg, dcfg = _tiny(tconfig), _draft_cfg()
+    return AsrEngine(None, dtype=torch.float32, device="cpu",
+                     max_new_tokens=4, chunk_buckets=(1, 4), config=cfg,
+                     params=(convert.init_encoder_params_np(cfg.audio),
+                             convert.init_decoder_params_np(cfg.text)),
+                     tokenizer=_Tok(), draft_model=_draft_tuple(dcfg))
+
+
+@pytest.mark.parametrize("draft", [False, True], ids=["plain", "draft"])
+@pytest.mark.parametrize("clips,aligned", [
+    ((0, 1, 2, 2), True), ((3,), False)], ids=["b3-padded-to-4", "b1"])
+def test_embed_prompts_matches_the_per_clip_loop(monkeypatch, clips,
+                                                 aligned, draft):
+    """One batched log-mel and one ``encoder.batch`` per model (the
+    draft's too) give the per-clip loop's hidden states and true prompt
+    lengths: three clips of mixed lengths padded to four rows by
+    repeating the last, right-aligned, and a lone clip left-aligned."""
+    eng = _draft_engine()
+    bundle = eng.draft_bundle if draft else None
+    clips = [CLIPS[i] for i in clips]
+    calls = []
+
+    def counted(batch):
+        def call(params, mel, n_frames):
+            calls.append(mel.shape[0])
+            return batch(params, mel, n_frames)
+        return call
+
+    for model in [eng.encoder] + ([bundle.encoder] if draft else []):
+        monkeypatch.setattr(model, "batch", counted(model.batch))
+    hidden, true_lens, d_hidden = eng._embed_prompts(
+        clips, [None] * len(clips), aligned=aligned, draft=bundle)
+    assert calls == [len(clips)] * (2 if draft else 1)
+    want, want_lens = _per_clip_embed(eng, clips, aligned, bundle)
+    assert true_lens == want_lens
+    np.testing.assert_allclose(hidden.numpy(), want[0].numpy(), **TOL)
+    if draft:
+        np.testing.assert_allclose(d_hidden.numpy(), want[1].numpy(), **TOL)
+    else:
+        assert d_hidden is None
 
 
 def test_lookup_batch_matches_jax(rng):

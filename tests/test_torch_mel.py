@@ -2,6 +2,7 @@
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,3 +58,47 @@ def test_floor_uses_true_frames_only(rng):
     # frames whose window never reaches the loud tail are unchanged
     np.testing.assert_array_equal(got[:, : n_true - 3].numpy(),
                                   base[:, : n_true - 3].numpy())
+
+
+@pytest.mark.parametrize("lengths,bucket_frames", [
+    ((16000, 9000, 999, 15500), 100), ((47000, 16000, 30100), 300)],
+    ids=["one-chunk", "three-chunks"])
+def test_batched_log_mel_is_each_rows_own(rng, lengths, bucket_frames):
+    """A (B, L) batch of padded waves of mixed lengths in one bucket gives
+    every row what the 1-D form gives it, each row floored at its own max
+    (the second row is 1000x quieter than the others: a batch-wide floor
+    would flatten it), frames past its true count exactly 0, and JAX's
+    ``vmap`` of its 1-D form."""
+    filters = tmel.create_mel_filterbank()
+    waves, n_true = [], []
+    for i, n in enumerate(lengths):
+        amp = 1e-4 if i == 1 else 0.1
+        samples = (rng.standard_normal(n) * amp).astype(np.float32)
+        wave, nt = tmel.pad_waveform(samples, bucket_frames=bucket_frames)
+        waves.append(wave)
+        n_true.append(nt)
+    waves = np.stack(waves)
+    got = tmel.log_mel_from_padded(torch.from_numpy(waves),
+                                   torch.tensor(n_true),
+                                   torch.from_numpy(filters))
+    assert got.dtype == torch.float32
+    assert got.shape == (len(lengths), 128, bucket_frames)
+    got = got.numpy()
+    for row, wave, nt in zip(got, waves, n_true):
+        want = tmel.log_mel_from_padded(torch.from_numpy(wave), nt,
+                                        torch.from_numpy(filters)).numpy()
+        np.testing.assert_allclose(row, want, atol=1e-6, rtol=1e-6)
+        assert np.all(row[:, nt:] == 0.0)
+    ref = np.asarray(jax.vmap(
+        lambda w, n: jmel.log_mel_from_padded(w, n, jnp.asarray(filters)))(
+            jnp.asarray(waves), jnp.asarray(n_true)))
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    # the quiet row against a floor at the batch's max
+    batch_max = torch.tensor(max(
+        float(tmel.raw_log_mel_max(torch.from_numpy(w), nt,
+                                   torch.from_numpy(filters)))
+        for w, nt in zip(waves, n_true)))
+    shared = tmel.log_mel_from_padded(
+        torch.from_numpy(waves[1]), n_true[1], torch.from_numpy(filters),
+        log_max=batch_max).numpy()
+    assert np.abs(shared - got[1]).max() > 0.1

@@ -70,6 +70,48 @@ def test_encoder_bucket_padding_invariance(rng):
     np.testing.assert_allclose(run(3), run(16), atol=3e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("group", [500, 7], ids=["one-group", "groups-of-7"])
+def test_encoder_batch_matches_per_row_calls(rng, group):
+    """``batch`` over rows of mixed true lengths (10 chunks: two windows,
+    the second part padding) gives each row's ``__call__``; a stem in
+    groups of fewer chunks than the batch holds changes nothing."""
+    cfg, _, tp = _encoders()
+    chunks = 10
+    lengths = (1000, 650, 130)
+    mel = np.zeros((len(lengths), cfg.num_mel_bins,
+                    chunks * cfg.chunk_frames), np.float32)
+    for row, n in zip(mel, lengths):
+        row[:, :n] = rng.standard_normal((cfg.num_mel_bins, n))
+    grouped = AudioEncoder(dataclasses.replace(cfg, conv_chunksize=group))
+    flat, n_valid = grouped.batch(tp, T(mel), torch.tensor(lengths))
+    assert flat.shape == (len(lengths), chunks * cfg.tokens_per_chunk,
+                          cfg.output_dim)
+    enc = AudioEncoder(cfg)
+    for row, n, got, got_n in zip(mel, lengths, flat, n_valid):
+        want, want_n = enc(tp, T(row), n)
+        assert int(got_n) == want_n
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_stem_groups_keep_gradients(rng):
+    """The grouped stem's gradients are the whole stem's (training calls
+    ``batch`` with a gradient)."""
+    cfg, _, _ = _encoders()
+    mel = T(rng.standard_normal((2, cfg.num_mel_bins,
+                                 3 * cfg.chunk_frames)).astype(np.float32))
+    grads = []
+    for group in (500, 4):
+        params = convert.init_encoder_params(cfg, dtype=torch.float32)
+        w = params["conv1_w"].requires_grad_()
+        enc = AudioEncoder(dataclasses.replace(cfg, conv_chunksize=group))
+        flat, _ = enc.batch(params, mel, torch.tensor([300, 170]))
+        (flat.square().sum()).backward()
+        grads.append(w.grad)
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
 def test_valid_tokens_formula():
     enc = AudioEncoder(AudioEncoderConfig())
     for frames in [100, 260, 1000, 1040, 37, 99, 0]:

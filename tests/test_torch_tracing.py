@@ -258,8 +258,10 @@ def test_engine_prefill_spans(registry, monkeypatch, n_clips, rows, kw):
     eng.transcribe_batch(clips)
     monkeypatch.setattr(tracing, "_enabled", False)
     spans = tracing.snapshot()["spans"]
+    # the mel and the encoder run once per call over all its rows
+    assert len(eng.last_stats["n_gen"]) == rows
     assert {n: spans[n]["count"] for n in PREFILL_SPANS} == {
-        "prefill.encode": 1, "prefill.mel": rows, "prefill.encoder": rows,
+        "prefill.encode": 1, "prefill.mel": 1, "prefill.encoder": 1,
         "prefill.decoder": 1}
     assert spans["wait.prefill"]["count"] == spans["wait.read_out"][
         "count"] == 1
@@ -313,7 +315,7 @@ def test_cli_metrics_carry_spans_under_asr_trace(tmp_path):
     data = json.loads(metrics.read_text())
     assert data["device_dispatch"]["count"] == 1
     assert {n: data[n]["count"] for n in PREFILL_SPANS} == {
-        "prefill.encode": 1, "prefill.mel": 2, "prefill.encoder": 2,
+        "prefill.encode": 1, "prefill.mel": 1, "prefill.encoder": 1,
         "prefill.decoder": 1}
     assert all(set(v) == {"total_ms", "count"} for v in data.values())
 
