@@ -11,8 +11,9 @@ than ``seconds``; it ends when the last one returns, so a rate covers
 all the work and all the time.
 The engine's ``last_stats`` of each call (host-clock prefill seconds,
 CUDA-event decode seconds, decode steps, tokens per row) are the
-program's readings. A traced run profiles the window's second batch
-whole.
+program's readings; ``account`` hands each call's whole to the decoder
+architecture's count of its decode steps. A traced run profiles the
+window's second batch whole.
 """
 
 from __future__ import annotations
@@ -68,21 +69,8 @@ class Session:
                     batch_s_max=v[-1], prefill_s_each=[
                         round(st["prefill_seconds"], 4) for _, _, st in done])
         check_precision(self.engine, cfg)
-        prog = {"prefill_seconds": 0.0, "decode_gpu_seconds": 0.0,
-                "decode_steps": 0, "decode_bound_s": 0.0}
-        flops = audio = 0.0
-        for clips, toks, st in done:
-            prog["prefill_seconds"] += st["prefill_seconds"]
-            prog["decode_gpu_seconds"] += st.get("decode_gpu_seconds", 0.0)
-            prog["decode_steps"] += st["decode_steps"]
-            lens = [work.prompt_len(cfg, len(c.samples)) for c in clips]
-            n_gen = st["n_gen"][: len(clips)]
-            prog["decode_bound_s"] += decode_bound_s(cfg, lens, n_gen,
-                                                     self.max_new)
-            for c, p, t in zip(clips, lens, toks):
-                frames, _ = work.audio_tokens(cfg, len(c.samples))
-                flops += work.request_flops(cfg, frames, p, len(t))
-                audio += c.seconds
+        prog, flops, audio = account(cfg, done, self.max_new,
+                                     ctx.cell.bench_dir)
         rng = np.random.default_rng([ctx.seed % 2 ** 63, 1])
         clips, toks, _ = done[int(rng.integers(len(done)))]
         items = [{"samples": c.samples, "tokens": t, "cap": self.max_new,
@@ -97,16 +85,43 @@ class Session:
         gc.collect()
 
 
+def account(config: dict, done: list, max_new: int, bench_dir) -> tuple:
+    """(the program's readings, the operations of the real work, the
+    audio seconds) of the window's calls ``done``: (clips, each clip's
+    tokens, the call's ``last_stats``) each, counted by the
+    configuration's architecture under ``bench_dir``."""
+    prog = {"prefill_seconds": 0.0, "decode_gpu_seconds": 0.0,
+            "decode_steps": 0, "decode_bound_s": 0.0}
+    flops = audio = 0.0
+    for clips, toks, st in done:
+        prog["prefill_seconds"] += st["prefill_seconds"]
+        prog["decode_gpu_seconds"] += st.get("decode_gpu_seconds", 0.0)
+        prog["decode_steps"] += st["decode_steps"]
+        lens = [work.prompt_len(config, len(c.samples)) for c in clips]
+        n_gen = st["n_gen"][: len(clips)]
+        prog["decode_bound_s"] += decode_bound_s(config, lens, n_gen,
+                                                 max_new, st, bench_dir)
+        for c, p, t in zip(clips, lens, toks):
+            frames, _ = work.audio_tokens(config, len(c.samples))
+            flops += work.request_flops(config, frames, p, len(t),
+                                        bench_dir)
+            audio += c.seconds
+    return prog, flops, audio
+
+
 def decode_bound_s(config: dict, prompt_lens: list, n_gen: list,
-                   max_new: int) -> float:
+                   max_new: int, stats: dict, bench_dir) -> float:
     """The least time of a call's decode steps: step s (making token
     s + 2) runs over the rows still live, row r reading prompt_lens[r] + s
     stale slots; a row that stopped at an end token after n tokens was
-    live for steps 0..n-1, one that reached the cap for all of them."""
+    live for steps 0..n-1, one that reached the cap for all of them.
+    ``stats``, the call's ``last_stats``, goes to the count of each step
+    by the configuration's architecture under ``bench_dir``."""
     total = 0.0
     for s in range(max_new - 1):
         live = [p + s for p, g in zip(prompt_lens, n_gen)
                 if g >= max_new or s < g]
         if live:
-            total += work.bound_s(*work.decode_step_work(config, live))
+            total += work.bound_s(*work.decode_step_work(
+                config, live, stats=stats, step=s, bench_dir=bench_dir))
     return total

@@ -91,7 +91,8 @@ class Session:
             tokens += len(toks)
             frames, _ = work.audio_tokens(cfg, len(c.samples))
             flops += work.request_flops(
-                cfg, frames, work.prompt_len(cfg, len(c.samples)), len(toks))
+                cfg, frames, work.prompt_len(cfg, len(c.samples)), len(toks),
+                ctx.cell.bench_dir)
             items.append({"samples": c.samples, "tokens": toks,
                           "cap": c.max_new, "seconds": c.seconds})
         finished = [r.finish_time for r in reqs if r.finish_time is not None]

@@ -96,7 +96,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     marks = [("imports", time.perf_counter())]
     traffic = cell.generator().generate(cell.mix, seed, seconds)
     marks.append(("traffic", time.perf_counter()))
-    enc, dec = make_weights(cell.config, seed, device)
+    enc, dec = make_weights(cell.config, seed, device, cell.bench_dir)
     if cuda:
         torch.cuda.synchronize()
     marks.append(("weights", time.perf_counter()))

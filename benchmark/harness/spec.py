@@ -13,6 +13,9 @@ piece that belongs to one of them is a file of its own under
                                  entries, for the tools and the tests
     metrics/<metric>.py          reads one metric from the run's record
     reference/<reference>.py     the plain float32 model of a config
+    architectures/<arch>.py      a decoder's weight layout and work counts,
+                                 named by a config's ``architecture``
+                                 (default ``qwen3_asr``)
 
 A later cell or metric adds files and entries; none of these is edited.
 """
@@ -20,6 +23,7 @@ A later cell or metric adds files and entries; none of these is edited.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import json
@@ -45,6 +49,19 @@ def load_module(path: Path, name: Optional[str] = None) -> ModuleType:
     sys.modules[modname] = module  # dataclasses look their module up
     spec.loader.exec_module(module)
     return module
+
+
+def architecture(config: dict, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    """The module of ``config``'s decoder architecture: its
+    ``architecture`` (default ``qwen3_asr``), under ``bench_dir``."""
+    return _architecture(config.get("architecture", "qwen3_asr"), bench_dir)
+
+
+@functools.lru_cache(maxsize=None)
+def _architecture(name: str, bench_dir: Path) -> ModuleType:
+    # asked once per decode step of the window's accounting, where
+    # load_module's resolve and hash took ~50 us a call
+    return load_module(bench_dir / "architectures" / f"{name}.py")
 
 
 def read_json(path: Path) -> dict:
@@ -80,6 +97,9 @@ class Cell:
 
     def metric(self, name: str) -> ModuleType:
         return load_module(self.bench_dir / "metrics" / f"{name}.py")
+
+    def architecture(self) -> ModuleType:
+        return architecture(self.config, self.bench_dir)
 
 
 def reports(metric: dict, cell: str, cell_e2e: set) -> bool:

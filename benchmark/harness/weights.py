@@ -3,17 +3,22 @@
 The layout is the checkpoint tree that the program's ``AsrEngine(params=)``
 takes (the JAX package's: per-layer leaves stacked on a leading axis,
 linear weights (in, out), ``embed`` and ``lm_head`` (V, H), a tied
-``lm_head`` the same tensor as ``embed``). Every leaf is a view of one
-buffer, filled by one draw from a ``torch.Generator`` on the device, in
-the type the weights are served in: weights and biases N(0, scale^2),
-norm gains 1 + N(0, scale^2). The reference reads the same tensors.
+``lm_head`` the same tensor as ``embed``). The audio encoder's leaves are
+here; the decoder's are its architecture's (``decoder_leaves`` of
+``architectures/<architecture>.py``). Every leaf is a view of one buffer,
+filled by one draw from a ``torch.Generator`` on the device, in the type
+the weights are served in: weights and biases N(0, scale^2), norm gains
+1 + N(0, scale^2). The reference reads the same tensors.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import torch
+
+from .spec import BENCH_DIR, architecture
 
 ALIGN = 64  # elements: every leaf starts 128-byte aligned in bf16
 
@@ -55,26 +60,6 @@ def encoder_leaves(a: dict) -> dict:
     return leaves
 
 
-def decoder_leaves(t: dict) -> dict:
-    """{name: (shape, kind)} of the text decoder (see encoder_leaves); a
-    tied lm_head is not a leaf of its own."""
-    h, d, inter = t["hidden_size"], t["head_dim"], t["intermediate_size"]
-    nq, nkv = t["num_attention_heads"], t["num_key_value_heads"]
-    v, nl = t["vocab_size"], t["num_hidden_layers"]
-    leaves = {"embed": ((v, h), "w"), "final_ln_w": ((h,), "g")}
-    if not t.get("tie_word_embeddings", True):
-        leaves["lm_head"] = ((v, h), "w")
-    for n, shape, kind in (
-            ("input_ln_w", (h,), "g"), ("q_w", (h, nq * d), "w"),
-            ("k_w", (h, nkv * d), "w"), ("v_w", (h, nkv * d), "w"),
-            ("o_w", (nq * d, h), "w"), ("q_norm_w", (d,), "g"),
-            ("k_norm_w", (d,), "g"), ("post_ln_w", (h,), "g"),
-            ("gate_w", (h, inter), "w"), ("up_w", (h, inter), "w"),
-            ("down_w", (inter, h), "w")):
-        leaves[f"layers/{n}"] = ((nl,) + shape, kind)
-    return leaves
-
-
 def _views(buf: torch.Tensor, leaves: dict, at: int, gains: list):
     tree: dict = {}
     for name, (shape, kind) in leaves.items():
@@ -95,13 +80,14 @@ def _numel(leaves: dict) -> int:
     return sum(-(-math.prod(s) // ALIGN) * ALIGN for s, _ in leaves.values())
 
 
-def make_weights(config: dict, seed: int, device) -> tuple:
+def make_weights(config: dict, seed: int, device,
+                 bench_dir: Path = BENCH_DIR) -> tuple:
     """(encoder tree, decoder tree) of ``config`` (a configs/*.json
     object) from ``seed``: one draw into one buffer of the configuration's
-    ``dtype``."""
-    tc = config["thinker_config"]
-    enc_l = encoder_leaves(tc["audio_config"])
-    dec_l = decoder_leaves(tc["text_config"])
+    ``dtype``, the encoder's leaves first, then those of the decoder's
+    architecture (found under ``bench_dir``)."""
+    enc_l = encoder_leaves(config["thinker_config"]["audio_config"])
+    dec_l = architecture(config, bench_dir).decoder_leaves(config)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     buf = torch.empty(_numel(enc_l) + _numel(dec_l),

@@ -5,12 +5,20 @@ What is counted does not depend on which kernel does the work, so a
 change of kernel cannot leave it stale: the model's operations on real
 audio and real prompts (padding, born-done rows and steps past a row's
 end are not work), and for a decode step the least bytes it has to move.
-The arithmetic of ``bound_s`` and ``decode_step_work`` follows
+The audio tower's work is here, since every configuration runs
+Qwen3-ASR's; the decoder's is its architecture's
+(``architectures/<architecture>.py``), to which ``prefill_flops``,
+``decode_flops``, ``request_flops`` and ``decode_step_work`` dispatch.
+The arithmetic of ``bound_s`` and the dense ``decode_step_work`` follows
 ``chip_smoke.py``'s ``bound_of`` and ``k1_work``, extended to the whole
 step (the lm_head included).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
+
+from .spec import BENCH_DIR, architecture
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -23,46 +31,30 @@ def bound_s(nbytes: float, ops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_BF16_FLOPS)
 
 
-def _text(config: dict) -> dict:
-    return config["thinker_config"]["text_config"]
-
-
 def _audio(config: dict) -> dict:
     return config["thinker_config"]["audio_config"]
 
 
 def layer_weights(t: dict) -> int:
-    """Weights of one decoder layer's seven products."""
-    h, d, inter = t["hidden_size"], t["head_dim"], t["intermediate_size"]
-    nq, nkv = t["num_attention_heads"], t["num_key_value_heads"]
-    return h * (nq + 2 * nkv) * d + nq * d * h + 3 * h * inter
+    """Weights of one layer of the default architecture's decoder
+    (``architectures/qwen3_asr.py``); a text config names no
+    architecture."""
+    return architecture({}).layer_weights(t)
 
 
-def _layer_norm_weights(t: dict) -> int:
-    return 2 * t["hidden_size"] + 2 * t["head_dim"]
+def prefill_flops(config: dict, prompt_len: int,
+                  bench_dir: Path = BENCH_DIR) -> float:
+    """A prompt of ``prompt_len`` real tokens through the decoder, by the
+    configuration's architecture."""
+    return architecture(config, bench_dir).prefill_flops(config, prompt_len)
 
 
-def prefill_flops(config: dict, prompt_len: int) -> float:
-    """A prompt of ``prompt_len`` real tokens through every layer, causal
-    attention included, and the lm_head at its last position."""
-    t = _text(config)
-    nl, qd = t["num_hidden_layers"], t["num_attention_heads"] * t["head_dim"]
-    p = prompt_len
-    return (2.0 * p * nl * layer_weights(t) + 2.0 * nl * p * (p + 1) * qd
-            + 2.0 * t["hidden_size"] * t["vocab_size"])
-
-
-def decode_flops(config: dict, prompt_len: int, n_tokens: int) -> float:
-    """The decode steps that made tokens 2..n of a request (the first
-    comes from the prefill): two operations per weight, the lm_head's
-    too, and four per attended position, query head and dimension."""
-    t = _text(config)
-    nl, qd = t["num_hidden_layers"], t["num_attention_heads"] * t["head_dim"]
-    steps = max(n_tokens - 1, 0)
-    per = 2.0 * (nl * layer_weights(t) + t["hidden_size"] * t["vocab_size"])
-    # step j (1..steps) attends prompt_len + j positions
-    keys = steps * prompt_len + steps * (steps + 1) / 2
-    return steps * per + 4.0 * nl * qd * keys
+def decode_flops(config: dict, prompt_len: int, n_tokens: int,
+                 bench_dir: Path = BENCH_DIR) -> float:
+    """The decode steps that made tokens 2..n of a request, by the
+    configuration's architecture."""
+    return architecture(config, bench_dir).decode_flops(
+        config, prompt_len, n_tokens)
 
 
 def _stem_dims(a: dict) -> list:
@@ -98,35 +90,23 @@ def encoder_flops(config: dict, n_true_frames: int) -> float:
 
 
 def request_flops(config: dict, n_true_frames: int, prompt_len: int,
-                  n_tokens: int) -> float:
+                  n_tokens: int, bench_dir: Path = BENCH_DIR) -> float:
     """One transcription's real work: encoder, prefill and decode."""
+    arch = architecture(config, bench_dir)
     return (encoder_flops(config, n_true_frames)
-            + prefill_flops(config, prompt_len)
-            + decode_flops(config, prompt_len, n_tokens))
+            + arch.prefill_flops(config, prompt_len)
+            + arch.decode_flops(config, prompt_len, n_tokens))
 
 
 def decode_step_work(config: dict, live: list, weight_bytes: int = 2,
-                     kv_bytes: int = 2) -> tuple:
+                     kv_bytes: int = 2, stats=None, step: int = 0,
+                     bench_dir: Path = BENCH_DIR) -> tuple:
     """(bytes, operations) of one decode step over rows that read
-    ``live[b]`` stale slab slots each (rows that are done are left out):
-    every decoder weight, norm and the lm_head read once, each row's
-    live K/V of every layer, the fresh K/V written, the token's
-    embedding in and the hidden state out; two operations per weight and
-    row, four per attended position (the stale ones and the row's own),
-    query head and dimension."""
-    t = _text(config)
-    nl, h, d = t["num_hidden_layers"], t["hidden_size"], t["head_dim"]
-    nkv, qd = t["num_key_value_heads"], t["num_attention_heads"] * d
-    b = len(live)
-    lm = t["vocab_size"] * h
-    weights = nl * (layer_weights(t) + _layer_norm_weights(t)) + h + lm
-    slot = 2 * nkv * d * kv_bytes
-    nbytes = (weights * weight_bytes + nl * sum(live) * slot
-              + nl * b * slot + 2 * b * h * weight_bytes)
-    ops = 2.0 * b * (nl * layer_weights(t) + lm) + 4.0 * nl * qd * (
-        sum(live) + b)
-    return nbytes, ops
-
+    ``live[b]`` stale slab slots each, by the configuration's
+    architecture; ``stats``: the program's ``last_stats`` of the call,
+    ``step``: the step's index in it."""
+    return architecture(config, bench_dir).decode_step_work(
+        config, live, weight_bytes, kv_bytes, stats, step)
 
 
 def audio_tokens(config: dict, n_samples: int) -> tuple:

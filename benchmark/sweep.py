@@ -76,7 +76,8 @@ def main(argv=None) -> int:
     # set-up over the longest clips any rate sends
     first = gen.generate(at_rate(cell.mix, max(rates)), args.seed,
                          args.seconds)
-    enc, dec = make_weights(cell.config, args.seed, "cuda")
+    enc, dec = make_weights(cell.config, args.seed, "cuda",
+                            cell.bench_dir)
     ctx = Context(cell, args.seed, args.seconds, "cuda", enc, dec, first)
     t0 = time.perf_counter()
     session = cell.driver().Session(ctx)

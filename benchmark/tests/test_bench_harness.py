@@ -9,14 +9,13 @@ from __future__ import annotations
 import json
 import math
 import re
-import shutil
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
-from tiny import BENCH, ROOT, tiny_config
+from tiny import BENCH, ROOT, copy_bench, tiny_config
 
 from harness import work
 from harness.runner import sample_items
@@ -42,6 +41,9 @@ def test_cell_files_found_by_name(name):
     assert hasattr(cell.generator(), "generate")
     assert hasattr(cell.driver(), "Session")
     assert hasattr(cell.reference(), "Reference")
+    arch = cell.architecture()
+    assert all(callable(getattr(arch, f)) for f in (
+        "decoder_leaves", "prefill_flops", "decode_flops", "decode_step_work"))
     e2e = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell.per_layer
@@ -52,10 +54,7 @@ def test_cell_files_found_by_name(name):
 
 
 def test_new_metric_and_cell_are_picked_up_without_edits(tmp_path):
-    shutil.copytree(BENCH, tmp_path / "benchmark",
-                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    before = {p: p.read_bytes() for p in (tmp_path / "benchmark").rglob("*")
-              if p.is_file()}
+    b, before = copy_bench(tmp_path)
     bench = json.loads(json.dumps(with_held(BENCHMARK)))
     new = "asr06-serve-bursty"
     bench["workloads"].append({
@@ -69,7 +68,6 @@ def test_new_metric_and_cell_are_picked_up_without_edits(tmp_path):
         if m["name"].startswith("latency_"):
             m["workloads"].append(new)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    b = tmp_path / "benchmark"
     mix = read_json(b / "traffic" / "serve-poisson.json")
     mix["arrival"] = {"kind": "poisson", "rate_per_s": 2.0}
     (b / "traffic" / "serve-bursty.json").write_text(json.dumps(mix))

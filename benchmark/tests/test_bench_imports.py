@@ -18,9 +18,9 @@ from tiny import BENCH, ROOT
 FORBIDDEN = {"jax", "jaxlib", "flax", "qwen3_asr_rs_tpu"}
 PROGRAM = "qwen3_asr_rs_tpu_torch"
 # the benchmark's own code that must not depend on the program
-YARDSTICK = ("reference", "generators", "metrics", "harness/work.py",
-             "harness/check.py", "harness/trace.py", "harness/stats.py",
-             "harness/weights.py", "harness/spec.py")
+YARDSTICK = ("reference", "generators", "metrics", "architectures",
+             "harness/work.py", "harness/check.py", "harness/trace.py",
+             "harness/stats.py", "harness/weights.py", "harness/spec.py")
 
 RUN_FILES = sorted(p for p in BENCH.rglob("*.py")
                    if "tests" not in p.relative_to(BENCH).parts)
@@ -47,7 +47,8 @@ def imported_tops(path) -> set:
 def test_the_walk_sees_the_benchmark():
     names = {p.relative_to(BENCH).as_posix() for p in RUN_FILES}
     assert {"run.py", "drivers/serve.py", "drivers/batch.py",
-            "reference/qwen3_asr.py", "generators/clips.py"} <= names
+            "reference/qwen3_asr.py", "generators/clips.py",
+            "architectures/qwen3_asr.py"} <= names
 
 
 @pytest.mark.parametrize("path", RUN_FILES,

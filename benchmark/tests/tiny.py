@@ -6,6 +6,7 @@ prompt's token ids exist), short windows and few requests."""
 from __future__ import annotations
 
 import copy
+import shutil
 import sys
 from pathlib import Path
 
@@ -70,3 +71,13 @@ def tiny_cell(kind: str, limit: float = 1e-3) -> Cell:
                 check={"sample": 4, "limits": {"max_gap": limit}},
                 end_to_end=real.end_to_end, per_layer=real.per_layer,
                 bench_dir=BENCH)
+
+
+def copy_bench(tmp_path: Path) -> tuple:
+    """(the copy of ``benchmark/`` under ``tmp_path``, without its tests,
+    {path: bytes} of every file in it): an addition is made there, and
+    the bytes show that it changed no file that was there."""
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    b = tmp_path / "benchmark"
+    return b, {p: p.read_bytes() for p in b.rglob("*") if p.is_file()}
