@@ -244,6 +244,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              their times are not scaling numbers. A rank's failure fails
              the phase.
 
+13. routed — the routed decoder of benchmark/configs/kimi-vl-a3b-asr.json
+             (not a TPU path: the JAX package runs no routed decoder), at
+             its published widths and weight scale: K7 (the router's
+             route, the grouping align and the expert products, CUDA
+             csrc/moe_experts.cu) at a decode step's 64 rows and a
+             64-clip prefill's 64 x 432 (a third of them prompt), K8's
+             RMSNorm at 64 x 432 rows and its latent prologue, each
+             against its plain version (ROUTED_* tolerances) with ms,
+             plain ms, bound and a library yardstick; then a
+             transcribe_batch of 64 clips through the routed decoder at
+             ROUTED_LAYERS layers, its launch counters set to 0 just
+             before it, K7 and K8 launched exactly as often as its
+             forwards need (replays counted). ``python3 chip_smoke.py
+             --only routed`` runs phases 1, 2 and 13 alone.
+
 Then a {"kernels": [...]} summary line (launches also per stream update
 and per speculative iteration), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -550,7 +565,7 @@ def attn_work(q, ks, starts, ends, int8=False) -> dict:
 # the libraries whose bf16 kernels run on the tensor cores: K3, K1's
 # GEMVs, K4, K5; K5's prefill tiles must run wgmma (HGMMA)
 TENSOR_CORE_LIBS = ("flash_attention", "decode_layer", "quant_matvec_int4",
-                    "quant_matmul")
+                    "quant_matmul", "moe_experts")
 NEEDS_HGMMA = ("quant_matmul",)
 
 
@@ -575,7 +590,8 @@ def tensor_core_sass(build, name: str) -> dict:
 def ptxas_spills(build) -> dict:
     """{library: ptxas lines that report spill stores or loads, or wgmma
     serialized (C7513)}; raises if a tensor-core kernel (gemv_mma_kernel,
-    qmv4_mma_kernel, qmv8_mma_kernel, qmm_wgmma_kernel) spills."""
+    qmv4_mma_kernel, qmv8_mma_kernel, qmm_wgmma_kernel,
+    moe_experts_kernel) spills."""
     out = {}
     for n in build.KERNEL_SOURCES:
         log = build.BUILD_DIR / f"{n}.log"
@@ -590,7 +606,9 @@ def ptxas_spills(build) -> dict:
                     "spill loads")) or "C7513" in ln:
                 lines.append(f"{fn}: {ln.strip()}")
         out[n] = lines
-        bad = [ln for ln in lines if "mma_kernel" in ln and "spill" in ln]
+        bad = [ln for ln in lines if ("mma_kernel" in ln
+                                      or "moe_experts_kernel" in ln)
+               and "spill" in ln]
         if bad:
             raise AssertionError(f"{n}: a tensor-core GEMV spills: {bad[:3]}")
     return out
@@ -5010,6 +5028,244 @@ def parallel_phase(torch, config, enc32, dec32, audio, paths, tmp,
     return launches
 
 
+# Phase 13: the routed decoder (benchmark/configs/kimi-vl-a3b-asr.json).
+# K7 and K8 against their plain versions at the offline cell's shapes, at
+# the configuration's widths and weight scale: a decode step's 64 rows
+# and a 64-clip prefill's 64 x 432, a third of whose rows are prompt (the
+# rest padding, routed nowhere). Tolerances: the routes exactly, their
+# weights to float32 rounding (the kernel's sigmoid against torch's,
+# ROUTED_W_ATOL); an output both sides round to bf16, summed in another
+# float32 order, within ROUTED_RTOL of its largest value (two bf16 units;
+# at scale 0.05 the experts' outputs reach ~10, where one unit is 2^-5).
+ROUTED_CONFIG = REPO / "benchmark" / "configs" / "kimi-vl-a3b-asr.json"
+ROUTED_DECODE_ROWS = 64
+ROUTED_PROMPT = 432
+ROUTED_W_ATOL = 1e-6
+ROUTED_RTOL = 2 ** -7
+# layers of the transcribe_batch whose launches are counted: the dense
+# layer and three MoE layers at the published widths
+ROUTED_LAYERS = 4
+
+
+def _routed_text(cfg: dict) -> dict:
+    top = {k: v for k, v in cfg.items() if k != "thinker_config"}
+    return {**top, **cfg["thinker_config"]["text_config"]}
+
+
+def routed_kernel_checks(torch, cfg, card) -> list:
+    """K7 (route, align, the expert products) and K8 (RMSNorm, the
+    latent's prologue) against their plain versions; one JSON line each
+    with the error, ms, plain ms, the bound and a library yardstick."""
+    import numpy as np
+
+    from qwen3_asr_rs_tpu_torch.ops.kernels.fused_elementwise import (
+        latent_rope, latent_rope_plain, rms_norm)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.moe_experts import (
+        align, align_plain, block_rows, moe_experts, moe_experts_plain,
+        route, route_plain)
+    from qwen3_asr_rs_tpu_torch.ops.norms import rms_norm as rms_norm_plain
+
+    t = _routed_text(cfg)
+    scale = cfg["weight_init"]["scale"]
+    h, inter = t["hidden_size"], t["moe_intermediate_size"]
+    e, k = t["n_routed_experts"], t["num_experts_per_tok"]
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).bfloat16()
+
+    gu, dn, rw, bias = w(e, h, 2 * inter), w(e, inter, h), w(h, e), w(e)
+    rows_out = []
+    lengths = np.clip(np.random.default_rng(3).lognormal(
+        np.log(145), 0.3, ROUTED_DECODE_ROWS).astype(int), 20, ROUTED_PROMPT)
+    for case, n_tok in (("decode", ROUTED_DECODE_ROWS),
+                        ("prefill", ROUTED_DECODE_ROWS * ROUTED_PROMPT)):
+        x = torch.randn(n_tok, h, generator=g, device="cuda").bfloat16()
+        if case == "decode":
+            live = torch.ones(n_tok, dtype=torch.bool, device="cuda")
+        else:
+            slot = torch.arange(ROUTED_PROMPT, device="cuda")
+            start = ROUTED_PROMPT - torch.tensor(lengths, device="cuda")
+            live = (slot[None, :] >= start[:, None]).reshape(-1)
+        args = (x, rw, bias, k, t["routed_scaling_factor"],
+                t["norm_topk_prob"], live)
+        got, want = route(*args), route_plain(*args)
+        order, w_order = got.ids.argsort(-1), want.ids.argsort(-1)
+        if not (got.ids.gather(1, order) == want.ids.gather(1, w_order)).all():
+            raise AssertionError(f"moe route {case}: other experts chosen")
+        w_err = max_err(torch, got.weights.gather(1, order),
+                        want.weights.gather(1, w_order))
+        if w_err > ROUTED_W_ATOL or not (got.counts.long()
+                                         == want.counts).all():
+            raise AssertionError(f"moe route {case}: weights off by {w_err}"
+                                 " or counts differ")
+        bm = block_rows(got.ids.numel(), e)
+        s_got, b_got = align(got, bm)
+        s_want, b_want = align_plain(got, bm)
+        if not ((s_got == s_want).all() and (b_got == b_want).all()):
+            raise AssertionError(f"moe align {case}: another grouping")
+        y = moe_experts(x, got, gu, dn)
+        y_plain = moe_experts_plain(x, got, gu, dn)
+        err = max_err(torch, y, y_plain)
+        top = float(y_plain.float().abs().max())
+        if err > ROUTED_RTOL * top or (y[~live] != 0).any():
+            raise AssertionError(f"moe_experts {case}: max|err| {err} over "
+                                 f"{ROUTED_RTOL} x {top}")
+        counts = got.counts.long()
+        touched, n_routes = int((counts > 0).sum()), int(counts.sum())
+        # each touched expert's weights once, each route's row in, its
+        # activation out and in, its float32 row out; 2 ops per weight
+        # and route
+        work = bound_of(touched * 3 * h * inter * 2
+                        + n_routes * (h * 2 + 2 * inter * 2 + 4 * h),
+                        2.0 * n_routes * 3 * h * inter)
+        # library yardstick: torch.bmm over every expert, rows padded to
+        # the fullest expert's (the gather and padding untimed)
+        m = int(counts.max())
+        xb = torch.zeros(e, m, h, dtype=x.dtype, device="cuda")
+
+        def library():
+            a = torch.bmm(xb, gu)
+            act = torch.nn.functional.silu(a[..., :inter]) * a[..., inter:]
+            return torch.bmm(act, dn)
+
+        row = {"phase": "routed", "kernel": "moe_experts", "case":
+               f"{case}: {n_tok} rows, {n_routes} live routes on {touched}"
+               f" of {e} experts, block {bm}", "max_abs_err": err,
+               "max_abs_plain": top, "route_weight_err": w_err,
+               "ms": cuda_ms(torch, lambda: moe_experts(x, got, gu, dn)),
+               "route_ms": cuda_ms(torch, lambda: route(*args)),
+               "align_ms": cuda_ms(torch, lambda: align(got, bm)),
+               "plain_ms": cuda_ms(torch, lambda: moe_experts_plain(
+                   x, got, gu, dn), reps=3, warmup=1),
+               **work, "library_ms": cuda_ms(torch, library),
+               "library": f"torch.bmm over all {e} experts at {m} rows"}
+        emit(row)
+        rows_out.append(row)
+
+    rows_n = ROUTED_DECODE_ROWS * ROUTED_PROMPT
+    x = torch.randn(rows_n, h, generator=g, device="cuda").bfloat16()
+    gain = (1 + scale * torch.randn(h, generator=g, device="cuda")).bfloat16()
+    eps = t["rms_norm_eps"]
+    got, want = rms_norm(x, gain, eps), rms_norm_plain(x, gain, eps)
+    err, top = max_err(torch, got, want), float(want.float().abs().max())
+    if err > ROUTED_RTOL * top:
+        raise AssertionError(f"rms_norm: max|err| {err}")
+    row = {"phase": "routed", "kernel": "rms_norm",
+           "case": f"{rows_n} rows of {h}", "max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: rms_norm(x, gain, eps)),
+           "plain_ms": cuda_ms(torch, lambda: rms_norm_plain(x, gain, eps)),
+           **bound_of(2 * x.numel() * 2 + h * 2, 0.0),
+           "library_ms": cuda_ms(torch, lambda: torch.nn.functional.rms_norm(
+               x, (h,), gain, eps)),
+           "library": "torch.nn.functional.rms_norm"}
+    emit(row)
+    rows_out.append(row)
+    nh, nope = t["num_attention_heads"], t["qk_nope_head_dim"]
+    r, d = t["kv_lora_rank"], t["qk_rope_head_dim"]
+    q = torch.randn(ROUTED_DECODE_ROWS, ROUTED_PROMPT, nh, nope + d,
+                    generator=g, device="cuda").bfloat16()
+    ckv = torch.randn(ROUTED_DECODE_ROWS, ROUTED_PROMPT, r + d, generator=g,
+                      device="cuda").bfloat16()
+    ang = torch.rand(ROUTED_DECODE_ROWS, ROUTED_PROMPT, d // 2, generator=g,
+                     device="cuda") * 6.28
+    cos = torch.cat([ang.cos(), ang.cos()], -1)
+    sin = torch.cat([ang.sin(), ang.sin()], -1)
+    lw = gain[:r].contiguous()
+    got = latent_rope(q, ckv, cos, sin, lw, 1e-6, nope)
+    want = latent_rope_plain(q, ckv, cos, sin, lw, 1e-6, nope)
+    err = max(max_err(torch, a, b) for a, b in zip(got, want))
+    top = max(float(b.float().abs().max()) for b in want)
+    if err > ROUTED_RTOL * top:
+        raise AssertionError(f"latent_rope: max|err| {err}")
+    moved = (q[..., nope:].numel() * 2 + ckv.numel() * 2 * 2
+             + cos.numel() * 4 * 2 + sum(nbytes(a) for a in got[:1]))
+    row = {"phase": "routed", "kernel": "latent_rope",
+           "case": f"{ROUTED_DECODE_ROWS} x {ROUTED_PROMPT} positions, "
+                   f"{nh} heads", "max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: latent_rope(q, ckv, cos, sin, lw,
+                                                     1e-6, nope)),
+           "plain_ms": cuda_ms(torch, lambda: latent_rope_plain(
+               q, ckv, cos, sin, lw, 1e-6, nope)),
+           **bound_of(moved, 0.0), "library_ms": None,
+           "library": "none: no single call norms the latent and turns "
+                      "both rope parts"}
+    emit(row)
+    rows_out.append(row)
+    return rows_out
+
+
+def routed_launch_check(torch, cfg, card) -> dict:
+    """A transcribe_batch of the routed decoder at the published widths
+    (ROUTED_LAYERS layers, weights as the benchmark draws them), the
+    launch counters set to 0 just before it: per forward (the prefill,
+    then each decode step, replayed or not) K7 4 per MoE layer (route,
+    align, gate-up, down), K8 2 RMSNorms per layer and the final one, 1
+    latent prologue per layer."""
+    import copy
+
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "benchmark"))
+    from harness.weights import make_weights
+
+    from qwen3_asr_rs_tpu_torch.config import AsrConfig
+    from qwen3_asr_rs_tpu_torch.ops.kernels.fused_elementwise import (
+        latent_rope, rms_norm)
+    from qwen3_asr_rs_tpu_torch.ops.kernels.moe_experts import moe_experts
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+
+    cfg = copy.deepcopy(cfg)
+    cfg["num_hidden_layers"] = ROUTED_LAYERS
+    t = _routed_text(cfg)
+    layers = t["num_hidden_layers"]
+    moe_layers = layers - t["first_k_dense_replace"]
+    enc, dec = make_weights(cfg, 2 ** 31 + 7, "cuda",
+                            REPO / "benchmark")
+    engine = AsrEngine(None, config=AsrConfig.from_dict(cfg),
+                       params=(enc, dec), tokenizer=StubTokenizer(),
+                       device="cuda", dtype=torch.bfloat16,
+                       max_new_tokens=32, kv_dtype="bf16")
+    engine.warmup(batch_sizes=(ROUTED_DECODE_ROWS,), buckets=(30,))
+    rng = np.random.default_rng(5)
+    clips = [(0.1 * rng.standard_normal(int(16000 * s))).astype(np.float32)
+             for s in np.clip(rng.lognormal(np.log(10), 0.5,
+                                            ROUTED_DECODE_ROWS), 2, 30)]
+    wrappers = {"moe_experts": moe_experts, "rms_norm": rms_norm,
+                "latent_rope": latent_rope}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine.transcribe_batch(clips)
+    wall = time.perf_counter() - t0
+    got = {n: fn.launches for n, fn in wrappers.items()}
+    forwards = 1 + engine.last_stats["decode_steps"]
+    want = {"moe_experts": 4 * moe_layers * forwards,
+            "rms_norm": (2 * layers + 1) * forwards,
+            "latent_rope": layers * forwards}
+    row = {"phase": "routed", "kernel": "launches",
+           "case": f"transcribe_batch of {ROUTED_DECODE_ROWS} clips, "
+                   f"{layers} layers at the published widths",
+           "forwards": forwards, "launches": got, "want": want,
+           "experts_touched": engine.last_stats["experts_touched"][:4],
+           "wall_s": wall}
+    emit(row)
+    check_launches("routed transcribe_batch", got, want)
+    del engine, enc, dec
+    torch.cuda.empty_cache()
+    return row
+
+
+def routed_phase(torch, card) -> dict:
+    """Phase 13: K7 and K8 against their plain versions at the offline
+    cell's shapes, and their launches in a transcribe_batch."""
+    cfg = json.loads(ROUTED_CONFIG.read_text())
+    rows = routed_kernel_checks(torch, cfg, card)
+    launches = routed_launch_check(torch, cfg, card)
+    return {"kernels": rows, "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -5053,6 +5309,14 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln][:12]
                     for n in _build.KERNEL_SOURCES
                     if (_build.BUILD_DIR / f"{n}.log").exists()}})
+
+    if sys.argv[1:] == ["--only", "routed"]:
+        emit({"phase": "routed", "summary": routed_phase(torch, card)})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # weights: full 0.6B width, the JAX package's seeds and RNG order
     from qwen3_asr_rs_tpu_torch import AsrConfig
@@ -5174,6 +5438,12 @@ def main() -> int:
     launches.update(parallel_phase(torch, config, enc32, dec32, audio,
                                    clips, tmp, card))
 
+    # 13. routed: K7 and K8 at the offline MoE cell's shapes, and their
+    # launches in a transcribe_batch of the routed decoder
+    del enc32, dec32
+    torch.cuda.empty_cache()
+    routed = routed_phase(torch, card)
+
     summary = []
     for name in SOURCES:
         # K6's row covers its two entries, the draw kernel's its noise entry
@@ -5232,7 +5502,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on a main path")
         summary.append(row)
     emit({"phase": "profiler", "windows": PROFILER_WINDOWS})
-    emit({"kernels": summary})
+    emit({"kernels": summary, "routed": routed})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

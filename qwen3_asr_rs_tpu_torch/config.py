@@ -90,6 +90,9 @@ class TextDecoderConfig:
     rope_scaling: Optional[RopeScaling] = None
     tie_word_embeddings: bool = True
 
+    # the dense decoder of Qwen3-ASR (``models/text_decoder.py``)
+    model_type = "qwen3"
+
     def mrope_section(self) -> Sequence[int]:
         if self.rope_scaling is not None:
             return tuple(self.rope_scaling.mrope_section)
@@ -101,6 +104,88 @@ class TextDecoderConfig:
                 self.rope_scaling.mrope_interleaved or self.rope_scaling.interleaved
             )
         return False
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekV3TextConfig:
+    """A ``deepseek_v3`` decoder (``models/deepseek_v3_decoder.py``):
+    multi-head latent attention and routed experts with shared ones, the
+    fields named as in the published ``config.json`` (transformers'
+    ``DeepseekV3Config``; Kimi-VL-A3B's language model is one). Its own
+    dataclass, so that ``TextDecoderConfig`` stays the JAX package's
+    field for field. Layers below ``first_k_dense_replace`` run a dense
+    MLP of ``intermediate_size``; the others route each token to
+    ``num_experts_per_tok`` of ``n_routed_experts`` experts of
+    ``moe_intermediate_size`` beside ``n_shared_experts`` shared ones.
+    Positions are 1-D rope over ``qk_rope_head_dim`` (Qwen3-ASR's
+    positions: every MRoPE row is the same)."""
+
+    model_type: str = "deepseek_v3"
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    hidden_act: str = "silu"
+    attention_bias: bool = False
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    rope_scaling: Optional[dict] = None
+    rope_interleave: bool = True
+    tie_word_embeddings: bool = False
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values per position and layer in the latent cache: the normed
+        ``c_kv`` and the roped shared key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+    def check(self) -> "DeepseekV3TextConfig":
+        """Raise ValueError for settings the decoder does not compute."""
+        bad = {k: getattr(self, k) for k, ok in (
+            ("q_lora_rank", None), ("scoring_func", "sigmoid"),
+            ("topk_method", "noaux_tc"), ("n_group", 1), ("topk_group", 1),
+            ("moe_layer_freq", 1), ("hidden_act", "silu"),
+            ("attention_bias", False), ("rope_scaling", None))
+            if getattr(self, k) != ok}
+        if bad:
+            raise ValueError(
+                f"deepseek_v3 settings the port does not compute: {bad}")
+        return self
+
+
+# text_config model_type -> its config class; a config that names none is
+# Qwen3-ASR's dense decoder, as is "qwen3_asr_text" (the family's
+# "<model>_text" naming, as Qwen3-Omni's "qwen3_omni_moe_text")
+TEXT_CONFIGS = {"qwen3": TextDecoderConfig,
+                "qwen3_asr_text": TextDecoderConfig,
+                "deepseek_v3": DeepseekV3TextConfig}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,15 +223,9 @@ class AsrConfig:
         tc = d.get("thinker_config", {})
         audio = _filtered_dataclass(AudioEncoderConfig, tc.get("audio_config", {}))
         text_raw = dict(tc.get("text_config", {}))
-        rope_scaling = text_raw.pop("rope_scaling", None)
-        if rope_scaling is not None:
-            rs = dict(rope_scaling)
-            if "mrope_section" in rs:
-                rs["mrope_section"] = tuple(rs["mrope_section"])
-            rope_scaling = _filtered_dataclass(RopeScaling, rs)
-        text = _filtered_dataclass(
-            TextDecoderConfig, text_raw, rope_scaling=rope_scaling
-        )
+        text = _text_config(text_raw, {k: v for k, v in d.items()
+                                       if k not in ("thinker_config",
+                                                    "model_type")})
         thinker = _filtered_dataclass(
             ThinkerConfig,
             {k: v for k, v in tc.items() if k not in ("audio_config", "text_config")},
@@ -154,6 +233,31 @@ class AsrConfig:
             text_config=text,
         )
         return cls(thinker_config=thinker)
+
+
+def _text_config(raw: dict, top: dict):
+    """The text config of ``raw`` by its ``model_type`` (none: Qwen3's);
+    an unknown one raises ValueError rather than build a decoder that
+    ignores what it does not understand. A ``deepseek_v3`` config takes
+    the fields ``raw`` does not give from ``top``, the file's top level,
+    where the published config's keys stand in a multimodal model's
+    flattened form (the benchmark's ``kimi-vl-a3b-asr.json``)."""
+    kind = raw.get("model_type", "qwen3")
+    if kind not in TEXT_CONFIGS:
+        raise ValueError(
+            f"text_config model_type {kind!r} is not supported "
+            f"(known: {sorted(TEXT_CONFIGS)})")
+    if TEXT_CONFIGS[kind] is DeepseekV3TextConfig:
+        return _filtered_dataclass(DeepseekV3TextConfig,
+                                   {**top, **raw}).check()
+    rope_scaling = raw.pop("rope_scaling", None)
+    if rope_scaling is not None:
+        rs = dict(rope_scaling)
+        if "mrope_section" in rs:
+            rs["mrope_section"] = tuple(rs["mrope_section"])
+        rope_scaling = _filtered_dataclass(RopeScaling, rs)
+    return _filtered_dataclass(TextDecoderConfig, raw,
+                               rope_scaling=rope_scaling)
 
 
 def _filtered_dataclass(cls, raw: dict, **overrides: Any):

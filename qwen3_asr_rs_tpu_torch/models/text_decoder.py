@@ -123,22 +123,26 @@ class KVCache:
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
 
+    @staticmethod
+    def slab_shapes(cfg: TextDecoderConfig, batch: int, max_len: int,
+                    dtype: torch.dtype, quantized: bool = False) -> list:
+        """[(shape, dtype)] of the slab's tensors in constructor order:
+        k and v, then for an int8 slab their scales."""
+        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
+                 max_len, cfg.head_dim)
+        if quantized:
+            return [(shape, torch.int8)] * 2 + [(shape[:-1],
+                                                 torch.float32)] * 2
+        return [(shape, dtype)] * 2
+
     @classmethod
     def zeros(cls, cfg: TextDecoderConfig, batch: int, max_len: int,
               dtype: torch.dtype = torch.bfloat16,
               device: str | torch.device = "cpu",
               quantized: bool = False) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
-                 max_len, cfg.head_dim)
-        if quantized:
-            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
-                       v=torch.zeros(shape, dtype=torch.int8, device=device),
-                       k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
-                                           device=device),
-                       v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
-                                           device=device))
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        return cls(*(torch.zeros(shape, dtype=dt, device=device)
+                     for shape, dt in cls.slab_shapes(cfg, batch, max_len,
+                                                      dtype, quantized)))
 
     @property
     def quantized(self) -> bool:
@@ -343,6 +347,8 @@ class TextDecoder:
     this rank's view of the mesh's 'tp' axis (``parallel/comm.mesh_axis``),
     None without tensor parallelism; ``self.cfg`` is then the shard's
     config (``tp_local_config``)."""
+
+    cache_type = KVCache
 
     def __init__(self, cfg: TextDecoderConfig, max_position: int = 8192,
                  device: str | torch.device = "cpu", tp=None):

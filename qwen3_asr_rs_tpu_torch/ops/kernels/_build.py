@@ -30,7 +30,8 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("decode_attention", "decode_layer", "flash_attention",
-                  "gumbel_argmax", "quant_matmul", "quant_matvec_int4")
+                  "gumbel_argmax", "moe_experts", "quant_matmul",
+                  "quant_matvec_int4")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

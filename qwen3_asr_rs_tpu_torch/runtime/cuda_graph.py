@@ -31,14 +31,17 @@ from ..ops.kernels.decode_attention import (
 )
 from ..ops.kernels.decode_layer import decode_layers_fused
 from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.fused_elementwise import latent_rope, rms_norm
 from ..ops.kernels.gumbel_argmax import gumbel_argmax, threefry_noise
+from ..ops.kernels.moe_experts import moe_experts
 from ..ops.kernels.quant_matmul import quant_matmul
 from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
 
 # every kernel wrapper with a launch counter that a step can reach
 COUNTED = [decode_layers_fused, decode_attention_dma, decode_attention_slab,
            decode_attention, flash_attention, quant_matmul,
-           quant_matvec_int4, gumbel_argmax, threefry_noise]
+           quant_matvec_int4, gumbel_argmax, threefry_noise, moe_experts,
+           rms_norm, latent_rope]
 
 
 class StepGraph:

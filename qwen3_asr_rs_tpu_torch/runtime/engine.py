@@ -51,6 +51,21 @@ the card, and on CUDA the synchronize after the first token),
 ``wait.done_flags`` (each wait for the done flags) and
 ``wait.read_out`` (the loop's final reads of its state).
 
+A ``deepseek_v3`` text config (Kimi-VL-A3B's language model:
+``models/deepseek_v3_decoder.py``) builds that decoder and its latent
+cache (``cache_type``: ``_slab0``'s arenas and the staged slabs take any
+cache type's ``slab_shapes``), chosen once here; the dense decoder's
+dispatch, K1 included, is untouched. Its decode steps route no done row
+and count the experts each step touched on the device
+(``RouteCounts``, kept in ``_DecodeState.routes`` and, for the prefill,
+``_prefill_routes``), read once in ``wait.read_out`` into
+``last_stats["experts_touched"]`` (one number per decode step, summed
+over the MoE layers) and the tracer's ``moe.*`` counters. Only this
+offline path runs it: speculative decoding, quantized weights, an int8
+cache and tensor parallelism raise ``ArchitectureNotSupported`` here,
+serving, streaming, training and checkpoint loading in their own
+constructors.
+
 Speculative decoding (``speculative=``, ``spec_k=``, ``draft_model=``,
 as in JAX) runs every B = 1 transcription as draft-and-verify
 (``_spec_generate``): a draft (a quantized copy of this checkpoint, or a
@@ -109,6 +124,12 @@ from ..features.mel import (
     pad_waveform,
 )
 from ..models.audio_encoder import AudioEncoder
+from ..models.deepseek_v3_decoder import (
+    DeepseekV3Decoder,
+    RouteCounts,
+    is_routed,
+    refuse,
+)
 from ..models.text_decoder import KVCache, TextDecoder
 from ..ops.kernels.decode_layer import int4g_group_supported
 from ..ops.prng import KeyChain, fold_in, prng_key
@@ -125,7 +146,7 @@ from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID, AsrTokenizer
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
 from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
-from ..utils.tracing import span, stage_timer
+from ..utils.tracing import count, span, stage_timer
 from .cuda_graph import StepGraph, capture
 from .longform import Segment, attach_words, transcribe_long
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
@@ -233,6 +254,15 @@ class AsrEngine:
         self.dtype = dtype
         self.max_new_tokens = max_new_tokens
         self.chunk_buckets = tuple(sorted(chunk_buckets))
+        # a routed decoder (deepseek_v3) runs the offline path alone
+        self.routed = is_routed(config.text)
+        if self.routed:
+            for mode, used in (
+                    ("speculative decoding", speculative or draft_model),
+                    (f"quantize={quantize!r}", quantize),
+                    ("tensor parallelism", mesh_dims(mesh)[1] > 1)):
+                if used:
+                    refuse(mode, config.text)
         # a cross-model draft: ``speculative`` names its quantization
         draft_quant = None
         if draft_model is not None:
@@ -277,6 +307,8 @@ class AsrEngine:
                 "kv_dtype='int8' is not supported under tensor "
                 "parallelism (works on dp-only meshes)")
         self.kv_quant = kv_dtype == "int8"
+        if self.kv_quant:
+            refuse("kv_dtype='int8'", config.text)
         if mesh is not None:
             self.enc_params = shard_params(
                 self.enc_params, mesh,
@@ -301,8 +333,12 @@ class AsrEngine:
         for c in self.chunk_buckets:
             max_pos = max(max_pos, self._prompt_bucket(c) + max_new_tokens + 8
                           + (self._spec_slack() if spec else 0))
-        self.decoder = TextDecoder(config.text, max_position=max_pos,
-                                   device=self.device, tp=self._tp)
+        self.decoder = (DeepseekV3Decoder if self.routed else TextDecoder)(
+            config.text, max_position=max_pos, device=self.device,
+            tp=self._tp)
+        # the routed experts' counters of a call's prefill (None: dense)
+        self._prefill_routes = (RouteCounts.zeros(1, self.device)
+                                if self.routed else None)
         self.draft_bundle = (
             None if draft_model is None else
             self._build_draft_bundle(draft_model, draft_quant, max_pos))
@@ -488,11 +524,17 @@ class AsrEngine:
         return -(-(p_bucket + cap + 1) // 8) * 8
 
     def _new_cache(self, batch: int, p_bucket: int) -> KVCache:
-        """A fresh zero slab of the full length: the slab of ``prefill``
-        and ``prefill_batch`` when the caller passes none."""
-        return KVCache.zeros(self.decoder.cfg, batch, self._slab_len(p_bucket),
-                             dtype=self.dtype, device=self.device,
-                             quantized=self.kv_quant)
+        """A fresh zero slab of the full length, of the decoder's cache
+        type: the slab of ``prefill`` and ``prefill_batch`` when the
+        caller passes none."""
+        return self.decoder.cache_type.zeros(
+            self.decoder.cfg, batch, self._slab_len(p_bucket),
+            dtype=self.dtype, device=self.device, quantized=self.kv_quant)
+
+    def _routes_kw(self, routes) -> dict:
+        """The decoder's routed-expert counters argument: none for the
+        dense decoder."""
+        return {} if routes is None else {"routes": routes}
 
     @torch.inference_mode()
     def _embed_prompts(self, samples_list: Sequence[np.ndarray],
@@ -582,7 +624,8 @@ class AsrEngine:
         with span("prefill.decoder"):
             logits, cache = self.decoder.prefill(
                 self.dec_params, hidden,
-                torch.arange(p_bucket, device=self.device), cache, true_len)
+                torch.arange(p_bucket, device=self.device), cache, true_len,
+                **self._routes_kw(self._prefill_routes))
         return logits, cache, true_len
 
     @torch.inference_mode()
@@ -604,7 +647,8 @@ class AsrEngine:
             cache = self._new_cache(b, p_bucket)
         with span("prefill.decoder"):
             logits, cache = self.decoder.prefill_aligned(
-                self.dec_params, hidden, kv_start, cache)
+                self.dec_params, hidden, kv_start, cache,
+                **self._routes_kw(self._prefill_routes))
         return logits, cache, kv_start, p_bucket
 
     def _slab0(self, b: int, n: int, key=None, text=None) -> KVCache:
@@ -617,25 +661,17 @@ class AsrEngine:
         of its group (``_release``)."""
         key = b if key is None else key
         cfg = self.decoder.cfg if text is None else text
-        shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, n,
-                 cfg.head_dim)
-        numel = math.prod(shape)
+        cache_type = self.decoder.cache_type if text is None else KVCache
+        shapes = cache_type.slab_shapes(cfg, b, n, self.dtype, self.kv_quant)
         arena = self._arenas.get(key)
-        if arena is None or arena[0].numel() < numel:
+        if arena is None or arena[0].numel() < math.prod(shapes[0][0]):
             if arena is not None:  # replaced: its group's graphs go too
                 self._release(_group(key))
-            kw = dict(device=self.device)
-            dt = torch.int8 if self.kv_quant else self.dtype
-            arena = [torch.zeros(numel, dtype=dt, **kw) for _ in range(2)]
-            if self.kv_quant:
-                arena += [torch.zeros(numel // cfg.head_dim,
-                                      dtype=torch.float32, **kw)
-                          for _ in range(2)]
+            arena = [torch.zeros(math.prod(shape), dtype=dt,
+                                 device=self.device) for shape, dt in shapes]
             self._arenas[key] = arena
-        views = [t[:numel].view(shape) for t in arena[:2]]
-        views += [t[:numel // cfg.head_dim].view(shape[:-1])
-                  for t in arena[2:]]
-        return KVCache(*views)
+        return cache_type(*(t[:math.prod(shape)].view(shape)
+                            for t, (shape, _) in zip(arena, shapes)))
 
     def _release(self, group=None) -> None:
         """Free a group's first-stage arenas and the graphs captured on
@@ -657,7 +693,7 @@ class AsrEngine:
     def _state(self, b: int) -> "_DecodeState":
         if b not in self._states:
             self._states[b] = _DecodeState.zeros(b, self.max_new_tokens,
-                                                 self.device)
+                                                 self.device, self.routed)
         return self._states[b]
 
     def _step_fn(self, st: "_DecodeState", cache: KVCache, aligned: bool,
@@ -669,22 +705,27 @@ class AsrEngine:
         or JAX's draw at ``fold_in(st.key, step + 1)``, is appended."""
         dec, params = self.decoder, self.dec_params
         sample = not sampling.greedy
+        # a routed decoder routes no done row and counts its experts
+        kw = ({} if st.routes is None else
+              {"done": st.done, "routes": st.routes})
 
         def step():
             slot = st.base + st.step
             if sample:  # the logits variant, never the fold, as in JAX
                 if aligned:
                     logits, _ = dec.decode_step_aligned(
-                        params, st.tok, slot, st.kv_start, cache)
+                        params, st.tok, slot, st.kv_start, cache, **kw)
                 else:
-                    logits, _ = dec.decode_step(params, st.tok, slot, cache)
+                    logits, _ = dec.decode_step(params, st.tok, slot, cache,
+                                                **kw)
                 tok = sample_token(logits, KeyChain(st.key, ((st.step, 1),)),
                                    st.temp, sampling.top_k, sampling.top_p)
             elif aligned:
                 tok, _ = dec.decode_step_aligned_token(
-                    params, st.tok, slot, st.kv_start, cache)
+                    params, st.tok, slot, st.kv_start, cache, **kw)
             else:
-                tok, _ = dec.decode_step_token(params, st.tok, slot, cache)
+                tok, _ = dec.decode_step_token(params, st.tok, slot, cache,
+                                               **kw)
             st.append(tok)
             st.step.add_(1)
 
@@ -743,7 +784,9 @@ class AsrEngine:
         synchronized), ``decode_seconds`` (host clock of the loop, to its
         one read of the tokens) and, on CUDA, ``decode_gpu_seconds`` (the
         GPU's elapsed time over the same loop, between CUDA events: the
-        card's busy time plus any time the host left it idle).
+        card's busy time plus any time the host left it idle); a routed
+        decoder adds ``experts_touched`` (per decode step, the experts
+        that got a live row, summed over the MoE layers).
         """
         sampling = normalize(sampling)
         live = np.asarray(live, bool)
@@ -755,6 +798,8 @@ class AsrEngine:
         p = self._prompt_bucket(self._chunk_bucket(samples_list))
         caps = self._segment_caps()
         st = self._state(b)
+        if self._prefill_routes is not None:
+            self._prefill_routes.zero_()
         cache = self._slab0(b, self._slab_len(p, caps[0]))
         aligned = b > 1 if aligned is None else aligned
         if aligned:
@@ -842,6 +887,8 @@ class AsrEngine:
             n_gen = st.n_gen.tolist()
             out_buf = st.out_buf.cpu()
             done = st.done.tolist()
+            routes = (None if st.routes is None else torch.cat(
+                [st.routes.values(), self._prefill_routes.values()]).tolist())
         t_end = time.perf_counter()
         # decode steps each row needed: its EOS is token n_gen (the step
         # n_gen - 1 made it); a row without one needed every step
@@ -860,7 +907,25 @@ class AsrEngine:
         if cuda:
             self.last_stats["decode_gpu_seconds"] = (
                 ev0.elapsed_time(ev1) / 1e3)
+        if routes is not None:
+            self._count_routes(routes, steps)
         return [out_buf[i, :g].tolist() for i, g in enumerate(n_gen)]
+
+    def _count_routes(self, values: list, steps: int) -> None:
+        """The routed experts of a call, read from the decode and prefill
+        ``RouteCounts`` (``values()`` of each, concatenated): per decode
+        step the experts touched summed over the MoE layers, into
+        ``last_stats["experts_touched"]``, and the tracer's ``moe.*``
+        counters."""
+        n = self.max_new_tokens
+        touched, (rows, max_rows) = values[:n], values[n:n + 2]
+        pf_touched, pf_rows, pf_max = values[n + 2:]
+        self.last_stats["experts_touched"] = touched[:steps]
+        count("moe.decode_experts_touched", sum(touched[:steps]))
+        count("moe.decode_rows", rows)
+        count("moe.prefill_experts_touched", pf_touched)
+        count("moe.prefill_rows", pf_rows)
+        count("moe.max_expert_rows", max(max_rows, pf_max), largest=True)
 
     def _spec_state(self) -> "_SpecState":
         if "spec" not in self._states:
@@ -1355,23 +1420,31 @@ class _DecodeState:
     key: torch.Tensor       # (2,) int64: prng_key(seed), a dp rank's
     #                         fold_in(prng_key(seed), rank)
     temp: torch.Tensor      # () float32
+    # a routed decoder's expert counters, indexed by ``step`` (else None)
+    routes: Optional[RouteCounts] = None
 
     @classmethod
-    def zeros(cls, b: int, max_new: int, device) -> "_DecodeState":
+    def zeros(cls, b: int, max_new: int, device,
+              routed: bool = False) -> "_DecodeState":
         i64 = dict(dtype=torch.int64, device=device)
+        step = torch.zeros((), **i64)
         return cls(tok=torch.zeros(b, **i64), n_gen=torch.zeros(b, **i64),
                    done=torch.zeros(b, dtype=torch.bool, device=device),
                    out_buf=torch.zeros((b, max_new), **i64),
-                   step=torch.zeros((), **i64), base=torch.zeros((), **i64),
+                   step=step, base=torch.zeros((), **i64),
                    kv_start=torch.zeros(b, dtype=torch.int32, device=device),
                    key=torch.zeros(2, **i64),
-                   temp=torch.zeros((), dtype=torch.float32, device=device))
+                   temp=torch.zeros((), dtype=torch.float32, device=device),
+                   routes=(RouteCounts.zeros(max_new, device, step)
+                           if routed else None))
 
     def start(self, live: np.ndarray, base: int, sampling: SamplingParams,
               dp_rank: Optional[int] = None) -> None:
         """Reset for a call: no token emitted, rows not ``live`` done."""
         self.n_gen.zero_()
         self.step.zero_()
+        if self.routes is not None:
+            self.routes.zero_()
         self.done.copy_(torch.from_numpy(~live))
         self.base.fill_(base)
         _start_key(self.key, sampling, dp_rank)

@@ -91,6 +91,7 @@ import torch
 
 from ..config import feat_extract_output_length
 from ..features.mel import log_mel_from_padded, num_mel_frames, pad_waveform
+from ..models.deepseek_v3_decoder import refuse
 from ..models.text_decoder import KVCache, TextDecoder
 from ..parallel.comm import all_gather, broadcast_from_lead, is_lead
 from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID
@@ -231,6 +232,7 @@ class ContinuousBatcher:
         kv_dtype: Optional[str] = None,
         admit_batch_max: int = 8,
     ):
+        refuse("serving (ContinuousBatcher)", engine.config.text)
         self.engine = engine
         # the slot pool's mesh: None unless an axis has more than one rank
         self.mesh = engine.mesh if (engine._dp or engine._tp) else None

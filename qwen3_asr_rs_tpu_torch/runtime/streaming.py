@@ -64,6 +64,7 @@ import torch
 
 from ..config import feat_extract_output_length
 from ..features.mel import log_mel_from_padded, num_mel_frames, raw_log_mel_max
+from ..models.deepseek_v3_decoder import refuse
 from ..models.text_decoder import KVCache, TextDecoder
 from .cuda_graph import StepGraph, capture
 from .engine import AsrEngine, TranscribeResult, _DecodeState, _DoneFlags
@@ -282,6 +283,7 @@ class StreamingSession:
         max_stream_seconds: float = 120.0,
         max_new_tokens: int = 256,
     ):
+        refuse("streaming", engine.config.text)
         self.engine = engine
         self.language = language
         acfg = engine.config.audio
@@ -530,6 +532,7 @@ class StreamingTranscriber:
         max_new_tokens: Optional[int] = None,
         rollover_overlap_s: float = 2.0,
     ):
+        refuse("streaming", engine.config.text)
         self.engine = engine
         self.language = language
         self.update_interval = int(update_interval_s * sample_rate)

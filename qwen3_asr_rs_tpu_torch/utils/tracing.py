@@ -8,16 +8,20 @@ Port of ``qwen3_asr_rs_tpu/utils/tracing.py``, extended. One registry,
   ``dump_metrics`` (the CLI's ``ASR_METRICS=<path>``) with the JAX CLI's
   keys;
 - spans (``span(name)``): host wall seconds and count of a named block
-  (``spans``, ``span_counts``).
+  (``spans``, ``span_counts``);
+- counters (``count(name, n)``): a sum, or the largest, of what the
+  program counted (``counters``), such as the routed experts' ``moe.*``
+  that the engine adds once per call from its device counters.
 
-Spans are recorded only while the tracer is on: under ``ASR_TRACE=1``
-(read at import) or while a torch profiler records
+Spans and counters are recorded only while the tracer is on: under
+``ASR_TRACE=1`` (read at import) or while a torch profiler records
 (``torch._C._autograd._profiler_enabled()``). Off, a span is one test of
 that state and nothing else: no clock read, no profiler annotation, no
-registry write. ``snapshot()`` reads the spans, with the number of
-profiles they were recorded in and of those recorded with no profiler,
-so that a reader can tell whether they cover one profile and nothing
-else; ``dump_metrics`` adds them to its JSON under ``ASR_TRACE=1``.
+registry write. ``snapshot()`` reads the spans and counters, with the
+number of profiles they were recorded in and of those recorded with no
+profiler, so that a reader can tell whether they cover one profile and
+nothing else; ``dump_metrics`` adds them to its JSON under
+``ASR_TRACE=1``.
 
 While a profiler records, a span and a stage timer also enter a profiler
 annotation of their name, so that Kineto timestamps them beside the
@@ -63,8 +67,10 @@ class Timings:
         self.counts = defaultdict(int)
         self.spans = defaultdict(float)
         self.span_counts = defaultdict(int)
+        self.counters = defaultdict(int)
         self.profiles = 0    # profiles that spans or stage timers ran in
-        self.unprofiled = 0  # spans recorded with no profiler recording
+        # spans and counter additions recorded with no profiler recording
+        self.unprofiled = 0
 
     def add(self, stage: str, seconds: float):
         self.totals[stage] += seconds
@@ -88,15 +94,16 @@ GLOBAL_TIMINGS = Timings()
 
 
 def snapshot() -> dict:
-    """{"spans": {name: {"seconds", "count"}}, "profiles": n,
-    "unprofiled": m} of ``GLOBAL_TIMINGS``: ``profiles`` counts the
-    profiles that spans or stage timers ran in (a profile is seen to end
-    when one runs with no profiler), ``unprofiled`` the spans recorded
-    with none (``ASR_TRACE=1``)."""
+    """{"spans": {name: {"seconds", "count"}}, "counters": {name: n},
+    "profiles": n, "unprofiled": m} of ``GLOBAL_TIMINGS``: ``profiles``
+    counts the profiles that spans or stage timers ran in (a profile is
+    seen to end when one runs with no profiler), ``unprofiled`` the spans
+    and counter additions recorded with none (``ASR_TRACE=1``)."""
     t = GLOBAL_TIMINGS
     return {
         "spans": {name: {"seconds": s, "count": t.span_counts[name]}
                   for name, s in t.spans.items()},
+        "counters": dict(t.counters),
         "profiles": t.profiles,
         "unprofiled": t.unprofiled,
     }
@@ -116,9 +123,12 @@ def dump_metrics(path: str | None = None) -> dict:
         for stage in GLOBAL_TIMINGS.totals
     }
     if _enabled:
-        for name, s in snapshot()["spans"].items():
+        snap = snapshot()
+        for name, s in snap["spans"].items():
             data[name] = {"total_ms": round(s["seconds"] * 1000, 3),
                           "count": s["count"]}
+        for name, n in snap["counters"].items():
+            data[name] = {"count": n}
     if path:
         with open(path, "w", encoding="utf-8") as f:
             json.dump(data, f, indent=2)
@@ -126,16 +136,24 @@ def dump_metrics(path: str | None = None) -> dict:
     return data
 
 
-def _annotation(name: str):
-    """An entered profiler annotation of ``name`` while a profiler
-    records, else None; counts each profile on its first annotation."""
+def _in_a_profile() -> bool:
+    """Whether a profiler records; counts each profile the first time
+    this finds it recording."""
     global _in_profile
     if not _profiling():
         _in_profile = False
-        return None
+        return False
     if not _in_profile:
         _in_profile = True
         GLOBAL_TIMINGS.profiles += 1
+    return True
+
+
+def _annotation(name: str):
+    """An entered profiler annotation of ``name`` while a profiler
+    records, else None; counts each profile on its first annotation."""
+    if not _in_a_profile():
+        return None
     rf = torch._C._profiler._RecordFunctionFast(name)
     rf.__enter__()
     return rf
@@ -165,6 +183,18 @@ def span(name: str):
     if not (_enabled or _profiling()):
         return _NULL
     return _Span(name)
+
+
+def count(name: str, n: int, largest: bool = False) -> None:
+    """Add ``n`` to the counter ``name`` (``largest``: keep the larger of
+    the two) while the tracer is on (see the module's docstring); off,
+    nothing."""
+    if not (_enabled or _profiling()):
+        return
+    c = GLOBAL_TIMINGS.counters
+    c[name] = max(c[name], int(n)) if largest else c[name] + int(n)
+    if not _in_a_profile():
+        GLOBAL_TIMINGS.unprofiled += 1
 
 
 @contextlib.contextmanager

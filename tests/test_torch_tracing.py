@@ -96,7 +96,7 @@ def registry(monkeypatch):
     return t
 
 
-EMPTY = {"spans": {}, "profiles": 0, "unprofiled": 0}
+EMPTY = {"spans": {}, "counters": {}, "profiles": 0, "unprofiled": 0}
 
 
 def _boom(*a, **k):
