@@ -31,7 +31,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              and 8, and a constructed tie), K6 (decode_attention_slab and
              the single-layer decode_attention) on the JAX package's test
              cases and at S = 4992, K1's bf16 GEMV alone (gemv_single:
-             every weight kind and epilogue at B = 1, 8 and 32), and K1's
+             every weight kind and epilogue at B = 1, 8 and 32; and the
+             wgmma GEMV and the mma.sync GEMV, each forced, at the 1.7B
+             and 0.6B shapes, two launches bit-equal), and K1's
              kernels per call in every weight layout (at most 6 per
              layer, counted by torch.profiler). K2 (B = 1, S = 360; B =
              8, S = 4992 on bf16 and int8 slabs), K3 (bf16 causal, B = 1
@@ -42,10 +44,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (ELEMENT_TOL) against a float32 reference with the kernel's
              roundings. A yardstick for K1's GEMVs, one layer's seven
              products as torch.mm at B = 1, 8 and 32, is timed beside
-             them. The build phase counts the tensor-core instructions
-             (HMMA, HGMMA) in the SASS of K3, K1, K4 and K5 and fails if a
-             library has none (K5: no HGMMA), and fails if a tensor-core
-             kernel spills. Last, the draw kernel (gumbel_argmax: JAX's
+             them, and the two GEMV routes alone and in a layer's order at
+             the 1.7B shapes and B = 1, 8, 16, 32 beside torch.mm, the
+             plain version and the bytes bound. The build phase counts the
+             tensor-core instructions (HMMA, HGMMA) in the SASS of K3, K1,
+             K4 and K5 and fails if a library has none (K5, and every
+             instance of K1's wgmma GEMV: no HGMMA), and fails if a
+             tensor-core kernel spills (or its wgmma is serialized). Last, the draw kernel (gumbel_argmax: JAX's
              threefry categorical, not a TPU kernel) against its plain
              version at B = 1, 8 and 32 x 151,936 and on half a 32-slot
              pool at its row offset (and at picked rows), three seeds and
@@ -73,7 +78,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              per run B, live rows, bucket, wall, aggregate xRT, tokens/s,
              prefill s, decode ms per step and the launch counts, which
              must show K1 once per step whatever B is, K2 once per layer
-             and step, and K4/K5 as the weights need them.
+             and step, and K4/K5 as the weights need them; then 32 clips
+             twice with the tracer on: k1.gemv_wgmma_launches 4 a layer
+             and step, tokens equal over the two runs.
 6. parity  — the 4 s clip teacher-forced in float32 at full width, with
              float, int8, int4 and int4g weights: the decode-kernel path
              against the plain per-layer path, per-step logits within a
@@ -257,7 +264,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              ROUTED_LAYERS layers, its launch counters set to 0 just
              before it, K7 and K8 launched exactly as often as its
              forwards need (replays counted). ``python3 chip_smoke.py
-             --only routed`` runs phases 1, 2 and 13 alone.
+             --only routed`` runs phases 1, 2 and 13 alone;
+             ``--only gemv`` phases 1 and 2, then K1's bf16 GEMV checks
+             and times of phase 3 and the wgmma counter run of phase 5.
 
 Then a {"kernels": [...]} summary line (launches also per stream update
 and per speculative iteration), the nvidia-smi line, and as the
@@ -608,7 +617,8 @@ def ptxas_spills(build) -> dict:
         out[n] = lines
         bad = [ln for ln in lines if ("mma_kernel" in ln
                                       or "moe_experts_kernel" in ln)
-               and "spill" in ln]
+               and "spill" in ln
+               or "gemv_wgmma_kernel" in ln and "C7513" in ln]
         if bad:
             raise AssertionError(f"{n}: a tensor-core GEMV spills: {bad[:3]}")
     return out
@@ -992,6 +1002,7 @@ def kernel_checks(torch, dec_params_f32):
     slab_kernel_checks(torch, gen, results)
     k2_row_end_checks(torch, gen, results)
     gemv_kernel_checks(torch, gen, results)
+    gemv_wgmma_checks(torch, gen, results)
     k1_layout_launches(torch, dec_params_f32, gen, results)
     draw_kernel_checks(torch, gen, results)
     return results
@@ -1354,6 +1365,300 @@ def gemv_kernel_checks(torch, gen, results):
                     raise AssertionError(
                         f"gemv_single {row['case']}: sums of squares off by "
                         f"{parts_err} (relative)")
+
+
+# K1's GEMVs on the wgmma GEMV (bf16 weights): (label, K, output columns
+# per segment, epilogue) at the 1.7B decoder's widths (the offline cell's)
+# and at the 0.6B's; q|k|v in three column segments as the step launches
+# them
+WGMMA_SHAPES = (("1.7b q|k|v", 2048, (2048, 1024, 1024), "store"),
+                ("1.7b o", 2048, (2048,), "residual"),
+                ("1.7b gate|up", 2048, (6144,), "swiglu"),
+                ("1.7b down", 6144, (2048,), "residual"),
+                ("0.6b q|k|v", 1024, (2048, 1024, 1024), "store"),
+                ("0.6b o", 2048, (1024,), "residual"),
+                ("0.6b gate|up", 1024, (3072,), "swiglu"),
+                ("0.6b down", 3072, (1024,), "residual"))
+# rows the two routes are timed at: each of the staged widths 8, 16, 32
+WGMMA_TIMED_ROWS = (1, 8, 16, 32)
+# consecutive launches per timed CUDA graph, and its replays
+WGMMA_GRAPH_CALLS = 20
+
+
+def wgmma_sass(build) -> dict:
+    """{function: HGMMA count} of every gemv_wgmma_kernel instance in the
+    SASS of K1's library (``cuobjdump -sass``); raises unless every one
+    runs wgmma."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("decode_layer"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            fn = name if "gemv_wgmma_kernel" in name else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and (" HGMMA." in ln or " HGMMA " in ln):
+            counts[fn] += 1
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"gemv_wgmma_kernel: no wgmma (HGMMA) in its "
+                             f"SASS ({counts})")
+    return counts
+
+
+def gemv_wgmma_inputs(torch, gen, k, cols, epilogue, rows):
+    """(x, w, keyword arguments) of one GEMV of K1 on bf16 weights: w a
+    list of the column segments for "store" (with an RMSNorm prologue),
+    one weight for "residual", gate (with up in ``w_up``) for "swiglu"."""
+    dev = torch.device("cuda")
+
+    def weight(c):
+        return (0.02 * torch.randn((k, c), generator=gen, device=dev)
+                ).bfloat16()
+
+    x = torch.randn((rows, k), generator=gen, device=dev).bfloat16()
+    kw = dict(epilogue=epilogue)
+    if epilogue == "residual":
+        kw["res"] = torch.randn((rows, cols[0]), generator=gen,
+                                device=dev).bfloat16()
+    else:
+        kw["norm_w"] = (1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+                        ).bfloat16()
+    w = [weight(c) for c in cols] if epilogue == "store" else weight(cols[0])
+    if epilogue == "swiglu":
+        kw["w_up"] = weight(cols[0])
+    return x, w, kw
+
+
+def gemv_wgmma_case(torch, x, w, kw, route, ssq):
+    """One check of a route: (output, its element excess over the float32
+    reference with the kernel's roundings, the residual's parts' relative
+    error or None, whether a second launch gave the same bits, the wgmma
+    launches counted)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+
+    wcat = torch.cat(w, 1) if isinstance(w, list) else w
+    ref, slack = dl.gemv_single_reference(x, wcat, None, **kw)
+    n0 = dl.gemv_wgmma.launches
+    got = dl.gemv_single(x, w, ssq=ssq, route=route, **kw)
+    again = dl.gemv_single(x, w, ssq=ssq, route=route, **kw)
+    counted = dl.gemv_wgmma.launches - n0
+    parts_err = None
+    if isinstance(got, tuple):
+        (got, parts), again = got, again[0]
+        want = dl.ssq_parts(got, dl.GEMV_TN, False)
+        parts_err = float(((parts - want).abs()
+                           / want.abs().clamp(min=1e-6)).max())
+    return (got, gemv_excess(torch, got, ref, slack), parts_err,
+            bool(torch.equal(got, again)), counted)
+
+
+def gemv_wgmma_checks(torch, gen, results):
+    """K1's bf16-weight GEMV on both routes (the wgmma GEMV and the
+    mma.sync GEMV, forced) at WGMMA_SHAPES and B = 1, 8 and 32, element by
+    element against the float32 reference with the kernel's roundings
+    (ELEMENT_TOL["gemv_single"]), with the step's sums of squares in parts
+    and (normed) with the GEMV's own; a second launch must give the same
+    bits (the rank-order sum is deterministic) and the counter must count
+    the wgmma GEMV's launches and no other."""
+    atol = ELEMENT_TOL["gemv_single"][0]
+    for label, k, cols, epi in WGMMA_SHAPES:
+        for rows in GEMV_ROWS:
+            x, w, kw = gemv_wgmma_inputs(torch, gen, k, cols, epi, rows)
+            for route in ("wgmma", "mma"):
+                for ssq in (True, False) if "norm_w" in kw else (True,):
+                    _, excess, parts_err, same, counted = gemv_wgmma_case(
+                        torch, x, w, kw, route, ssq)
+                    row = {"phase": "kernel", "kernel": "gemv_wgmma",
+                           "case": f"{label} B={rows} {route}"
+                                   f"{'' if ssq else ' (own sums)'}",
+                           "element_excess": excess, "element_atol": atol,
+                           "ssq_parts_rel_err": parts_err,
+                           "deterministic": same, "wgmma_launches": counted}
+                    emit(row)
+                    results.append(row)
+                    if not excess <= atol:
+                        raise AssertionError(
+                            f"gemv_wgmma {row['case']}: |err| - 2^-8 |ref| "
+                            f"reaches {excess} > {atol}")
+                    if parts_err is not None and not parts_err <= 1e-5:
+                        raise AssertionError(
+                            f"gemv_wgmma {row['case']}: sums of squares off "
+                            f"by {parts_err} (relative)")
+                    if not same:
+                        raise AssertionError(f"gemv_wgmma {row['case']}: two "
+                                             f"launches differ")
+                    if counted != (2 if route == "wgmma" else 0):
+                        raise AssertionError(
+                            f"gemv_wgmma {row['case']}: {counted} wgmma "
+                            f"launches counted for 2 launches")
+
+
+def graph_call_ms(torch, fn, calls: int = WGMMA_GRAPH_CALLS) -> dict:
+    """fn() captured ``calls`` times in a row in one CUDA graph (its
+    launches back to back, with programmatic dependent launch between
+    them as in the step): per call, the replay's CUDA-event ms and its
+    device ms (busy_us over a profiled replay)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return {"ms": cuda_ms(torch, graph.replay) / calls,
+            "device_ms": device_ms(torch, graph.replay, reps=4) / calls}
+
+
+def gemv_wgmma_timing(torch, gen, card) -> list:
+    """The two routes of K1's bf16-weight GEMV alone at the 1.7B shapes and
+    WGMMA_TIMED_ROWS rows (gemv_single as the step launches it: the sums of
+    squares in parts), beside torch.mm's products on the same weights (the
+    yardstick, never on the port's path), the plain version
+    (gemv_single_plain, eager) and the bytes bound (weights, x and the
+    output over 3.35 TB/s); per (shape, rows) one row with the faster
+    route, then the four GEMVs in the step's order (gemv_layer_chain),
+    then per row count which route is faster over the four shapes' device
+    time, which gemv_route's fixed rule follows (reported, not held)."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+
+    rows_out = []
+    for label, k, cols, epi in WGMMA_SHAPES[:4]:
+        for rows in WGMMA_TIMED_ROWS:
+            x, w, kw = gemv_wgmma_inputs(torch, gen, k, cols, epi, rows)
+            ws = (w if isinstance(w, list) else [w]) + (
+                [kw["w_up"]] if "w_up" in kw else [])
+            row = {"phase": "kernel", "kernel": "gemv_wgmma_timing",
+                   "case": f"{label} B={rows}", "card": card}
+            for route in ("wgmma", "mma"):
+                launch, _, _ = dl.gemv_single_launcher(
+                    x, w, ssq=True, route=route, **kw)
+                t = graph_call_ms(torch, launch)
+                row[f"{route}_ms"], row[f"{route}_device_ms"] = (
+                    t["ms"], t["device_ms"])
+            t = graph_call_ms(torch, lambda: [torch.mm(x, m) for m in ws])
+            row["mm_ms"], row["mm_device_ms"] = t["ms"], t["device_ms"]
+            wcat = torch.cat(w, 1) if isinstance(w, list) else w
+            row["plain_ms"] = cuda_ms(torch, lambda: dl.gemv_single_plain(
+                x, wcat, **kw))
+            n_out = sum(cols)
+            moved = sum(nbytes(m) for m in ws) + nbytes(x) + 2 * rows * n_out
+            row.update(bound_of(moved, 2 * rows * k * sum(
+                m.shape[1] for m in ws)))
+            row["weight_mb"] = sum(nbytes(m) for m in ws) / 1e6
+            for route in ("wgmma", "mma", "mm"):
+                row[f"{route}_bytes_bound_pct"] = (
+                    100 * row["bound_ms"] / row[f"{route}_device_ms"])
+            row["faster"] = min(("wgmma", "mma"),
+                                key=lambda r: row[f"{r}_device_ms"])
+            row["route_rule"] = dl.gemv_route(
+                0, rows, k, sum(-(-c // dl.GW_TN) for c in cols),
+                2 if epi == "swiglu" else 1)
+            emit(row)
+            rows_out.append(row)
+    for rows in WGMMA_TIMED_ROWS:
+        row = {"phase": "kernel", "kernel": "gemv_wgmma_layer",
+               "case": f"1.7b layer's 4 GEMVs in the step's order B={rows}",
+               "card": card, **gemv_layer_chain(torch, gen, rows)}
+        emit(row)
+        rows_out.append(row)
+    by_rows = {}
+    for rows in WGMMA_TIMED_ROWS:
+        mine = [r for r in rows_out if r["case"].endswith(f"B={rows}")
+                and r["kernel"] == "gemv_wgmma_timing"]
+        tot = {rt: sum(r[f"{rt}_device_ms"] for r in mine)
+               for rt in ("wgmma", "mma")}
+        by_rows[f"B={rows}"] = {**{f"{rt}_device_ms_4_shapes": v
+                                   for rt, v in tot.items()},
+                                "faster": min(tot, key=tot.get),
+                                "rule": mine[0]["route_rule"]}
+    emit({"phase": "kernel", "kernel": "gemv_wgmma_routes",
+          "by_rows": by_rows, "card": card})
+    return rows_out
+
+
+def gemv_layer_chain(torch, gen, rows: int) -> dict:
+    """The 1.7B layer's four GEMVs (q|k|v, o, gate|up, down) back to back
+    in the step's order, as each route launches them (programmatic
+    dependent launch between them; no attention between q|k|v and o), and
+    torch.mm's products of the same weights: microseconds a layer (CUDA
+    events over a captured run of 5 layers), beside the layer's bytes
+    bound."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+
+    cases = [gemv_wgmma_inputs(torch, gen, k, cols, epi, rows)
+             for _, k, cols, epi in WGMMA_SHAPES[:4]]
+    out, moved = {}, 0
+    for x, w, kw in cases:
+        moved += sum(nbytes(m) for m in (w if isinstance(w, list) else [w]))
+        moved += nbytes(kw["w_up"]) if "w_up" in kw else 0
+    out["bound_us"] = 1e6 * moved / HBM_BYTES_PER_S
+    for route in ("wgmma", "mma"):
+        launches = [dl.gemv_single_launcher(x, w, ssq=True, route=route,
+                                            **kw)[0] for x, w, kw in cases]
+        t = graph_call_ms(torch, lambda: [f() for f in launches], calls=5)
+        out[f"{route}_us"] = 1e3 * t["ms"]
+        out[f"{route}_device_us"] = 1e3 * t["device_ms"]
+    mats = [(x, (w if isinstance(w, list) else [w])
+             + ([kw["w_up"]] if "w_up" in kw else [])) for x, w, kw in cases]
+    t = graph_call_ms(torch, lambda: [torch.mm(x, m) for x, ms in mats
+                                      for m in ms], calls=5)
+    out["mm_us"], out["mm_device_us"] = 1e3 * t["ms"], 1e3 * t["device_ms"]
+    for route in ("wgmma", "mma", "mm"):
+        out[f"{route}_bytes_bound_pct"] = (100 * out["bound_us"]
+                                           / out[f"{route}_device_us"])
+    return out
+
+
+def wgmma_engine_check(torch, config, enc32, dec32, audio, card) -> dict:
+    """AsrEngine at full 0.6B width, bf16 weights, 32 clips in one
+    transcribe_batch: with the tracer on, the engine's counter
+    k1.gemv_wgmma_launches must read 4 launches a layer and decode step
+    (112 a step at 28 layers) and equal the wrapper's count; a second run
+    of the same batch must give the same tokens."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import gemv_wgmma
+    from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
+    from qwen3_asr_rs_tpu_torch.utils import tracing
+
+    engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
+                       config=config, params=(enc32, dec32),
+                       tokenizer=StubTokenizer(), device="cuda")
+    samples = [audio[c] for c in FIVE_CLIPS] * 6 + [audio[4]] * 2
+    engine.transcribe_batch(samples)  # warm-up: captures
+    layers = config.text.num_hidden_layers
+    was = tracing._enabled
+    tracing._enabled = True
+    try:
+        before = dict(tracing.snapshot()["counters"])
+        n0 = gemv_wgmma.launches
+        first = engine.transcribe_batch(samples)
+        steps = engine.last_stats["decode_steps"]
+        wrapper = gemv_wgmma.launches - n0
+        counted = (tracing.snapshot()["counters"].get(
+            "k1.gemv_wgmma_launches", 0)
+            - before.get("k1.gemv_wgmma_launches", 0))
+    finally:
+        tracing._enabled = was
+    second = engine.transcribe_batch(samples)
+    same = [a.text for a in first] == [b.text for b in second]
+    row = {"phase": "batch", "run": "wgmma counter, 32 clips",
+           "B": len(samples), "decode_steps": steps,
+           "k1_gemv_wgmma_launches": counted,
+           "wrapper_launches": wrapper,
+           "per_step": counted / steps if steps else None,
+           "want_per_step": 4 * layers,
+           "tokens_identical_over_two_runs": same, "card": card}
+    emit(row)
+    del engine
+    torch.cuda.empty_cache()
+    if not (steps and counted == wrapper == 4 * layers * steps):
+        raise AssertionError(f"wgmma counter: {counted} (wrapper {wrapper}) "
+                             f"for {steps} steps, want {4 * layers} a step")
+    if not same:
+        raise AssertionError("two runs of one batch gave other tokens")
+    return row
 
 
 def gemv_yardstick(torch, dec_params_f32) -> dict:
@@ -5266,6 +5571,37 @@ def routed_phase(torch, card) -> dict:
     return {"kernels": rows, "launches": launches}
 
 
+def gemv_phase(torch, card) -> dict:
+    """``--only gemv``: K1's bf16 GEMVs alone, both tensor-core routes at
+    every weight kind and shape (gemv_kernel_checks, gemv_wgmma_checks),
+    the two routes' times (gemv_wgmma_timing), then the engine's wgmma
+    counter and tokens over two runs of a 32-clip batch at full 0.6B
+    width (wgmma_engine_check)."""
+    from qwen3_asr_rs_tpu_torch import AsrConfig
+    from qwen3_asr_rs_tpu_torch.runtime.engine import load_audio
+    from qwen3_asr_rs_tpu_torch.weights.convert import (
+        init_decoder_params_np, init_encoder_params_np, to_torch)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results = []
+    gemv_kernel_checks(torch, gen, results)
+    gemv_wgmma_checks(torch, gen, results)
+    timing = gemv_wgmma_timing(
+        torch, torch.Generator(device="cuda").manual_seed(23), card)
+    config = AsrConfig()
+    enc32 = to_torch(init_encoder_params_np(config.audio), torch.float32,
+                     "cuda")
+    dec32 = to_torch(init_decoder_params_np(config.text), torch.float32,
+                     "cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gemv_"))
+    audio = {}
+    for seconds, seed in ((4, 1), (8, 4), (15, 5), (22, 6), (30, 2)):
+        write_wav(tmp / f"clip_{seconds}s.wav", seconds, seed)
+        audio[seconds] = load_audio(tmp / f"clip_{seconds}s.wav", 16000)
+    engine = wgmma_engine_check(torch, config, enc32, dec32, audio, card)
+    return {"checks": len(results), "timing": timing, "engine": engine}
+
+
 def main() -> int:
     try:
         import torch
@@ -5304,11 +5640,20 @@ def main() -> int:
           "tensor_core_sass": {n: tensor_core_sass(_build, n)
                                for n in TENSOR_CORE_LIBS},
           "spills": ptxas_spills(_build),
+          "gemv_wgmma_sass": wgmma_sass(_build),
           "ptxas": {n: [ln.strip() for ln in
                         (_build.BUILD_DIR / f"{n}.log").read_text().splitlines()
                         if "registers" in ln or "spill" in ln][:12]
                     for n in _build.KERNEL_SOURCES
                     if (_build.BUILD_DIR / f"{n}.log").exists()}})
+
+    if sys.argv[1:] == ["--only", "gemv"]:
+        emit({"phase": "gemv", "summary": gemv_phase(torch, card)})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     if sys.argv[1:] == ["--only", "routed"]:
         emit({"phase": "routed", "summary": routed_phase(torch, card)})
@@ -5352,6 +5697,8 @@ def main() -> int:
     emit({"phase": "kernel", "kernel": "gemv_yardstick",
           "case": "one 0.6B layer's 7 products as torch.mm, bf16",
           **yardstick})
+    gemv_wgmma_timing(torch, torch.Generator(device="cuda").manual_seed(23),
+                      card)
     fns = kernel_wrappers()
     k6_launches = {n: fns[n].launches
                    for n in ("decode_attention_slab", "decode_attention")}
@@ -5392,6 +5739,8 @@ def main() -> int:
                     seconds, kv, quantize, env, card)
         del engine
         torch.cuda.empty_cache()
+
+    wgmma_engine_check(torch, config, enc32, dec32, audio, card)
 
     # 6. parity: float32 teacher forcing, kernel path vs plain path
     for quantize in (None, "int8", "int4", "int4g"):

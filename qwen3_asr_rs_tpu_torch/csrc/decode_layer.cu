@@ -31,15 +31,19 @@
 // data-sheet 3.35 TB/s), 0.44 GB in int8, 0.22 GB in int4, whatever B is:
 // every GEMV reads its weight once for up to 32 rows. What the design does
 // about it, for T = bf16 (the main path):
-// - the GEMVs run on the tensor cores (gemv_mma.cuh: mma.sync.m16n8k16,
-//   output columns as the 16-row side, batch rows as the 8-wide side), so
-//   up to 32 rows take one pass over the weights and no per-row FMAs;
-// - each block streams its K range through a 4-stage ring of 16-byte
-//   cp.async copies, and the K split comes from the shapes and B
-//   (gm_split_rows): at most one round of two blocks per SM, split-K
-//   partials no larger than the weights, a deterministic last-block
-//   reduction in split order of at most 256 rows x splits (16-byte loads,
-//   several splits in flight);
+// - the GEMVs run on the tensor cores, so up to 32 rows take one pass over
+//   the weights and no per-row FMAs. bf16 weights (gw_route) take the
+//   wgmma GEMV (gemv_wgmma.cuh: a TMA ring of weight tiles,
+//   wgmma.m64n32k16 with the batch rows as N, K split over a thread-block
+//   cluster and summed in rank order in the owners' shared memory); every
+//   quantized kind takes the mma.sync GEMV
+//   (gemv_mma.cuh: m16n8k16, output columns as the 16-row side, batch rows
+//   as the 8-wide side), which streams each block's K range through a
+//   4-stage ring of 16-byte cp.async copies, with the K split from the
+//   shapes and B (gm_split_rows): at most one round of two blocks per SM,
+//   split-K partials in a global workspace no larger than the weights, a
+//   deterministic last-block reduction in split order of at most 256 rows
+//   x splits;
 // - 6 launches per layer in every layout (q|k|v one launch, merged or as
 //   three column segments); the GEMVs and the QK-norm kernel are launched
 //   with programmatic dependent launch: a GEMV fetches its first weight
@@ -58,6 +62,7 @@
 
 #include "decode_attention.cuh"
 #include "gemv_mma.cuh"
+#include "gemv_wgmma.cuh"
 
 // the float32 parity path's CUDA-core GEMV
 constexpr int GEMV_CPT = 8;                    // columns per thread
@@ -107,7 +112,8 @@ struct GemvArgs {
   float* ws;
   int* counters;     // (column tiles,) zero on entry, zero on exit
   int rows, K;
-  int kb;            // rows of K per block (the tensor-core GEMV)
+  int kb;            // rows of K per block (the tensor-core GEMVs)
+  int stages;        // the wgmma GEMV's ring of weight stages
   // Each row's sum of squares in parts, one per column tile of the GEMV
   // that wrote the row (row stride ssq_stride floats): EPI_RESIDUAL
   // writes the parts of its output (ssq_out), a normed GEMV adds the
@@ -126,7 +132,7 @@ struct GemvSeg {
   const void* w1;
   const float* s0;
   const float* s1;
-  int nl, ld, c0, obase;
+  int seg, nl, ld, c0, obase;
   size_t ws_off;
 };
 
@@ -143,6 +149,7 @@ __device__ __forceinline__ GemvSeg gemv_segment(const GemvArgs<T>& a,
     ++s;
   }
   GemvSeg g;
+  g.seg = s;
   g.w0 = a.w0[s];
   g.w1 = a.w1;
   g.s0 = a.s0[s];
@@ -187,24 +194,80 @@ __device__ __forceinline__ bool gemv_last_block(int* counter, int nk,
   return last;
 }
 
-// The last block of a column tile adds all split-K partials in split
-// order and runs the epilogue for every row (the scale multiplies the
+// The epilogue of one output (row r, loaded column nl of the segment sg)
+// from its NACC float32 sums t over all of K (the scale multiplies the
 // whole contraction, after the partials are summed, and only then rounds
 // to T; int4g partials are scaled already):
 //   STORE:    out = T(y s)
-//   RESIDUAL: out = T(res + T(y s))
+//   RESIDUAL: out = T(res + T(y s)); returns the square of what it wrote
+//             (res: the residual's NV values loaded already, or null)
 //   SWIGLU:   out = T(T(silu(T(gate s0))) * T(up s1)), where gate and up
 //             come from two weights (w0, w1) or, for a merged int4
 //             gate|up, from the low and high nibbles of one byte
-//   ARGMAX:   best[r] = max(best[r], key(y s, column))
-// A thread adds 4 adjacent columns of one row, 16-byte loads of several
-// splits in flight, in split order, then runs the epilogue of each.
+// Both tensor-core GEMVs end in it, so they round alike.
+template <typename T, int EPI, int WK, int NSRC>
+__device__ __forceinline__ float gemv_output(const GemvArgs<T>& a,
+                                             const GemvSeg& sg, int r,
+                                             int nl, const float* t,
+                                             const float* res = nullptr) {
+  constexpr int NV = is_int4(WK) ? 2 : 1;
+  constexpr bool kGroups = WK == W_INT4G;
+  const float* es0 = kGroups ? nullptr : sg.s0;
+  const float* es1 = kGroups ? nullptr : sg.s1;
+  float sq = 0.f;
+  if constexpr (EPI == EPI_SWIGLU) {
+    // pairs (gate, up) of accumulators, each pair one output column
+    constexpr int NPAIR = NSRC == 1 ? 1 : NV;
+    const size_t N = (size_t)sg.nl * NPAIR;
+#pragma unroll
+    for (int v = 0; v < NPAIR; ++v) {
+      const int gi = NSRC == 1 ? 0 : v, ui = NSRC == 1 ? 1 : NV + v;
+      const int on = nl + v * sg.nl;
+      const float gate = round_to<T>(scaled(t[gi], es0, on));
+      const float up = round_to<T>(scaled(t[ui], es1, on));
+      const float act = round_to<T>(gate * (1.f / (1.f + expf(-gate))));
+      a.out[r * N + on] = from_f<T>(act * up);
+    }
+  } else {
+    static_assert(EPI == EPI_STORE || EPI == EPI_RESIDUAL,
+                  "ARGMAX: gemv_epilogue's keys");
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int on = nl + v * sg.nl;
+      const float y = round_to<T>(scaled(t[v], es0, on));
+      if constexpr (EPI == EPI_STORE) {
+        const int og = sg.obase + on;
+        if (og < a.split1) {
+          a.out[(size_t)r * a.split1 + og] = from_f<T>(y);
+        } else if (og < a.split2) {
+          a.out1[(size_t)r * (a.split2 - a.split1) + og - a.split1] =
+              from_f<T>(y);
+        } else {
+          a.out2[(size_t)r * (a.ntot - a.split2) + og - a.split2] =
+              from_f<T>(y);
+        }
+      } else {
+        const size_t N = (size_t)sg.nl * NV;
+        const float rv = res != nullptr ? res[v] : to_f(a.res[r * N + on]);
+        const float o = round_to<T>(rv + y);
+        a.out[r * N + on] = from_f<T>(o);
+        sq = fmaf(o, o, sq);
+      }
+    }
+  }
+  return sq;
+}
+
+// The last block of a column tile adds all split-K partials in split
+// order and runs the epilogue (gemv_output; ARGMAX: best[r] = max(best[r],
+// key(y s, column))) for every row. A thread adds 4 adjacent columns of
+// one row, 16-byte loads of several splits in flight, in split order,
+// then runs the epilogue of each.
 template <typename T, int EPI, int WK, int NSRC, int NTHREADS>
 __device__ void gemv_epilogue(const GemvArgs<T>& a, const GemvSeg& sg,
                               int nk, int tid) {
   constexpr int NV = is_int4(WK) ? 2 : 1;
   constexpr int NACC = NSRC * NV;
-  constexpr bool kGroups = WK == W_INT4G;
   constexpr int TPR = GEMV_TN / 4;         // threads per row: 16, a half warp
   constexpr int RPP = NTHREADS / TPR;      // rows per pass
   __shared__ unsigned long long kbest[GEMV_MAX_ROWS];
@@ -212,55 +275,19 @@ __device__ void gemv_epilogue(const GemvArgs<T>& a, const GemvSeg& sg,
   __shared__ float sq_row[GEMV_MAX_ROWS];
   const bool ssq = EPI == EPI_RESIDUAL && a.ssq_out != nullptr;
   const float* ws = a.ws + sg.ws_off;
-  const float* es0 = kGroups ? nullptr : sg.s0;
-  const float* es1 = kGroups ? nullptr : sg.s1;
   if constexpr (EPI == EPI_ARGMAX) {
     if (tid < a.rows) kbest[tid] = 0;
     __syncthreads();
   }
   // the output (row r, loaded column nl) from its NACC sums t
   auto output = [&](int r, int nl, const float* t) -> float {
-    float sq = 0.f;
-    if constexpr (EPI == EPI_SWIGLU) {
-      // pairs (gate, up) of accumulators, each pair one output column
-      constexpr int NPAIR = NSRC == 1 ? 1 : NV;
-      const size_t N = (size_t)sg.nl * NPAIR;
-#pragma unroll
-      for (int v = 0; v < NPAIR; ++v) {
-        const int gi = NSRC == 1 ? 0 : v, ui = NSRC == 1 ? 1 : NV + v;
-        const int on = nl + v * sg.nl;
-        const float gate = round_to<T>(scaled(t[gi], es0, on));
-        const float up = round_to<T>(scaled(t[ui], es1, on));
-        const float act = round_to<T>(gate * (1.f / (1.f + expf(-gate))));
-        a.out[r * N + on] = from_f<T>(act * up);
-      }
-    } else if constexpr (EPI == EPI_ARGMAX) {
+    if constexpr (EPI == EPI_ARGMAX) {
+      const float* es0 = WK == W_INT4G ? nullptr : sg.s0;
       atomicMax(&kbest[r], argmax_key(scaled(t[0], es0, nl), nl));
+      return 0.f;
     } else {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const int on = nl + v * sg.nl;
-        const float y = round_to<T>(scaled(t[v], es0, on));
-        if constexpr (EPI == EPI_STORE) {
-          const int og = sg.obase + on;
-          if (og < a.split1) {
-            a.out[(size_t)r * a.split1 + og] = from_f<T>(y);
-          } else if (og < a.split2) {
-            a.out1[(size_t)r * (a.split2 - a.split1) + og - a.split1] =
-                from_f<T>(y);
-          } else {
-            a.out2[(size_t)r * (a.ntot - a.split2) + og - a.split2] =
-                from_f<T>(y);
-          }
-        } else {
-          const size_t N = (size_t)sg.nl * NV;
-          const float o = round_to<T>(to_f(a.res[r * N + on]) + y);
-          a.out[r * N + on] = from_f<T>(o);
-          sq = fmaf(o, o, sq);
-        }
-      }
+      return gemv_output<T, EPI, WK, NSRC>(a, sg, r, nl, t);
     }
-    return sq;
   };
   // every thread takes every pass (the row shuffles below)
   for (int r0 = 0; r0 < a.rows; r0 += RPP) {
@@ -758,6 +785,330 @@ gemv_mma_kernel(GemvArgs<bf16> a) {
   gemv_epilogue<bf16, EPI, WK, NSRC, GM_THREADS>(a, sg, nk, tid);
 }
 
+// ---- T = bf16, bf16 weights: the wgmma GEMV ----------------------------
+
+// The tensor maps of a wgmma GEMV launch: the weight of each column
+// segment, the SwiGLU "up" weight (w1), and x
+struct GwMaps {
+  CUtensorMap w[3];
+  CUtensorMap up;
+  CUtensorMap x;
+};
+
+// y = x @ W for up to 8 * NB8 rows over NSRC bf16 weights (gemv_wgmma.cuh),
+// then gemv_output. Block b of the grid is rank b % cs of a cluster of cs
+// blocks (the cluster's K ranks: rows [rank a.kb, +a.kb) of K) that share
+// column tile b / cs. Warp 4 is the producer: its lane 0 initializes the
+// ring's barriers, issues the first GW_PREFETCH stages' weight tiles,
+// waits for the previous kernel, issues their x, then keeps the ring of
+// a.stages stages full.
+// Threads 0-127 (a warpgroup) wait for the previous kernel, take a normed
+// GEMV's RMSNorm factors and norm weights, and per stage (normed: round
+// its x to the normed row in place) issue one wgmma per 16 rows of K and
+// source into 4 NB8 float32 accumulators each. Partials: each rank
+// stores its sums of row n into the shared memory of the owner of n
+// (rank n / (N / cs)), slot rank; after one cluster barrier each owner
+// adds its rows' slots in rank order (0 + p0 + p1 + ...: deterministic,
+// as the mma.sync GEMV's split order) and runs the epilogue over the
+// tile's 64 columns, 16 threads a row.
+template <int EPI, int NB8>
+__global__ void __launch_bounds__(GW_THREADS, 3)
+gemv_wgmma_kernel(const __grid_constant__ GwMaps maps, GemvArgs<bf16> a) {
+  constexpr int NSRC = EPI == EPI_SWIGLU ? 2 : 1;
+  constexpr int N = 8 * NB8;           // staged rows: wgmma's N
+  constexpr int NACC = 4 * NB8;        // accumulators per thread and source
+  constexpr int STAGE = gw_stage_bytes(NSRC, NB8);
+  constexpr int XOFF = NSRC * GW_W_BYTES;  // x's rows in a stage
+  constexpr int TPR = GW_TN / 4;       // epilogue threads per row
+  static_assert(EPI != EPI_ARGMAX, "bf16 weights: no folded argmax");
+  static_assert(N / GW_MAX_CLUSTER >= 1, "every rank owns a row");
+  extern __shared__ __align__(16) unsigned char gw_raw[];
+  unsigned char* smem =
+      gw_raw + ((1024 - (gm_smem_u32(gw_raw) & 1023)) & 1023);
+  __shared__ float rnorm[N];
+  pdl_launch_dependents();
+  // every block of the cluster has started before any writes into
+  // another's shared memory (the matching wait comes after the products)
+  gw_cluster_arrive();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cs = (int)gw_cluster_size(), rank = (int)gw_cluster_rank();
+  const int tile = blockIdx.x / cs, S = a.stages;
+  const GemvSeg sg = gemv_segment(a, tile, 1, NSRC, 1);
+  const int k_begin = rank * a.kb, k_end = min(a.K, k_begin + a.kb);
+  const int nst = k_end > k_begin ? (k_end - k_begin + GW_KS - 1) / GW_KS : 0;
+  unsigned char* ring = smem;                                  // S stages
+  float* red = reinterpret_cast<float*>(ring + S * STAGE);     // partials
+  bf16* nws = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(red) + gw_red_bytes(NSRC, NB8));
+  uint64_t* full = reinterpret_cast<uint64_t*>(nws + a.kb);
+  uint64_t* empty = full + S;
+  const int rp = N / cs;  // rows per owner
+
+  float acc[NSRC][NACC];
+#pragma unroll
+  for (int src = 0; src < NSRC; ++src)
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[src][i] = 0.f;
+
+  if (warp == GW_CONSUMERS / 32) {
+    // the producer
+    if (lane == 0) {
+      // the descriptors of the first copies, fetched while the barriers
+      // are set up
+      gw_prefetch_map(&maps.w[sg.seg]);
+      gw_prefetch_map(&maps.x);
+      if constexpr (NSRC == 2) gw_prefetch_map(&maps.up);
+      for (int s = 0; s < S; ++s) {
+        gw_bar_init(full + s, 1);
+        gw_bar_init(empty + s, GW_CONSUMERS / 32);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    // the consumers may wait on the barriers
+    asm volatile("bar.arrive 2, %0;\n" ::"n"(GW_THREADS) : "memory");
+    if (lane == 0) {
+      const CUtensorMap* wmap = &maps.w[sg.seg];
+      auto weights = [&](int st) {
+        unsigned char* d = ring + (st % S) * STAGE;
+        uint64_t* bar = full + st % S;
+        const int k0 = k_begin + st * GW_KS;
+        gw_bar_expect(bar, STAGE);
+        gw_tma_2d(d, wmap, sg.c0, k0, bar);
+        if constexpr (NSRC == 2) {
+          gw_tma_2d(d + GW_W_BYTES, &maps.up, sg.c0, k0, bar);
+        }
+      };
+      auto xrows = [&](int st) {
+        gw_tma_2d(ring + (st % S) * STAGE + XOFF, &maps.x,
+                  k_begin + st * GW_KS, 0, full + st % S);
+      };
+      const int first = nst < S ? nst : S;
+      const int pre = first < GW_PREFETCH ? first : GW_PREFETCH;
+      for (int st = 0; st < pre; ++st) weights(st);
+      pdl_wait();  // x is the previous kernel's output
+      for (int st = 0; st < pre; ++st) xrows(st);
+      for (int st = pre; st < first; ++st) {
+        weights(st);
+        xrows(st);
+      }
+      for (int st = S; st < nst; ++st) {
+        gw_bar_wait(empty + st % S, (st / S - 1) & 1);
+        weights(st);
+        xrows(st);
+      }
+    }
+  } else {
+    pdl_wait();
+    const bool normed = a.norm_w != nullptr;
+    if (normed) {
+      // the rank's norm weights (zero past K), one cp.async group
+      for (int c = 8 * tid; c < a.kb; c += 8 * GW_CONSUMERS) {
+        const bool ok = k_begin + c < k_end;
+        cp_async16(nws + c, ok ? a.norm_w + k_begin + c : a.norm_w, ok);
+      }
+      cp_async_commit();
+      if (a.ssq_in != nullptr && a.ssq_tiles % 16 == 0 &&
+          a.ssq_tiles <= 4 * GW_SSQ_PER_THREAD && a.ssq_stride % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(a.ssq_in) % 16 == 0) {
+        // RMSNorm factor of each row from the parts of its sum of squares
+        // the GEMV that wrote it left, added in tile order: 4 threads a
+        // row, thread j loading parts [j P, (j + 1) P) at once in 16-byte
+        // loads (every block reads the same parts: one request a line
+        // and instruction), the running sum handed from thread j to j + 1
+        const int r = tid >> 2, j = tid & 3, P = a.ssq_tiles / 4;
+        float part[GW_SSQ_PER_THREAD];
+#pragma unroll
+        for (int i = 0; i < GW_SSQ_PER_THREAD; i += 4) {
+          const float4 v =
+              r < a.rows && i < P
+                  ? __ldcg(reinterpret_cast<const float4*>(
+                        a.ssq_in + (size_t)r * a.ssq_stride + j * P + i))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          part[i] = v.x;
+          part[i + 1] = v.y;
+          part[i + 2] = v.z;
+          part[i + 3] = v.w;
+        }
+        float run = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (j == jj) {
+#pragma unroll
+            for (int i = 0; i < GW_SSQ_PER_THREAD; ++i) run += part[i];
+          }
+          run = __shfl_sync(0xffffffffu, run, (lane & ~3) | jj);
+        }
+        if (j == 0 && r < a.rows) rnorm[r] = 1.f / sqrtf(run / a.K + a.eps);
+      } else if (a.ssq_in != nullptr) {
+        for (int r = tid; r < a.rows; r += GW_CONSUMERS) {
+          const float* q = a.ssq_in + (size_t)r * a.ssq_stride;
+          float ss = 0.f;
+#pragma unroll 8
+          for (int t = 0; t < a.ssq_tiles; ++t) ss += __ldcg(q + t);
+          rnorm[r] = 1.f / sqrtf(ss / a.K + a.eps);
+        }
+      } else {
+        // from the row itself (one warp per row)
+        for (int r = warp; r < a.rows; r += GW_CONSUMERS / 32) {
+          const bf16* xr = a.x + (size_t)r * a.K;
+          float ss = 0.f;
+          for (int k = lane * 8; k < a.K; k += 32 * 8) {
+            float v[8];
+            load8(xr + k, v);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) ss = fmaf(v[i], v[i], ss);
+          }
+          ss = warp_sum(ss);
+          if (lane == 0) rnorm[r] = 1.f / sqrtf(ss / a.K + a.eps);
+        }
+      }
+      cp_async_wait<0>();
+    }
+    // the ring's barriers are initialized; rnorm and nws are complete
+    asm volatile("bar.sync 2, %0;\n" ::"n"(GW_THREADS) : "memory");
+
+    for (int st = 0; st < nst; ++st) {
+      const int slot = st % S;
+      unsigned char* stage = ring + slot * STAGE;
+      gw_bar_wait(full + slot, (st / S) & 1);
+      if (normed) {
+        // this stage's x, normed and rounded to bf16 as the mma.sync GEMV
+        // rounds it, in place: 16-byte chunk c of row n at c ^ (n & 7)
+        for (int i = tid; i < a.rows * 8; i += GW_CONSUMERS) {
+          const int n = i >> 3, c = i & 7;
+          uint4* p = reinterpret_cast<uint4*>(stage + XOFF + n * 128 +
+                                              ((c ^ (n & 7)) << 4));
+          float v[8], w[8];
+          lds8(reinterpret_cast<const bf16*>(p), v);
+          lds8(nws + st * GW_KS + 8 * c, w);
+          uint4 u;
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            h[jj] = __floats2bfloat162_rn(
+                v[2 * jj] * rnorm[n] * w[2 * jj],
+                v[2 * jj + 1] * rnorm[n] * w[2 * jj + 1]);
+          }
+          *p = u;
+        }
+        // visible to the tensor cores (the async proxy), every part
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS) : "memory");
+      }
+      const uint64_t db = gw_desc(stage + XOFF);
+      const uint64_t da = gw_desc(stage);
+#pragma unroll
+      for (int src = 0; src < NSRC; ++src) gw_fence_acc<NACC>(acc[src]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < GW_KS / 16; ++kk) {
+        // K step kk: 16 rows (2048 bytes) into the weight tile, 32 bytes
+        // into x's rows
+#pragma unroll
+        for (int src = 0; src < NSRC; ++src) {
+          gw_wgmma<NB8>(acc[src], da + src * (GW_W_BYTES >> 4) + 128 * kk,
+                        db + 2 * kk);
+        }
+      }
+      // the stage's products complete before its slot goes back to the
+      // producer, so that all a.stages stages are in flight (they take
+      // far less than a stage's bytes take to arrive)
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int src = 0; src < NSRC; ++src) gw_fence_acc<NACC>(acc[src]);
+      __syncwarp();
+      if (lane == 0) gw_bar_arrive(empty + slot);
+    }
+  }
+
+  // the partials into their owners' slots
+  gw_cluster_wait();
+  if (tid < GW_CONSUMERS) {
+    const unsigned base = gm_smem_u32(red);
+#pragma unroll
+    for (int j = 0; j < NB8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 8 * j + 2 * (lane & 3) + c;
+        if (n >= a.rows) continue;
+        const int owner = n / rp, lr = n - owner * rp;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = 16 * warp + (lane >> 2) + 8 * i;
+#pragma unroll
+          for (int src = 0; src < NSRC; ++src) {
+            const unsigned off =
+                4u * (((rank * NSRC + src) * rp + lr) * GW_RPITCH + m);
+            gw_st_remote(gw_remote(base + off, owner),
+                         acc[src][4 * j + 2 * i + c]);
+          }
+        }
+      }
+  }
+  gw_cluster_arrive();
+  gw_cluster_wait();
+
+  // the owner's rows: the slots in rank order, then the epilogue
+  if (tid >= GW_CONSUMERS) return;
+  const bool ssq = EPI == EPI_RESIDUAL && a.ssq_out != nullptr;
+  for (int lr0 = 0; lr0 < rp; lr0 += GW_CONSUMERS / TPR) {
+    const int lr = lr0 + tid / TPR, n = rank * rp + lr;
+    const int m0 = 4 * (tid % TPR), nl0 = sg.c0 + m0;
+    const bool live = lr < rp && n < a.rows && nl0 < sg.nl;  // sg.nl % 4 == 0
+    float sq = 0.f;
+    if (live) {
+      // the residual's 4 values first: res may alias out
+      float res[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (EPI == EPI_RESIDUAL) {
+        const uint2 u = *reinterpret_cast<const uint2*>(
+            a.res + (size_t)n * sg.nl + nl0);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+        const float2 f0 = __bfloat1622float2(h[0]);
+        const float2 f1 = __bfloat1622float2(h[1]);
+        res[0] = f0.x; res[1] = f0.y; res[2] = f1.x; res[3] = f1.y;
+      }
+      float4 tot[NSRC];
+#pragma unroll
+      for (int src = 0; src < NSRC; ++src) {
+        tot[src] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int r = 0; r < cs; ++r) {
+#pragma unroll
+        for (int src = 0; src < NSRC; ++src) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              red + ((r * NSRC + src) * rp + lr) * GW_RPITCH + m0);
+          tot[src].x += v.x;
+          tot[src].y += v.y;
+          tot[src].z += v.z;
+          tot[src].w += v.w;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float t[NSRC];
+#pragma unroll
+        for (int src = 0; src < NSRC; ++src) {
+          const float4& v = tot[src];
+          t[src] = c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+        }
+        sq += gemv_output<bf16, EPI, W_FLOAT, NSRC>(a, sg, n, nl0 + c, t,
+                                                    res + c);
+      }
+    }
+    if (ssq) {  // the row's 16 threads, in a fixed order
+#pragma unroll
+      for (int o = TPR / 2; o > 0; o >>= 1) {
+        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      }
+      if (tid % TPR == 0 && lr < rp && n < a.rows) {
+        a.ssq_out[(size_t)n * a.ssq_stride + tile] = sq;
+      }
+    }
+  }
+}
+
 // ---- launches ----------------------------------------------------------
 
 // column tiles of a launch (each segment's columns start a new tile)
@@ -811,12 +1162,74 @@ cudaError_t launch_gemv_mma(GemvArgs<bf16> a, cudaStream_t stream) {
   return launch_pdl(gemv_mma_kernel<EPI, WK, NSRC, NB8>, grid,
                        dim3(GM_THREADS), smem, stream, a);
 }
+
+// The wgmma GEMV of a launch: gw_plan's cluster along K, the weight maps
+// encoded here (for a captured step: at capture), launched as clusters
+// with programmatic dependent launch.
+template <int EPI, int NB8>
+cudaError_t launch_gemv_wgmma(GemvArgs<bf16> a, const GwPlan& p,
+                              cudaStream_t stream) {
+  static int ready = 0;
+  GwMaps maps;
+  for (int s = 0; s < a.nseg; ++s) {
+    if (!gw_map(&maps.w[s], a.w0[s], a.K, a.nl[s], a.ld[s], GW_KS, GW_TN)) {
+      return cudaErrorNotSupported;
+    }
+  }
+  if ((EPI == EPI_SWIGLU &&
+       !gw_map(&maps.up, a.w1, a.K, a.nl[0], a.ld[0], GW_KS, GW_TN)) ||
+      !gw_map(&maps.x, a.x, a.rows, a.K, a.K, 8 * NB8, GW_KS)) {
+    return cudaErrorNotSupported;
+  }
+  a.kb = p.kr;
+  a.stages = p.stages;
+  cudaError_t err =
+      allow_smem(gemv_wgmma_kernel<EPI, NB8>, GW_SMEM_MAX, &ready);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gemv_tiles(a) * p.cs);
+  cfg.blockDim = dim3(GW_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, gemv_wgmma_kernel<EPI, NB8>, maps, a);
+}
 }  // namespace
 
+// Which tensor-core GEMV a bf16-activation launch of `rows` rows (<= 32)
+// takes: the wgmma GEMV for bf16 weights where its plan fits a block's
+// shared memory, else the mma.sync GEMV (every quantized weight kind). A
+// fixed rule on the shapes: at the 1.7B decoder's four GEMVs the wgmma
+// GEMV is the faster at 1, 8, 16 and 32 rows alike (chip_smoke, PERF.md).
+// ops/kernels/decode_layer.py::gemv_route mirrors it.
+static bool gw_route(int wk, int rows, int K, int tiles, int nsrc) {
+  return wk == W_FLOAT &&
+         gw_plan(K, tiles, nsrc, gemv_nb8(rows)).smem <= GW_SMEM_MAX;
+}
+
+extern "C" int gemv_route(int wk, int rows, int K, int tiles, int nsrc) {
+  return gw_route(wk, rows, K, tiles, nsrc) ? 1 : 0;
+}
+
+// routes of launch_gemv: the rule, or (the card checks) one forced
+enum GemvRoute { ROUTE_RULE = -1, ROUTE_MMA = 0, ROUTE_WGMMA = 1 };
+
 // One launch per GEMV_MAX_ROWS rows: T = float with the largest row group
-// its rows and accumulators allow, T = bf16 with 8, 16 or 32 staged rows.
+// its rows and accumulators allow, T = bf16 with 8, 16 or 32 staged rows
+// on the route gw_route picks (or `route` forces); wgmma_launches (a host
+// int, or null) counts the launches of the wgmma GEMV.
 template <typename T, int EPI, int WK, int NSRC>
-cudaError_t launch_gemv(const GemvArgs<T>& a, int rows, cudaStream_t stream) {
+cudaError_t launch_gemv(const GemvArgs<T>& a, int rows, cudaStream_t stream,
+                        int* wgmma_launches = nullptr,
+                        int route = ROUTE_RULE) {
   constexpr int NV = is_int4(WK) ? 2 : 1;
   constexpr int NOUT = EPI == EPI_SWIGLU ? (NSRC == 1 ? 1 : NV) : NV;
   int ntot = 0;  // output columns per row
@@ -855,7 +1268,30 @@ cudaError_t launch_gemv(const GemvArgs<T>& a, int rows, cudaStream_t stream) {
         err = launch_gemv_rb<EPI, WK, NSRC, RB_MAX>(g, stream);
       }
     } else {
-      switch (gemv_nb8(g.rows)) {
+      constexpr bool kWgmma = WK == W_FLOAT && EPI != EPI_ARGMAX &&
+                              NSRC == (EPI == EPI_SWIGLU ? 2 : 1);
+      const int nb8 = gemv_nb8(g.rows);
+      const GwPlan plan = gw_plan(g.K, gemv_tiles(g), NSRC, nb8);
+      const bool wgmma =
+          route == ROUTE_RULE
+              ? gw_route(WK, g.rows, g.K, gemv_tiles(g), NSRC)
+              : route == ROUTE_WGMMA;
+      if (wgmma && !(kWgmma && plan.smem <= GW_SMEM_MAX)) {
+        return cudaErrorInvalidValue;
+      }
+      if constexpr (kWgmma) {
+        if (wgmma) {
+          switch (nb8) {
+            case 1: err = launch_gemv_wgmma<EPI, 1>(g, plan, stream); break;
+            case 2: err = launch_gemv_wgmma<EPI, 2>(g, plan, stream); break;
+            default: err = launch_gemv_wgmma<EPI, 4>(g, plan, stream);
+          }
+          if (err != cudaSuccess) return err;
+          if (wgmma_launches != nullptr) ++*wgmma_launches;
+          continue;
+        }
+      }
+      switch (nb8) {
         case 1: err = launch_gemv_mma<EPI, WK, NSRC, 1>(g, stream); break;
         case 2: err = launch_gemv_mma<EPI, WK, NSRC, 2>(g, stream); break;
         default: err = launch_gemv_mma<EPI, WK, NSRC, 4>(g, stream);
@@ -1262,12 +1698,13 @@ void gemv_one(GemvArgs<T>& g, const void* w, const float* s, int nl,
   g.ld[0] = ld;
 }
 
-// attn_launches is a host int, incremented once each time
+// launches is two host ints: launches[0] is incremented once each time
 // launch_decode_attention has enqueued K2's kernel (one launch, the merge
-// inside it) without error, so the caller counts K2's launches where they are made.
+// inside it) without error, launches[1] once for each launch of the wgmma
+// GEMV, so the caller counts both where they are made.
 template <typename T, int WK>
 cudaError_t decode_layers_fused(const void* const* p, int merged,
-                                int* attn_launches, int L, int B, int H,
+                                int* launches, int L, int B, int H,
                                 int Hq, int Hkv, int D, int I, int S,
                                 int gsize, int fold, int V, float eps,
                                 cudaStream_t stream) {
@@ -1337,7 +1774,7 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
         g.nl[j] = g.ld[j] = W::row(widths[j]);
       }
     }
-    if ((err = launch_gemv<T, EPI_STORE, WK, 1>(g, B, stream)) != cudaSuccess) return err;
+    if ((err = launch_gemv<T, EPI_STORE, WK, 1>(g, B, stream, launches + 1)) != cudaSuccess) return err;
     // QK-RMSNorm + rotary; k lands in the fresh-K output
     err = launch_pdl(qk_norm_rope_kernel<T>, dim3(Hq + Hkv, B), dim3(D), 0,
                         stream, qbuf, (const T*)kbuf, k_l,
@@ -1359,7 +1796,7 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
           stream);
     }
     if (err != cudaSuccess) return err;
-    ++*attn_launches;
+    ++launches[0];
     // h = h + attn @ o_w
     g = GemvArgs<T>{};
     g.ws = ws; g.counters = counters; g.eps = eps; g.gsize = gsize;
@@ -1368,7 +1805,7 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
     gemv_one(g, W::w(p[P_W_O], l, qd, H), W::s(p[P_S_O], l, qd, H, gsize),
              W::row(H), W::row(H));
     g.res = h_in; g.out = h;
-    if ((err = launch_gemv<T, EPI_RESIDUAL, WK, 1>(g, B, stream)) != cudaSuccess) return err;
+    if ((err = launch_gemv<T, EPI_RESIDUAL, WK, 1>(g, B, stream, launches + 1)) != cudaSuccess) return err;
     // act = silu(RMSNorm(h) @ gate_w) * (RMSNorm(h) @ up_w)
     g.x = h; g.norm_w = post_ln + (size_t)l * H; g.K = H; g.out = act;
     g.res = nullptr; g.ssq_out = nullptr; g.ssq_in = ssq;
@@ -1378,14 +1815,14 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
         // packed column j: gate j (low nibble), up j (high nibble)
         gemv_one(g, W::w(p[P_W_GATE], l, H, 2 * I), s, I, I);
         g.s1 = s == nullptr ? nullptr : s + I;
-        err = launch_gemv<T, EPI_SWIGLU, WK, 1>(g, B, stream);
+        err = launch_gemv<T, EPI_SWIGLU, WK, 1>(g, B, stream, launches + 1);
       } else {
         // gate j and up j are columns j and I + j of one row
         const void* w = W::w(p[P_W_GATE], l, H, 2 * I);
         gemv_one(g, w, s, I, 2 * I);
         g.w1 = static_cast<const char*>(w) + (size_t)I * W::esize();
         g.s1 = s == nullptr ? nullptr : s + I;
-        err = launch_gemv<T, EPI_SWIGLU, WK, 2>(g, B, stream);
+        err = launch_gemv<T, EPI_SWIGLU, WK, 2>(g, B, stream, launches + 1);
       }
     } else if constexpr (WK == W_INT4G) {
       err = cudaErrorInvalidValue;  // int4g: merged only
@@ -1394,7 +1831,7 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
                W::row(I), W::row(I));
       g.w1 = W::w(p[P_W_UP], l, H, I);
       g.s1 = W::s(p[P_S_UP], l, H, I, gsize);
-      err = launch_gemv<T, EPI_SWIGLU, WK, 2>(g, B, stream);
+      err = launch_gemv<T, EPI_SWIGLU, WK, 2>(g, B, stream, launches + 1);
     }
     if (err != cudaSuccess) return err;
     // h = h + act @ down_w
@@ -1403,7 +1840,7 @@ cudaError_t decode_layers_fused(const void* const* p, int merged,
              W::row(H), W::row(H));
     g.w1 = nullptr; g.s1 = nullptr;
     g.res = h; g.out = h;
-    if ((err = launch_gemv<T, EPI_RESIDUAL, WK, 1>(g, B, stream)) != cudaSuccess) return err;
+    if ((err = launch_gemv<T, EPI_RESIDUAL, WK, 1>(g, B, stream, launches + 1)) != cudaSuccess) return err;
   }
   if (fold != FOLD_NONE) {
     err = launch_lm_fold<T>(
@@ -1428,7 +1865,7 @@ static bool gemv_width_ok(int wkind, int n) {
 // Shapes the kernels cannot take are refused before anything is launched.
 template <typename T>
 int decode_layers_fused_entry(const void* const* p, int wkind, int merged,
-                              int* attn_launches, int L, int B, int H,
+                              int* launches, int L, int B, int H,
                               int Hq, int Hkv, int D, int I, int S, int gsize,
                               int fold, int V, float eps, void* stream) {
   if (B < 1 || D > 256 || D % 32 != 0 || !gemv_width_ok(wkind, H) ||
@@ -1449,7 +1886,7 @@ int decode_layers_fused_entry(const void* const* p, int wkind, int merged,
 #define DECODE_LAYERS_CASE(WK)                                               \
   case WK:                                                                   \
     return static_cast<int>(decode_layers_fused<T, WK>(                      \
-        p, merged, attn_launches, L, B, H, Hq, Hkv, D, I, S, gsize, fold, V, \
+        p, merged, launches, L, B, H, Hq, Hkv, D, I, S, gsize, fold, V,      \
         eps, st));
   switch (wkind) {
     DECODE_LAYERS_CASE(W_FLOAT)
@@ -1464,10 +1901,10 @@ int decode_layers_fused_entry(const void* const* p, int wkind, int merged,
 
 #define DECODE_LAYERS_ENTRY(NAME, T)                                         \
   extern "C" int NAME(const void* const* p, int wkind, int merged,           \
-                      int* attn_launches, int L, int B, int H, int Hq,       \
+                      int* launches, int L, int B, int H, int Hq,            \
                       int Hkv, int D, int I, int S, int gsize, int fold,     \
                       int V, float eps, void* stream) {                      \
-    return decode_layers_fused_entry<T>(p, wkind, merged, attn_launches, L,  \
+    return decode_layers_fused_entry<T>(p, wkind, merged, launches, L,       \
                                         B, H, Hq, Hkv, D, I, S, gsize, fold, \
                                         V, eps, stream);                     \
   }
@@ -1479,22 +1916,31 @@ DECODE_LAYERS_ENTRY(decode_layers_fused_f32, float)
 
 // The bf16 tensor-core GEMV of one projection with its prologue and
 // epilogue, as K1 launches it: p = {x (rows, K), norm_w (K,) or null, w0,
-// w1 or null, s0, s1, res, out, ws, counters, ssq_in, ssq_out}; wkind a
-// WeightKind, epi an Epilogue (STORE, RESIDUAL or SWIGLU), nsrc the
-// sources (2: SWIGLU with separate gate and up weights of nl loaded
-// columns and row stride ld). ws: gemv_single_ws_words floats; counters:
-// zero, left zero; ssq_in: null, or (rows, ssq_stride) parts of each
-// row's sum of squares, ssq_tiles of them, for the RMSNorm; ssq_out:
-// null, or RESIDUAL's (rows, ssq_stride) parts, one per column tile.
+// w1 or null, s0, s1, res, out, ws, counters, ssq_in, ssq_out, the
+// second and third STORE segments' weights or null}; wkind a WeightKind,
+// epi an Epilogue (STORE, RESIDUAL or SWIGLU), nsrc the sources (2:
+// SWIGLU with separate gate and up weights of nl loaded columns and row
+// stride ld). STORE with bf16 weights may take up to three column
+// segments, as the step's q|k|v: nls[s] loaded columns each (nls[0] = nl;
+// row stride ld, then nls[s]), their outputs side by side in out. ws:
+// gemv_single_ws_words floats; counters: zero, left zero; ssq_in: null,
+// or (rows, ssq_stride) parts of each row's sum of squares, ssq_tiles of
+// them, for the RMSNorm; ssq_out: null, or RESIDUAL's (rows, ssq_stride)
+// parts, one per column tile. route: a GemvRoute (the rule, or one
+// forced); launches[0] counts the wgmma GEMV's launches.
 extern "C" long long gemv_single_ws_words(int rows, int K, int nl) {
   return (long long)rows * 4 * ((K + GM_KS - 1) / GM_KS) * nl;
 }
 
 extern "C" int gemv_single_bf16(const void* const* p, int wkind, int epi,
-                                int nsrc, int rows, int K, int nl, int ld,
-                                int gsize, int ssq_stride, int ssq_tiles,
-                                float eps, void* stream) {
-  if (rows < 1 || K % 8 != 0 || !gemv_width_ok(wkind, is_int4(wkind) ? 2 * nl : nl) ||
+                                int nsrc, int rows, int K, const int* nls,
+                                int nseg, int ld, int gsize, int ssq_stride,
+                                int ssq_tiles, float eps, int route,
+                                int* launches, void* stream) {
+  const int nl = nls[0];
+  if (rows < 1 || K % 8 != 0 || nseg < 1 || nseg > 3 ||
+      (nseg > 1 && (epi != EPI_STORE || wkind != W_FLOAT)) ||
+      !gemv_width_ok(wkind, is_int4(wkind) ? 2 * nl : nl) ||
       (wkind == W_INT4G && (gsize < 32 || K % gsize != 0 ||
                             !(gsize == 32 || gsize == 64 || gsize % 128 == 0)))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1504,6 +1950,16 @@ extern "C" int gemv_single_bf16(const void* const* p, int wkind, int epi,
   g.norm_w = static_cast<const bf16*>(p[1]);
   g.eps = eps;
   gemv_one(g, p[2], static_cast<const float*>(p[4]), nl, ld);
+  int ntot = nl;
+  for (int s = 1; s < nseg; ++s) {
+    if (!gemv_width_ok(wkind, nls[s])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    g.w0[s] = p[11 + s];
+    g.nl[s] = g.ld[s] = nls[s];
+    ntot += nls[s];
+  }
+  g.nseg = nseg;
   g.w1 = p[3];
   g.s1 = static_cast<const float*>(p[5]);
   g.gsize = gsize;
@@ -1518,10 +1974,10 @@ extern "C" int gemv_single_bf16(const void* const* p, int wkind, int epi,
   g.K = K;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define GEMV_SINGLE(E, WK, NSRC)                                   \
-  if (epi == E && wkind == WK && nsrc == NSRC) {                   \
-    g.split1 = g.split2 = nl * (is_int4(WK) ? 2 : 1); /* STORE: all to out */ \
-    err = launch_gemv<bf16, E, WK, NSRC>(g, rows, st);              \
+#define GEMV_SINGLE(E, WK, NSRC)                                        \
+  if (epi == E && wkind == WK && nsrc == NSRC) {                        \
+    g.split1 = g.split2 = ntot * (is_int4(WK) ? 2 : 1); /* STORE: out */ \
+    err = launch_gemv<bf16, E, WK, NSRC>(g, rows, st, launches, route); \
   }
   GEMV_SINGLE(EPI_STORE, W_FLOAT, 1) GEMV_SINGLE(EPI_STORE, W_INT8, 1)
   GEMV_SINGLE(EPI_STORE, W_INT4, 1) GEMV_SINGLE(EPI_STORE, W_INT4G, 1)

@@ -44,19 +44,25 @@ GB in int8, 0.22 GB in int4 (0.26 / 0.13 / 0.07 ms at the data-sheet
 3.35 TB/s; int4g adds 1/16 of the int4 bytes in scales at group size
 128), plus 311 / 156 MB for a folded bf16 / int8 lm_head, which the
 GEMVs read once per step for up to 32 rows. With bf16 activations the
-GEMVs run on the tensor cores (``csrc/gemv_mma.cuh``: bf16 ``mma.sync``
-with int8/int4 weights converted exactly, 16-byte ``cp.async`` rings, a
-K split from the shapes and B (``gemv_split_rows``), programmatic
-dependent launch between the kernels of a layer); float32 activations
-keep CUDA-core GEMVs (the parity path). ``gemv_single`` launches one
-such GEMV alone, for the card checks. The Pallas kernel's VMEM budgets,
-``ffn_tiles``, resident/DMA slab modes, scale-row packing and 8/128
-alignments are TPU scheduling and are not carried over.
+GEMVs run on the tensor cores, launched with programmatic dependent
+launch between the kernels of a layer: bf16 weights (``gemv_route``) on
+the wgmma GEMV (``csrc/gemv_wgmma.cuh``: a TMA ring of weight tiles,
+``wgmma`` with the batch rows as N, K split across a thread-block
+cluster as ``gemv_wgmma_plan`` says and summed in rank order in shared
+memory; its launches counted by ``gemv_wgmma``), the rest on the
+mma.sync GEMV (``csrc/gemv_mma.cuh``: int8/int4 weights converted
+exactly, 16-byte ``cp.async`` rings, a K split from the shapes and B
+(``gemv_split_rows``) summed through a global workspace); float32
+activations keep CUDA-core GEMVs (the parity path). ``gemv_single``
+launches one such GEMV alone, for the card checks. The Pallas kernel's
+VMEM budgets, ``ffn_tiles``, resident/DMA slab modes, scale-row packing
+and 8/128 alignments are TPU scheduling and are not carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -231,9 +237,14 @@ def _lib():
         )
         lib.decode_layers_fused_scratch.restype = None
         lib.gemv_single_bf16.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 10
-            + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+            + [ctypes.c_void_p] * 2)
         lib.gemv_single_bf16.restype = ctypes.c_int
+        lib.gemv_wgmma_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gemv_wgmma_plan.restype = None
+        lib.gemv_route.argtypes = [ctypes.c_int] * 5
+        lib.gemv_route.restype = ctypes.c_int
         lib.gemv_single_ws_words.argtypes = [ctypes.c_int] * 3
         lib.gemv_single_ws_words.restype = ctypes.c_longlong
         lib.gemv_split_rows.argtypes = [ctypes.c_int] * 7
@@ -422,13 +433,15 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
                   else [None] * 5))
     table = (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors))
-    attn_launches = ctypes.c_int(0)
+    # K2's launches and the wgmma GEMV's, counted by the C entry
+    launches = (ctypes.c_int * 2)()
     fn = (lib.decode_layers_fused_bf16 if x.dtype == torch.bfloat16
           else lib.decode_layers_fused_f32)
-    rc = fn(table, _KINDS[kind], int(merged), ctypes.addressof(attn_launches),
+    rc = fn(table, _KINDS[kind], int(merged), ctypes.addressof(launches),
             nl, b, h, hq, hkv, d, inter, s_max, gsize, fold, vocab, eps,
             stream)
-    decode_attention_dma.launches += attn_launches.value
+    decode_attention_dma.launches += launches[0]
+    gemv_wgmma.launches += launches[1]
     if rc != 0:
         # a failed launch may leave the split-K counters or keys nonzero
         del _scratch[key]
@@ -440,6 +453,12 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
 decode_layers_fused.launches = 0
 
 
+# The wgmma GEMV's launches: it has no wrapper of its own (it runs inside
+# K1's step and ``gemv_single``, whose wrappers add the C entries' counts
+# here); in ``runtime/cuda_graph.COUNTED``, so replays add theirs too.
+gemv_wgmma = SimpleNamespace(launches=0)
+
+
 # ---- the tensor-core GEMV alone (card checks) ---------------------------
 
 # gm_split_rows's constants (csrc/gemv_mma.cuh)
@@ -449,6 +468,8 @@ GEMV_TARGET_BLOCKS = 264  # two blocks per SM of the H100 SXM
 GEMV_EPI_ROWS = 256       # rows x splits of a last block's reduction
 GEMV_XS_MAX = 68 * 1024   # bytes of staged x rows
 _EPILOGUES = {"store": 0, "residual": 1, "swiglu": 2}
+# launch_gemv's routes (csrc/decode_layer.cu, GemvRoute)
+_ROUTES = {"rule": -1, "mma": 0, "wgmma": 1}
 
 
 def gemv_split_rows(k: int, tiles: int, rows: int, nacc: int, wbytes: int,
@@ -467,6 +488,59 @@ def gemv_split_rows(k: int, tiles: int, rows: int, nacc: int, wbytes: int,
                 -(-units // max(1, GEMV_EPI_ROWS // rows)))
     steps = min(steps, (GEMV_XS_MAX // (16 * nb8) - 8) // granule, units)
     return max(steps, 1) * granule
+
+
+# gw_plan's and gw_route's constants (csrc/gemv_wgmma.cuh)
+GW_KS = 64                 # weight rows per stage
+GW_TN = 64                 # weight columns per block: wgmma's M
+GW_W_BYTES = GW_KS * GW_TN * 2  # one source's weight tile
+GW_MAX_CLUSTER = 8         # the portable cluster size
+GW_SMS = 132               # SMs of the H100 SXM
+GW_TARGET_BLOCKS = 2 * GW_SMS  # blocks a launch may take
+GW_SM_SMEM = 228 * 1024    # shared memory of an SM
+GW_BLOCK_EXTRA = 1024 + 128  # a block's reserve and static bytes
+GW_SMEM_MAX = 227 * 1024 - 128
+GW_MAX_STAGES = 4
+GW_RPITCH = GW_TN + 4      # floats per row of the partials
+GW_SLACK = 1024 + 128
+
+
+def gemv_nb8(rows: int) -> int:
+    """Staged rows of a tensor-core GEMV of ``rows`` rows, in 8s."""
+    return 1 if rows <= 8 else 2 if rows <= 16 else 4
+
+
+def gemv_wgmma_plan(k: int, tiles: int, nsrc: int, nb8: int) -> dict:
+    """The wgmma GEMV's launch plan (``gw_plan``): the cluster size ``cs``
+    (the largest power of two up to GW_MAX_CLUSTER, and no more than K's
+    stages, whose tiles x cs blocks stay within GW_TARGET_BLOCKS; at least
+    1), ``kr`` rows of K per rank (whole stages), the ring's ``stages``
+    (as many as a block's share of its SM holds beside the partials and
+    the rank's norm weights, at most the rank's stages and GW_MAX_STAGES,
+    at least 1) and the dynamic shared bytes ``smem``."""
+    units = -(-k // GW_KS)
+    stage = nsrc * GW_W_BYTES + 8 * nb8 * 128
+    cs = 1
+    while cs < GW_MAX_CLUSTER and 2 * tiles * cs <= GW_TARGET_BLOCKS and (
+            2 * cs <= units):
+        cs *= 2
+    nst = -(-units // cs)
+    kr = nst * GW_KS
+    per_sm = -(-(tiles * cs) // GW_SMS)
+    fixed = nsrc * 8 * nb8 * GW_RPITCH * 4 + 2 * kr + GW_SLACK
+    stages = max(1, min((GW_SM_SMEM // per_sm - GW_BLOCK_EXTRA - fixed)
+                        // stage, GW_MAX_STAGES, nst))
+    return dict(cs=cs, kr=kr, stages=stages, smem=fixed + stages * stage)
+
+
+def gemv_route(kind: int, rows: int, k: int, tiles: int, nsrc: int) -> str:
+    """The GEMV a bf16-activation launch of ``rows`` (<= 32) rows takes
+    (``gw_route``): "wgmma" for bf16 weights (kind 0) where the plan fits
+    a block's shared memory, else "mma" (every quantized kind)."""
+    if kind == _KINDS[""] and gemv_wgmma_plan(
+            k, tiles, nsrc, gemv_nb8(rows))["smem"] <= GW_SMEM_MAX:
+        return "wgmma"
+    return "mma"
 
 
 def _single_kind(w, scales, int4: bool) -> int:
@@ -578,44 +652,75 @@ _single_counters: dict = {}
 
 def gemv_single(x, w, scales=None, *, int4: bool = False,
                 epilogue: str = "store", norm_w=None, eps: float = 1e-6,
-                res=None, w_up=None, s_up=None, ssq: bool = False):
+                res=None, w_up=None, s_up=None, ssq: bool = False,
+                route: str = "rule"):
     """One GEMV of K1 alone, as the decode step launches it with bf16
     activations: x (rows, K) bf16 (RMSNorm by ``norm_w`` first, when
     given) @ w (K, N) bf16, int8 with (N,) scales, or int4 (``int4``: (K,
     N/2) packed, (N,) or int4g (G, N) scales), then the epilogue: "store"
     (rows, N); "residual" res + y; "swiglu" silu(gate) * up, gate from w
     and up from ``w_up``/``s_up`` (or, int4 without ``w_up``, the low and
-    high nibbles of w). ``ssq``, as in the decode step: a normed GEMV
-    takes each row's sum of squares in parts (here the sums over 64-column
-    tiles of x) instead of summing the row itself; a residual one returns
-    (out, its parts, one per column tile: ``ssq_parts``). For the card
-    checks; the decode step does not call it. CPU tensors run
-    ``gemv_single_plain``; CUDA tensors launch the kernel
-    (``gemv_single.launches``)."""
+    high nibbles of w). A "store" of bf16 weights may take ``w`` as a list
+    of up to three (K, N_s) weights, column segments of one launch as the
+    step's q|k|v, its output their columns side by side. ``ssq``, as in
+    the decode step: a normed GEMV takes each row's sum of squares in
+    parts (here the sums over 64-column tiles of x) instead of summing the
+    row itself; a residual one returns (out, its parts, one per column
+    tile: ``ssq_parts``). ``route``: "rule" (``gemv_route``, as the step),
+    or "mma" / "wgmma" to run that GEMV (bf16 weights), for the card
+    checks' comparisons. For the card checks; the decode step does not
+    call it. CPU tensors run ``gemv_single_plain``; CUDA tensors launch
+    the kernel (``gemv_single_launcher``)."""
+    segments = list(w) if isinstance(w, (list, tuple)) else [w]
     if x.device.type == "cpu":
-        return gemv_single_plain(x, w, scales, int4=int4, epilogue=epilogue,
-                                 norm_w=norm_w, eps=eps, res=res, w_up=w_up,
-                                 s_up=s_up, ssq=ssq)
-    if x.dtype != torch.bfloat16 or x.ndim != 2:
-        raise ValueError("gemv_single: x must be (rows, K) bf16")
+        return gemv_single_plain(x, torch.cat(segments, 1), scales,
+                                 int4=int4, epilogue=epilogue, norm_w=norm_w,
+                                 eps=eps, res=res, w_up=w_up, s_up=s_up,
+                                 ssq=ssq)
+    launch, out, ssq_out = gemv_single_launcher(
+        x, w, scales, int4=int4, epilogue=epilogue, norm_w=norm_w, eps=eps,
+        res=res, w_up=w_up, s_up=s_up, ssq=ssq, route=route)
+    launch()
+    return out if ssq_out is None else (out, ssq_out)
+
+
+def gemv_single_launcher(x, w, scales=None, *, int4: bool = False,
+                         epilogue: str = "store", norm_w=None,
+                         eps: float = 1e-6, res=None, w_up=None, s_up=None,
+                         ssq: bool = False, route: str = "rule"):
+    """``gemv_single``'s launch on CUDA tensors with its operands made once:
+    (launch, out, the residual's sums of squares or None); each
+    ``launch()`` enqueues the GEMV on the current stream (so that a card
+    check can capture a run of them in a CUDA graph) and counts it in
+    ``gemv_single.launches`` (the wgmma GEMV's also in
+    ``gemv_wgmma.launches``)."""
+    segments = list(w) if isinstance(w, (list, tuple)) else [w]
+    if len(segments) > 1 and (epilogue != "store" or scales is not None
+                              or len(segments) > 3):
+        raise ValueError("gemv_single: column segments are a store of up to "
+                         "three bf16 weights")
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.ndim != 2:
+        raise ValueError("gemv_single: x must be (rows, K) bf16 on CUDA")
     rows, k = x.shape
-    nl = w.shape[1]
+    w = segments[0]
+    nls = [t.shape[1] for t in segments]
+    nl = nls[0]
     kind = _single_kind(w, scales, int4)
     gsize = k // scales.shape[0] if kind == _KINDS["_q4g"] else 0
     nsrc = 2 if w_up is not None else 1
-    n = nl * (2 if int4 else 1)
+    n = sum(nls) * (2 if int4 else 1)
     n_out = n // 2 if epilogue == "swiglu" and w_up is None else n
     if epilogue == "swiglu" and w_up is None and kind == _KINDS["_q4"]:
         s_up = scales[nl:]  # the high nibbles' (up's) per-column scales
     out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
     lib = _lib()
-    ws = torch.empty(lib.gemv_single_ws_words(rows, k, nl),
+    ws = torch.empty(lib.gemv_single_ws_words(rows, k, sum(nls)),
                      dtype=torch.float32, device=x.device)
     if x.device not in _single_counters:
         _single_counters[x.device] = torch.zeros(
             1 << 16, dtype=torch.int32, device=x.device)
     counters = _single_counters[x.device]
-    if -(-nl // GEMV_TN) > counters.numel():
+    if sum(-(-c // GEMV_TN) for c in nls) > counters.numel():
         raise ValueError("gemv_single: too many columns")
     ssq_in = ssq_out = None
     ssq_stride = ssq_tiles = 0
@@ -627,19 +732,28 @@ def gemv_single(x, w, scales=None, *, int4: bool = False,
         ssq_out = torch.empty((rows, ssq_stride), dtype=torch.float32,
                               device=x.device)
     tensors = [x, norm_w, w, w_up, scales, s_up, res, out, ws, counters,
-               ssq_in, ssq_out]
+               ssq_in, ssq_out] + (segments[1:] + [None, None])[:2]
     for t in tensors:
         if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError("gemv_single: operands must be contiguous "
                              "tensors on one device")
     table = (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors))
-    rc = lib.gemv_single_bf16(table, kind, _EPILOGUES[epilogue], nsrc, rows,
-                              k, nl, nl, gsize, ssq_stride, ssq_tiles, eps,
-                              _build.stream_of(x))
-    _build.check(lib, rc, "gemv_single")
-    gemv_single.launches += 1
-    return out if ssq_out is None else (out, ssq_out)
+    widths = (ctypes.c_int * 3)(*(nls + [0, 0])[:3])
+
+    def launch():
+        launches = (ctypes.c_int * 1)()
+        rc = lib.gemv_single_bf16(
+            table, kind, _EPILOGUES[epilogue], nsrc, rows, k,
+            ctypes.addressof(widths), len(nls), nl, gsize, ssq_stride,
+            ssq_tiles, eps, _ROUTES[route], ctypes.addressof(launches),
+            _build.stream_of(x))
+        _build.check(lib, rc, "gemv_single")
+        gemv_single.launches += 1
+        gemv_wgmma.launches += launches[0]
+
+    launch.operands = tensors  # the table's pointers live as long as it
+    return launch, out, ssq_out
 
 
 gemv_single.launches = 0

@@ -29,7 +29,7 @@ from ..ops.kernels.decode_attention import (
     decode_attention_dma,
     decode_attention_slab,
 )
-from ..ops.kernels.decode_layer import decode_layers_fused
+from ..ops.kernels.decode_layer import decode_layers_fused, gemv_wgmma
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_elementwise import latent_rope, rms_norm
 from ..ops.kernels.gumbel_argmax import gumbel_argmax, threefry_noise
@@ -38,10 +38,10 @@ from ..ops.kernels.quant_matmul import quant_matmul
 from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
 
 # every kernel wrapper with a launch counter that a step can reach
-COUNTED = [decode_layers_fused, decode_attention_dma, decode_attention_slab,
-           decode_attention, flash_attention, quant_matmul,
-           quant_matvec_int4, gumbel_argmax, threefry_noise, moe_experts,
-           rms_norm, latent_rope]
+COUNTED = [decode_layers_fused, gemv_wgmma, decode_attention_dma,
+           decode_attention_slab, decode_attention, flash_attention,
+           quant_matmul, quant_matvec_int4, gumbel_argmax, threefry_noise,
+           moe_experts, rms_norm, latent_rope]
 
 
 class StepGraph:

@@ -131,7 +131,7 @@ from ..models.deepseek_v3_decoder import (
     refuse,
 )
 from ..models.text_decoder import KVCache, TextDecoder
-from ..ops.kernels.decode_layer import int4g_group_supported
+from ..ops.kernels.decode_layer import gemv_wgmma, int4g_group_supported
 from ..ops.prng import KeyChain, fold_in, prng_key
 from ..parallel.comm import mesh_axis
 from ..parallel.mesh import mesh_dims
@@ -831,6 +831,7 @@ class AsrEngine:
         t_first = time.perf_counter()
 
         flags = _DoneFlags(self.device)
+        wgmma0 = gemv_wgmma.launches
         # decode steps: one per token but the prefill's
         total = self.max_new_tokens - 1
         steps = replays = captures = 0
@@ -909,6 +910,10 @@ class AsrEngine:
                 ev0.elapsed_time(ev1) / 1e3)
         if routes is not None:
             self._count_routes(routes, steps)
+        # K1's wgmma GEMV launches over the loop (4 a layer and step with
+        # bf16 weights; replays counted), where it ran
+        if gemv_wgmma.launches > wgmma0:
+            count("k1.gemv_wgmma_launches", gemv_wgmma.launches - wgmma0)
         return [out_buf[i, :g].tolist() for i, g in enumerate(n_gen)]
 
     def _count_routes(self, values: list, steps: int) -> None:

@@ -10,11 +10,17 @@ planted fault each, from copies of ``csrc/`` in a temporary directory:
 - ``last_split_dropped``: the last block of a column tile adds every K
   split's partial but the last;
 - ``group_scale_skipped``: int4g's first group (rows 0 .. gsize - 1)
-  joins the sum unscaled.
+  joins the sum unscaled;
+- ``wgmma_rank_dropped``: the wgmma GEMV's owners add every cluster
+  rank's partial but the last;
+- ``wgmma_rank_twice``: the wgmma GEMV's owners add rank 0's partial
+  twice.
 
 Every build runs every case of chip_smoke's GEMV phase (``gemv_single``:
-every weight kind and epilogue at the 0.6B widths, B = 1, 8 and 32) and
-applies its element check (``ELEMENT_TOL["gemv_single"]`` against the
+every weight kind and epilogue at the 0.6B widths, B = 1, 8 and 32, on
+the route the rule picks; and the wgmma GEMV, forced, at the 1.7B and
+0.6B shapes of WGMMA_SHAPES, B = 1, 8 and 32) and applies its element
+check (``ELEMENT_TOL["gemv_single"]`` against the
 float32 reference with the kernel's roundings), and for comparison K1's
 whole-step bound (``TOL``: max|err| <= 1e-2 + 2^-4 max|ref|). One JSON
 line per (build, case), with ``changed``, the largest change of the
@@ -49,6 +55,18 @@ FAULTS = (
      "const float s = sc[v * GM_TN + gm_col<WK>(warp, lane, c >> 1)];",
      "const float s = done <= a.gsize ? 1.f : "
      "sc[v * GM_TN + gm_col<WK>(warp, lane, c >> 1)];"),
+    ("wgmma_rank_dropped", "decode_layer.cu",
+     "for (int r = 0; r < cs; ++r) {",
+     "for (int r = 0; r < cs - (cs > 1); ++r) {"),
+    ("wgmma_rank_twice", "decode_layer.cu",
+     "for (int r = 0; r < cs; ++r) {\n#pragma unroll\n"
+     "        for (int src = 0; src < NSRC; ++src) {\n"
+     "          const float4 v = *reinterpret_cast<const float4*>(\n"
+     "              red + ((r * NSRC + src)",
+     "for (int r = -(cs > 1); r < cs; ++r) {\n#pragma unroll\n"
+     "        for (int src = 0; src < NSRC; ++src) {\n"
+     "          const float4 v = *reinterpret_cast<const float4*>(\n"
+     "              red + (((r < 0 ? 0 : r) * NSRC + src)"),
 )
 
 
@@ -106,6 +124,14 @@ def main() -> int:
             name = (f"{kind} {epilogue}{' (nibbles)' if nibbles else ''} "
                     f"B={rows}")
             cases.append((name, (x, w, s, kw), ref, slack))
+    for label, k, cols, epilogue in smoke.WGMMA_SHAPES:
+        for rows in smoke.GEMV_ROWS:
+            x, w, kw = smoke.gemv_wgmma_inputs(torch, gen, k, cols, epilogue,
+                                               rows)
+            ref, slack = dl.gemv_single_reference(
+                x, torch.cat(w, 1) if isinstance(w, list) else w, None, **kw)
+            cases.append((f"wgmma {label} B={rows}",
+                          (x, w, None, {**kw, "route": "wgmma"}), ref, slack))
     atol, _ = smoke.ELEMENT_TOL["gemv_single"]
     tatol, trtol = smoke.TOL[("decode_layers_fused", "bfloat16")]
     tmp = Path(tempfile.mkdtemp(prefix="gemv_check_strength_"))

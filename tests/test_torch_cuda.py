@@ -180,13 +180,19 @@ def _int8(slab):
                                              (torch.bfloat16, 1e-2, 2 ** -4)])
 def test_cuda_decode_layers_batched_matches_plain(cuda, b, dtype, atol, rtol):
     """K1 at B rows with per-row starts 0, 37, 74, ... and a shared end:
-    one launch for all rows, K2 once per layer."""
+    one launch for all rows, K2 once per layer, and the four GEMVs of each
+    layer on the wgmma GEMV with bf16 weights."""
+    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import gemv_wgmma
+
     lay, kc, vc, x, cos, sin = _k1_case(cuda, dtype, b, 200, 190, 7)
     start = (37 * torch.arange(b, device=cuda) % 150).to(torch.int32)
     n, n_attn = decode_layers_fused.launches, decode_attention_dma.launches
+    n_wgmma = gemv_wgmma.launches
     got = decode_layers_fused(x, cos, sin, lay, kc, vc, start, 190, eps=1e-6)
     assert decode_layers_fused.launches == n + 1
     assert decode_attention_dma.launches == n_attn + 2
+    assert gemv_wgmma.launches == n_wgmma + (
+        8 if dtype == torch.bfloat16 else 0)
     end = torch.full((b,), 190, dtype=torch.int32, device=cuda)
     ref = decode_layers_fused_plain(x, cos, sin, lay, kc, vc, start, end,
                                     eps=1e-6)
@@ -792,6 +798,53 @@ def test_cuda_gemv_split_rule_mirror(cuda):
                     k, half // dl.GEMV_TN, r, 2, 1, dl.GEMV_KS, nb8)
                 assert plan["splits"] == -(-k // plan["kb"])
                 assert not plan["resident"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", smoke.GEMV_ROWS)
+@pytest.mark.parametrize("label,k,cols,epilogue", smoke.WGMMA_SHAPES)
+def test_cuda_gemv_wgmma_elementwise(cuda, label, k, cols, epilogue, rows):
+    """The wgmma GEMV (forced at every row count) at the 1.7B and 0.6B
+    shapes, every epilogue (q|k|v as three segments), held element by
+    element against the float32 reference with its roundings
+    (ELEMENT_TOL), with the step's sums of squares in parts (the residual
+    leaves its parts, one per 64-column tile) and, normed, with its own;
+    two launches give the same bits and the counter counts both."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    x, w, kw = smoke.gemv_wgmma_inputs(torch, g, k, cols, epilogue, rows)
+    for ssq in (True, False) if "norm_w" in kw else (True,):
+        _, excess, parts_err, same, counted = smoke.gemv_wgmma_case(
+            torch, x, w, kw, "wgmma", ssq)
+        assert excess <= smoke.ELEMENT_TOL["gemv_single"][0], excess
+        assert parts_err is None or parts_err <= 1e-5, parts_err
+        assert same and counted == 2
+
+
+@pytest.mark.cuda
+def test_cuda_gemv_wgmma_plan_mirror(cuda):
+    """The Python mirrors of the wgmma GEMV's plan and of the route rule
+    agree with the C entries (gemv_wgmma_plan, gemv_route)."""
+    import ctypes
+
+    from qwen3_asr_rs_tpu_torch.ops.kernels import decode_layer as dl
+
+    lib = dl._lib()
+    out = (ctypes.c_int * 4)()
+    for k in (64, 1000, 1024, 2048, 3072, 6144, 18944, 40000):
+        for tiles in (1, 16, 32, 48, 64, 96, 264, 1216):
+            for nsrc in (1, 2):
+                for nb8 in (1, 2, 4):
+                    lib.gemv_wgmma_plan(k, tiles, nsrc, nb8,
+                                        ctypes.addressof(out))
+                    want = dl.gemv_wgmma_plan(k, tiles, nsrc, nb8)
+                    assert list(out) == [want[f] for f in (
+                        "cs", "kr", "stages", "smem")], (k, tiles, nsrc, nb8)
+                for rows in (1, 8, 16, 17, 32):
+                    for kind in range(4):
+                        assert bool(lib.gemv_route(kind, rows, k, tiles,
+                                                   nsrc)) == (
+                            dl.gemv_route(kind, rows, k, tiles, nsrc)
+                            == "wgmma"), (kind, rows, k, tiles, nsrc)
 
 
 def _engine_two_layers(**kw):
