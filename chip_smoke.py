@@ -79,8 +79,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              prefill s, decode ms per step and the launch counts, which
              must show K1 once per step whatever B is, K2 once per layer
              and step, and K4/K5 as the weights need them; then 32 clips
-             twice with the tracer on: k1.gemv_wgmma_launches 4 a layer
-             and step, tokens equal over the two runs.
+             twice: the wgmma GEMV's launch counter (gemv_wgmma, replays
+             counted) 4 a layer and step, tokens equal over the two
+             runs.
 6. parity  — the 4 s clip teacher-forced in float32 at full width, with
              float, int8, int4 and int4g weights: the decode-kernel path
              against the plain per-layer path, per-step logits within a
@@ -1614,13 +1615,12 @@ def gemv_layer_chain(torch, gen, rows: int) -> dict:
 
 def wgmma_engine_check(torch, config, enc32, dec32, audio, card) -> dict:
     """AsrEngine at full 0.6B width, bf16 weights, 32 clips in one
-    transcribe_batch: with the tracer on, the engine's counter
-    k1.gemv_wgmma_launches must read 4 launches a layer and decode step
-    (112 a step at 28 layers) and equal the wrapper's count; a second run
-    of the same batch must give the same tokens."""
+    transcribe_batch: the wgmma GEMV's launch counter (``gemv_wgmma``,
+    replays counted through ``ops.kernels.COUNTED``) must read 4 launches
+    a layer and decode step across the call (112 a step at 28 layers); a
+    second run of the same batch must give the same tokens."""
     from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import gemv_wgmma
     from qwen3_asr_rs_tpu_torch.runtime.engine import AsrEngine
-    from qwen3_asr_rs_tpu_torch.utils import tracing
 
     engine = AsrEngine(None, dtype=torch.bfloat16, max_new_tokens=128,
                        config=config, params=(enc32, dec32),
@@ -1628,34 +1628,24 @@ def wgmma_engine_check(torch, config, enc32, dec32, audio, card) -> dict:
     samples = [audio[c] for c in FIVE_CLIPS] * 6 + [audio[4]] * 2
     engine.transcribe_batch(samples)  # warm-up: captures
     layers = config.text.num_hidden_layers
-    was = tracing._enabled
-    tracing._enabled = True
-    try:
-        before = dict(tracing.snapshot()["counters"])
-        n0 = gemv_wgmma.launches
-        first = engine.transcribe_batch(samples)
-        steps = engine.last_stats["decode_steps"]
-        wrapper = gemv_wgmma.launches - n0
-        counted = (tracing.snapshot()["counters"].get(
-            "k1.gemv_wgmma_launches", 0)
-            - before.get("k1.gemv_wgmma_launches", 0))
-    finally:
-        tracing._enabled = was
+    n0 = gemv_wgmma.launches
+    first = engine.transcribe_batch(samples)
+    steps = engine.last_stats["decode_steps"]
+    counted = gemv_wgmma.launches - n0
     second = engine.transcribe_batch(samples)
     same = [a.text for a in first] == [b.text for b in second]
     row = {"phase": "batch", "run": "wgmma counter, 32 clips",
            "B": len(samples), "decode_steps": steps,
-           "k1_gemv_wgmma_launches": counted,
-           "wrapper_launches": wrapper,
+           "gemv_wgmma_launches": counted,
            "per_step": counted / steps if steps else None,
            "want_per_step": 4 * layers,
            "tokens_identical_over_two_runs": same, "card": card}
     emit(row)
     del engine
     torch.cuda.empty_cache()
-    if not (steps and counted == wrapper == 4 * layers * steps):
-        raise AssertionError(f"wgmma counter: {counted} (wrapper {wrapper}) "
-                             f"for {steps} steps, want {4 * layers} a step")
+    if not (steps and counted == 4 * layers * steps):
+        raise AssertionError(f"wgmma counter: {counted} for {steps} steps, "
+                             f"want {4 * layers} a step")
     if not same:
         raise AssertionError("two runs of one batch gave other tokens")
     return row
@@ -2156,30 +2146,23 @@ class StubTokenizer:
 
 
 def kernel_wrappers():
-    """{kernel name: wrapper}; each wrapper's ``launches`` is its count.
-    K6 has two entries: decode_attention_slab and its single-layer
-    wrapper decode_attention."""
-    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention, decode_attention_dma, decode_attention_slab)
-    from qwen3_asr_rs_tpu_torch.ops.kernels.decode_layer import (
-        decode_layers_fused)
-    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention)
-    from qwen3_asr_rs_tpu_torch.ops.kernels.gumbel_argmax import (
-        gumbel_argmax, threefry_noise)
-    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matmul import quant_matmul
-    from qwen3_asr_rs_tpu_torch.ops.kernels.quant_matvec_int4 import (
-        quant_matvec_int4)
+    """{name: wrapper} of every counted kernel wrapper
+    (``ops.kernels.COUNTED``, each kernel module imported first, named as
+    its module names it); each wrapper's ``launches`` is its count. K6
+    has two entries: decode_attention_slab and its single-layer wrapper
+    decode_attention. Counters a caller registered (lm_head_counter's)
+    are not kernels and not listed."""
+    import importlib
+    import pkgutil
 
-    return {"decode_layers_fused": decode_layers_fused,
-            "decode_attention_dma": decode_attention_dma,
-            "flash_attention": flash_attention,
-            "quant_matmul": quant_matmul,
-            "quant_matvec_int4": quant_matvec_int4,
-            "decode_attention_slab": decode_attention_slab,
-            "decode_attention": decode_attention,
-            "gumbel_argmax": gumbel_argmax,
-            "threefry_noise": threefry_noise}
+    from qwen3_asr_rs_tpu_torch.ops import kernels
+
+    found = {}
+    for m in pkgutil.iter_modules(kernels.__path__):
+        mod = importlib.import_module(f"{kernels.__name__}.{m.name}")
+        ids = {id(w) for w in kernels.COUNTED}
+        found.update((n, w) for n, w in vars(mod).items() if id(w) in ids)
+    return found
 
 
 # (label, quantize, environment, clips) of the main paths; the
@@ -2251,11 +2234,11 @@ def lm_head_counter(engine):
     """The counter of the decoder's lm_head products (``TextDecoder.logits``,
     the cuBLAS, K5 or K4 product after the final norm) while the block
     runs: a wrapper whose ``launches`` counts its calls, registered with
-    the decode loop's graph captures (``cuda_graph.COUNTED``) so that
+    the decode loop's graph captures (``ops.kernels.COUNTED``) so that
     replays add the products they hold, as for the kernel wrappers. Held
     over every run of an engine, whose graphs keep their counter; on exit
     the decoder gets its method back and ``COUNTED`` drops the counter."""
-    from qwen3_asr_rs_tpu_torch.runtime.cuda_graph import COUNTED
+    from qwen3_asr_rs_tpu_torch.ops.kernels import COUNTED
 
     dec = engine.decoder
     logits = dec.logits
@@ -3589,7 +3572,8 @@ def streaming_phase(torch, config, enc32, dec32, audio, card) -> dict:
     offline = engine.transcribe_samples(stream.session.buffer)
     steps = g.replays + g.captures  # each capture ran one eager step
     want = {n: 0 for n in fns}
-    want.update(decode_layers_fused=steps, decode_attention_dma=layers * steps)
+    want.update(decode_layers_fused=steps, decode_attention_dma=layers * steps,
+                gemv_wgmma=4 * layers * steps)
     row = {"phase": "streaming", "case": f"{STREAM_FEED_S} s in 1 s updates",
            **update_summary(rows),
            "windows_after_first_max": max(r["windows_encoded"]
@@ -3699,22 +3683,25 @@ SPEC_SAMPLED = dict(temperature=0.7, top_p=0.9)
 SPEC_F32_MAX_NEW = 25 * (SPEC_K + 1)
 
 
-def spec_expected(target_quant, draft, lt: int, ld: int, k: int):
+def spec_expected(target_quant, draft, lt: int, ld: int, k: int,
+                  wgmma: bool):
     """Launches of one speculative transcription: (the two prefills', each
-    iteration's). An iteration runs K1 once per draft step (k + 1), K2 in
-    each of the draft's layers per step, K5 for an int8 draft lm_head
+    iteration's), for every counted kernel wrapper. An iteration runs K1
+    once per draft step (k + 1), K2 in each of the draft's layers per step
+    and, where the draft's GEMVs take the wgmma route (``wgmma``: bf16
+    weights in a bf16 model), the wgmma GEMV 4 times in each of those
+    layers per step, K5 for an int8 draft lm_head
     (int8, int4g, lm8 drafts) per step and, with an int8 target, for the
     verify's 4 merged linears per layer and its lm_head at k + 1 rows; K4
     for an int4 draft lm_head per step. The prefills: an int8 model's 4
     linears per layer and the lm_head at the last prompt token (K5), an
     int4 draft's lm_head there (K4), an int8 lm_head alone (K5)."""
-    names = ("decode_layers_fused", "decode_attention_dma",
-             "flash_attention", "quant_matmul", "quant_matvec_int4",
-             "decode_attention_slab", "decode_attention", "gumbel_argmax",
-             "threefry_noise")
+    names = tuple(kernel_wrappers())
     pre, per = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
     per["decode_layers_fused"] = k + 1
     per["decode_attention_dma"] = ld * (k + 1)
+    if wgmma:
+        per["gemv_wgmma"] = 4 * ld * (k + 1)
     if draft in ("int8", "int4g", "lm8"):
         per["quant_matmul"] += k + 1
         pre["quant_matmul"] += 4 * ld + 1 if draft == "int8" else 1
@@ -3930,9 +3917,9 @@ def spec_breakdown(torch, engine, samples, card) -> None:
     n = engine._spec_slab_len(p, engine._segment_caps()[0])
     graph = next(g for key, g in engine._graphs.items()
                  if key[0] == "spec" and key[1] == n)
-    d_dec, d_params, d_text = engine._spec_draft()
+    d_dec, d_params = engine._spec_draft()
     cache = engine._slab0(1, n, ("spec", "target"))
-    dcache = engine._slab0(1, n, ("spec", "draft"), d_text)
+    dcache = engine._slab0(1, n, ("spec", "draft"), d_dec)
     at = torch.tensor(p, device="cuda")
     block = torch.zeros((1, k + 1), dtype=torch.long, device="cuda")
     def verify():
@@ -3986,7 +3973,8 @@ def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
                 f"iterations over {len(st['slab_lens'])} stages")
         pre, per = spec_expected(engine.quantize, draft,
                                  engine.config.text.num_hidden_layers, ld,
-                                 engine.spec_k)
+                                 engine.spec_k, draft == "bf16"
+                                 and engine.dtype == torch.bfloat16)
         row = spec_row(label, st, got, pre, per, plain_times, want, toks,
                        engine, card)
         spec_check(torch, engine, samples, label, want, toks, st, got, pre,
@@ -4113,7 +4101,7 @@ def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
     label = f"0.6B target 0.6B bundle draft {SPEC_CLIPS[-1]} s, 2 stages"
     with Env({"ASR_DECODE_SEGMENT": "32"}):
         toks, st, got = spec_run(torch, engine, audio[SPEC_CLIPS[-1]])
-    pre, per = spec_expected(None, "bf16", ld, ld, SPEC_K)
+    pre, per = spec_expected(None, "bf16", ld, ld, SPEC_K, True)
     row = spec_row(label, st, got, pre, per, ref[SPEC_CLIPS[-1]][1],
                    ref[SPEC_CLIPS[-1]][0], toks, engine, card)
     spec_check(torch, engine, audio[SPEC_CLIPS[-1]], label,

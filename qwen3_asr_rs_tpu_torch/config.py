@@ -64,6 +64,14 @@ def feat_extract_output_length(input_frames: int) -> int:
     return n
 
 
+def audio_tokens(audio: AudioEncoderConfig, n_frames: int) -> int:
+    """A clip's audio tokens from its true mel frame count
+    (src/audio_encoder.rs:269-279): ``tokens_per_chunk`` for each full
+    chunk, the conv stem's output of the partial tail (0 for none)."""
+    full, tail = divmod(n_frames, audio.chunk_frames)
+    return full * audio.tokens_per_chunk + feat_extract_output_length(tail)
+
+
 @dataclasses.dataclass(frozen=True)
 class RopeScaling:
     """MRoPE scaling block (reference: src/config.rs:101-113)."""

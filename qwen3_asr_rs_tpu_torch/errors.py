@@ -31,3 +31,8 @@ class TokenizerError(AsrError):
 
 class WeightsError(AsrError):
     """Checkpoint missing tensors or unreadable."""
+
+
+class ArchitectureNotSupported(NotImplementedError):
+    """A mode of the port that does not run a decoder architecture
+    (``models/decoders.py::require``)."""

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import AudioEncoderConfig
+from ..config import AudioEncoderConfig, audio_tokens
 from ..ops.attention import attention
 from ..ops.norms import layer_norm
 from ..parallel.comm import copy_to_tp, reduce_from_tp
@@ -81,13 +81,8 @@ class AudioEncoder:
 
     def valid_tokens(self, n_true_frames: int) -> int:
         """Total valid output tokens for a true mel frame count
-        (src/audio_encoder.rs:269-279): full chunks emit tokens_per_chunk
-        each, a partial tail ((tf-1)//2+1)^3."""
-        cf = self.cfg.chunk_frames
-        tail = n_true_frames % cf
-        for _ in range(3):
-            tail = (tail - 1) // 2 + 1 if tail > 0 else 0
-        return (n_true_frames // cf) * self.cfg.tokens_per_chunk + tail
+        (``config.audio_tokens``)."""
+        return audio_tokens(self.cfg, n_true_frames)
 
     def _valid_tokens_rows(self, n_frames):
         """``valid_tokens`` of a (B,) integer tensor, on its device."""

@@ -37,11 +37,14 @@ published. The residual stream between the layers is float32 (the
 published bf16 model keeps it in bf16): each norm reads it and rounds
 once to the compute dtype, each layer's outputs are added to it
 unrounded, which keeps the served tokens nearer the float32 reference
-where random weights route near-tied experts. Rows that are done (a decode step's ``done``) and a prompt's
-padding are routed nowhere; the routes each expert got are added to a
-``RouteCounts`` when one is passed (the engine's ``last_stats`` and the
-tracer's ``moe.*`` counters), on the device. The eager prefill enters a
-``prefill.moe`` span around each MoE block.
+where random weights route near-tied experts. A prompt's padding, and in
+a decode step the rows that are done, are routed nowhere. The engine's
+per-call object (``call_counts``: a ``RouteCounts``, passed as
+``counts=`` to the prefill and every decode step) holds the decode
+loop's done flags and counts on the device the routes each expert got;
+``read_counts`` reads it once after the loop into the engine's
+``last_stats`` and the tracer's ``moe.*`` counters. The eager prefill
+enters a ``prefill.moe`` span around each MoE block.
 
 Weights (the layout the benchmark draws, ``benchmark/architectures/
 deepseek_v3.py``): ``layers/`` the attention and norms of every layer
@@ -54,9 +57,10 @@ layers' ``gate_w``, ``up_w``, ``down_w``, ``moe/`` the others'
 each stacked on a leading layer axis; ``embed``, ``final_ln_w``,
 ``lm_head`` (V, H). Linears are (in, out).
 
-Only the offline path runs this decoder: serving, streaming,
-speculative decoding, training, tensor parallelism, quantized weights,
-an int8 cache and checkpoint loading refuse it (``refuse``).
+Only the offline path runs this decoder (``modes`` is empty): serving,
+streaming, speculative decoding, training, tensor parallelism, quantized
+weights, an int8 cache and checkpoint loading and export refuse it
+(``models/decoders.py::require``).
 """
 
 from __future__ import annotations
@@ -69,12 +73,13 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DeepseekV3TextConfig
+from ..errors import ArchitectureNotSupported
 from ..ops.attention import MASK_VALUE
 from ..ops.kernels.fused_elementwise import latent_rope, rms_norm
 from ..ops.kernels.moe_experts import moe_experts, route
 from ..ops.quant import matmul_f32
 from ..ops.rotary import RotaryTable
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 
 Tree = Any
 
@@ -83,62 +88,61 @@ Tree = Any
 KV_A_NORM_EPS = 1e-6
 
 
-class ArchitectureNotSupported(NotImplementedError):
-    """A mode of the port that does not run this decoder architecture."""
-
-
-def is_routed(text_config) -> bool:
-    """Whether a text config is this decoder's."""
-    return isinstance(text_config, DeepseekV3TextConfig)
-
-
-def refuse(mode: str, text_config) -> None:
-    """Raise ``ArchitectureNotSupported`` if ``text_config`` is this
-    decoder's: ``mode`` does not run it."""
-    if is_routed(text_config):
-        raise ArchitectureNotSupported(
-            f"{mode} does not run the {text_config.model_type} decoder; "
-            "its offline path is AsrEngine.transcribe_batch")
-
-
 @dataclasses.dataclass
 class RouteCounts:
-    """Device counters of the routed experts: ``touched[step]`` the
-    experts that got at least one live route, summed over the MoE layers,
-    of each decode step (or of a prefill, at 0); ``rows`` the live routes
-    over layers and steps; ``max_rows`` the most routes one expert got in
-    one layer and step. ``step``: the device counter whose value indexes
-    ``touched`` (the decode loop's own)."""
+    """One call's device counters of the routed experts, the engine's
+    per-call object (``DeepseekV3Decoder.call_counts``): ``touched[i]``
+    the experts that got at least one live route, summed over the MoE
+    layers, of decode step i (``step``, the decode loop's own counter,
+    indexes it) and, at the last index, of the prefill; ``rows`` the live
+    routes over layers and steps, of the decode steps then of the
+    prefill; ``max_rows`` the most routes one expert got in one layer and
+    step (or prefill). ``done``: the decode loop's done flags, whose rows
+    a decode step routes nowhere."""
 
-    touched: torch.Tensor   # (n,) int64
-    rows: torch.Tensor      # () int64
+    touched: torch.Tensor   # (max_new + 1,) int64
+    rows: torch.Tensor      # (2,) int64
     max_rows: torch.Tensor  # () int64
     step: torch.Tensor      # () int64
+    done: torch.Tensor      # (B,) bool
 
     @classmethod
-    def zeros(cls, n: int, device, step: Optional[torch.Tensor] = None
+    def zeros(cls, n: int, step: torch.Tensor, done: torch.Tensor
               ) -> "RouteCounts":
-        i64 = dict(dtype=torch.int64, device=device)
-        return cls(touched=torch.zeros(n, **i64), rows=torch.zeros((), **i64),
-                   max_rows=torch.zeros((), **i64),
-                   step=torch.zeros((), **i64) if step is None else step)
+        i64 = dict(dtype=torch.int64, device=step.device)
+        return cls(touched=torch.zeros(n + 1, **i64),
+                   rows=torch.zeros(2, **i64),
+                   max_rows=torch.zeros((), **i64), step=step, done=done)
 
     def zero_(self) -> None:
         for t in (self.touched, self.rows, self.max_rows):
             t.zero_()
 
-    def add(self, counts: torch.Tensor) -> None:
-        """Add one step's (or prefill's) routes per expert of every MoE
-        layer, ``counts`` (layers, E)."""
-        self.touched.index_add_(0, self.step.reshape(1),
-                                (counts > 0).sum().reshape(1))
-        self.rows.add_(counts.sum())
+    def add(self, counts: torch.Tensor, prefill: bool) -> None:
+        """Add one decode step's (at ``step``) or the prefill's routes per
+        expert of every MoE layer, ``counts`` (layers, E)."""
+        touched = (counts > 0).sum().reshape(1)
+        if prefill:
+            self.touched[-1:].add_(touched)
+        else:
+            self.touched.index_add_(0, self.step.reshape(1), touched)
+        self.rows[int(prefill)].add_(counts.sum())
         self.max_rows.copy_(torch.maximum(self.max_rows, counts.max()))
 
-    def values(self) -> torch.Tensor:
-        """touched, then rows and max_rows, as one tensor to read once."""
-        return torch.cat([self.touched, self.rows.reshape(1),
-                          self.max_rows.reshape(1)])
+    def read(self, steps: int) -> dict:
+        """Read the counters once; record the tracer's ``moe.*`` counters
+        and return ``last_stats``' ``experts_touched`` (one number per
+        decode step run)."""
+        values = torch.cat([self.touched, self.rows,
+                            self.max_rows.reshape(1)]).tolist()
+        touched, pf_touched, rows, pf_rows, max_rows = (
+            values[:steps], *values[-4:])
+        count("moe.decode_experts_touched", sum(touched))
+        count("moe.decode_rows", rows)
+        count("moe.prefill_experts_touched", pf_touched)
+        count("moe.prefill_rows", pf_rows)
+        count("moe.max_expert_rows", max_rows, largest=True)
+        return {"experts_touched": touched}
 
 
 @dataclasses.dataclass
@@ -220,12 +224,15 @@ class DeepseekV3Decoder:
     """Stateless decoder; parameters are passed to every call."""
 
     cache_type = LatentCache
+    # the offline path alone: no mode of ``models/decoders.py::MODES``
+    modes = frozenset()
 
     def __init__(self, cfg: DeepseekV3TextConfig, max_position: int = 8192,
                  device: str | torch.device = "cpu", tp=None):
         if tp is not None:
-            raise ArchitectureNotSupported(
-                "tensor parallelism does not run the deepseek_v3 decoder")
+            from .decoders import require  # decoders imports this module
+
+            require(cfg, "tensor parallelism")
         self.cfg = cfg.check()
         self.vocab_size = cfg.vocab_size
         d = cfg.qk_rope_head_dim
@@ -233,6 +240,18 @@ class DeepseekV3Decoder:
                                   mrope_section=(d // 2,),
                                   max_position=max_position, device=device)
         self.scale = cfg.qk_head_dim ** -0.5
+
+    def call_counts(self, max_new: int, step, done) -> RouteCounts:
+        """The per-call counters that the engine passes to the prefill and
+        to every decode step (``counts=``), for a loop of up to
+        ``max_new`` steps whose step counter and done flags are ``step``
+        and ``done``; a prefill zeroes them first."""
+        return RouteCounts.zeros(max_new, step, done)
+
+    def read_counts(self, counts: RouteCounts, steps: int) -> dict:
+        """What a call's counters add to ``last_stats`` after ``steps``
+        decode steps (one device read; the ``moe.*`` counters recorded)."""
+        return counts.read(steps)
 
     def embed(self, params: Tree, input_ids):
         return params["embed"][input_ids]
@@ -298,10 +317,10 @@ class DeepseekV3Decoder:
         o = torch.einsum("bhc,chv->bhv", o_lat, w[..., nope:])
         return o.reshape(b, 1, nh * cfg.v_head_dim) @ lp["o_w"][l]
 
-    def _mlp(self, params: Tree, l: int, x, live, counts: list,
+    def _mlp(self, params: Tree, l: int, x, live, per_layer: list,
              eager: bool):
         """x + the layer's MLP of post-normed x: dense, or routed experts
-        plus shared ones; the routes per expert go to ``counts``."""
+        plus shared ones; the routes per expert go to ``per_layer``."""
         cfg = self.cfg
         h = rms_norm(x, params["layers"]["post_ln_w"][l], cfg.rms_norm_eps,
                      params["embed"].dtype)
@@ -318,30 +337,34 @@ class DeepseekV3Decoder:
                            live)
             y = moe_experts(h2, routes, m["experts_gate_up_w"][j],
                             m["experts_down_w"][j])
-        counts.append(routes.counts)
+        per_layer.append(routes.counts)
         shared = _swiglu(h, m["shared_gate_w"][j], m["shared_up_w"][j],
                          m["shared_down_w"][j])
         return x + (y.view_as(x) + shared)
 
     def _run(self, params: Tree, hidden, cos, sin, mask, cache, live,
-             routes: Optional[RouteCounts]):
+             counts: Optional[RouteCounts]):
         """Every layer of a prefill, each layer's latent stored at [0,
-        S); the residual stream in float32."""
-        lp, counts = params["layers"], []
+        S); the residual stream in float32. ``counts``, zeroed first, gets
+        the prefill's routes."""
+        lp, per_layer = params["layers"], []
+        if counts is not None:
+            counts.zero_()
         hidden = hidden.float()
         for l in range(self.cfg.num_hidden_layers):
             x = rms_norm(hidden, lp["input_ln_w"][l], self.cfg.rms_norm_eps,
                          params["embed"].dtype)
             out, lat = self._attn_expanded(lp, l, x, cos, sin, mask)
             cache.store(l, lat)
-            hidden = self._mlp(params, l, hidden + out, live, counts, True)
-        if routes is not None and counts:
-            routes.add(torch.stack(counts).long())
+            hidden = self._mlp(params, l, hidden + out, live, per_layer,
+                               True)
+        if counts is not None and per_layer:
+            counts.add(torch.stack(per_layer).long(), prefill=True)
         return hidden
 
     @torch.inference_mode()
     def prefill(self, params: Tree, hidden, position_ids, cache: LatentCache,
-                true_len: int, routes: Optional[RouteCounts] = None):
+                true_len: int, counts: Optional[RouteCounts] = None):
         """Left-aligned prefill of one utterance (B, P, H) with ``true_len``
         real tokens (an int). Returns (logits at true_len - 1 (B, V),
         cache)."""
@@ -355,14 +378,14 @@ class DeepseekV3Decoder:
         mask = slot[None, :] <= slot[:, None]
         live = (slot < true_len).expand(hidden.shape[0], -1)
         hidden = self._run(params, hidden, cos, sin, mask, cache, live,
-                           routes)
+                           counts)
         last = hidden[:, true_len - 1: true_len]
         return self.logits(params, last)[:, 0], cache
 
     @torch.inference_mode()
     def prefill_aligned(self, params: Tree, hidden, kv_start,
                         cache: LatentCache,
-                        routes: Optional[RouteCounts] = None):
+                        counts: Optional[RouteCounts] = None):
         """Right-aligned prefill: row b's prompt at slots [kv_start[b], P),
         positions max(slot - kv_start, 0), causal attention from kv_start
         on (a padding slot attends itself alone, so that its row stays
@@ -376,15 +399,15 @@ class DeepseekV3Decoder:
         mask = (causal & live[:, None, :]) | torch.eye(
             p, dtype=torch.bool, device=hidden.device)
         hidden = self._run(params, hidden, cos, sin, mask[:, None], cache,
-                           live, routes)
+                           live, counts)
         return self.logits(params, hidden[:, -1:])[:, 0], cache
 
     def _step(self, params: Tree, token_ids, positions, start, slot,
-              cache: LatentCache, done, routes: Optional[RouteCounts]):
+              cache: LatentCache, counts: Optional[RouteCounts]):
         """One decode step of every row at ``positions`` (B,), writing the
         shared ``slot`` and attending slots [start_b, slot] (start None:
-        0); rows ``done`` are routed nowhere. Returns float32 logits (B,
-        V)."""
+        0); the rows ``counts.done`` are routed nowhere, and the routes
+        are added to ``counts``. Returns float32 logits (B, V)."""
         cos, sin = self.rotary.lookup_batch(positions.reshape(-1, 1).long())
         h = self.embed(params, token_ids)[:, None].float()
         j = torch.arange(cache.max_len, device=h.device)[None, :]
@@ -393,21 +416,21 @@ class DeepseekV3Decoder:
         if start is not None:
             masked = masked | (j < start[:, None])
         masked = masked[:, None, :]
-        live = None if done is None else ~done
-        lp, counts = params["layers"], []
+        live = None if counts is None else ~counts.done
+        lp, per_layer = params["layers"], []
         for l in range(self.cfg.num_hidden_layers):
             x = rms_norm(h, lp["input_ln_w"][l], self.cfg.rms_norm_eps,
                          params["embed"].dtype)
             h = h + self._attn_absorbed(lp, l, x, cos, sin, cache, slot,
                                         masked)
-            h = self._mlp(params, l, h, live, counts, False)
-        if routes is not None and counts:
-            routes.add(torch.stack(counts).long())
+            h = self._mlp(params, l, h, live, per_layer, False)
+        if counts is not None and per_layer:
+            counts.add(torch.stack(per_layer).long(), prefill=False)
         return self.logits(params, h)[:, 0]
 
     @torch.inference_mode()
     def decode_step(self, params: Tree, token_ids, pos, cache: LatentCache,
-                    *, done=None, routes: Optional[RouteCounts] = None):
+                    *, counts: Optional[RouteCounts] = None):
         """Decode step of a left-aligned batch at the shared position
         ``pos`` (an int or a 0-d device tensor; slots [0, pos] live).
         Returns (logits (B, V) float32, cache)."""
@@ -418,17 +441,17 @@ class DeepseekV3Decoder:
         b = token_ids.shape[0]
         positions = torch.as_tensor(pos, device=token_ids.device).expand(b)
         return self._step(params, token_ids, positions, None, pos, cache,
-                          done, routes), cache
+                          counts), cache
 
     @torch.inference_mode()
     def decode_step_aligned(self, params: Tree, token_ids, slot, kv_start,
-                            cache: LatentCache, *, done=None,
-                            routes: Optional[RouteCounts] = None):
+                            cache: LatentCache, *,
+                            counts: Optional[RouteCounts] = None):
         """Right-aligned decode step: every row writes ``slot`` (P +
         step), row b attends [kv_start[b], slot] at position slot -
         kv_start[b]. Returns (logits (B, V) float32, cache)."""
         return self._step(params, token_ids, slot - kv_start, kv_start, slot,
-                          cache, done, routes), cache
+                          cache, counts), cache
 
     @torch.inference_mode()
     def decode_step_token(self, params: Tree, token_ids, pos,

@@ -349,6 +349,12 @@ class TextDecoder:
     config (``tp_local_config``)."""
 
     cache_type = KVCache
+    # the port's modes (``models/decoders.py::require``): this decoder
+    # runs every one
+    modes = frozenset({
+        "serving", "streaming", "speculative decoding", "quantized weights",
+        "int8 cache", "tensor parallelism", "training", "checkpoint loading",
+        "checkpoint export"})
 
     def __init__(self, cfg: TextDecoderConfig, max_position: int = 8192,
                  device: str | torch.device = "cpu", tp=None):
@@ -365,6 +371,15 @@ class TextDecoder:
             max_position=max_position,
             device=device,
         )
+
+    def call_counts(self, max_new: int, step, done) -> None:
+        """The per-call counters that the engine passes to the prefill and
+        to every decode step (``counts=``): this decoder keeps none."""
+        return None
+
+    def read_counts(self, counts, steps: int) -> dict:
+        """What a call's counters add to ``last_stats``: nothing."""
+        return {}
 
     def embed(self, params: Tree, input_ids):
         """Token embedding lookup (reference src/text_decoder.rs:90-92);
@@ -470,13 +485,14 @@ class TextDecoder:
 
     @torch.inference_mode()
     def prefill(self, params: Tree, hidden, position_ids, cache: KVCache,
-                true_len):
+                true_len, counts=None):
         """Full-sequence prefill of (B, P, H) embeddings. Writes
         cache[0:P] in place; returns (logits at true_len - 1 (B, V), cache).
         ``true_len``: an int shared by the rows, or a sequence of one per
         row (the serving scheduler's batched admission). The padded suffix
         [true_len, P) is causal garbage that later decode steps
-        overwrite."""
+        overwrite. ``counts`` (``call_counts``'s None) is ignored, as in
+        every step below."""
         check_params(params)
         cos, sin = self.rotary.lookup(position_ids)
         hidden = self._run_layers(params, hidden, cos, sin, cache)
@@ -586,7 +602,8 @@ class TextDecoder:
         return hidden
 
     @torch.inference_mode()
-    def prefill_aligned(self, params: Tree, hidden, kv_start, cache: KVCache):
+    def prefill_aligned(self, params: Tree, hidden, kv_start, cache: KVCache,
+                        counts=None):
         """Right-aligned prefill: row b of the (B, P, H) embeddings holds
         its prompt at slots [kv_start[b], P) and garbage before. Positions
         are max(slot - kv_start, 0); attention is causal from kv_start on.
@@ -623,7 +640,7 @@ class TextDecoder:
 
     @torch.inference_mode()
     def decode_step(self, params: Tree, token_ids, pos, cache: KVCache,
-                    *, fold: bool = False):
+                    *, fold: bool = False, counts=None):
         """Single greedy decode step at position ``pos``: shared by every
         row (slab slots [0, pos) are live), an int or a 0-d integer device
         tensor (the engine's captured steps); or a (B,) integer tensor,
@@ -657,7 +674,8 @@ class TextDecoder:
 
     @torch.inference_mode()
     def decode_step_aligned(self, params: Tree, token_ids, slot, kv_start,
-                            cache: KVCache, *, fold: bool = False):
+                            cache: KVCache, *, fold: bool = False,
+                            counts=None):
         """Right-aligned decode step: every row writes the shared slot
         ``slot`` (== P + step; an int or a 0-d integer device tensor); row
         b attends to slots [kv_start[b], slot) at position slot -
@@ -705,7 +723,7 @@ class TextDecoder:
 
     @torch.inference_mode()
     def decode_step_token(self, params: Tree, token_ids, pos,
-                          cache: KVCache):
+                          cache: KVCache, counts=None):
         """Greedy decode step emitting the next token ids (B,); ties break
         on the first index, as jnp.argmax does. Folded (``ASR_FOLD_LM=1``)
         the decode kernel returns them as int32; else ``torch.argmax`` of
@@ -716,7 +734,7 @@ class TextDecoder:
 
     @torch.inference_mode()
     def decode_step_aligned_token(self, params: Tree, token_ids, slot,
-                                  kv_start, cache: KVCache):
+                                  kv_start, cache: KVCache, counts=None):
         """Right-aligned ``decode_step_token`` (see decode_step_aligned)."""
         fold = self._fold(params, token_ids)
         out, cache = self.decode_step_aligned(params, token_ids, slot,

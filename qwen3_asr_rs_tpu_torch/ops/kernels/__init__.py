@@ -4,9 +4,23 @@ Each module holds one kernel's wrapper, its plain PyTorch version and
 its launch counter. A wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches the kernel or raises. Nothing is built or
 loaded until a CUDA tensor reaches a wrapper.
+
+``COUNTED`` holds every launch counter, registered (``counted``) where
+its module defines it; ``runtime/cuda_graph.py`` adds a captured graph's
+launches to them on every replay.
 """
 
 import torch
+
+COUNTED = []
+
+
+def counted(wrapper):
+    """Give ``wrapper`` a ``launches`` counter at 0 and register it in
+    ``COUNTED`` (a decorator); returns it."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
 
 
 def forbid_backward(kernel: str, *tensors) -> None:

@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, counted
 
 _SUPPORTED_D = (64, 128)
 _MAX_GROUPS = 8
@@ -281,6 +281,7 @@ def _plain_index(start, end, b, device):
             _as_index(end, b, device))
 
 
+@counted
 def decode_attention_dma(q, k_slabs, v_slabs, k_self, v_self, layer: int,
                          start, end, *, k_scales=None, v_scales=None,
                          scale: float | None = None):
@@ -308,6 +309,7 @@ def _check_float_slabs(what, k_slabs):
         raise ValueError(f"{what}: takes bf16/f32 slabs, got {k_slabs.dtype}")
 
 
+@counted
 def decode_attention_slab(q, k_slabs, v_slabs, k_self, v_self, layer: int,
                           start, end, *, scale: float | None = None,
                           block_s: int = 512):
@@ -331,6 +333,7 @@ def decode_attention_slab(q, k_slabs, v_slabs, k_self, v_self, layer: int,
     return out
 
 
+@counted
 def decode_attention(q, k_slab, v_slab, k_self, v_self, start, end, *,
                      scale: float | None = None, block_s: int = 512):
     """K6's single-layer wrapper: k/v_slab (B, Hkv, S, D) bf16/f32.
@@ -347,8 +350,3 @@ def decode_attention(q, k_slab, v_slab, k_self, v_self, start, end, *,
                   v_self, 0, start, end, None, None, scale)
     decode_attention.launches += 1
     return out
-
-
-decode_attention_dma.launches = 0
-decode_attention_slab.launches = 0
-decode_attention.launches = 0

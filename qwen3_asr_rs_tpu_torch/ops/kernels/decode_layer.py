@@ -72,7 +72,7 @@ from ..quant import (
     int4_matmul_plain,
     unpack_int4,
 )
-from . import _build
+from . import _build, counted
 from .decode_attention import (
     _as_index,
     check_slabs,
@@ -362,6 +362,7 @@ def _check_fold(x, final_ln_w, lm_head, lm_scales):
     return _FOLD_ROWS, v
 
 
+@counted
 def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
                         *, eps: float, k_scales=None, v_scales=None,
                         fold_lm: bool = False, final_ln_w=None, lm_head=None,
@@ -450,13 +451,10 @@ def decode_layers_fused(x, cos, sin, layers, k_slabs, v_slabs, start, end,
     return (tok if fold else h_out), ks, vs
 
 
-decode_layers_fused.launches = 0
-
-
 # The wgmma GEMV's launches: it has no wrapper of its own (it runs inside
 # K1's step and ``gemv_single``, whose wrappers add the C entries' counts
-# here); in ``runtime/cuda_graph.COUNTED``, so replays add theirs too.
-gemv_wgmma = SimpleNamespace(launches=0)
+# here); counted, so that replays add theirs too.
+gemv_wgmma = counted(SimpleNamespace())
 
 
 # ---- the tensor-core GEMV alone (card checks) ---------------------------
@@ -650,6 +648,7 @@ def gemv_single_plain(x, w, scales=None, *, ssq: bool = False, **kw):
 _single_counters: dict = {}
 
 
+@counted
 def gemv_single(x, w, scales=None, *, int4: bool = False,
                 epilogue: str = "store", norm_w=None, eps: float = 1e-6,
                 res=None, w_up=None, s_up=None, ssq: bool = False,
@@ -754,6 +753,3 @@ def gemv_single_launcher(x, w, scales=None, *, int4: bool = False,
 
     launch.operands = tensors  # the table's pointers live as long as it
     return launch, out, ssq_out
-
-
-gemv_single.launches = 0

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, counted
 
 _SUPPORTED_D = (64, 128)
 
@@ -108,6 +108,7 @@ def _index_or_none(x, b: int, device):
     return t
 
 
+@counted
 def flash_attention(q, k, v, kv_valid=None, kv_start=None, *,
                     causal: bool = False, scale: float | None = None):
     """q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); kv_valid/kv_start (B,)
@@ -156,6 +157,3 @@ def flash_attention(q, k, v, kv_valid=None, kv_start=None, *,
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return out
-
-
-flash_attention.launches = 0

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..norms import rms_norm as rms_norm_plain
+from . import counted
 
 _kernels: dict = {}
 
@@ -80,6 +81,7 @@ def _build_kernels():
     return _kernels
 
 
+@counted
 def rms_norm(x, weight, eps: float, out_dtype=None):
     """RMSNorm over the last axis (``ops/norms.py``'s), computed in
     float32 and rounded once to ``out_dtype`` (default x's): on CUDA one
@@ -119,6 +121,7 @@ def latent_rope_plain(q, ckv, cos, sin, ln_w, eps: float, nope: int):
             torch.cat([c, k_rot], -1))
 
 
+@counted
 def latent_rope(q, ckv, cos, sin, ln_w, eps: float, nope: int):
     """MLA's prologue per token: (the query's rope parts turned (B, S,
     heads, D), the latent (B, S, R + D): RMSNorm of c_kv, then the
@@ -146,7 +149,3 @@ def latent_rope(q, ckv, cos, sin, ln_w, eps: float, nope: int):
         HEADS=heads, QK=qk, NOPE=nope, R=r, D=d, num_warps=4)
     latent_rope.launches += 1
     return q_rot, lat
-
-
-rms_norm.launches = 0
-latent_rope.launches = 0

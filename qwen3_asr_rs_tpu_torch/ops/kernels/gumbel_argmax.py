@@ -36,7 +36,7 @@ from ..prng import (
     row_offsets,
     uniform_from_bits,
 )
-from . import _build
+from . import _build, counted
 
 NOISE_MODES = ("bits", "uniform", "uniform_tiny", "gumbel")
 
@@ -119,6 +119,7 @@ def _rows_arg(row_offset, b: int, device):
     return None, int(row_offset)
 
 
+@counted
 def gumbel_argmax(x, key, row_offset=0):
     """(B, V) float32 -> (B,) int64 sampled ids (see module docstring).
     With ``key`` a ``KeyChain`` whose ``then_split`` is set, its base key
@@ -155,9 +156,7 @@ def gumbel_argmax(x, key, row_offset=0):
     return out
 
 
-gumbel_argmax.launches = 0
-
-
+@counted
 def threefry_noise(key, shape, mode: str = "gumbel", row_offset=0,
                    device="cuda"):
     """The (B, V) noise of a draw with ``key`` on ``device``: its bits
@@ -185,6 +184,3 @@ def threefry_noise(key, shape, mode: str = "gumbel", row_offset=0,
     _build.check(lib, rc, "threefry_noise")
     threefry_noise.launches += 1
     return out
-
-
-threefry_noise.launches = 0

@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..quant import matmul_f32
-from . import _build
+from . import _build, counted
 
 _kernels: dict = {}
 
@@ -277,6 +277,7 @@ def block_rows(n_routes: int, n_experts: int) -> int:
     return 16 if n_routes <= 16 * n_experts else 64
 
 
+@counted
 def moe_experts(x, routes: Routes, gate_up_w, down_w):
     """The routed experts' output (T, H) in x's dtype for the rows of
     ``x`` (T, H) and their ``routes`` (``route``), ``gate_up_w`` (E, H,
@@ -318,6 +319,3 @@ def moe_experts(x, routes: Routes, gate_up_w, down_w):
     _build.check(lib, rc, "moe_experts_down")
     moe_experts.launches += 2
     return out.view(t, top_k, h).sum(1, dtype=torch.float32).to(x.dtype)
-
-
-moe_experts.launches = 0

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, counted
 
 # The routes of csrc/quant_matmul.cu (QmRoute)
 ROUTES = {"cores": 0, "gemv": 1, "wgmma": 2}
@@ -132,6 +132,7 @@ def _workspace(device, stream: int, words: int):
     return ws
 
 
+@counted
 def quant_matmul(x, w_q, scales, *, out_dtype=None):
     """(R, K) x @ (K, N) int8 ``w_q`` x ``scales`` -> (R, N) ``out_dtype``.
 
@@ -185,6 +186,3 @@ def quant_matmul(x, w_q, scales, *, out_dtype=None):
     _build.check(lib, rc, "quant_matmul")
     quant_matmul.launches += 1
     return out
-
-
-quant_matmul.launches = 0

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from ..quant import MATVEC_TILE, unpack_int4_tiled
-from . import _build
+from . import _build, counted
 
 def quant_matvec_int4_plain(x, w_q4, scales, *, tile: int = MATVEC_TILE):
     """Plain PyTorch version: float32 product of x's values and the
@@ -68,6 +68,7 @@ def launch_plan(r: int, k: int, half: int, f32: bool) -> dict:
                      "smem"), plan))
 
 
+@counted
 def quant_matvec_int4(x, w_q4, scales, *, tile: int = MATVEC_TILE):
     """(R, K) x -> (R, N) float32 logits (see module docstring).
 
@@ -124,6 +125,3 @@ def quant_matvec_int4(x, w_q4, scales, *, tile: int = MATVEC_TILE):
     _build.check(_lib(), rc, "quant_matvec_int4")
     quant_matvec_int4.launches += 1
     return out
-
-
-quant_matvec_int4.launches = 0

@@ -13,35 +13,18 @@ be device tensors: a host int would be frozen into the graph
 
 Launch counts: a kernel wrapper adds to its ``launches`` counter in
 Python, which a replay does not run. The capture records how much each
-counter in ``COUNTED`` moved while the step was captured (the launches
-the graph holds), takes that back, and every replay adds it again, so
-that the counters count launches on the card, replayed or not. A caller
-may append any object with a ``launches`` counter to ``COUNTED`` (the
-card checks count the lm_head products so).
+counter in ``ops.kernels.COUNTED`` moved while the step was captured
+(the launches the graph holds), takes that back, and every replay adds
+it again, so that the counters count launches on the card, replayed or
+not. A caller may append any object with a ``launches`` counter to
+``COUNTED`` (the card checks count the lm_head products so).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.kernels.decode_attention import (
-    decode_attention,
-    decode_attention_dma,
-    decode_attention_slab,
-)
-from ..ops.kernels.decode_layer import decode_layers_fused, gemv_wgmma
-from ..ops.kernels.flash_attention import flash_attention
-from ..ops.kernels.fused_elementwise import latent_rope, rms_norm
-from ..ops.kernels.gumbel_argmax import gumbel_argmax, threefry_noise
-from ..ops.kernels.moe_experts import moe_experts
-from ..ops.kernels.quant_matmul import quant_matmul
-from ..ops.kernels.quant_matvec_int4 import quant_matvec_int4
-
-# every kernel wrapper with a launch counter that a step can reach
-COUNTED = [decode_layers_fused, gemv_wgmma, decode_attention_dma,
-           decode_attention_slab, decode_attention, flash_attention,
-           quant_matmul, quant_matvec_int4, gumbel_argmax, threefry_noise,
-           moe_experts, rms_norm, latent_rope]
+from ..ops.kernels import COUNTED
 
 
 class StepGraph:

@@ -51,20 +51,12 @@ the card, and on CUDA the synchronize after the first token),
 ``wait.done_flags`` (each wait for the done flags) and
 ``wait.read_out`` (the loop's final reads of its state).
 
-A ``deepseek_v3`` text config (Kimi-VL-A3B's language model:
-``models/deepseek_v3_decoder.py``) builds that decoder and its latent
-cache (``cache_type``: ``_slab0``'s arenas and the staged slabs take any
-cache type's ``slab_shapes``), chosen once here; the dense decoder's
-dispatch, K1 included, is untouched. Its decode steps route no done row
-and count the experts each step touched on the device
-(``RouteCounts``, kept in ``_DecodeState.routes`` and, for the prefill,
-``_prefill_routes``), read once in ``wait.read_out`` into
-``last_stats["experts_touched"]`` (one number per decode step, summed
-over the MoE layers) and the tracer's ``moe.*`` counters. Only this
-offline path runs it: speculative decoding, quantized weights, an int8
-cache and tensor parallelism raise ``ArchitectureNotSupported`` here,
-serving, streaming, training and checkpoint loading in their own
-constructors.
+The decoder is the text config's architecture's (``models/decoders.py``;
+``_slab0`` and the staged slabs take its ``cache_type``). Its per-call
+counters (``call_counts``, in ``_DecodeState.counts``) go to the prefill
+and every decode step as ``counts=`` and are read once in
+``wait.read_out`` (``read_counts``). Speculative decoding, quantized
+weights, an int8 cache and tensor parallelism call ``require`` first.
 
 Speculative decoding (``speculative=``, ``spec_k=``, ``draft_model=``,
 as in JAX) runs every B = 1 transcription as draft-and-verify
@@ -116,7 +108,7 @@ import numpy as np
 import torch
 
 from ..audio.load import load_audio
-from ..config import AsrConfig, feat_extract_output_length
+from ..config import AsrConfig, audio_tokens
 from ..features.mel import (
     create_mel_filterbank,
     log_mel_from_padded,
@@ -124,14 +116,9 @@ from ..features.mel import (
     pad_waveform,
 )
 from ..models.audio_encoder import AudioEncoder
-from ..models.deepseek_v3_decoder import (
-    DeepseekV3Decoder,
-    RouteCounts,
-    is_routed,
-    refuse,
-)
-from ..models.text_decoder import KVCache, TextDecoder
-from ..ops.kernels.decode_layer import gemv_wgmma, int4g_group_supported
+from ..models.decoders import decoder_class, require
+from ..models.text_decoder import KVCache
+from ..ops.kernels.decode_layer import int4g_group_supported
 from ..ops.prng import KeyChain, fold_in, prng_key
 from ..parallel.comm import mesh_axis
 from ..parallel.mesh import mesh_dims
@@ -146,7 +133,7 @@ from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID, AsrTokenizer
 from ..weights.convert import to_torch
 from ..weights.loader import load_model_params
 from ..weights.quantize import quantize_decoder_params, quantize_lm_head_only
-from ..utils.tracing import count, span, stage_timer
+from ..utils.tracing import span, stage_timer
 from .cuda_graph import StepGraph, capture
 from .longform import Segment, attach_words, transcribe_long
 from .prompt import AUDIO_OFFSET, build_prompt, parse_asr_output
@@ -184,7 +171,7 @@ class DraftBundle:
 
     config: AsrConfig
     encoder: AudioEncoder
-    decoder: TextDecoder
+    decoder: object
     enc_params: object
     dec_params: object
 
@@ -254,15 +241,10 @@ class AsrEngine:
         self.dtype = dtype
         self.max_new_tokens = max_new_tokens
         self.chunk_buckets = tuple(sorted(chunk_buckets))
-        # a routed decoder (deepseek_v3) runs the offline path alone
-        self.routed = is_routed(config.text)
-        if self.routed:
-            for mode, used in (
-                    ("speculative decoding", speculative or draft_model),
-                    (f"quantize={quantize!r}", quantize),
-                    ("tensor parallelism", mesh_dims(mesh)[1] > 1)):
-                if used:
-                    refuse(mode, config.text)
+        if speculative or draft_model:
+            require(config.text, "speculative decoding")
+        if quantize:
+            require(config.text, "quantized weights", f"quantize={quantize!r}")
         # a cross-model draft: ``speculative`` names its quantization
         draft_quant = None
         if draft_model is not None:
@@ -272,6 +254,8 @@ class AsrEngine:
         if speculative is not None:
             _check_spec(mesh, spec_k)
         tp_size = mesh_dims(mesh)[1]
+        if tp_size > 1:
+            require(config.text, "tensor parallelism")
         self.mesh = mesh
         self._dp, self._tp = mesh_axis(mesh, "dp"), mesh_axis(mesh, "tp")
         if tp_size > 1 and quantize in ("int4g", "lm8"):
@@ -308,7 +292,7 @@ class AsrEngine:
                 "parallelism (works on dp-only meshes)")
         self.kv_quant = kv_dtype == "int8"
         if self.kv_quant:
-            refuse("kv_dtype='int8'", config.text)
+            require(config.text, "int8 cache", "kv_dtype='int8'")
         if mesh is not None:
             self.enc_params = shard_params(
                 self.enc_params, mesh,
@@ -333,12 +317,9 @@ class AsrEngine:
         for c in self.chunk_buckets:
             max_pos = max(max_pos, self._prompt_bucket(c) + max_new_tokens + 8
                           + (self._spec_slack() if spec else 0))
-        self.decoder = (DeepseekV3Decoder if self.routed else TextDecoder)(
+        self.decoder = decoder_class(config.text)(
             config.text, max_position=max_pos, device=self.device,
             tp=self._tp)
-        # the routed experts' counters of a call's prefill (None: dense)
-        self._prefill_routes = (RouteCounts.zeros(1, self.device)
-                                if self.routed else None)
         self.draft_bundle = (
             None if draft_model is None else
             self._build_draft_bundle(draft_model, draft_quant, max_pos))
@@ -408,6 +389,7 @@ class AsrEngine:
             dcfg = AsrConfig.from_file(ddir / "config.json")
             denc = ddec = None
         cfg = self.config
+        require(dcfg.text, "speculative decoding")
         if dcfg.text.vocab_size != cfg.text.vocab_size:
             raise ValueError(
                 f"draft vocab_size {dcfg.text.vocab_size} != target "
@@ -431,8 +413,8 @@ class AsrEngine:
         return DraftBundle(
             config=dcfg,
             encoder=AudioEncoder(dcfg.audio, device=self.device),
-            decoder=TextDecoder(dcfg.text, max_position=max_pos,
-                                device=self.device),
+            decoder=decoder_class(dcfg.text)(dcfg.text, max_position=max_pos,
+                                             device=self.device),
             enc_params=denc, dec_params=ddec)
 
     def _spec_active(self, batch: int) -> bool:
@@ -531,11 +513,6 @@ class AsrEngine:
             self.decoder.cfg, batch, self._slab_len(p_bucket),
             dtype=self.dtype, device=self.device, quantized=self.kv_quant)
 
-    def _routes_kw(self, routes) -> dict:
-        """The decoder's routed-expert counters argument: none for the
-        dense decoder."""
-        return {} if routes is None else {"routes": routes}
-
     @torch.inference_mode()
     def _embed_prompts(self, samples_list: Sequence[np.ndarray],
                        languages: Sequence[Optional[str]], aligned: bool,
@@ -553,7 +530,6 @@ class AsrEngine:
         with span("prefill.encode"):
             cfg = self.config
             cf = cfg.audio.chunk_frames
-            tpc = cfg.audio.tokens_per_chunk
             bucket_chunks = self._chunk_bucket(samples_list)
             p_bucket = self._prompt_bucket(bucket_chunks)
             b = len(samples_list)
@@ -575,10 +551,7 @@ class AsrEngine:
                     host[i, :len(wave)] = wave
                     host[i, len(wave):] = 0.0
                     n_true[i] = n
-                    tail = n % cf
-                    n_audio = (n // cf) * tpc + (
-                        feat_extract_output_length(tail) if tail else 0
-                    )
+                    n_audio = audio_tokens(cfg.audio, n)
                     prompt = build_prompt(n_audio, language, self.tokenizer)
                     if len(prompt) > p_bucket:
                         raise ValueError(
@@ -611,11 +584,12 @@ class AsrEngine:
 
     @torch.inference_mode()
     def prefill(self, samples: np.ndarray, language: Optional[str] = None,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None, counts=None):
         """Mel, encoder, prompt injection and prefill for one utterance,
         into ``cache`` (a slab of at least the prompt bucket's slots;
-        default ``_new_cache``). Returns (logits (1, V) at the last prompt
-        token, KV cache, true prompt length)."""
+        default ``_new_cache``); ``counts``: the decoder's per-call
+        counters (``_DecodeState.counts``). Returns (logits (1, V) at the
+        last prompt token, KV cache, true prompt length)."""
         hidden, (true_len,), _ = self._embed_prompts([samples], [language],
                                                      aligned=False)
         p_bucket = hidden.shape[1]
@@ -625,17 +599,18 @@ class AsrEngine:
             logits, cache = self.decoder.prefill(
                 self.dec_params, hidden,
                 torch.arange(p_bucket, device=self.device), cache, true_len,
-                **self._routes_kw(self._prefill_routes))
+                counts=counts)
         return logits, cache, true_len
 
     @torch.inference_mode()
     def prefill_batch(self, samples_list: Sequence[np.ndarray],
                       languages: Sequence[Optional[str]],
-                      cache: Optional[KVCache] = None):
+                      cache: Optional[KVCache] = None, counts=None):
         """Mel, encoder, prompt injection and right-aligned prefill for B
-        utterances into ``cache`` (default ``_new_cache``): row b's prompt
-        spans slots [kv_start_b, P). Returns (logits (B, V) at slot P - 1,
-        KV cache, kv_start (B,) int32, P)."""
+        utterances into ``cache`` (default ``_new_cache``; ``counts`` as
+        ``prefill``'s): row b's prompt spans slots [kv_start_b, P).
+        Returns (logits (B, V) at slot P - 1, KV cache, kv_start (B,)
+        int32, P)."""
         hidden, true_lens, _ = self._embed_prompts(samples_list, languages,
                                                    aligned=True)
         b, p_bucket = hidden.shape[:2]
@@ -647,22 +622,22 @@ class AsrEngine:
             cache = self._new_cache(b, p_bucket)
         with span("prefill.decoder"):
             logits, cache = self.decoder.prefill_aligned(
-                self.dec_params, hidden, kv_start, cache,
-                **self._routes_kw(self._prefill_routes))
+                self.dec_params, hidden, kv_start, cache, counts=counts)
         return logits, cache, kv_start, p_bucket
 
-    def _slab0(self, b: int, n: int, key=None, text=None) -> KVCache:
+    def _slab0(self, b: int, n: int, key=None, decoder=None) -> KVCache:
         """The first stage's ``n``-slot slab for B = ``b``: a view of the
         first elements of the arena kept under ``key`` (default B; the
         speculative loop's are ("spec", "target") and ("spec", "draft"),
-        at the widths of ``text``, default the target's), so that a
-        captured step keeps its address from call to call. A longer slab
-        than the arena holds replaces the arena and every arena and graph
-        of its group (``_release``)."""
+        of ``decoder``'s cache type at its widths, default the target's),
+        so that a captured step keeps its address from call to call. A
+        longer slab than the arena holds replaces the arena and every
+        arena and graph of its group (``_release``)."""
         key = b if key is None else key
-        cfg = self.decoder.cfg if text is None else text
-        cache_type = self.decoder.cache_type if text is None else KVCache
-        shapes = cache_type.slab_shapes(cfg, b, n, self.dtype, self.kv_quant)
+        decoder = self.decoder if decoder is None else decoder
+        cache_type = decoder.cache_type
+        shapes = cache_type.slab_shapes(decoder.cfg, b, n, self.dtype,
+                                        self.kv_quant)
         arena = self._arenas.get(key)
         if arena is None or arena[0].numel() < math.prod(shapes[0][0]):
             if arena is not None:  # replaced: its group's graphs go too
@@ -693,7 +668,7 @@ class AsrEngine:
     def _state(self, b: int) -> "_DecodeState":
         if b not in self._states:
             self._states[b] = _DecodeState.zeros(b, self.max_new_tokens,
-                                                 self.device, self.routed)
+                                                 self.device, self.decoder)
         return self._states[b]
 
     def _step_fn(self, st: "_DecodeState", cache: KVCache, aligned: bool,
@@ -705,9 +680,7 @@ class AsrEngine:
         or JAX's draw at ``fold_in(st.key, step + 1)``, is appended."""
         dec, params = self.decoder, self.dec_params
         sample = not sampling.greedy
-        # a routed decoder routes no done row and counts its experts
-        kw = ({} if st.routes is None else
-              {"done": st.done, "routes": st.routes})
+        kw = {"counts": st.counts}
 
         def step():
             slot = st.base + st.step
@@ -784,9 +757,8 @@ class AsrEngine:
         synchronized), ``decode_seconds`` (host clock of the loop, to its
         one read of the tokens) and, on CUDA, ``decode_gpu_seconds`` (the
         GPU's elapsed time over the same loop, between CUDA events: the
-        card's busy time plus any time the host left it idle); a routed
-        decoder adds ``experts_touched`` (per decode step, the experts
-        that got a live row, summed over the MoE layers).
+        card's busy time plus any time the host left it idle), and what
+        the decoder's per-call counters add (``read_counts``).
         """
         sampling = normalize(sampling)
         live = np.asarray(live, bool)
@@ -798,18 +770,16 @@ class AsrEngine:
         p = self._prompt_bucket(self._chunk_bucket(samples_list))
         caps = self._segment_caps()
         st = self._state(b)
-        if self._prefill_routes is not None:
-            self._prefill_routes.zero_()
         cache = self._slab0(b, self._slab_len(p, caps[0]))
         aligned = b > 1 if aligned is None else aligned
         if aligned:
-            logits, _, kv_start, _ = self.prefill_batch(samples_list,
-                                                        languages, cache)
+            logits, _, kv_start, _ = self.prefill_batch(
+                samples_list, languages, cache, st.counts)
             st.kv_start.copy_(kv_start)
             base = p
         else:
             logits, _, base = self.prefill(samples_list[0], languages[0],
-                                           cache)
+                                           cache, st.counts)
         # the reset copies ``live`` from the host with a blocking copy,
         # which waits for the prefill on the card
         with span("wait.prefill"):
@@ -831,7 +801,6 @@ class AsrEngine:
         t_first = time.perf_counter()
 
         flags = _DoneFlags(self.device)
-        wgmma0 = gemv_wgmma.launches
         # decode steps: one per token but the prefill's
         total = self.max_new_tokens - 1
         steps = replays = captures = 0
@@ -888,8 +857,7 @@ class AsrEngine:
             n_gen = st.n_gen.tolist()
             out_buf = st.out_buf.cpu()
             done = st.done.tolist()
-            routes = (None if st.routes is None else torch.cat(
-                [st.routes.values(), self._prefill_routes.values()]).tolist())
+            counted = self.decoder.read_counts(st.counts, steps)
         t_end = time.perf_counter()
         # decode steps each row needed: its EOS is token n_gen (the step
         # n_gen - 1 made it); a row without one needed every step
@@ -908,29 +876,8 @@ class AsrEngine:
         if cuda:
             self.last_stats["decode_gpu_seconds"] = (
                 ev0.elapsed_time(ev1) / 1e3)
-        if routes is not None:
-            self._count_routes(routes, steps)
-        # K1's wgmma GEMV launches over the loop (4 a layer and step with
-        # bf16 weights; replays counted), where it ran
-        if gemv_wgmma.launches > wgmma0:
-            count("k1.gemv_wgmma_launches", gemv_wgmma.launches - wgmma0)
+        self.last_stats.update(counted)
         return [out_buf[i, :g].tolist() for i, g in enumerate(n_gen)]
-
-    def _count_routes(self, values: list, steps: int) -> None:
-        """The routed experts of a call, read from the decode and prefill
-        ``RouteCounts`` (``values()`` of each, concatenated): per decode
-        step the experts touched summed over the MoE layers, into
-        ``last_stats["experts_touched"]``, and the tracer's ``moe.*``
-        counters."""
-        n = self.max_new_tokens
-        touched, (rows, max_rows) = values[:n], values[n:n + 2]
-        pf_touched, pf_rows, pf_max = values[n + 2:]
-        self.last_stats["experts_touched"] = touched[:steps]
-        count("moe.decode_experts_touched", sum(touched[:steps]))
-        count("moe.decode_rows", rows)
-        count("moe.prefill_experts_touched", pf_touched)
-        count("moe.prefill_rows", pf_rows)
-        count("moe.max_expert_rows", max(max_rows, pf_max), largest=True)
 
     def _spec_state(self) -> "_SpecState":
         if "spec" not in self._states:
@@ -939,11 +886,10 @@ class AsrEngine:
         return self._states["spec"]
 
     def _spec_draft(self):
-        """(decoder, params, text config) of the draft."""
+        """(decoder, params) of the draft."""
         if self.draft_bundle is not None:
-            b = self.draft_bundle
-            return b.decoder, b.dec_params, b.config.text
-        return self.decoder, self.draft_params, self.config.text
+            return self.draft_bundle.decoder, self.draft_bundle.dec_params
+        return self.decoder, self.draft_params
 
     def _spec_iteration(self, st: "_SpecState", cache: KVCache,
                         dcache: KVCache, sampling: SamplingParams):
@@ -973,7 +919,7 @@ class AsrEngine:
         cap) is what the host reads."""
         k = self.spec_k
         dec, params = self.decoder, self.dec_params
-        d_dec, d_params, _ = self._spec_draft()
+        d_dec, d_params = self._spec_draft()
         sample = not sampling.greedy
         top_k, top_p = sampling.top_k, sampling.top_p
         idx = torch.arange(k + 1, device=self.device)
@@ -1060,10 +1006,10 @@ class AsrEngine:
         t0 = time.perf_counter()
         p = self._prompt_bucket(self._chunk_bucket([samples]))
         caps = self._segment_caps()
-        d_dec, d_params, d_text = self._spec_draft()
+        d_dec, d_params = self._spec_draft()
         n = self._spec_slab_len(p, caps[0])
         cache = self._slab0(1, n, ("spec", "target"))
-        dcache = self._slab0(1, n, ("spec", "draft"), d_text)
+        dcache = self._slab0(1, n, ("spec", "draft"), d_dec)
         hidden, (true_len,), d_hidden = self._embed_prompts(
             [samples], [language], aligned=False, draft=self.draft_bundle)
         slots = torch.arange(p, device=self.device)
@@ -1425,31 +1371,29 @@ class _DecodeState:
     key: torch.Tensor       # (2,) int64: prng_key(seed), a dp rank's
     #                         fold_in(prng_key(seed), rank)
     temp: torch.Tensor      # () float32
-    # a routed decoder's expert counters, indexed by ``step`` (else None)
-    routes: Optional[RouteCounts] = None
+    # the decoder's per-call counters over ``step`` and ``done``
+    # (``call_counts``; None for a decoder that keeps none)
+    counts: object = None
 
     @classmethod
     def zeros(cls, b: int, max_new: int, device,
-              routed: bool = False) -> "_DecodeState":
+              decoder) -> "_DecodeState":
         i64 = dict(dtype=torch.int64, device=device)
-        step = torch.zeros((), **i64)
-        return cls(tok=torch.zeros(b, **i64), n_gen=torch.zeros(b, **i64),
-                   done=torch.zeros(b, dtype=torch.bool, device=device),
-                   out_buf=torch.zeros((b, max_new), **i64),
-                   step=step, base=torch.zeros((), **i64),
-                   kv_start=torch.zeros(b, dtype=torch.int32, device=device),
-                   key=torch.zeros(2, **i64),
-                   temp=torch.zeros((), dtype=torch.float32, device=device),
-                   routes=(RouteCounts.zeros(max_new, device, step)
-                           if routed else None))
+        st = cls(tok=torch.zeros(b, **i64), n_gen=torch.zeros(b, **i64),
+                 done=torch.zeros(b, dtype=torch.bool, device=device),
+                 out_buf=torch.zeros((b, max_new), **i64),
+                 step=torch.zeros((), **i64), base=torch.zeros((), **i64),
+                 kv_start=torch.zeros(b, dtype=torch.int32, device=device),
+                 key=torch.zeros(2, **i64),
+                 temp=torch.zeros((), dtype=torch.float32, device=device))
+        st.counts = decoder.call_counts(max_new, st.step, st.done)
+        return st
 
     def start(self, live: np.ndarray, base: int, sampling: SamplingParams,
               dp_rank: Optional[int] = None) -> None:
         """Reset for a call: no token emitted, rows not ``live`` done."""
         self.n_gen.zero_()
         self.step.zero_()
-        if self.routes is not None:
-            self.routes.zero_()
         self.done.copy_(torch.from_numpy(~live))
         self.base.fill_(base)
         _start_key(self.key, sampling, dp_rank)

@@ -89,9 +89,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import feat_extract_output_length
+from ..config import audio_tokens
 from ..features.mel import log_mel_from_padded, num_mel_frames, pad_waveform
-from ..models.deepseek_v3_decoder import refuse
+from ..models.decoders import require
 from ..models.text_decoder import KVCache, TextDecoder
 from ..parallel.comm import all_gather, broadcast_from_lead, is_lead
 from ..tokenizer import ENDOFTEXT_TOKEN_ID, IM_END_TOKEN_ID
@@ -232,7 +232,7 @@ class ContinuousBatcher:
         kv_dtype: Optional[str] = None,
         admit_batch_max: int = 8,
     ):
-        refuse("serving (ContinuousBatcher)", engine.config.text)
+        require(engine.config.text, "serving", "serving (ContinuousBatcher)")
         self.engine = engine
         # the slot pool's mesh: None unless an axis has more than one rank
         self.mesh = engine.mesh if (engine._dp or engine._tp) else None
@@ -484,16 +484,12 @@ class ContinuousBatcher:
         """Host-side admission prep: bucket, padded wave, prompt ids."""
         engine = self.engine
         cf = engine.config.audio.chunk_frames
-        tpc = engine.config.audio.tokens_per_chunk
         n_frames = num_mel_frames(len(req.samples))
         bucket = engine._pick_bucket(n_frames)
         wave, n_true = pad_waveform(
             req.samples, bucket_frames=bucket * cf
         )
-        full, tail = n_true // cf, n_true % cf
-        n_audio = full * tpc + (
-            feat_extract_output_length(tail) if tail else 0
-        )
+        n_audio = audio_tokens(engine.config.audio, n_true)
         prompt = build_prompt(n_audio, req.language, engine.tokenizer)
         p_bucket = engine._prompt_bucket(bucket)
         if len(prompt) > p_bucket:

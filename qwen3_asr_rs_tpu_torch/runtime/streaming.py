@@ -62,9 +62,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import feat_extract_output_length
+from ..config import audio_tokens
 from ..features.mel import log_mel_from_padded, num_mel_frames, raw_log_mel_max
-from ..models.deepseek_v3_decoder import refuse
+from ..models.decoders import require
 from ..models.text_decoder import KVCache, TextDecoder
 from .cuda_graph import StepGraph, capture
 from .engine import AsrEngine, TranscribeResult, _DecodeState, _DoneFlags
@@ -152,7 +152,8 @@ class _StreamGraphs:
         return _StreamSlab(
             cache=KVCache.zeros(self.decoder.cfg, 1, self.s_stream,
                                 dtype=eng.dtype, device=eng.device),
-            state=_DecodeState.zeros(1, self.max_new, eng.device))
+            state=_DecodeState.zeros(1, self.max_new, eng.device,
+                                     self.decoder))
 
     def release(self, slab: _StreamSlab) -> None:
         self._free.append(slab)
@@ -283,7 +284,7 @@ class StreamingSession:
         max_stream_seconds: float = 120.0,
         max_new_tokens: int = 256,
     ):
-        refuse("streaming", engine.config.text)
+        require(engine.config.text, "streaming")
         self.engine = engine
         self.language = language
         acfg = engine.config.audio
@@ -460,9 +461,8 @@ class StreamingSession:
         if tail_frames > 0:
             tail_embeds = self._encode_window(w_cacheable, usable_len)
             stats["windows_encoded"] += 1
-            full_chunks, rem = divmod(tail_frames, self.cf)
-            tail_valid = full_chunks * self.tpc + (
-                feat_extract_output_length(rem) if rem else 0)
+            tail_valid = audio_tokens(self.engine.config.audio,
+                                      tail_frames)
 
         n_audio = w_cacheable * self.window_tokens + tail_valid
         prompt = build_prompt(n_audio, self.language, self.engine.tokenizer)
@@ -532,7 +532,7 @@ class StreamingTranscriber:
         max_new_tokens: Optional[int] = None,
         rollover_overlap_s: float = 2.0,
     ):
-        refuse("streaming", engine.config.text)
+        require(engine.config.text, "streaming")
         self.engine = engine
         self.language = language
         self.update_interval = int(update_interval_s * sample_rate)

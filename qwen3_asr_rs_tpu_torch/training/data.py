@@ -42,7 +42,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import AsrConfig, feat_extract_output_length
+from ..config import AsrConfig, audio_tokens
 from ..features.mel import (
     create_mel_filterbank,
     log_mel_from_padded,
@@ -196,12 +196,7 @@ class AsrDataset:
             bucket = min_bucket
         cf = self.config.audio.chunk_frames
         wave, n_true = pad_waveform(samples, bucket_frames=bucket * cf)
-
-        tpc = self.config.audio.tokens_per_chunk
-        full, tail = n_true // cf, n_true % cf
-        n_audio = full * tpc + (
-            feat_extract_output_length(tail) if tail else 0
-        )
+        n_audio = audio_tokens(self.config.audio, n_true)
 
         if self.forced_language and utt.language:
             prompt = build_prompt(n_audio, utt.language, self.tokenizer)
@@ -255,11 +250,7 @@ class AsrDataset:
         cf = self.config.audio.chunk_frames
         samples = np.zeros(bucket * cf * 160, np.float32)
         wave, n_true = pad_waveform(samples, bucket_frames=bucket * cf)
-        tpc = self.config.audio.tokens_per_chunk
-        full, tail = n_true // cf, n_true % cf
-        n_audio = full * tpc + (
-            feat_extract_output_length(tail) if tail else 0
-        )
+        n_audio = audio_tokens(self.config.audio, n_true)
         prompt = build_prompt(n_audio, None, self.tokenizer)
         seq_len = self._seq_len(bucket)
         token_ids = np.full(seq_len, ENDOFTEXT_TOKEN_ID, np.int32)

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from ..config import AsrConfig
 from ..models.audio_encoder import AudioEncoder
-from ..models.deepseek_v3_decoder import refuse
+from ..models.decoders import require
 from ..models.text_decoder import TextDecoder
 from ..parallel.comm import all_reduce, mesh_axis
 from ..parallel.mesh import mesh_dims
@@ -193,7 +193,7 @@ def make_train_step(
     step takes this rank's dp rows and returns the
     whole batch's loss.
     """
-    refuse("training", config.text)
+    require(config.text, "training")
     device = torch.device(device)
     dp, tp = mesh_axis(mesh, "dp"), mesh_axis(mesh, "tp")
     encoder = AudioEncoder(config.audio, device=device, remat=remat, tp=tp)

@@ -11,9 +11,8 @@ Port of ``qwen3_asr_rs_tpu/utils/tracing.py``, extended. One registry,
   (``spans``, ``span_counts``);
 - counters (``count(name, n)``): a sum, or the largest, of what the
   program counted (``counters``), such as the routed experts' ``moe.*``
-  that the engine adds once per call from its device counters, and
-  ``k1.gemv_wgmma_launches``, K1's wgmma GEMV launches over a call's
-  decode loop (the wrapper's counter, replays included).
+  that the decoder adds once per call from its device counters
+  (``read_counts``).
 
 Spans and counters are recorded only while the tracer is on: under
 ``ASR_TRACE=1`` (read at import) or while a torch profiler records

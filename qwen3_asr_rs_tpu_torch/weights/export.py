@@ -151,9 +151,9 @@ def save_checkpoint(
     """Write config.json + model.safetensors[.index.json] in HF layout.
     ``mesh``: the trees are this rank's pieces on it (see the module
     docstring); every rank of the mesh calls this."""
-    from ..models.deepseek_v3_decoder import refuse
+    from ..models.decoders import require
 
-    refuse("checkpoint export", config.text)
+    require(config.text, "checkpoint export")
     if mesh is None:
         _save(model_dir, enc_params, dec_params, config, max_shard_bytes)
         return

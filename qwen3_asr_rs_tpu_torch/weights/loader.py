@@ -125,10 +125,10 @@ def load_model_params(
     tensor then moves to ``device`` once (a tied lm_head stays the same
     tensor as embed).
     """
-    from ..models.deepseek_v3_decoder import refuse
+    from ..models.decoders import require
     from .convert import tree_map
 
-    refuse("checkpoint loading", config.text)
+    require(config.text, "checkpoint loading")
     tensors = load_checkpoint(model_dir)
     enc = map_encoder_params(tensors, config, dtype)
     dec = map_decoder_params(tensors, config, dtype)

@@ -112,12 +112,13 @@ def _scripted_engine(teng, table, b):
     onehot = torch.nn.functional.one_hot(tab[:, 0], 151936).float()
     dec = teng.decoder
 
-    def step(params, tok, slot, *rest):
+    def step(params, tok, slot, *rest, counts=None):
         return tab[:, teng._state(b).step + 1], rest[-1]
 
-    dec.prefill = lambda params, hidden, pos, cache, n: (onehot, cache)
-    dec.prefill_aligned = lambda params, hidden, kv_start, cache: (onehot,
-                                                                  cache)
+    dec.prefill = lambda params, hidden, pos, cache, n, counts=None: (
+        onehot, cache)
+    dec.prefill_aligned = lambda params, hidden, kv_start, cache, counts=None: (
+        onehot, cache)
     dec.decode_step_token = dec.decode_step_aligned_token = step
 
 

@@ -19,6 +19,7 @@ from qwen3_asr_rs_tpu.weights import quantize as jquant
 from qwen3_asr_rs_tpu_torch import config as tconfig
 from qwen3_asr_rs_tpu_torch.config import (
     AudioEncoderConfig,
+    audio_tokens,
     feat_extract_output_length,
 )
 from qwen3_asr_rs_tpu_torch.models.audio_encoder import AudioEncoder
@@ -112,13 +113,21 @@ def test_stem_groups_keep_gradients(rng):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_valid_tokens_formula():
-    enc = AudioEncoder(AudioEncoderConfig())
+@pytest.mark.parametrize("count", ["encoder", "encoder_rows", "config"])
+def test_valid_tokens_formula(count):
+    """A clip's audio tokens, as the encoder, its per-row tensor form and
+    ``config.audio_tokens`` (which sizes every prompt) give them."""
+    cfg = AudioEncoderConfig()
+    enc = AudioEncoder(cfg)
+    tokens = {"encoder": enc.valid_tokens,
+              "encoder_rows": lambda n: int(enc._valid_tokens_rows(
+                  torch.tensor([n]))[0]),
+              "config": lambda n: audio_tokens(cfg, n)}[count]
     for frames in [100, 260, 1000, 1040, 37, 99, 0]:
         tail = frames % 100
         expected = (frames // 100) * 13 + (
             feat_extract_output_length(tail) if tail else 0)
-        assert enc.valid_tokens(frames) == expected
+        assert tokens(frames) == expected
 
 
 def _decoders(tied=True):
