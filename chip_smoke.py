@@ -24,7 +24,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              float64 product); then K1 at B = 2, 8, 32 with per-row
              starts (float weights, int8 merged at B = 8, int4 merged at
              B = 8 and 32), K1 and K2 on int8 slabs at B = 1 and 8, S =
-             360 and 4992, and K3 at B = 2 with per-row kv_start; then K1
+             360 and 4992, and K3 at B = 2 with per-row kv_start and at
+             the offline 32-clip batch's shapes (the audio tower's
+             windows, empty ones among them; 32 right-aligned 432-slot
+             prompts), held on the rows with a key, timed beside SDPA
+             with the same masks and reported in the kernels line as
+             ``main_path``; then K1
              with int4g weights at group sizes 128, 64 and 32 (B = 1 at
              S = 360 and 4992, B = 8 and 32, B = 1 and 8 on int8 slabs),
              K1 with the folded lm_head (bf16/f32 and int8 lm_head, B = 1
@@ -37,7 +42,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              kernels per call in every weight layout (at most 6 per
              layer, counted by torch.profiler). K2 (B = 1, S = 360; B =
              8, S = 4992 on bf16 and int8 slabs), K3 (bf16 causal, B = 1
-             and 2), K4 (bf16) and K6 (S = 4992) also report their device
+             and 2, and its main-path cases), K4 (bf16) and K6 (S = 4992) also report their device
              time from torch.profiler (device_ms), and so do their library
              calls (library_device_ms). Every bf16 case of K2, K3 and K6,
              and every GEMV case, is also held element by element
@@ -78,7 +83,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              per run B, live rows, bucket, wall, aggregate xRT, tokens/s,
              prefill s, decode ms per step and the launch counts, which
              must show K1 once per step whatever B is, K2 once per layer
-             and step, and K4/K5 as the weights need them; then 32 clips
+             and step, K3 once a layer of the audio tower's call and of
+             the decoder prefill, and K4/K5 as the weights need them;
+             then 32 clips
              twice: the wgmma GEMV's launch counter (gemv_wgmma, replays
              counted) 4 a layer and step, tokens equal over the two
              runs.
@@ -136,7 +143,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              profiled on its own, GPU elapsed and busy over the same
              segments), admission GPU ms per kind, replays, captures,
              slab, kept and peak GiB, and launch counts (K2 28 per
-             decode step, K1 never, K5 113 per int8 step; the kernels
+             decode step, K1 never, K5 113 per int8 step, K3 in a bf16
+             pool 18 per encoder call and 28 per one-pass admission
+             prefill, from the pool's stats, none in float32; the kernels
              line gives each run's measured count per step); then an
              in-process HTTP server on 127.0.0.1 (/healthz,
              /transcribe, /v1/audio/transcriptions: text equal to the
@@ -195,7 +204,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              iteration (K1 k + 1 for the draft steps, K2 in each of the
              draft's layers, K5 per int8 verify linear and int8 draft
              lm_head, K4 per int4 draft lm_head; the prefills' taken off,
-             checked exactly), the two slabs' GiB and the peak memory.
+             K3 among them once a layer of each audio tower and decoder
+             in bf16, checked exactly), the two slabs' GiB and the peak
+             memory.
 11. training — fine-tuning at full 0.6B width and depth: AsrDataset over
              eight ~28 s WAVs (30-chunk bucket, P = 544, a word-level
              stub tokenizer) through prefetch_to_device, then six
@@ -998,6 +1009,7 @@ def kernel_checks(torch, dec_params_f32):
     torch.cuda.empty_cache()
     quant_kernel_checks(torch, dec_params_f32, gen, results)
     batch_kernel_checks(torch, dec_params_f32, gen, results)
+    k3_main_path_checks(torch, gen, results)
     int4g_kernel_checks(torch, dec_params_f32, gen, results)
     fold_kernel_checks(torch, dec_params_f32, gen, results)
     slab_kernel_checks(torch, gen, results)
@@ -2117,6 +2129,116 @@ def batch_kernel_checks(torch, dec_params_f32, gen, results):
     torch.cuda.empty_cache()
 
 
+PROMPT_IDS = 15  # the prompt's ids around the audio tokens
+# K3's cases at the offline 32-clip batch's shapes (k3_main_path_checks),
+# which the kernels line reports beside the headline
+K3_MAIN_PATH = ("32 clips x 30 chunks: audio-tower windows",
+                "32 clips x 30 chunks: decoder prefill")
+
+
+def clip_frames(rng, n: int, chunks: int, chunk_frames: int) -> list:
+    """True mel frames of n clips of one chunk bucket: lognormal seconds of
+    median chunks / 3, sigma 0.5, within [1, chunks] (100 frames a s)."""
+    secs = rng.lognormal(math.log(chunks / 3), 0.5, n).clip(1.0, chunks)
+    return [min(int(s * 100), chunks * chunk_frames) for s in secs]
+
+
+def sdpa_masked(torch, q, k, v, causal, kv_valid=None, kv_start=None):
+    """One PyTorch call computing K3's function with its masks: SDPA with
+    GQA on (B, heads, S, D) copies of the inputs, ``kv_valid`` and
+    ``kv_start`` as an additive bf16 mask (copies and mask made here,
+    untimed); without either, ``is_causal``."""
+    from qwen3_asr_rs_tpu_torch.ops.attention import MASK_VALUE
+
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kv_valid is None and kv_start is None:
+        return lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    s = k.shape[1]
+    pos = torch.arange(s, device=q.device)
+    ok = torch.ones((q.shape[0], q.shape[1], s), dtype=torch.bool,
+                    device=q.device)
+    if causal:
+        ok &= (pos[None, :] <= pos[:, None])[None]
+    if kv_start is not None:
+        ok &= pos[None, None, :] >= kv_start[:, None, None]
+    if kv_valid is not None:
+        ok &= pos[None, None, :] < kv_valid[:, None, None]
+    mask = torch.where(ok, 0.0, MASK_VALUE).to(q.dtype)[:, None]
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def k3_main_path_checks(torch, gen, results):
+    """Phase 3, K3 where the main path calls it in the offline batch of 32
+    clips of the 30-chunk bucket (clip lengths by ``clip_frames``): the
+    audio tower's windows (one per ``chunks_per_window`` chunks of a clip,
+    not causal, ``kv_valid`` each window's valid tokens, windows past a
+    clip's end empty) and the decoder's prefill (32 right-aligned prompts
+    in the 432-slot bucket, causal, ``kv_start`` each row's first slot).
+    bf16, held to flash_attention_plain on the query rows that have a key
+    (the others are discarded by callers), and not element by element:
+    against the tile reference the prefill case's largest excess reads
+    about ELEMENT_TOL's atol (0.0011 to 0.0021 over four inputs on an
+    H100), so that check would fail on some draws. Times beside SDPA with the same masks (``sdpa_masked``) and
+    the bound of the live work."""
+    import numpy as np
+
+    from qwen3_asr_rs_tpu_torch.config import AsrConfig, audio_tokens
+    from qwen3_asr_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    dev = torch.device("cuda")
+    audio = AsrConfig().audio
+    clips, chunks, p = 32, 30, 432
+    frames = clip_frames(np.random.default_rng(SEED), clips, chunks,
+                         audio.chunk_frames)
+    nh = audio.encoder_attention_heads
+    hd = audio.d_model // nh
+    s = min(chunks, audio.chunks_per_window) * audio.tokens_per_chunk
+    per_clip = -(-chunks // audio.chunks_per_window)
+    counts = [int(min(max(audio_tokens(audio, f) - w * s, 0), s))
+              for f in frames for w in range(per_clip)]
+    lens = [audio_tokens(audio, f) + PROMPT_IDS for f in frames]
+    starts = [p - n for n in lens]
+    # (label, B, S, Hq, Hkv, D, causal, masks, rows with a key, operations)
+    cases = (
+        (K3_MAIN_PATH[0], len(counts), s, nh, nh, hd, False,
+         dict(kv_valid=counts),
+         torch.tensor(counts, device=dev)[:, None].gt(0).repeat(1, s),
+         4 * nh * hd * s * sum(counts)),
+        (K3_MAIN_PATH[1], clips, p, HQ, HKV, D, True,
+         dict(kv_start=starts),
+         torch.arange(p, device=dev)[None, :]
+         >= torch.tensor(starts, device=dev)[:, None],
+         4 * HQ * D * sum(n * (n + 1) // 2 for n in lens)),
+    )
+    for label, b, sq, hq, hkv, d, causal, kw, live, ops in cases:
+        q = torch.randn((b, sq, hq, d), generator=gen,
+                        device=dev).bfloat16()
+        k = torch.randn((b, sq, hkv, d), generator=gen,
+                        device=dev).bfloat16()
+        v = torch.randn_like(k)
+        kv = {n: torch.tensor(x, dtype=torch.int32, device=dev)
+              for n, x in kw.items()}
+        kv_valid, kv_start = kv.get("kv_valid"), kv.get("kv_start")
+        check_case(
+            torch, results, "flash_attention", torch.bfloat16,
+            f"{label}: B={b} Sq=Sk={sq} {hq}/{hkv} heads of {d}, "
+            f"{'causal ' if causal else ''}{next(iter(kw))}, "
+            f"{int(live.sum())} of {live.numel()} query rows with keys",
+            lambda: flash_attention(q, k, v, kv_valid, kv_start,
+                                    causal=causal),
+            lambda: flash_attention_plain(q, k, v, kv_valid, kv_start,
+                                          causal=causal),
+            rows=live,
+            work=bound_of(nbytes(q, k, v, q), ops),
+            library=sdpa_masked(torch, q, k, v, causal, kv_valid, kv_start),
+            device=True,
+        )
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
 def write_wav(path: Path, seconds: float, seed: int) -> float:
     """16 kHz PCM16 WAV: a chirp-like tone plus noise."""
     import numpy as np
@@ -2201,10 +2323,27 @@ class Env:
                 os.environ[k] = v
 
 
-def expected_launches(quantize, env, layers: int, steps: int, seconds: int):
+def prefill_flash(config) -> int:
+    """K3 launches of one audio-tower call and one decoder prefill of a
+    bf16 engine: one a layer of each, since ``auto_attention_impl`` sends
+    every bf16 attention on the card to K3."""
+    return config.audio.encoder_layers + config.text.num_hidden_layers
+
+
+def admission_flash(config, stats) -> int:
+    """K3 launches of a bf16 pool's admissions, from its ``stats`` over
+    the same window: one a layer of the audio tower per encoder call and
+    of the decoder per one-pass prefill (a chunked prefill's chunks
+    attend without K3)."""
+    return (config.audio.encoder_layers * stats["encodes"]
+            + config.text.num_hidden_layers * stats["prefills"])
+
+
+def expected_launches(quantize, env, layers: int, steps: int, flash: int):
     """Launches each kernel must show for one greedy clip, and the lm_head
     products outside K1: K1 once per decode step, K2 once per layer and
-    step (counted by K1's C entry), K3 in the 300 s prefill; int8 layers:
+    step (counted by K1's C entry), K3 ``flash`` times (the prefill's:
+    ``prefill_flash``); int8 layers:
     K5 for the 4 merged prefill linears of each layer; an int8 lm_head:
     K5 at the last prompt token and each step; an int4 lm_head: K4
     likewise. Folded (ASR_FOLD_LM=1, not with an int4 lm_head), the steps
@@ -2217,7 +2356,7 @@ def expected_launches(quantize, env, layers: int, steps: int, seconds: int):
     return {
         "decode_layers_fused": steps,
         "decode_attention_dma": layers * steps,
-        "flash_attention": None if seconds == 300 else 0,
+        "flash_attention": flash,
         "quant_matmul": (4 * layers if quantize == "int8" else 0)
         + (per_step + 1 if lm == 8 else 0),
         "quant_matvec_int4": per_step + 1 if lm == 4 else 0,
@@ -2313,7 +2452,7 @@ def run_path(torch, engine, lm, clips, label, quantize, env, card):
             raise AssertionError("transcription gave no language/text")
         check_launches(f"{label} {seconds} s", got,
                        expected_launches(quantize, env, layers, steps,
-                                         seconds))
+                                         prefill_flash(engine.config)))
     return {n: fn.launches for n, fn in fns.items()}, per_clip
 
 
@@ -2337,8 +2476,8 @@ def run_batch(torch, engine, lm, samples, label, seconds, kv_dtype, quantize,
     """Phase 5 for one batch (``lm``: the engine's lm_head_counter): a
     warm-up of the same batch, then the
     counters set to 0 and the batch transcribed once more; checks the
-    launch counts (K1 once per step, K2 once per layer and step, K3 in
-    the 300 s bucket's prefill, K4/K5 and the lm_head products as
+    launch counts (K1 once per step, K2 once per layer and step, K3 a
+    layer of the encoder and of the decoder prefill, K4/K5 and the lm_head products as
     ``expected_launches`` says for the weights) and that pad rows emit
     nothing."""
     from qwen3_asr_rs_tpu_torch.features.mel import num_mel_frames
@@ -2388,8 +2527,8 @@ def run_batch(torch, engine, lm, samples, label, seconds, kv_dtype, quantize,
         raise AssertionError(f"batch {label}: {len(results)} results")
     if any(n_gen[live:]) or not all(n_gen[:live]):
         raise AssertionError(f"batch {label}: tokens per row {n_gen}")
-    want = expected_launches(quantize, env, layers, steps, max(seconds))
-    want["flash_attention"] = layers if max(seconds) == 300 else 0
+    want = expected_launches(quantize, env, layers, steps,
+                             prefill_flash(engine.config))
     check_launches(f"batch {label}", got, want)
     return got
 
@@ -2679,7 +2818,8 @@ def graph_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
                 f"graphs {label}: {st['replays']} replays and "
                 f"{st['captures']} captures in {st['decode_steps']} steps "
                 f"over {len(st['slab_lens'])} stages")
-        want = expected_launches(quantize, env, layers, st["decode_steps"], 4)
+        want = expected_launches(quantize, env, layers, st["decode_steps"],
+                                 prefill_flash(config))
         if sampling is not None:  # the logits variant, never the fold;
             # one draw at the prefill and one per step
             want["lm_head_products"] = st["decode_steps"] + 1
@@ -3099,9 +3239,13 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     write_wav(tmp / "clip_120s.wav", 120, 8)
     clips[120] = load_audio(tmp / "clip_120s.wav", 16000)
 
-    def check(label, got, steps, k5_steps=0, draws=0):
+    def check(label, got, steps, stats, k5_steps=0, draws=0, f32=False):
+        """``stats``: the pool's over the same window, whose admission
+        work gives K3's launches in a bf16 pool (``admission_flash``);
+        ``f32``: a float32 pool, whose prompts stay dense (none)."""
+        flash = 0 if f32 else admission_flash(config, stats)
         want = {"decode_layers_fused": 0, "decode_attention_dma": L * steps,
-                "flash_attention": 0, "quant_matvec_int4": 0,
+                "flash_attention": flash, "quant_matvec_int4": 0,
                 "quant_matmul": (4 * L + 1) * k5_steps,
                 "decode_attention_slab": 0, "decode_attention": 0,
                 "gumbel_argmax": draws, "threefry_noise": 0}
@@ -3157,7 +3301,7 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     b, clock, base = pool(engine32, n_slots=4)
     wall, got, reqs = serving_burst(torch, b, clock,
                                     [Request(c) for c in f32])
-    check("f32 4 slots", got, b.stats["steps"])
+    check("f32 4 slots", got, b.stats["steps"], b.stats, f32=True)
     gaps = [serving_gap(torch, engine32, c, w, served_tokens(r))
             for c, w, r in zip(f32, want, reqs) if served_tokens(r) != w]
     row_of("f32 4 slots", b, clock, wall, got, reqs, base,
@@ -3182,8 +3326,8 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     wall, got, reqs = serving_burst(torch, b, clock,
                                     [Request(c) for c in f32_auto])
     precisions = list(clock.precisions)
-    check("f32 auto precision", got, b.stats["steps"],
-          b.segment_steps * precisions.count("int8"))
+    check("f32 auto precision", got, b.stats["steps"], b.stats,
+          b.segment_steps * precisions.count("int8"), f32=True)
     gaps = [serving_gap(torch, engine32, c, w, served_tokens(r), params8)
             for c, w, r in zip(f32_auto, want, reqs)
             if served_tokens(r) != w]
@@ -3218,7 +3362,7 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     wall, got, reqs = serving_burst(torch, b, clock, burst, mid=sampled)
     # a draw per step of the sampled segments, and the sampled request's
     # admission draw
-    check("bf16 8 slots burst", got, b.stats["steps"],
+    check("bf16 8 slots burst", got, b.stats["steps"], b.stats,
           draws=b.stats["sampled_steps"] + 1)
     row = row_of("bf16 8 slots burst", b, clock, wall, got, reqs, base,
                  {**warm, "clip_seconds": list(SERVING_BURST) + [4],
@@ -3261,7 +3405,7 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
         b.warmup(buckets=[engine._pick_bucket(-(-len(clips[4]) // 160))])
         wall, got, reqs = serving_burst(
             torch, b, clock, [Request(clips[4]) for _ in range(n)])
-        check(f"bf16 {n} slots", got, b.stats["steps"])
+        check(f"bf16 {n} slots", got, b.stats["steps"], b.stats)
         row_of(f"bf16 {n} slots", b, clock, wall, got, reqs, base)
         emit({"phase": "serving", "case": f"bf16 {n} slots steady",
               **serving_steady(torch, b, clock, [clips[4]] * n),
@@ -3275,7 +3419,7 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
     b.warmup(buckets=[engine._pick_bucket(-(-len(clips[4]) // 160))])
     wall, got, reqs = serving_burst(torch, b, clock,
                                     [Request(clips[4]) for _ in range(8)])
-    check("bf16 weights int8 KV 8 slots", got, b.stats["steps"])
+    check("bf16 weights int8 KV 8 slots", got, b.stats["steps"], b.stats)
     row_of("bf16 weights int8 KV 8 slots", b, clock, wall, got, reqs, base)
     emit({"phase": "serving", "case": "bf16 weights int8 KV 8 slots steady",
           **serving_steady(torch, b, clock, [clips[4]] * 8), "card": card})
@@ -3291,7 +3435,8 @@ def serving_phase(torch, config, enc32, dec32, audio, tmp, card) -> dict:
                 16 if i >= 2 else None)) for i in range(n)])
         precisions = list(clock.precisions)
         k5_steps = b.segment_steps * precisions.count("int8")
-        check(f"auto precision {n}", got, b.stats["steps"], k5_steps)
+        check(f"auto precision {n}", got, b.stats["steps"], b.stats,
+              k5_steps)
         row_of(f"auto precision {n}", b, clock, wall, got, reqs, base,
                {"precisions": precisions})
         if set(precisions) != ({"int8"} if n == 1 else {"int8", "bf16"}):
@@ -3572,8 +3717,11 @@ def streaming_phase(torch, config, enc32, dec32, audio, card) -> dict:
     offline = engine.transcribe_samples(stream.session.buffer)
     steps = g.replays + g.captures  # each capture ran one eager step
     want = {n: 0 for n in fns}
+    # the audio tower's attention of each window encode takes K3
     want.update(decode_layers_fused=steps, decode_attention_dma=layers * steps,
-                gemv_wgmma=4 * layers * steps)
+                gemv_wgmma=4 * layers * steps,
+                flash_attention=config.audio.encoder_layers * sum(
+                    r["windows_encoded"] for r in rows))
     row = {"phase": "streaming", "case": f"{STREAM_FEED_S} s in 1 s updates",
            **update_summary(rows),
            "windows_after_first_max": max(r["windows_encoded"]
@@ -3683,8 +3831,22 @@ SPEC_SAMPLED = dict(temperature=0.7, top_p=0.9)
 SPEC_F32_MAX_NEW = 25 * (SPEC_K + 1)
 
 
+def spec_flash(torch, engine) -> int:
+    """K3 launches of one speculative transcription's prefills: in a bf16
+    engine one a layer of the target's audio tower and decoder
+    (``prefill_flash``), of the draft's decoder and, for a DraftBundle,
+    of its own audio tower; none in float32 (the JAX rule keeps its
+    prompts dense)."""
+    if engine.dtype != torch.bfloat16:
+        return 0
+    d_dec, _ = engine._spec_draft()
+    bundle = engine.draft_bundle
+    return (prefill_flash(engine.config) + d_dec.cfg.num_hidden_layers
+            + (bundle.config.audio.encoder_layers if bundle else 0))
+
+
 def spec_expected(target_quant, draft, lt: int, ld: int, k: int,
-                  wgmma: bool):
+                  wgmma: bool, flash: int):
     """Launches of one speculative transcription: (the two prefills', each
     iteration's), for every counted kernel wrapper. An iteration runs K1
     once per draft step (k + 1), K2 in each of the draft's layers per step
@@ -3695,9 +3857,11 @@ def spec_expected(target_quant, draft, lt: int, ld: int, k: int,
     verify's 4 merged linears per layer and its lm_head at k + 1 rows; K4
     for an int4 draft lm_head per step. The prefills: an int8 model's 4
     linears per layer and the lm_head at the last prompt token (K5), an
-    int4 draft's lm_head there (K4), an int8 lm_head alone (K5)."""
+    int4 draft's lm_head there (K4), an int8 lm_head alone (K5), and K3
+    ``flash`` times (``spec_flash``)."""
     names = tuple(kernel_wrappers())
     pre, per = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
+    pre["flash_attention"] = flash
     per["decode_layers_fused"] = k + 1
     per["decode_attention_dma"] = ld * (k + 1)
     if wgmma:
@@ -3974,7 +4138,8 @@ def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
         pre, per = spec_expected(engine.quantize, draft,
                                  engine.config.text.num_hidden_layers, ld,
                                  engine.spec_k, draft == "bf16"
-                                 and engine.dtype == torch.bfloat16)
+                                 and engine.dtype == torch.bfloat16,
+                                 spec_flash(torch, engine))
         row = spec_row(label, st, got, pre, per, plain_times, want, toks,
                        engine, card)
         spec_check(torch, engine, samples, label, want, toks, st, got, pre,
@@ -4101,7 +4266,8 @@ def speculative_phase(torch, config, enc32, dec32, audio, card) -> dict:
     label = f"0.6B target 0.6B bundle draft {SPEC_CLIPS[-1]} s, 2 stages"
     with Env({"ASR_DECODE_SEGMENT": "32"}):
         toks, st, got = spec_run(torch, engine, audio[SPEC_CLIPS[-1]])
-    pre, per = spec_expected(None, "bf16", ld, ld, SPEC_K, True)
+    pre, per = spec_expected(None, "bf16", ld, ld, SPEC_K, True,
+                             spec_flash(torch, engine))
     row = spec_row(label, st, got, pre, per, ref[SPEC_CLIPS[-1]][1],
                    ref[SPEC_CLIPS[-1]][0], toks, engine, card)
     spec_check(torch, engine, audio[SPEC_CLIPS[-1]], label,
@@ -4941,7 +5107,8 @@ def parallel_runs(torch, rank: int, clips: dict, tmp: Path) -> tuple:
         got, wall = timed(torch, lambda: eng.transcribe_batch(five))
         steps = eng.last_stats["decode_steps"]
         runs = counts_of(fns)
-        want_k = expected_launches(quantize, {}, layers, steps, 30)
+        want_k = expected_launches(quantize, {}, layers, steps,
+                                   prefill_flash(config))
         del want_k["lm_head_products"]
         check_launches(f"{label} rank {rank}", runs, want_k)
         if COUNTS:
@@ -4984,7 +5151,9 @@ def parallel_runs(torch, rank: int, clips: dict, tmp: Path) -> tuple:
               "int4": steps + 1}.get(quantize, 0)
         check_launches(f"{label} rank {rank}", runs, {
             "decode_layers_fused": 0, "decode_attention_dma": layers * steps,
-            "flash_attention": 0, "quant_matmul": k5,
+            "flash_attention": (prefill_flash(config)
+                                if dtype == torch.bfloat16 else 0),
+            "quant_matmul": k5,
             "quant_matvec_int4": 0, "decode_attention_slab": 0,
             "decode_attention": 0})
         # one decode step's collectives
@@ -5041,17 +5210,18 @@ def parallel_serving(torch, engine, mesh, rank, clips, fns, launches,
 
     b = ContinuousBatcher(engine(mesh, torch.bfloat16), n_slots=4)
     b.drive([Request(clips[4]) for _ in range(4)])  # warm-up
-    steps0, segs0 = b.stats["steps"], b.stats["segments"]
+    stats0 = dict(b.stats)
     zero_counts(fns)
     COUNTS.clear()
     reqs = [Request(clips[4]) for _ in range(4)]
     _, wall = timed(torch, lambda: b.drive(reqs))
-    steps = b.stats["steps"] - steps0
-    segs = b.stats["segments"] - segs0
+    stats = {k: n - stats0[k] for k, n in b.stats.items()}
+    steps, segs = stats["steps"], stats["segments"]
     runs, collectives = counts_of(fns), dict(COUNTS)
     check_launches(f"dp=2 serving rank {rank}", runs, {
         "decode_layers_fused": 0, "decode_attention_dma": layers * steps,
-        "flash_attention": 0, "quant_matmul": 0, "quant_matvec_int4": 0})
+        "flash_attention": admission_flash(b.engine.config, stats),
+        "quant_matmul": 0, "quant_matvec_int4": 0})
     if collectives.get("all_gather") != segs:
         raise AssertionError(f"dp=2 serving: {collectives} for {segs} "
                              "segments (one all-gather each)")
@@ -5102,7 +5272,8 @@ def parallel_auto_serving(torch, engine, mesh, rank, clips, fns, launches,
     per_step = 7 * layers + 1
     check_launches(f"tp=2 auto serving rank {rank}", runs, {
         "decode_layers_fused": 0, "decode_attention_dma": layers * steps,
-        "flash_attention": 0, "quant_matmul": per_step * steps,
+        "flash_attention": admission_flash(b.engine.config, b.stats),
+        "quant_matmul": per_step * steps,
         "quant_matvec_int4": 0})
     if b.variants_run != {("greedy", "int8")}:
         raise AssertionError(f"tp=2 auto serving: segments ran "
@@ -5814,6 +5985,12 @@ def main() -> int:
             row["kernels_per_call"] = {r["case"]: r["launches_per_call"]
                                        for r in kernel_rows
                                        if r["kernel"] == "k1_launches"}
+        if name == "flash_attention":
+            row["main_path"] = {
+                r["case"]: {k: r.get(k) for k in (
+                    "ms", "bound_ms", "bound_by", "device_ms", "library_ms",
+                    "library_device_ms")}
+                for r in rows if r["case"].startswith(K3_MAIN_PATH)}
         if name == "quant_matmul":
             row.update(k5_summary(rows))
         if name == "gumbel_argmax":  # float32 logits on every path

@@ -449,7 +449,8 @@ class TextDecoder:
         per scanned layer). Quantized trees run inference: int8 linears
         and lm_head through K5, an int4 lm_head through K4. Those kernels
         and K3 have no backward; reached while a gradient is required they
-        raise (``ops/kernels.forbid_backward``)."""
+        raise (``ops/kernels.forbid_backward``). The auto dispatch never
+        takes K3 under a gradient (``ops/attention.py``)."""
         check_params(params)
         cos, sin = self.rotary.lookup(position_ids)
         for layer in unstack_layers(params["layers"]):

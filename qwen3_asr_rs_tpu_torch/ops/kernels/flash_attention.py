@@ -11,8 +11,9 @@ D = 128 is ~92 GFLOP per layer. bf16 inputs run both products on the
 tensor cores (``mma.sync`` with bf16 K/V tiles streamed by ``cp.async``
 into swizzled shared memory, P fed from the score registers to the PV
 product); float32 inputs, the parity mode, keep float32 products on the
-CUDA cores. ``ops/attention.py::attention`` dispatches here by the JAX
-package's score-bytes rule.
+CUDA cores. ``ops/attention.py::auto_attention_impl`` sends every bf16
+call here that needs no gradient (the crossover measured on the card),
+and float32 calls by the JAX package's score-bytes rule.
 
 Rows with no attendable key come out finite (as in the Pallas kernel);
 their values differ between the kernel and the plain version and
@@ -27,7 +28,7 @@ import torch
 
 from . import _build, counted
 
-_SUPPORTED_D = (64, 128)
+HEAD_DIMS = (64, 128)  # the head sizes the kernel takes
 
 
 def flash_attention_plain(q, k, v, kv_valid=None, kv_start=None, *,
@@ -126,10 +127,10 @@ def flash_attention(q, k, v, kv_valid=None, kv_start=None, *,
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError("flash_attention: k, v must be (B, Sk, Hkv, D)")
     _, sk, hkv, _ = k.shape
-    if q.dtype not in (torch.bfloat16, torch.float32) or d not in _SUPPORTED_D:
+    if q.dtype not in (torch.bfloat16, torch.float32) or d not in HEAD_DIMS:
         raise ValueError(
             f"flash_attention: kernel takes bf16/f32 and head_dim in "
-            f"{_SUPPORTED_D}, got {q.dtype}, D={d}"
+            f"{HEAD_DIMS}, got {q.dtype}, D={d}"
         )
     if hq % hkv:
         raise ValueError("flash_attention: Hq must be a multiple of Hkv")

@@ -385,9 +385,11 @@ class ContinuousBatcher:
             ]
             self._ring_i = 0
         # what ran: decode segments and steps (those of sampled or nucleus
-        # segments, one draw each, apart), graph replays and captures
+        # segments, one draw each, apart), graph replays and captures; and
+        # this rank's admission work: encoder calls and one-pass prefills
         self.stats = {"segments": 0, "steps": 0, "sampled_steps": 0,
-                      "replays": 0, "captures": 0}
+                      "replays": 0, "captures": 0, "encodes": 0,
+                      "prefills": 0}
         # the segment variants run, and the (bucket, padded size) pairs of
         # batched admission (warmup covers every one live traffic needs)
         self.variants_run: set = set()
@@ -428,6 +430,7 @@ class ContinuousBatcher:
         eng = self.engine
         mel = log_mel_from_padded(self._to_device(wave), n_true,
                                   eng.mel_filters)
+        self.stats["encodes"] += 1
         return eng.encoder(eng.enc_params, mel, n_true)
 
     def _inject(self, ids: np.ndarray, embeds, n_audio, p_len=None):
@@ -559,6 +562,7 @@ class ContinuousBatcher:
                                   embeds, n_audio)
             p = hidden.shape[1]
             tmp = self._new_tmp(len(rows), p)
+            self.stats["prefills"] += 1
             logits, _ = self.decoder.prefill(
                 self.engine.dec_params, hidden,
                 torch.arange(p, device=self.device), tmp,
@@ -655,6 +659,7 @@ class ContinuousBatcher:
         g = job.cursor
         n_true_g = min(max(job.n_true - g * gframes, 0), gframes)
         if job.mel is not None:  # this rank's slot
+            self.stats["encodes"] += 1
             embeds, _ = eng.encoder(
                 eng.enc_params, job.mel[:, g * gframes:(g + 1) * gframes],
                 n_true_g)

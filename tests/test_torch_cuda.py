@@ -627,6 +627,133 @@ def test_cuda_flash_attention_bf16_tensor_cores(cuda, b, s, hq, hkv, d, kw):
         _assert_elementwise(got[i, s0:], tiles[i, s0:], 2e-3)
 
 
+def _decoder_on_card(cfg, cuda, seed):
+    """bf16 decoder weights at ``cfg``'s widths drawn on the card: the
+    leaves of ``init_decoder_params_np`` (norm gains 1, the rest
+    N(0, 0.02^2)), which the host would take minutes to draw at the 1.7B."""
+    import numpy as np
+
+    tmpl = init_decoder_params_np(dataclasses.replace(
+        cfg, num_hidden_layers=1, vocab_size=1))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def leaf(a, shape):
+        if np.all(a == 1):
+            return torch.ones(shape, dtype=torch.bfloat16, device=cuda)
+        return (0.02 * torch.randn(shape, generator=g, device=cuda)).bfloat16()
+
+    vh = (cfg.vocab_size, cfg.hidden_size)
+    return {"embed": leaf(tmpl["embed"], vh),
+            "layers": {n: leaf(a, (cfg.num_hidden_layers,) + a.shape[1:])
+                       for n, a in tmpl["layers"].items()},
+            "final_ln_w": leaf(tmpl["final_ln_w"], tmpl["final_ln_w"].shape),
+            "lm_head": leaf(tmpl["lm_head"], vh)}
+
+
+def _batched_prefill_runs(cuda, monkeypatch, b=32, p=432, seed=26):
+    """``prefill_aligned`` at the offline cell's shape (``b`` right-aligned
+    prompts of several lengths in a ``p``-slot bucket, the 1.7B's widths,
+    random weights) three times under the tracer: bf16 by the auto
+    dispatch, bf16 with ASR_ATTN_IMPL=dense, and float32 (weights and
+    embeddings upcast) with ASR_ATTN_IMPL=dense. Returns ({run: (float32
+    logits at slot P - 1, K3 launches, tracer counters)}, the auto run's
+    [(q, k, v, keywords, output)] per layer, the live-slot mask (B, P))."""
+    from qwen3_asr_rs_tpu_torch.config import synthetic_17b_config
+    from qwen3_asr_rs_tpu_torch.models import text_decoder as td
+    from qwen3_asr_rs_tpu_torch.utils import tracing
+
+    cfg = synthetic_17b_config().text
+    params = _decoder_on_card(cfg, cuda, seed)
+    dec = td.TextDecoder(cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    hidden = dec.embed(params, torch.randint(
+        cfg.vocab_size, (b, p), generator=g, device=cuda))
+    lens = [(40, 97, 160, 213, 300, 372, 431, 432)[i % 8] for i in range(b)]
+    kv_start = torch.tensor([p - n for n in lens], dtype=torch.int32,
+                            device=cuda)
+    live = torch.arange(p, device=cuda)[None, :] >= kv_start[:, None].long()
+    attend, calls = td.attention, []
+
+    def recorded(q, k, v, **kw):
+        out = attend(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    monkeypatch.setattr(td, "attention", recorded)
+    monkeypatch.setattr(tracing, "_enabled", True)
+    runs, per_layer = {}, None
+    for label, impl, dtype in (("auto", "auto", torch.bfloat16),
+                               ("dense", "dense", torch.bfloat16),
+                               ("float32", "dense", torch.float32)):
+        monkeypatch.setenv("ASR_ATTN_IMPL", impl)
+        monkeypatch.setattr(tracing, "GLOBAL_TIMINGS", tracing.Timings())
+        cache = td.KVCache.zeros(cfg, b, p, dtype, cuda)
+        w = params if dtype == torch.bfloat16 else smoke.cast_tree(params,
+                                                                     dtype)
+        n = flash_attention.launches
+        with torch.no_grad():
+            logits, _ = dec.prefill_aligned(w, hidden.to(dtype), kv_start,
+                                            cache)
+        torch.cuda.synchronize()
+        runs[label] = (logits, flash_attention.launches - n,
+                       dict(tracing.GLOBAL_TIMINGS.counters))
+        if label == "auto":
+            per_layer = list(calls)
+        calls.clear()
+        del w, cache
+    return runs, per_layer, live
+
+
+def _live_gap(got, ref, live):
+    """Per row: max |got - ref| over the live query slots minus
+    ``_bf16_bound`` of ref's live slots (positive where a row breaks
+    it)."""
+    m = live[:, :, None, None]
+    err = ((got.float() - ref.float()).abs() * m).amax((1, 2, 3))
+    return err - (2e-2 + 2 ** -7 * (ref.float().abs() * m).amax((1, 2, 3)))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_prefill_attends_through_k3(cuda, monkeypatch):
+    """The offline cell's batched prefill (``_batched_prefill_runs``): the
+    auto dispatch takes K3 in each of the 28 layers and
+    ASR_ATTN_IMPL=dense takes none, and under the tracer each run's
+    counter reads its 28 calls. In every layer K3's output on the live
+    slots is within the bf16 bound of the K3 tests of the plain dense
+    attention of the same q, k and v. Through 28 layers both bf16 runs
+    drift from the float32 run by more than one kernel's bound at random
+    weights (each layer's bf16 roundings compound), so the logits at
+    slot P - 1 are held to that run: K3's run lies no further from it
+    than 1.5 times the dense run's distance, its root-mean-square
+    distance no more than 1.15 times the dense run's, and it lies within
+    0.25 of the dense run (on an H100, seeds 26, 126 and 226: 0.987, 0.984
+    and 0.993 of the dense run's RMS distance, 0.175, 0.170 and 0.220 from
+    the dense run), so that a small error adding up over the layers
+    fails. (The greedy
+    first tokens of the bf16 runs are not compared: among 151,936 random
+    logits a row's top two lie closer than that drift often enough that
+    the two dense runs, bf16 and float32, disagree on some rows
+    themselves.)"""
+    runs, per_layer, live = _batched_prefill_runs(cuda, monkeypatch)
+    layers = len(per_layer)
+    (auto, k3, c_auto), (dense, k3_dense, c_dense), (f32, _, c_f32) = (
+        runs["auto"], runs["dense"], runs["float32"])
+    assert layers == 28 and (k3, k3_dense) == (layers, 0)
+    assert c_auto == {"attention.flash": layers}
+    assert c_dense == c_f32 == {"attention.dense": layers}
+    assert all(t.dtype == torch.float32 for t in (auto, dense, f32))
+    for i, (q, k, v, kw, out) in enumerate(per_layer):
+        ref = flash_attention_plain(q, k, v, kw.get("kv_valid"),
+                                    kw.get("kv_start"), causal=kw["causal"])
+        gap = _live_gap(out, ref, live)
+        assert gap.max() <= 0, f"layer {i}: rows {gap.tolist()}"
+    e_auto, e_dense = ((x - f32).abs().max() for x in (auto, dense))
+    assert e_auto <= 1.5 * e_dense, (float(e_auto), float(e_dense))
+    r_auto, r_dense = ((x - f32).pow(2).mean().sqrt() for x in (auto, dense))
+    assert r_auto <= 1.15 * r_dense, (float(r_auto), float(r_dense))
+    assert (auto - dense).abs().max() <= 0.25
+
+
 def _k2_case(cuda, seed, b, s, hq, hkv, d, starts, ends, dtype, int8):
     g = torch.Generator(device=cuda).manual_seed(seed)
     L = 2
@@ -986,6 +1113,30 @@ def test_cuda_forward_full_raises_before_a_kernel_without_backward(cuda):
         TextDecoder(cfg, device=cuda).forward_full(
             q, hidden, torch.arange(8, device=cuda))
     assert quant_matmul.launches == n
+
+
+@pytest.mark.cuda
+def test_cuda_forward_full_takes_dense_attention_under_a_gradient(cuda):
+    """bf16 ``forward_full`` attends through K3 without a gradient and
+    through the dense path (which has a backward) with one: the gradient
+    reaches the input, and no K3 launch ran."""
+    from qwen3_asr_rs_tpu_torch.models.text_decoder import TextDecoder
+
+    cfg = dataclasses.replace(TextDecoderConfig(), num_hidden_layers=1,
+                              vocab_size=64)
+    params = to_torch(init_decoder_params_np(cfg), torch.bfloat16, cuda)
+    dec = TextDecoder(cfg, device=cuda)
+    hidden = torch.randn((2, 8, cfg.hidden_size), device=cuda).bfloat16()
+    pos = torch.arange(8, device=cuda)
+    n = flash_attention.launches
+    with torch.no_grad():
+        dec.forward_full(params, hidden, pos)
+    assert flash_attention.launches == n + 1
+    hidden.requires_grad_()
+    dec.forward_full(params, hidden, pos).float().sum().backward()
+    assert flash_attention.launches == n + 1
+    assert torch.isfinite(hidden.grad.float()).all()
+    assert hidden.grad.abs().max() > 0
 
 
 @pytest.mark.cuda

@@ -91,15 +91,85 @@ def test_dense_attention_bool_and_per_head_masks(rng):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_auto_dispatch_rule_matches_jax(monkeypatch):
-    for args in ((1, 16, 4736, 4736), (1, 16, 4095, 4095), (8, 16, 2048, 2048),
-                 (1, 16, 432, 432)):
-        for on in (True, False):
-            assert (tattn.auto_attention_impl(*args, on_cuda=on)
-                    == jattn.auto_attention_impl(*args, on_tpu=on))
+_JAX_SHAPES = ((1, 16, 4736, 4736), (1, 16, 4095, 4095), (8, 16, 2048, 2048),
+               (1, 16, 432, 432))
+
+
+@pytest.mark.parametrize("args,on", [(a, on) for a in _JAX_SHAPES
+                                     for on in (True, False)])
+def test_auto_dispatch_rule_matches_jax(args, on):
+    """float32 calls (on CUDA and off it) keep the JAX package's
+    score-bytes rule."""
+    assert (tattn.auto_attention_impl(*args, on_cuda=on, dtype=torch.float32,
+                                      head_dim=128, grad=False)
+            == jattn.auto_attention_impl(*args, on_tpu=on))
+
+
+@pytest.mark.parametrize("on,want", [(True, "flash"), (False, "dense")])
+def test_auto_dispatch_float32_threshold_env(monkeypatch, on, want):
+    """ASR_ATTN_THRESHOLD moves the float32 rule's crossover."""
     monkeypatch.setenv("ASR_ATTN_THRESHOLD", "100")
-    assert tattn.auto_attention_impl(1, 4, 100, 100, on_cuda=True) == "flash"
-    assert tattn.auto_attention_impl(1, 4, 100, 100, on_cuda=False) == "dense"
+    assert tattn.auto_attention_impl(1, 4, 100, 100, on_cuda=on,
+                                     dtype=torch.float32, head_dim=128,
+                                     grad=False) == want
+
+
+@pytest.mark.parametrize("args,kw,want", [
+    # bf16 on CUDA: K3 at every shape, the batched prefill's included
+    ((32, 16, 432, 432), dict(on_cuda=True), "flash"),
+    ((1, 16, 432, 432), dict(on_cuda=True), "flash"),
+    ((128, 14, 104, 104), dict(on_cuda=True, head_dim=64), "flash"),
+    ((1, 16, 4736, 4736), dict(on_cuda=True), "flash"),
+    # the CPU stays dense
+    ((32, 16, 432, 432), dict(on_cuda=False), "dense"),
+    ((1, 16, 4736, 4736), dict(on_cuda=False), "dense"),
+    # K3 has no backward: a gradient keeps every dtype dense
+    ((32, 16, 432, 432), dict(on_cuda=True, grad=True), "dense"),
+    ((1, 16, 4736, 4736), dict(on_cuda=True, grad=True), "dense"),
+    ((1, 16, 4736, 4736), dict(on_cuda=True, grad=True,
+                               dtype=torch.float32), "dense"),
+    # a head size K3 does not take
+    ((32, 4, 432, 432), dict(on_cuda=True, head_dim=16), "dense"),
+])
+def test_auto_dispatch_rule_bf16_cuda(monkeypatch, args, kw, want):
+    """The CUDA rule measured on the card (scripts/attention_crossover.py):
+    bf16 without a gradient takes K3 wherever K3 takes the head size;
+    ASR_ATTN_THRESHOLD does not move it."""
+    monkeypatch.setenv("ASR_ATTN_THRESHOLD", "100000")
+    kw = dict(dict(dtype=torch.bfloat16, head_dim=128, grad=False), **kw)
+    assert tattn.auto_attention_impl(*args, **kw) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("requires_grad,grad_mode", [
+    (False, True), (True, True), (True, False)])
+def test_attention_passes_what_it_sees_to_the_rule(rng, monkeypatch, dtype,
+                                                   requires_grad, grad_mode):
+    """``attention`` hands the rule q's shapes, dtype, head size and device,
+    and ``grad`` only where autograd would pass through the call; each
+    call adds 1 to the tracer's counter of the path taken."""
+    from qwen3_asr_rs_tpu_torch.utils import tracing
+
+    seen = []
+
+    def rule(*args, **kw):
+        seen.append((args, kw))
+        return "dense"
+
+    monkeypatch.setattr(tattn, "auto_attention_impl", rule)
+    monkeypatch.delenv("ASR_ATTN_IMPL", raising=False)
+    monkeypatch.setattr(tracing, "GLOBAL_TIMINGS", tracing.Timings())
+    monkeypatch.setattr(tracing, "_enabled", True)
+    q = T(rng.standard_normal((3, 7, 4, 8)).astype(np.float32)).to(dtype)
+    k = T(rng.standard_normal((3, 5, 2, 8)).astype(np.float32)).to(dtype)
+    k.requires_grad_(requires_grad)
+    with torch.set_grad_enabled(grad_mode):
+        tattn.attention(q, k, k)
+        tattn.attention(q, k, k, impl="dense")
+    assert seen == [((3, 4, 7, 5, False),
+                     dict(dtype=dtype, head_dim=8,
+                          grad=requires_grad and grad_mode))]
+    assert dict(tracing.GLOBAL_TIMINGS.counters) == {"attention.dense": 2}
 
 
 def test_attention_env_forces_flash_plain_on_cpu(rng, monkeypatch):

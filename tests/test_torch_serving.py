@@ -339,6 +339,29 @@ def test_pool_key_chain_follows_jax(monkeypatch):
 # the scheduler (ports of tests/test_serving.py's cases)
 
 
+@pytest.mark.parametrize("case,buckets,kw,lengths,encodes,prefills", [
+    # three same-bucket requests at one step: one batched prefill
+    ("batched", (2, 4, 8), dict(prefill_chunk_tokens=None),
+     (8000, 9000, 10000), 3, 1),
+    # a prompt over the chunk size: prefilled in chunks, not in one pass
+    ("chunked", (2, 4, 8), dict(prefill_chunk_tokens=16), (20000,), 1, 0),
+    # 16 chunks in groups of one 8-chunk window: two encoder calls
+    ("segmented", (2, 16), dict(prefill_chunk_tokens=64,
+                                encode_window_groups=1), (192000,), 2, 0),
+])
+def test_pool_counts_its_admission_work(case, buckets, kw, lengths, encodes,
+                                        prefills):
+    """``stats["encodes"]`` counts the pool's encoder calls and
+    ``stats["prefills"]`` its one-pass admission prefills, each request
+    still equal to its offline run."""
+    pair = engines(buckets=buckets)
+    b = ContinuousBatcher(pair.port, n_slots=4, segment_steps=2, **kw)
+    clips = [clip(40 + i, n) for i, n in enumerate(lengths)]
+    assert run_all(b, [Request(c) for c in clips]) == [
+        pair.offline(c) for c in clips]
+    assert (b.stats["encodes"], b.stats["prefills"]) == (encodes, prefills)
+
+
 def test_single_request_matches_offline_engines():
     pair = engines()
     b = ContinuousBatcher(pair.port, n_slots=2, segment_steps=2)

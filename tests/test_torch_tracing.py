@@ -285,7 +285,9 @@ def test_dump_metrics_adds_spans_only_while_enabled(registry, monkeypatch):
 
 def test_cli_metrics_carry_spans_under_asr_trace(tmp_path):
     """``ASR_TRACE=1`` with ``ASR_METRICS``: the CLI's JSON holds the stage
-    timers and the engine's spans (one batched call of two files)."""
+    timers and the engine's spans (one batched call of two files), and
+    the attention counter: each layer of the audio tower's call and of
+    the decoder prefill attends once, on the CPU by the dense path."""
     from test_audio_io import write_wav_pcm16
     from test_weights_roundtrip import write_word_tokenizer
 
@@ -317,7 +319,11 @@ def test_cli_metrics_carry_spans_under_asr_trace(tmp_path):
     assert {n: data[n]["count"] for n in PREFILL_SPANS} == {
         "prefill.encode": 1, "prefill.mel": 1, "prefill.encoder": 1,
         "prefill.decoder": 1}
-    assert all(set(v) == {"total_ms", "count"} for v in data.values())
+    counters = {n: v for n, v in data.items() if set(v) == {"count"}}
+    assert counters == {"attention.dense": {
+        "count": cfg.audio.encoder_layers + cfg.text.num_hidden_layers}}
+    assert all(set(v) == {"total_ms", "count"} for n, v in data.items()
+               if n not in counters)
 
 
 @pytest.mark.parametrize("mod", [wer, jwer], ids=["port", "jax"])
